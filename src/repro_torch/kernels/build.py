@@ -31,7 +31,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 #: kernel name -> launches since the last :func:`reset_counts`
-LAUNCHES: Dict[str, int] = {'flash_decode_paged': 0, 'quantize_rows': 0,
+LAUNCHES: Dict[str, int] = {'flash_decode_paged': 0, 'flash_chunk_paged': 0,
+                            'flash_decode_paged_q8': 0, 'quantize_rows': 0,
                             'int8_matmul': 0, 'yoco_vmm_int8': 0}
 #: source name -> the compiler's report (ptxas registers / shared memory)
 BUILD_LOGS: Dict[str, str] = {}

@@ -1,16 +1,28 @@
-"""K1: paged flash-decode attention for batched serving.
+"""Paged flash attention for batched serving: kernels K1, K5 and K6.
 
-Port of ``repro/kernels/flash_decode.py::flash_decode_gqa_paged`` with
-``chunk=1`` (reached through ``flash_decode_paged``): one query token per
-request attends its paged KV cache with an online softmax, per-request
-``pos`` and sliding ``window``, and a per-request block table mapping
-logical key blocks to pages of a pool shared by every request. The CUDA
-kernel is ``csrc/flash_decode.cu``; :func:`flash_decode_gqa_paged_plain` is
-the same function in plain PyTorch, a page-by-page loop that mirrors the
-reference's ``_softmax_tile``. The wrapper takes it only for CPU tensors.
+Ports of the GQA paged entry points of ``repro/kernels/flash_decode.py``.
+The reference runs every entry point through one online-softmax body
+(``_softmax_tile``) and one grid harness (``_flash_core``) and differs per
+layout only in a tile loader and a row mask; the port does the same, in
+``csrc/flash_decode.cu`` and in the plain version here
+(:func:`_paged_softmax_plain`):
 
-The chunked (``chunk > 1``), int8-tiered, contiguous and MLA variants of
-the reference are later slices.
+* **K1** ``flash_decode_gqa_paged`` with ``chunk=1`` (through
+  ``flash_decode_paged``): one query token per request attends its paged
+  KV cache with per-request ``pos`` and sliding ``window`` and a
+  per-request block table.
+* **K5** the same function with ``chunk > 1`` (through
+  ``flash_chunk_paged``): C query rows per request at positions
+  ``offset .. offset + C - 1`` with a per-row causal/window mask, over
+  fetch-union ``pos``/``window`` scalars (:func:`_chunk_scalars`).
+* **K6** ``flash_decode_gqa_paged_q8`` (through ``flash_decode_paged_q8``):
+  K1 over the hybrid int8 tier; each page is read from one tier only, hot
+  pages from the fp pools, cold pages from the int8 pools times a per-page,
+  per-head scale, rounded through the pool dtype.
+
+The plain versions are page-by-page loops that mirror ``_softmax_tile``,
+dead-step semantics included. The wrappers take them only for CPU tensors;
+for CUDA tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -22,40 +34,48 @@ from repro_torch.kernels import build
 NEG_INF = float('-inf')
 
 
-def flash_decode_gqa_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
-                                 v_pages: torch.Tensor, pos: torch.Tensor,
-                                 window: torch.Tensor,
-                                 block_tables: torch.Tensor, *,
-                                 scale: float) -> torch.Tensor:
-    """q (B, Hkv, G, dh); k/v_pages (P, page_size, Hkv, dh); pos, window
-    (B,) int; block_tables (B, W) int. Returns f32 (B, Hkv, G, dh).
-
-    One online-softmax step per page, all requests at once; a request whose
-    page ``s`` is outside its live range ``[first, last]`` keeps its state,
-    as the reference's dead grid steps do."""
-    b, hkv, g, dh = q.shape
-    ps = k_pages.shape[1]
+def _paged_softmax_plain(q: torch.Tensor, load_kv, pos: torch.Tensor,
+                         window: torch.Tensor, block_tables: torch.Tensor,
+                         page_size: int, *, scale: float, offset=None,
+                         chunk: int = 1) -> torch.Tensor:
+    """The one online-softmax body of the plain versions. q (B, Hkv, R,
+    dh); ``load_kv(s, page)`` -> f32 (B, ps, Hkv, dh) K and V tiles of
+    logical block ``s`` (``page`` (B,) its physical pages). Row r sits at
+    ``pos`` (``chunk == 1``) or at ``offset + r // (R // chunk)`` with the
+    row window ``window - (chunk - 1)``. One step per block, all requests
+    at once; a request whose block ``s`` is outside its live range keeps
+    its state, as the reference's dead grid steps do."""
+    b, hkv, rows, dh = q.shape
+    ps = page_size
     dev = q.device
     qf = q.to(torch.float32)
     pos = pos.to(torch.int64)
     win = window.to(torch.int64)
-    acc = torch.zeros((b, hkv, g, dh), dtype=torch.float32, device=dev)
-    m = torch.full((b, hkv, g, 1), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, hkv, g, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, rows, dh), dtype=torch.float32, device=dev)
+    m = torch.full((b, hkv, rows, 1), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, hkv, rows, 1), dtype=torch.float32, device=dev)
     first = torch.clamp_min(pos - win + 1, 0) // ps
     last = torch.clamp_min(pos, 0) // ps
-    rows = torch.arange(ps, device=dev)
+    keys = torch.arange(ps, device=dev)
+    if chunk == 1:
+        qp = pos[:, None]                                        # (B, 1)
+        row_win = win[:, None]
+    else:
+        group = rows // chunk
+        qp = (offset.to(torch.int64)[:, None]
+              + torch.arange(rows, device=dev)[None, :] // group)  # (B, R)
+        row_win = (win - (chunk - 1))[:, None]
     for s in range(block_tables.shape[1]):
         live = (s >= first) & (s <= last)                        # (B,)
         if not bool(live.any()):
             continue
         page = block_tables[:, s].to(torch.int64)
-        kt = k_pages[page].to(torch.float32)                     # (B, ps, Hkv, dh)
-        vt = v_pages[page].to(torch.float32)
-        kpos = s * ps + rows
-        valid = ((kpos[None] <= pos[:, None])
-                 & (kpos[None] > pos[:, None] - win[:, None]))   # (B, ps)
-        valid = valid[:, None, None, :]
+        kt, vt = load_kv(s, page)                       # (B, ps, Hkv, dh)
+        kpos = (s * ps + keys)[None, None, :]
+        valid = ((kpos <= qp[:, :, None])
+                 & (kpos > qp[:, :, None] - row_win[:, :, None]))
+        valid = valid[:, None]                          # (B, 1, R|1, ps)
         logits = torch.einsum('bhgd,bshd->bhgs', qf, kt) * scale
         logits = torch.where(valid, logits, NEG_INF)
         m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
@@ -72,21 +92,67 @@ def flash_decode_gqa_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return acc / torch.clamp_min(l, 1e-30)
 
 
-_ARGS = ([build.P] * 7 + [build.I] * 6 + [build.F, build.I, build.P])
+def _fp_loader(k_pages, v_pages):
+    return lambda s, page: (k_pages[page].to(torch.float32),
+                            v_pages[page].to(torch.float32))
 
 
-def flash_decode_gqa_paged(q: torch.Tensor, k_pages: torch.Tensor,
-                           v_pages: torch.Tensor, pos: torch.Tensor,
-                           window: torch.Tensor, block_tables: torch.Tensor,
-                           *, scale: float) -> torch.Tensor:
-    """Same contract as :func:`flash_decode_gqa_paged_plain`; on CUDA the
-    query must be f32, the pools bf16 or f32 (one dtype), and pos, window
-    and block tables int32."""
-    tensors = (q, k_pages, v_pages, pos, window, block_tables)
-    if all(t.device.type == 'cpu' for t in tensors):
-        return flash_decode_gqa_paged_plain(q, k_pages, v_pages, pos, window,
-                                            block_tables, scale=scale)
-    b, hkv, g, dh = q.shape
+def flash_decode_gqa_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor, pos: torch.Tensor,
+                                 window: torch.Tensor,
+                                 block_tables: torch.Tensor, offset=None, *,
+                                 scale: float, chunk: int = 1) -> torch.Tensor:
+    """q (B, Hkv, G, dh); k/v_pages (P, page_size, Hkv, dh); pos, window
+    (B,) int; block_tables (B, W) int. Returns f32 (B, Hkv, G, dh).
+
+    ``chunk > 1`` is the chunked-prefill shape (K5): G widens to chunk * G
+    (row i = query head i % G at position ``offset + i // G``), ``offset``
+    (B,) carries each chunk's start, and ``pos``/``window`` are the
+    fetch-union scalars of :func:`_chunk_scalars`."""
+    if (offset is None) != (chunk == 1) or q.shape[2] % chunk:
+        raise ValueError(f'chunk={chunk} needs an offset and G % chunk == 0 '
+                         f'(G={q.shape[2]}, offset={offset is not None})')
+    return _paged_softmax_plain(q, _fp_loader(k_pages, v_pages), pos, window,
+                                block_tables, k_pages.shape[1], scale=scale,
+                                offset=offset, chunk=chunk)
+
+
+def flash_decode_gqa_paged_q8_plain(q, k_pages, v_pages, kq_pages, vq_pages,
+                                    k_scales, v_scales, pos, window,
+                                    block_tables, hot_window, *,
+                                    scale: float) -> torch.Tensor:
+    """K1 over the hybrid tier: kq/vq (P, ps, Hkv, dh) int8, k/v_scales
+    (P, Hkv) f32, hot_window (1,) int. Block ``s`` is hot iff
+    ``s > max(pos, 0) // ps - hot_window``; a hot block reads the fp pools,
+    a cold one ``int8 * scale`` rounded through the pool dtype (selected,
+    so an unread tier never reaches the result). Returns f32."""
+    ps = k_pages.shape[1]
+    last = torch.clamp_min(pos.to(torch.int64), 0) // ps
+    hw = hot_window.reshape(-1)[0].to(torch.int64)
+
+    def load(s, page):
+        hot = (s > last - hw)[:, None, None, None]
+        out = []
+        for fp, q8, sc in ((k_pages, kq_pages, k_scales),
+                           (v_pages, vq_pages, v_scales)):
+            cold = (q8[page].to(torch.float32)
+                    * sc[page].to(torch.float32)[:, None, :, None])
+            cold = cold.to(fp.dtype).to(torch.float32)
+            out.append(torch.where(hot, fp[page].to(torch.float32), cold))
+        return out[0], out[1]
+
+    return _paged_softmax_plain(q, load, pos, window, block_tables, ps,
+                                scale=scale)
+
+
+_FP = (torch.float32, torch.bfloat16)
+_I32 = (torch.int32,)
+
+
+def _check_paged(name, q, k_pages, v_pages, pos, window, block_tables):
+    """Shape and dtype checks shared by the kernel wrappers; returns
+    (b, hkv, rows, dh, page_size, w)."""
+    b, hkv, rows, dh = q.shape
     n_pages, page_size = k_pages.shape[:2]
     w = block_tables.shape[1]
     if (tuple(k_pages.shape) != (n_pages, page_size, hkv, dh)
@@ -95,22 +161,106 @@ def flash_decode_gqa_paged(q: torch.Tensor, k_pages: torch.Tensor,
             or tuple(pos.shape) != (b,) or tuple(window.shape) != (b,)
             or tuple(block_tables.shape) != (b, w)):
         raise ValueError(
-            f'flash_decode_gqa_paged: q {tuple(q.shape)}, pools '
-            f'{tuple(k_pages.shape)}/{tuple(v_pages.shape)} '
-            f'({k_pages.dtype}/{v_pages.dtype}), pos {tuple(pos.shape)}, '
-            f'window {tuple(window.shape)}, tables {tuple(block_tables.shape)}')
-    fp = (torch.float32, torch.bfloat16)
-    i32 = (torch.int32,)
-    build.require_cuda('flash_decode_gqa_paged', *tensors,
-                       dtypes=[(torch.float32,), fp, fp, i32, i32, i32])
+            f'{name}: q {tuple(q.shape)}, pools {tuple(k_pages.shape)}/'
+            f'{tuple(v_pages.shape)} ({k_pages.dtype}/{v_pages.dtype}), pos '
+            f'{tuple(pos.shape)}, window {tuple(window.shape)}, tables '
+            f'{tuple(block_tables.shape)}')
+    return b, hkv, rows, dh, page_size, w
+
+
+_K1_ARGS = [build.P] * 7 + [build.I] * 6 + [build.F, build.I, build.P]
+_K5_ARGS = [build.P] * 8 + [build.I] * 7 + [build.F, build.I, build.P]
+_K6_ARGS = [build.P] * 12 + [build.I] * 6 + [build.F, build.I, build.P]
+
+
+def flash_decode_gqa_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, pos: torch.Tensor,
+                           window: torch.Tensor, block_tables: torch.Tensor,
+                           offset=None, *, scale: float,
+                           chunk: int = 1) -> torch.Tensor:
+    """Same contract as :func:`flash_decode_gqa_paged_plain`: kernel K1
+    (``chunk == 1``) or K5 (``chunk > 1``). On CUDA the query must be f32,
+    the pools bf16 or f32 (one dtype), and pos, window, offset and block
+    tables int32."""
+    tensors = (q, k_pages, v_pages, pos, window, block_tables) + (
+        () if offset is None else (offset,))
+    if all(t.device.type == 'cpu' for t in tensors):
+        return flash_decode_gqa_paged_plain(q, k_pages, v_pages, pos, window,
+                                            block_tables, offset,
+                                            scale=scale, chunk=chunk)
+    name = 'flash_decode_gqa_paged'
+    b, hkv, rows, dh, page_size, w = _check_paged(name, q, k_pages, v_pages,
+                                                  pos, window, block_tables)
+    if (offset is None) != (chunk == 1) or rows % chunk \
+            or (offset is not None and tuple(offset.shape) != (b,)):
+        raise ValueError(f'{name}: chunk={chunk} needs a (B,) offset and '
+                         f'rows % chunk == 0 (rows={rows})')
+    build.require_cuda(name, *tensors,
+                       dtypes=[(torch.float32,), _FP, _FP, _I32, _I32, _I32,
+                               _I32])
+    out = torch.empty((b, hkv, rows, dh), dtype=torch.float32,
+                      device=q.device)
+    is_bf16 = int(k_pages.dtype == torch.bfloat16)
+    if chunk == 1:
+        fn = build.function('flash_decode', 'flash_decode_paged', _K1_ARGS)
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 pos.data_ptr(), window.data_ptr(), block_tables.data_ptr(),
+                 out.data_ptr(), b, hkv, rows, dh, page_size, w, float(scale),
+                 is_bf16, build.stream_of(q))
+        build.check(err, 'flash_decode', name)
+        build.count('flash_decode_paged')
+    else:
+        fn = build.function('flash_decode', 'flash_chunk_paged', _K5_ARGS)
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 pos.data_ptr(), window.data_ptr(), offset.data_ptr(),
+                 block_tables.data_ptr(), out.data_ptr(), b, hkv, rows, dh,
+                 page_size, w, chunk, float(scale), is_bf16,
+                 build.stream_of(q))
+        build.check(err, 'flash_decode', name)
+        build.count('flash_chunk_paged')
+    return out
+
+
+def flash_decode_gqa_paged_q8(q, k_pages, v_pages, kq_pages, vq_pages,
+                              k_scales, v_scales, pos, window, block_tables,
+                              hot_window, *, scale: float) -> torch.Tensor:
+    """Kernel K6; same contract as :func:`flash_decode_gqa_paged_q8_plain`.
+    On CUDA: f32 query, bf16 or f32 fp pools, int8 pools of the same shape,
+    f32 (P, Hkv) scales, int32 pos/window/tables and a (1,) int32 hot
+    window, read by the kernel from device memory (no host sync)."""
+    tensors = (q, k_pages, v_pages, kq_pages, vq_pages, k_scales, v_scales,
+               pos, window, block_tables, hot_window)
+    if all(t.device.type == 'cpu' for t in tensors):
+        return flash_decode_gqa_paged_q8_plain(
+            q, k_pages, v_pages, kq_pages, vq_pages, k_scales, v_scales, pos,
+            window, block_tables, hot_window, scale=scale)
+    name = 'flash_decode_gqa_paged_q8'
+    b, hkv, g, dh, page_size, w = _check_paged(name, q, k_pages, v_pages,
+                                               pos, window, block_tables)
+    n_pages = k_pages.shape[0]
+    if (kq_pages.shape != k_pages.shape or vq_pages.shape != k_pages.shape
+            or tuple(k_scales.shape) != (n_pages, hkv)
+            or tuple(v_scales.shape) != (n_pages, hkv)
+            or tuple(hot_window.shape) != (1,)):
+        raise ValueError(
+            f'{name}: int8 pools {tuple(kq_pages.shape)}/'
+            f'{tuple(vq_pages.shape)}, scales {tuple(k_scales.shape)}/'
+            f'{tuple(v_scales.shape)}, hot window {tuple(hot_window.shape)} '
+            f'for fp pools {tuple(k_pages.shape)}')
+    i8, f32 = (torch.int8,), (torch.float32,)
+    build.require_cuda(name, *tensors,
+                       dtypes=[f32, _FP, _FP, i8, i8, f32, f32, _I32, _I32,
+                               _I32, _I32])
     out = torch.empty((b, hkv, g, dh), dtype=torch.float32, device=q.device)
-    fn = build.function('flash_decode', 'flash_decode_paged', _ARGS)
+    fn = build.function('flash_decode', 'flash_decode_paged_q8', _K6_ARGS)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             pos.data_ptr(), window.data_ptr(), block_tables.data_ptr(),
-             out.data_ptr(), b, hkv, g, dh, page_size, w, float(scale),
+             kq_pages.data_ptr(), vq_pages.data_ptr(), k_scales.data_ptr(),
+             v_scales.data_ptr(), hot_window.data_ptr(), pos.data_ptr(),
+             window.data_ptr(), block_tables.data_ptr(), out.data_ptr(), b,
+             hkv, g, dh, page_size, w, float(scale),
              int(k_pages.dtype == torch.bfloat16), build.stream_of(q))
-    build.check(err, 'flash_decode', 'flash_decode_gqa_paged')
-    build.count('flash_decode_paged')
+    build.check(err, 'flash_decode', name)
+    build.count('flash_decode_paged_q8')
     return out
 
 
@@ -123,28 +273,95 @@ def _norm_scalar_vec(x, b: int, device, fill=None) -> torch.Tensor:
         else x.reshape(b).contiguous()
 
 
-def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
-                       v_pages: torch.Tensor, pos, block_tables: torch.Tensor,
-                       *, scale: float, window=None) -> torch.Tensor:
-    """Shape-flexible wrapper around :func:`flash_decode_gqa_paged`.
-
-    q: (B, 1, H, dh) or (B, H, dh); k/v_pages: (P, page_size, Hkv, dh);
-    pos: scalar or (B,); block_tables: (B, W) int. Returns attention output
-    shaped like q, in v_pages.dtype (the one conversion back to the serving
-    dtype happens here, after the fused normalize)."""
-    squeeze = q.ndim == 4
-    if squeeze:
-        assert q.shape[1] == 1, q.shape
+def _decode_operands(q, k_pages, block_tables, pos, window):
+    """(q grouped (B, Hkv, G, dh) f32, pos, window, tables) for a decode
+    wrapper; q is (B, 1, H, dh) or (B, H, dh)."""
+    if q.ndim == 4:
+        if q.shape[1] != 1:
+            raise ValueError(f'decode query must have one token, got '
+                             f'{tuple(q.shape)}')
         q = q[:, 0]
     b, h, dh = q.shape
     hkv = k_pages.shape[2]
     qg = q.reshape(b, hkv, h // hkv, dh).to(torch.float32).contiguous()
     s_logical = block_tables.shape[1] * k_pages.shape[1]
     dev = q.device
-    posv = _norm_scalar_vec(pos, b, dev)
-    win = _norm_scalar_vec(window, b, dev, fill=s_logical + 1)
-    bt = block_tables.to(torch.int32).contiguous()
+    return (qg, _norm_scalar_vec(pos, b, dev),
+            _norm_scalar_vec(window, b, dev, fill=s_logical + 1),
+            block_tables.to(torch.int32).contiguous())
+
+
+def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, pos, block_tables: torch.Tensor,
+                       *, scale: float, window=None) -> torch.Tensor:
+    """Shape-flexible wrapper around :func:`flash_decode_gqa_paged` (K1).
+
+    q: (B, 1, H, dh) or (B, H, dh); k/v_pages: (P, page_size, Hkv, dh);
+    pos: scalar or (B,); block_tables: (B, W) int. Returns attention output
+    shaped like q, in v_pages.dtype (the one conversion back to the serving
+    dtype happens here, after the fused normalize)."""
+    qg, posv, win, bt = _decode_operands(q, k_pages, block_tables, pos,
+                                         window)
     out = flash_decode_gqa_paged(qg, k_pages, v_pages, posv, win, bt,
                                  scale=scale)
-    out = out.reshape(b, h, dh).to(v_pages.dtype)
-    return out[:, None] if squeeze else out
+    return out.reshape(q.shape).to(v_pages.dtype)
+
+
+def flash_decode_paged_q8(q, k_pages, v_pages, kq_pages, vq_pages, k_scales,
+                          v_scales, pos, block_tables, hot_window, *,
+                          scale: float, window=None) -> torch.Tensor:
+    """Shape-flexible wrapper around :func:`flash_decode_gqa_paged_q8`
+    (K6): as :func:`flash_decode_paged`, plus the int8 pools, their (P, Hkv)
+    scales and the hot window (int or (1,) tensor)."""
+    qg, posv, win, bt = _decode_operands(q, k_pages, block_tables, pos,
+                                         window)
+    hw = torch.as_tensor(hot_window, dtype=torch.int32,
+                         device=q.device).reshape(-1)[:1].contiguous()
+    out = flash_decode_gqa_paged_q8(qg, k_pages, v_pages, kq_pages, vq_pages,
+                                    k_scales, v_scales, posv, win, bt, hw,
+                                    scale=scale)
+    return out.reshape(q.shape).to(v_pages.dtype)
+
+
+def _chunk_scalars(offset, limit, window, b: int, c: int, s_logical: int,
+                   device):
+    """Fetch-union scalars for a chunk of ``c`` query rows starting at
+    ``offset``: pos = the chunk's last valid position (clamped below
+    ``limit`` so block-table indexing never walks past the prompt's pages),
+    window = the per-row window widened by (c - 1), so the live-block range
+    covers the earliest row's reach."""
+    offv = _norm_scalar_vec(offset, b, device)
+    limv = _norm_scalar_vec(limit, b, device)
+    posv = torch.minimum(torch.maximum(limv - 1, offv), offv + (c - 1))
+    winv = _norm_scalar_vec(window, b, device, fill=s_logical + 1) + (c - 1)
+    return offv, posv.contiguous(), winv.contiguous()
+
+
+def flash_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, offset, limit,
+                      block_tables: torch.Tensor, *, scale: float,
+                      window=None) -> torch.Tensor:
+    """Chunked-prefill GQA attention over a paged KV pool (K5): the chunk's
+    C query tokens (absolute positions offset .. offset + C - 1) causally
+    attend everything already written for the request, the chunk's own rows
+    included (write the chunk to the pool first).
+
+    q: (B, C, H, dh); k/v_pages: (P, page_size, Hkv, dh); offset/limit:
+    scalar or (B,) — rows at positions >= limit are padding (finite
+    garbage the caller discards); block_tables: (B, W) int. Returns
+    (B, C, H, dh) in v_pages.dtype."""
+    b, c, h, dh = q.shape
+    hkv = k_pages.shape[2]
+    g = h // hkv
+    # (B, C, Hkv, G, dh) -> (B, Hkv, C, G, dh): rows = C * G per KV head
+    qg = q.reshape(b, c, hkv, g, dh).permute(0, 2, 1, 3, 4) \
+        .reshape(b, hkv, c * g, dh).to(torch.float32).contiguous()
+    s_logical = block_tables.shape[1] * k_pages.shape[1]
+    offv, posv, winv = _chunk_scalars(offset, limit, window, b, c, s_logical,
+                                      q.device)
+    out = flash_decode_gqa_paged(qg, k_pages, v_pages, posv, winv,
+                                 block_tables.to(torch.int32).contiguous(),
+                                 offv, scale=scale, chunk=c)
+    out = out.reshape(b, hkv, c, g, dh).permute(0, 2, 1, 3, 4) \
+        .reshape(b, c, h, dh)
+    return out.to(v_pages.dtype)

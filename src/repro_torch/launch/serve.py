@@ -9,9 +9,17 @@ the pool runs dry, deadlines, a retry budget and queue backpressure, with
 a batch-1 prefill of the padded prompt; each step runs one greedy decode
 over every slot (idle slots decode at pos 0 against the garbage page).
 
-Decode attention reads the cache through kernel K1 (``attn_impl='flash'``,
-the default) or the einsum oracle; ``--mode w8a8`` routes every linear
-through the int8 kernels (K3 + K2 with ``--prequantize``, K3 + K4 without).
+``--kv-quant`` keeps the last ``--hot-window`` pages of each request full
+precision and quantizes older pages once into the int8 tier.
+``--prefix-cache`` shares sealed prompt pages between requests by content
+(copy-on-write for a fully covered prompt), and hits prefill only the
+unshared suffix in chunks; ``--chunk-prefill C`` chunks every admission.
+
+Decode attention reads the cache through kernel K1, or K6 over the int8
+tier (``attn_impl='flash'``, the default), or the einsum oracle; chunked
+prefill reads it through kernel K5 or the oracle. ``--mode w8a8`` routes
+every linear through the int8 kernels (K3 + K2 with ``--prequantize``,
+K3 + K4 without).
 Unlike the reference there is no flash->einsum degrade: a kernel that fails
 to build or launch raises.
 
@@ -19,7 +27,8 @@ Usage (the card is the default device; ``--device cpu`` runs the plain
 versions of the kernels):
   python -m repro_torch.launch.serve --arch stablelm-1.6b --continuous \
       --no-smoke --slots 8 --requests 16 --prompt-len 128 --gen-len 32 \
-      --mode w8a8 --prequantize
+      --mode w8a8 --prequantize [--kv-quant --hot-window 2] \
+      [--prefix-cache] [--chunk-prefill 32] [--shared-prefix 96]
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from repro_torch.models import model as model_mod
 from repro_torch.models.model import ModelRuntime
 from repro_torch.runtime import faults as faults_mod
 from repro_torch.runtime import kv_cache as kvc
+from repro_torch.runtime import kv_quant as kvq
 from repro_torch.runtime import layouts as layouts_mod
 from repro_torch.runtime import serve_step as SS
 
@@ -81,10 +91,13 @@ class ContinuousScheduler:
       exactly one terminal event of :attr:`events`.
     * **quarantine**: a lane with non-finite logits is released and
       requeued, and its pages are handed back for scrubbing first.
+    * **tier** (``hot_window``): :meth:`aged_out` lists the pages that left
+      each lane's hot window; a released lane's tracker resets.
     """
 
     def __init__(self, kv: kvc.PagedKVCache, *, prompt_pad: int,
                  eos_id: Optional[int] = None,
+                 hot_window: Optional[int] = None,
                  retry_budget: Optional[int] = None,
                  max_queue: Optional[int] = None,
                  vocab_size: Optional[int] = None,
@@ -112,6 +125,8 @@ class ContinuousScheduler:
         self._retries: dict = {}               # rid -> requeue count
         self._deadline_at: dict = {}           # rid -> step it expires at
         self._queue_age: dict = {}             # rid -> steps spent pending
+        self.tier = (kvq.KVTierTracker(hot_window, kv.page_size)
+                     if hot_window is not None else None)
 
     # -- terminal bookkeeping ------------------------------------------------
     def _terminal(self, req: Request, kind: str, **detail) -> None:
@@ -127,6 +142,8 @@ class ContinuousScheduler:
         st = self.active.pop(slot)
         self.kv.release(slot)
         self.free_slots.append(slot)
+        if self.tier is not None:
+            self.tier.reset(slot)
         self.events.emit('evict', step=self.step_no, rid=st.req.rid,
                          slot=slot, reason=reason, pos=st.pos)
         return st
@@ -182,10 +199,16 @@ class ContinuousScheduler:
     def done(self) -> bool:
         return not self.pending and not self.active
 
-    def try_admit(self):
-        """Pop (request, slot, plan) triples that fit the pool right now."""
+    def try_admit(self, limit: Optional[int] = None):
+        """Pop (request, slot, plan) triples that fit the pool right now; the
+        plan is the allocator's (``PagedKVCache.admit_prompt``: COW copy,
+        shared-suffix start). ``limit`` caps the triples per call: under the
+        prefix cache the serve loop admits one at a time, prefilling and
+        sealing in between, so a burst of same-prompt requests shares the
+        first tenant's pages."""
         admitted = []
-        while self.pending and self.free_slots:
+        while self.pending and self.free_slots and \
+                (limit is None or len(admitted) < limit):
             slot = self.free_slots[-1]
             req = self.pending[0]
             plan = self.kv.admit_prompt(slot, req.prompt,
@@ -256,6 +279,24 @@ class ContinuousScheduler:
             self.events.emit('retry', step=self.step_no, rid=st.req.rid,
                              attempt=r)
 
+    def aged_out(self) -> dict:
+        """``slot -> physical pages`` that just crossed the hot-window
+        boundary (int8 tier only). Call once after admissions and
+        :meth:`grow_for_decode`, before the decode step, which reads these
+        pages as cold. The tracker advances on this call."""
+        if self.tier is None:
+            return {}
+        out: dict = {}
+        for slot, st in self.active.items():
+            pages = self.tier.aged_out(slot, st.pos, self.kv.tables[slot])
+            if pages:
+                out[slot] = pages
+        return out
+
+    def aged_out_pages(self) -> List[int]:
+        """Flat-list view of :meth:`aged_out` (the tracker advances)."""
+        return [p for ps_ in self.aged_out().values() for p in ps_]
+
     def step_vectors(self):
         """(token, pos) vectors for the decode step; idle slots get (0, 0)."""
         toks = np.zeros((self.kv.slots,), np.int32)
@@ -309,6 +350,10 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
                      prequantize: bool = False, seed: int = 0,
                      attn_impl: str = 'flash',
                      eos_id: Optional[int] = None,
+                     kv_quant: bool = False, hot_window: int = 2,
+                     prefix_cache: bool = False,
+                     chunk_prefill: Optional[int] = None,
+                     shared_prefix: Optional[int] = None,
                      request_stream: Optional[List[Request]] = None,
                      deadline: Optional[int] = None,
                      retry_budget: Optional[int] = 8,
@@ -319,7 +364,15 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     """Serve a stream of requests end to end (admit, decode, evict,
     re-admit) on ``device`` (default: the CUDA card; ``'cpu'`` runs the
     kernels' plain versions). ``compute_dtype`` is the activation and KV
-    pool dtype. ``params`` (the port's f32 param tree on ``device``, e.g.
+    pool dtype.
+
+    ``kv_quant`` adds the int8 KV tier: pages older than ``hot_window``
+    pages are quantized as they age out (``hot_window >= max_blocks``
+    never reads the tier). ``prefix_cache`` shares sealed prompt pages by
+    content; ``chunk_prefill`` C prefills every admission in C-token chunks
+    (prefix hits always take chunks, of the page size by default);
+    ``shared_prefix`` N makes every synthetic prompt open with the same N
+    tokens. ``params`` (the port's f32 param tree on ``device``, e.g.
     from ``model.params_from_numpy``) replaces the seeded random init.
     ``step_hook(sched, kv, cache)`` runs after every absorbed step.
     Pools are updated in place. Returns the reference's report keys."""
@@ -338,9 +391,11 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         raise ValueError(f'pool too small: a full {max_seq}-token sequence '
                          f'needs {max_blocks} pages, pool has '
                          f'{num_pages - 1} allocatable')
-    kv = kvc.PagedKVCache(num_pages, page_size, max_blocks, slots)
+    kv = kvc.PagedKVCache(num_pages, page_size, max_blocks, slots,
+                          prefix_cache=prefix_cache)
     events = faults_mod.EventLog()
     sched = ContinuousScheduler(kv, prompt_pad=prompt_len, eos_id=eos_id,
+                                hot_window=hot_window if kv_quant else None,
                                 retry_budget=retry_budget,
                                 max_queue=max_queue,
                                 vocab_size=cfg.vocab_size, events=events)
@@ -357,6 +412,10 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         dc = synthetic.for_arch(cfg, global_batch=max(n_requests, 1),
                                 seq_len=prompt_len)
         prompts = synthetic.make_batch(dc, 0)['inputs'].numpy()
+        if shared_prefix:
+            # every prompt opens with the same "system prompt"
+            prompts = prompts.copy()
+            prompts[:, :shared_prefix] = prompts[0, :shared_prefix]
         stream = _ragged_stream(n_requests, prompt_len, gen_len, prompts)
     else:
         stream = request_stream
@@ -367,19 +426,70 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
 
     cache = model_mod.init_paged_cache_tree(
         cfg, slots, num_pages=num_pages, page_size=page_size,
-        max_blocks=max_blocks, dtype=compute_dtype, device=dev)
+        max_blocks=max_blocks, dtype=compute_dtype,
+        kv_dtype='int8' if kv_quant else None, hot_window=hot_window,
+        device=dev)
+    n_pages_quantized = 0
+
+    def in_page_chunks(fn, cache, pages):
+        """Apply ``fn(cache, (max_blocks,) pages)`` over an arbitrary-length
+        page list in fixed-width chunks padded with the garbage page."""
+        while pages:
+            chunk, pages = pages[:max_blocks], pages[max_blocks:]
+            idx = np.zeros((max_blocks,), np.int64)
+            idx[:len(chunk)] = chunk
+            cache = fn(cache, torch.from_numpy(idx).to(dev))
+        return cache
+
+    def quantize_aged_out(cache):
+        nonlocal n_pages_quantized
+        pages = sched.aged_out_pages()
+        if prefix_cache:
+            # a sealed page ages out of every owner's hot window, but its
+            # int8 twin is content-addressed like the page: quantize it the
+            # first time only (release/eviction clears the mark); the
+            # dict dedupes same-step age-outs of a burst-admitted prefix
+            pages = [p for p in dict.fromkeys(pages)
+                     if p not in kv.quantized_pages]
+            kv.quantized_pages.update(pages)
+        n_pages_quantized += len(pages)
+        return in_page_chunks(kvq.quantize_tree_pages, cache, pages)
+
     prefill_fn = SS.make_prefill_step(cfg, yoco, rt)
     decode_fn = SS.make_decode_step(cfg, yoco, rt)
+    # chunked prefill: prefix hits must take it (a monolithic padded prefill
+    # would rewrite the shared pages they acquired); misses take it only
+    # when chunk_prefill asks for it
+    chunk_c = max(1, chunk_prefill if chunk_prefill is not None
+                  else page_size)
+    chunk_fn = (SS.make_chunk_prefill_step(cfg, yoco, rt)
+                if prefix_cache or chunk_prefill is not None else None)
 
-    def run_prefill(part, req, slot):
-        """Batch-1 prefill of the padded prompt, then zero the padded tail
-        rows of the slot's last owned page."""
+    def run_prefill(part, req, slot, plan):
+        """Admission prefill following the allocator's plan: copy-on-write
+        the boundary page, compute only [prefill_start, plen) (in chunks
+        when the plan or chunk_prefill asks), then zero the padded tail
+        rows of the last owned page before sealing can publish them."""
         plen = len(req.prompt)
-        pad = np.zeros((1, prompt_len), np.int32)
-        pad[0, :plen] = req.prompt
-        logits, part = prefill_fn(
-            params, dict(inputs=torch.from_numpy(pad).to(dev)), part,
-            torch.tensor([plen - 1], device=dev))
+        if plan['cow'] is not None:
+            part = layouts_mod.copy_tree_pages(part, *plan['cow'])
+        if chunk_fn is not None and (plan['hit']
+                                     or chunk_prefill is not None):
+            lim = torch.tensor([plen], dtype=torch.int32, device=dev)
+            for off in range(plan['prefill_start'], plen, chunk_c):
+                ck = np.zeros((1, chunk_c), np.int32)
+                seg = req.prompt[off:off + chunk_c]
+                ck[0, :len(seg)] = seg
+                logits, part = chunk_fn(
+                    params, dict(inputs=torch.from_numpy(ck).to(dev)),
+                    torch.tensor([off], dtype=torch.int32, device=dev), lim,
+                    part)
+        else:
+            pad = np.zeros((1, prompt_len), np.int32)
+            pad[0, :plen] = req.prompt
+            logits, part = prefill_fn(
+                params, dict(inputs=torch.from_numpy(pad).to(dev)), part,
+                torch.tensor([plen - 1], device=dev))
         stop = int(kv.counts[slot]) * page_size
         if plen < stop:
             part = layouts_mod.zero_tree_tail(part, kv.tables[slot], plen,
@@ -390,14 +500,16 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     peak_pages = 0
     t_prefill = 0.0
 
-    def _admit_one(req, slot):
+    def _admit_one(req, slot, plan):
         nonlocal cache, t_prefill
         tp = time.perf_counter()
         cache = layouts_mod.reset_state_slots(cache, [slot])
         part = layouts_mod.slice_state_slot(
             kvc.with_block_tables(cache, kv.tables[slot:slot + 1]), slot)
-        logits, part = run_prefill(part, req, slot)
+        logits, part = run_prefill(part, req, slot, plan)
         cache = layouts_mod.merge_state_slot(cache, part, slot)
+        # sealing right after prefill lets the next admission share it
+        kv.seal_slot(slot, req.prompt)
         first = int(torch.argmax(logits, dim=-1)[0])    # synchronises
         tp_end = time.perf_counter()
         t_prefill += tp_end - tp
@@ -411,11 +523,22 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         deferred = kv.drain_scrub_queue()
         if deferred:
             cache = layouts_mod.scrub_tree_pages(cache, deferred)
-        for req, slot, _ in sched.try_admit():
-            _admit_one(req, slot)
+        # the prefix cache admits one at a time (prefill and seal between
+        # admissions) so same-step bursts share the first tenant's pages
+        admit_limit = 1 if prefix_cache else None
+        while True:
+            batch = sched.try_admit(limit=admit_limit)
+            for req, slot, plan in batch:
+                _admit_one(req, slot, plan)
+            if not batch or admit_limit is None:
+                break
         if sched.done:
             break
         sched.grow_for_decode()
+        if kv_quant:
+            # pages that just left the hot window become int8 before the
+            # step reads them as cold (fresh admissions included)
+            cache = quantize_aged_out(cache)
         peak_pages = max(peak_pages, kv.used_pages)
         toks, pos = sched.step_vectors()
         cache = kvc.with_block_tables(cache, kv.tables)
@@ -464,12 +587,18 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         attn_impl=attn_impl,
         attn_impl_effective=attn_impl,
         tp=1,
-        kv_quant=False,
-        hot_window=None,
-        pages_quantized=0,
+        kv_quant=bool(kv_quant),
+        hot_window=hot_window if kv_quant else None,
+        pages_quantized=n_pages_quantized,
         pages_quant_dropped=0,
-        prefix=None,
-        chunk_prefill=None,
+        prefix=(dict(hits=kv.prefix_hits, misses=kv.prefix_misses,
+                     evictions=kv.prefix_evictions,
+                     cow_copies=kv.cow_copies,
+                     cached_pages=kv.cached_pages,
+                     shared_pages=kv.shared_pages)
+                if prefix_cache else None),
+        chunk_prefill=(chunk_c if prefix_cache or chunk_prefill is not None
+                       else None),
         events=evc,
         faults=None,
         decode_compilations=None,
@@ -487,11 +616,6 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
 
 # flags of the reference CLI that belong to later slices of the port
 _LATER = {
-    'kv_quant': ('--kv-quant', 'the int8 KV tier (Queue 1 item 8)'),
-    'hot_window': ('--hot-window', 'the int8 KV tier (Queue 1 item 8)'),
-    'prefix_cache': ('--prefix-cache', 'prefix caching (Queue 1 item 9)'),
-    'chunk_prefill': ('--chunk-prefill', 'chunked prefill (Queue 1 item 9)'),
-    'shared_prefix': ('--shared-prefix', 'prefix caching (Queue 1 item 9)'),
     'chaos': ('--chaos', 'fault injection (Queue 1 item 10)'),
     'chaos_seed': ('--chaos-seed', 'fault injection (Queue 1 item 10)'),
     'metrics': ('--metrics', 'telemetry (Queue 1 item 10)'),
@@ -518,7 +642,7 @@ def main(argv=None):
                     choices=['bf16', 'qat', 'w8a8', 'analog_sim'])
     ap.add_argument('--prequantize', action='store_true')
     ap.add_argument('--attn-impl', default=None, choices=['einsum', 'flash'],
-                    help='default: flash (kernel K1)')
+                    help='default: flash (kernels K1, K5, K6)')
     ap.add_argument('--continuous', action='store_true',
                     help='continuous batching over a paged KV cache (the '
                          'only serving shape ported so far)')
@@ -536,11 +660,19 @@ def main(argv=None):
     ap.add_argument('--device', default=None,
                     help='default: the CUDA card; "cpu" runs the plain '
                          'versions of the kernels')
-    ap.add_argument('--kv-quant', action='store_true')
-    ap.add_argument('--hot-window', type=int, default=None)
-    ap.add_argument('--prefix-cache', action='store_true')
-    ap.add_argument('--chunk-prefill', type=int, default=None)
-    ap.add_argument('--shared-prefix', type=int, default=None)
+    ap.add_argument('--kv-quant', action='store_true',
+                    help='hybrid-precision KV: int8 cold pages + fp hot '
+                         'window')
+    ap.add_argument('--hot-window', type=int, default=2,
+                    help='pages kept full precision per request with '
+                         '--kv-quant')
+    ap.add_argument('--prefix-cache', action='store_true',
+                    help='share sealed prompt pages between requests')
+    ap.add_argument('--chunk-prefill', type=int, default=None, metavar='C',
+                    help='prefill admissions in C-token chunks (implied '
+                         'for prefix-cache hits)')
+    ap.add_argument('--shared-prefix', type=int, default=None, metavar='N',
+                    help='synthetic prompts share their first N tokens')
     ap.add_argument('--chaos', action='store_true')
     ap.add_argument('--chaos-seed', type=int, default=None)
     ap.add_argument('--metrics', action=argparse.BooleanOptionalAction,
@@ -570,7 +702,9 @@ def main(argv=None):
         num_pages=args.num_pages, mode=args.mode,
         prequantize=args.prequantize, seed=args.seed,
         attn_impl=args.attn_impl or 'flash', eos_id=args.eos_id,
-        deadline=args.deadline,
+        kv_quant=args.kv_quant, hot_window=args.hot_window,
+        prefix_cache=args.prefix_cache, chunk_prefill=args.chunk_prefill,
+        shared_prefix=args.shared_prefix, deadline=args.deadline,
         retry_budget=None if args.retry_budget < 0 else args.retry_budget,
         max_queue=args.max_queue, device=args.device)
 

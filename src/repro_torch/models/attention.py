@@ -5,7 +5,9 @@ All projections route through ``core.yoco_linear``. Prompt attention is the
 ``_sdpa`` einsum (the reference has no kernel there). Decode reads the
 cache either through the layout's densify view plus ``sdpa_decode`` (the
 ``einsum`` route, the oracle) or through the layout's flash kernel
-(``rt.attn_impl == 'flash'``, kernel K1). Cache dicts are classified by
+(``rt.attn_impl == 'flash'``: K1, or K6 over the int8 tier); a chunked
+prefill (``attention_chunk``) reads it through the fp densify view or
+kernel K5. Cache dicts are classified by
 ``runtime.layouts`` only; this module never looks at their leaves.
 
 Pools are written in place (see ``runtime/layouts.py``).
@@ -49,18 +51,38 @@ def init_attention(gen: torch.Generator, cfg, *, device) -> dict:
 
 def init_paged_cache(cfg, batch: int, *, num_pages: int, page_size: int,
                      max_blocks: int, dtype=torch.bfloat16,
+                     kv_dtype: Optional[str] = None, hot_window: int = 1,
                      device=None) -> dict:
     """Empty paged KV cache: one pool pair (page 0 = garbage page) plus
-    all-garbage block tables. fp pools only (the int8 tier is later).
-    ``device`` defaults to the card; with no card it raises unless the
-    caller passes ``device='cpu'``."""
+    all-garbage block tables. ``kv_dtype='int8'`` adds the int8 cold tier
+    (``runtime/kv_quant.py``): int8 pools, per-page per-head scales and the
+    ``hot_window`` in pages (>= 1). ``device`` defaults to the card; with
+    no card it raises unless the caller passes ``device='cpu'``."""
+    if kv_dtype not in (None, 'fp', 'int8'):
+        raise ValueError(f'kv_dtype must be None/"fp"/"int8", got '
+                         f'{kv_dtype!r}')
+    tiered = kv_dtype == 'int8'
+    if tiered and hot_window < 1:
+        raise ValueError('hot_window must be >= 1: the page being written '
+                         'is always full-precision')
     device = device_mod.resolve(device)
     hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     shape = (num_pages, page_size, hkv, dh)
-    return dict(k=torch.zeros(shape, dtype=dtype, device=device),
-                v=torch.zeros(shape, dtype=dtype, device=device),
-                bt=torch.zeros((batch, max_blocks), dtype=torch.int32,
-                               device=device))
+    cache = dict(k=torch.zeros(shape, dtype=dtype, device=device),
+                 v=torch.zeros(shape, dtype=dtype, device=device),
+                 bt=torch.zeros((batch, max_blocks), dtype=torch.int32,
+                                device=device))
+    if tiered:
+        cache.update(
+            kq=torch.zeros(shape, dtype=torch.int8, device=device),
+            vq=torch.zeros(shape, dtype=torch.int8, device=device),
+            ks=torch.zeros((num_pages, hkv), dtype=torch.float32,
+                           device=device),
+            vs=torch.zeros((num_pages, hkv), dtype=torch.float32,
+                           device=device),
+            hw=torch.full((1,), hot_window, dtype=torch.int32,
+                          device=device))
+    return cache
 
 
 # ----------------------------------------------------------------------------
@@ -93,6 +115,21 @@ def decode_mask(pos: torch.Tensor, smax: int, window=None) -> torch.Tensor:
         w = torch.as_tensor(window, device=pos.device)
         w = w[:, None] if w.ndim else w
         ok &= kpos[None, :] > p - w
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def chunk_mask(offset, c: int, smax: int, window=None) -> torch.Tensor:
+    """(B, C, smax) additive causal mask for a prefill chunk whose C query
+    rows sit at absolute positions offset[b] .. offset[b] + C - 1 against a
+    length-``smax`` densified cache view. Rows past the prompt length mask
+    like real rows (their outputs are discarded)."""
+    offset = torch.as_tensor(offset, dtype=torch.int64)
+    qp = (offset.reshape(-1, 1, 1)
+          + torch.arange(c, device=offset.device)[None, :, None])
+    kpos = torch.arange(smax, device=offset.device)[None, None, :]
+    ok = kpos <= qp
+    if window is not None:
+        ok &= kpos > qp - window
     return torch.where(ok, 0.0, NEG_INF)
 
 
@@ -184,7 +221,8 @@ def attention_decode(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
                      ) -> Tuple[torch.Tensor, dict]:
     """One-token decode. x: (B, 1, d); ``pos``: 0-d or (B,) absolute
     positions being generated. ``rt.attn_impl == 'flash'`` reads the cache
-    through kernel K1; ``'einsum'`` through the layout's densify view."""
+    through the layout's kernel (K1, or K6 over the int8 tier);
+    ``'einsum'`` through the layout's densify view."""
     b = x.shape[0]
     dh = cfg.resolved_head_dim
     theta = theta if theta is not None else cfg.rope_theta
@@ -202,4 +240,39 @@ def attention_decode(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
         kd, vd = layout.gather(cache, posr)
         out = sdpa_decode(q, kd, vd, posr, scale, window)
     out = yoco_linear.linear(out.reshape(b, 1, -1), p['wo'], cfg=yoco)
+    return out, cache
+
+
+def attention_chunk(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
+                    cache: dict, offset, limit, window: Optional[int] = None,
+                    theta: Optional[float] = None, rt=None,
+                    ) -> Tuple[torch.Tensor, dict]:
+    """Chunked prefill: C tokens of a longer prompt at absolute positions
+    offset[b] .. offset[b] + C - 1 attend everything already written into
+    the paged cache (earlier chunks, shared prefix pages) plus the chunk
+    itself. x: (B, C, d); ``offset``/``limit``: (B,) int32 — rows at
+    positions >= limit are padding (written to the garbage page, outputs
+    discarded by the caller). Reads go through the fp pools only:
+    ``rt.attn_impl == 'flash'`` through kernel K5, ``'einsum'`` through the
+    layout's fp densify view."""
+    b, c, _ = x.shape
+    dh = cfg.resolved_head_dim
+    theta = theta if theta is not None else cfg.rope_theta
+    offset = torch.as_tensor(offset, dtype=torch.int32,
+                             device=x.device).reshape(-1)
+    positions = offset[:, None] + torch.arange(c, dtype=torch.int32,
+                                               device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, yoco, positions, theta)
+    scale = 1.0 / float(dh) ** 0.5
+    from repro_torch.runtime import layouts
+    layout = layouts.get_layout(cache)
+    cache = layout.write_chunk(cache, dict(k=k, v=v), offset, limit)
+    if rt is not None and rt.attn_impl == 'flash':
+        out = layout.flash_chunk(q, cache, offset, limit, scale=scale,
+                                 window=window)
+    else:
+        kd, vd = layout.gather_fp(cache)
+        mask = chunk_mask(offset, c, kd.shape[1], window)
+        out = _sdpa(q, kd, vd, mask[:, None, None, :, :], scale)
+    out = yoco_linear.linear(out.reshape(b, c, -1), p['wo'], cfg=yoco)
     return out, cache

@@ -22,11 +22,17 @@ def init_transformer_block(gen: torch.Generator, cfg, *, device) -> dict:
 
 def transformer_block(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
                       window=None, theta=None, cache: Optional[dict] = None,
-                      decode_pos=None, rt=None
+                      decode_pos=None, rt=None, chunk_ctx=None
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Pre-norm residual block. Returns (x, cache)."""
+    """Pre-norm residual block. Returns (x, cache). ``chunk_ctx``
+    (dict(offset=, limit=), both (B,) int32) routes the attention through
+    the chunked-prefill path."""
     h = apply_norm(p['attn_norm'], x, cfg)
-    if decode_pos is not None:
+    if chunk_ctx is not None:
+        a, cache = attn_mod.attention_chunk(
+            p['attn'], h, cfg, yoco, cache=cache, offset=chunk_ctx['offset'],
+            limit=chunk_ctx['limit'], window=window, theta=theta, rt=rt)
+    elif decode_pos is not None:
         a, cache = attn_mod.attention_decode(p['attn'], h, cfg, yoco,
                                              cache=cache, pos=decode_pos,
                                              window=window, theta=theta,

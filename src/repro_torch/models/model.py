@@ -3,6 +3,8 @@
   init_params(gen, cfg, device)                  -> param tree
   init_paged_cache_tree(cfg, batch, ...)         -> paged cache tree
   prefill(params, batch, cache, cfg, ...)        -> (last_logits, cache)
+  prefill_chunk(params, batch, offset, limit, cache, ...)
+                                                 -> (logits, cache)
   decode_step(params, token, pos, cache, ...)    -> (logits, cache)
 
 Parameters are a plain dict with the reference's names; ``layers`` is a
@@ -27,13 +29,14 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.core import yoco_linear
 from repro_torch.core.yoco_linear import DEFAULT_YOCO, QuantizedWeight, YocoConfig
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import apply_norm, dense_init, embed_init, init_norm
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelRuntime:
-    attn_impl: str = 'einsum'      # einsum (oracle) | flash (kernel K1)
+    attn_impl: str = 'einsum'      # einsum (oracle) | flash (K1/K5/K6)
     compute_dtype: Any = torch.bfloat16
 
 
@@ -142,7 +145,7 @@ def _head(params: dict, x: torch.Tensor, cfg, yoco: YocoConfig) -> torch.Tensor:
 
 
 def _transformer_stack(layers: list, x: torch.Tensor, cfg, yoco, rt, *,
-                       cache: Optional[dict], decode_pos):
+                       cache: Optional[dict], decode_pos, chunk_ctx=None):
     """Run the layers in order; ``cache`` is the stacked (L, ...) dict or
     None, and each layer gets views of its own slice."""
     for l, lp in enumerate(layers):
@@ -150,15 +153,17 @@ def _transformer_stack(layers: list, x: torch.Tensor, cfg, yoco, rt, *,
               if cache is not None else None)
         x, _ = blk.transformer_block(lp, x, cfg, yoco,
                                      window=cfg.sliding_window, cache=lc,
-                                     decode_pos=decode_pos, rt=rt)
+                                     decode_pos=decode_pos, rt=rt,
+                                     chunk_ctx=chunk_ctx)
     return x, cache
 
 
 def _backbone(params: dict, x: torch.Tensor, cfg, yoco, rt, *,
-              cache: Optional[dict], decode_pos):
+              cache: Optional[dict], decode_pos, chunk_ctx=None):
     lc = cache['layers'] if cache is not None else None
     x, lc = _transformer_stack(params['layers'], x, cfg, yoco, rt,
-                               cache=lc, decode_pos=decode_pos)
+                               cache=lc, decode_pos=decode_pos,
+                               chunk_ctx=chunk_ctx)
     return x, (dict(cache, layers=lc) if cache is not None else None)
 
 
@@ -167,20 +172,23 @@ def _backbone(params: dict, x: torch.Tensor, cfg, yoco, rt, *,
 # ----------------------------------------------------------------------------
 def init_paged_cache_tree(cfg, batch: int, *, num_pages: int, page_size: int,
                           max_blocks: int, dtype=torch.bfloat16,
+                          kv_dtype: Optional[str] = None, hot_window: int = 1,
                           device=None) -> dict:
     """One physical pool pair per layer (stacked over L) and one set of
     block tables broadcast per layer (a view; ``with_block_tables``
-    refreshes it). ``device`` defaults to the card; with no card it raises
-    unless the caller passes ``device='cpu'``."""
+    refreshes it). ``kv_dtype='int8'`` adds the int8 cold tier per layer
+    (``kq``/``vq`` (L, P, ps, Hkv, dh), ``ks``/``vs`` (L, P, Hkv) f32) and
+    the hot window ``hw``, a (1,) int32 broadcast per layer like ``bt``.
+    ``device`` defaults to the card; with no card it raises unless the
+    caller passes ``device='cpu'``."""
     _check_dense(cfg)
-    device = device_mod.resolve(device)
-    hkv, dh, n = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
-    shape = (n, num_pages, page_size, hkv, dh)
-    bt = torch.zeros((batch, max_blocks), dtype=torch.int32, device=device)
-    return dict(layers=dict(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-        bt=bt[None].expand(n, batch, max_blocks)))
+    one = attn_mod.init_paged_cache(cfg, batch, num_pages=num_pages,
+                                    page_size=page_size,
+                                    max_blocks=max_blocks, dtype=dtype,
+                                    kv_dtype=kv_dtype, hot_window=hot_window,
+                                    device=device)
+    from repro_torch.runtime import layouts
+    return dict(layers=layouts.stack_layers(one, cfg.n_layers))
 
 
 # ----------------------------------------------------------------------------
@@ -200,6 +208,34 @@ def prefill(params: dict, batch: dict, cache: dict, cfg,
         idx = torch.as_tensor(last_pos, dtype=torch.int64,
                               device=x.device).reshape(-1)
         x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+    x = apply_norm(params['final_norm'], x, cfg)
+    return _head(params, x, cfg, yoco)[:, 0], cache
+
+
+def prefill_chunk(params: dict, batch: dict, offset, limit, cache: dict, cfg,
+                  yoco: YocoConfig = DEFAULT_YOCO,
+                  rt: ModelRuntime = DEFAULT_RT) -> Tuple[torch.Tensor, dict]:
+    """Process ONE C-token chunk of a longer prompt into a paged cache.
+
+    ``batch['inputs']``: the chunk's (B, C) tokens; ``offset``/``limit``:
+    (B,) int32 — the chunk covers absolute positions
+    [offset, min(offset + C, limit)); rows past ``limit`` are padding
+    (written to the garbage page). Earlier chunks and shared prefix pages
+    are already in the cache, so chunk k attends [0, offset_k + C) as a
+    monolithic prefill would. Returns the logits of the chunk row holding
+    position ``limit - 1`` (meaningful on the final chunk only) and the
+    cache."""
+    x = _embed(params, batch['inputs'], rt)
+    b, c = x.shape[:2]
+    offset = torch.as_tensor(offset, dtype=torch.int32,
+                             device=x.device).reshape(-1).expand(b)
+    limit = torch.as_tensor(limit, dtype=torch.int32,
+                            device=x.device).reshape(-1).expand(b)
+    x, cache = _backbone(params, x, cfg, yoco, rt, cache=cache,
+                         decode_pos=None,
+                         chunk_ctx=dict(offset=offset, limit=limit))
+    idx = torch.clamp(limit - 1 - offset, 0, c - 1).to(torch.int64)
+    x = x[torch.arange(b, device=x.device), idx][:, None]
     x = apply_norm(params['final_norm'], x, cfg)
     return _head(params, x, cfg, yoco)[:, 0], cache
 

@@ -1,1 +1,2 @@
-"""Serving runtime: paged KV cache, layout registry, events, serve steps."""
+"""Serving runtime: paged KV cache, int8 KV tier, layout registry,
+events, serve steps."""

@@ -6,13 +6,16 @@ the returned layout owns its write ops, its densify oracle and its kernel
 entrypoint. Layouts ported so far (single layer; layer stacks prepend (L,)):
 
 ==================  ======================================================
+PagedQ8Layout       PagedLayout + ``kq``/``vq`` (P, ps, Hkv, dh) int8,
+                    ``ks``/``vs`` (P, Hkv) f32, ``hw`` (1,) int32
 PagedLayout         ``k``/``v`` (P, ps, Hkv, dh), ``bt`` (B, W) int32
 ContiguousLayout    ``k``/``v`` (B, S_max, Hkv, dh)
 ==================  ======================================================
 
-The int8-tiered, MLA and recurrent layouts are later slices. Write ops and
-tree walkers update pools IN PLACE (the reference returns new arrays); the
-returned dicts share the caller's tensors.
+``hw`` is the hot window in pages (>= 1; >= W never reads the int8 tier;
+see ``runtime/kv_quant.py``). The MLA and recurrent layouts are later
+slices. Write ops and tree walkers update pools IN PLACE (the reference
+returns new arrays); the returned dicts share the caller's tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import List, Optional, Tuple, Type
 import torch
 
 from repro_torch.runtime import kv_cache as kvc
+from repro_torch.runtime import kv_quant as kvq
 
 _REGISTRY: List[Type['CacheLayout']] = []
 
@@ -70,7 +74,9 @@ class CacheLayout:
     name: str = ''
     required: frozenset = frozenset()
     paged: bool = False
+    quantized: bool = False             # carries an int8 tier
     table_leaves: Tuple[str, ...] = ()  # refreshed by with_block_tables
+    shared_leaves: Tuple[str, ...] = () # one copy broadcast over layers
     scrub_leaves: Tuple[str, ...] = ()  # zeroed by scrub_tree_pages
     poison_leaves: Tuple[str, ...] = () # fp pools (zero_tree_tail targets)
 
@@ -83,13 +89,92 @@ class CacheLayout:
         raise NotImplementedError
 
     @classmethod
+    def write_chunk(cls, cache: dict, updates: dict, offset, limit) -> dict:
+        """Write a prefill chunk's rows at [offset, offset + C); rows at or
+        beyond ``limit`` go to the garbage page. Paged layouts only."""
+        raise NotImplementedError(f'{cls.name} has no chunked-prefill path')
+
+    @classmethod
     def gather(cls, cache: dict, pos):
-        """Contiguous (k, v) views for the einsum oracle."""
+        """Contiguous (k, v) views for the einsum oracle (``pos`` matters
+        only to the tiered layout: hotness)."""
         raise NotImplementedError
+
+    @classmethod
+    def gather_fp(cls, cache: dict):
+        """Full-precision densify ignoring any int8 tier — the chunked
+        prefill's read path (pages just written are not quantized yet)."""
+        return cls.gather(cache, 0)
 
     @classmethod
     def flash_decode(cls, q, cache: dict, pos, *, scale, window=None):
         raise NotImplementedError
+
+    @classmethod
+    def flash_chunk(cls, q, cache: dict, offset, limit, *, scale,
+                    window=None):
+        """A chunked-prefill read (kernel K5) over the fp pools."""
+        raise NotImplementedError(f'{cls.name} has no chunked-prefill path')
+
+    @classmethod
+    def quantize_pages(cls, cache: dict, pages) -> dict:
+        raise NotImplementedError(
+            f'{cls.name} has no int8 tier to quantize into')
+
+
+@_register
+class PagedQ8Layout(CacheLayout):
+    """Paged GQA pools plus the int8 cold tier: ``k``/``v``/``kq``/``vq``/
+    ``ks``/``vs``/``bt``/``hw``. Writes land in the fp pools; aged-out
+    pages are quantized per page and per KV head. Registered ahead of
+    :class:`PagedLayout`, whose leaves it carries."""
+    name = 'paged_q8'
+    required = frozenset({'k', 'v', 'kq', 'vq', 'ks', 'vs', 'bt', 'hw'})
+    paged = True
+    quantized = True
+    table_leaves = ('bt',)
+    shared_leaves = ('bt', 'hw')
+    scrub_leaves = ('k', 'v', 'kq', 'vq', 'ks', 'vs')
+    poison_leaves = ('k', 'v')
+
+    @classmethod
+    def write_token(cls, cache, updates, pos):
+        return PagedLayout.write_token(cache, updates, pos)
+
+    @classmethod
+    def write_prefill(cls, cache, updates):
+        return PagedLayout.write_prefill(cache, updates)
+
+    @classmethod
+    def write_chunk(cls, cache, updates, offset, limit):
+        return PagedLayout.write_chunk(cache, updates, offset, limit)
+
+    @classmethod
+    def gather(cls, cache, pos):
+        return kvq.dequant_gather(cache, _pos_vec(pos, cache['bt'].shape[0],
+                                                  cache['bt'].device))
+
+    @classmethod
+    def gather_fp(cls, cache):
+        return PagedLayout.gather(cache, 0)
+
+    @classmethod
+    def flash_decode(cls, q, cache, pos, *, scale, window=None):
+        from repro_torch.kernels import flash_decode as fd
+        return fd.flash_decode_paged_q8(
+            q, cache['k'], cache['v'], cache['kq'], cache['vq'],
+            cache['ks'], cache['vs'], pos, cache['bt'], cache['hw'],
+            scale=scale, window=window)
+
+    @classmethod
+    def flash_chunk(cls, q, cache, offset, limit, *, scale, window=None):
+        # fp pools only: earlier chunks' pages are not quantized yet
+        return PagedLayout.flash_chunk(q, cache, offset, limit, scale=scale,
+                                       window=window)
+
+    @classmethod
+    def quantize_pages(cls, cache, pages):
+        return kvq.quantize_pages_layer(cache, pages)
 
 
 @_register
@@ -99,6 +184,7 @@ class PagedLayout(CacheLayout):
     required = frozenset({'k', 'v', 'bt'})
     paged = True
     table_leaves = ('bt',)
+    shared_leaves = ('bt',)
     scrub_leaves = ('k', 'v')
     poison_leaves = ('k', 'v')
 
@@ -122,10 +208,24 @@ class PagedLayout(CacheLayout):
                 kvc.gather_pages(cache['v'], cache['bt']))
 
     @classmethod
+    def write_chunk(cls, cache, updates, offset, limit):
+        kvc.paged_chunk_update(cache['k'], updates['k'], offset, limit,
+                               cache['bt'])
+        kvc.paged_chunk_update(cache['v'], updates['v'], offset, limit,
+                               cache['bt'])
+        return cache
+
+    @classmethod
     def flash_decode(cls, q, cache, pos, *, scale, window=None):
         from repro_torch.kernels import flash_decode as fd
         return fd.flash_decode_paged(q, cache['k'], cache['v'], pos,
                                      cache['bt'], scale=scale, window=window)
+
+    @classmethod
+    def flash_chunk(cls, q, cache, offset, limit, *, scale, window=None):
+        from repro_torch.kernels import flash_decode as fd
+        return fd.flash_chunk_paged(q, cache['k'], cache['v'], offset, limit,
+                                    cache['bt'], scale=scale, window=window)
 
 
 @_register
@@ -162,9 +262,23 @@ class ContiguousLayout(CacheLayout):
 # ----------------------------------------------------------------------------
 # tree walkers (layer-stacked cache trees)
 # ----------------------------------------------------------------------------
-def with_block_tables(cache_tree, tables):
+def stack_layers(cache: dict, n: int) -> dict:
+    """A layer stack of ``n`` copies of the single-layer cache dict: own
+    zeroed pools per layer, and the layout's shared leaves (block tables,
+    hot window) broadcast over the layer dim as a view."""
+    lay = get_layout(cache)
+    return {key: (leaf[None].expand((n,) + leaf.shape)
+                  if key in lay.shared_leaves
+                  else torch.zeros((n,) + leaf.shape, dtype=leaf.dtype,
+                                   device=leaf.device))
+            for key, leaf in cache.items()}
+
+
+def with_block_tables(cache_tree, tables, hot_window=None):
     """Refresh every paged layout's table leaves with ``tables`` (B, W),
-    broadcast (a view, no copy) over each leaf's leading layer dim."""
+    broadcast (a view, no copy) over each leaf's leading layer dim.
+    ``hot_window`` (optional int) also rewrites every ``hw`` copy of the
+    tiered layouts, with the same broadcast."""
     tables = torch.as_tensor(tables, dtype=torch.int32)
 
     def walk(node):
@@ -175,9 +289,51 @@ def with_block_tables(cache_tree, tables):
                 if lay is not None and key in lay.table_leaves:
                     t = tables.to(val.device)
                     out[key] = t[None].expand((val.shape[0],) + t.shape)
+                elif (lay is not None and lay.quantized and key == 'hw'
+                        and hot_window is not None):
+                    hw = torch.tensor([hot_window], dtype=torch.int32,
+                                      device=val.device)
+                    out[key] = hw[None].expand(val.shape[0], 1)
                 else:
                     out[key] = walk(val)
             return out
+        return node
+
+    return walk(cache_tree)
+
+
+def quantize_tree_pages(cache_tree, pages) -> dict:
+    """Apply each quantized layout's :meth:`~CacheLayout.quantize_pages` to
+    every matching node of a (possibly layer-stacked) cache tree. Page
+    indices are physical, so one vector covers every layer. In place."""
+    def walk(node):
+        if isinstance(node, dict):
+            lay = match_layout(node)
+            if lay is not None and lay.quantized:
+                return lay.quantize_pages(node, pages)
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    return walk(cache_tree)
+
+
+def copy_tree_pages(cache_tree, src: int, dst: int) -> dict:
+    """Copy one physical page ``src`` onto ``dst`` in every per-page leaf
+    (fp pools, int8 tiers, scales) of every paged node — the copy-on-write
+    split of a fully covered shared prefix. In place."""
+    def walk(node):
+        if isinstance(node, dict):
+            lay = match_layout(node)
+            if lay is not None and lay.scrub_leaves:
+                stacked = node[lay.table_leaves[0]].ndim == 3
+                for key in lay.scrub_leaves:
+                    leaf = node[key]
+                    if stacked:
+                        leaf[:, dst] = leaf[:, src]
+                    else:
+                        leaf[dst] = leaf[src]
+                return node
+            return {k: walk(v) for k, v in node.items()}
         return node
 
     return walk(cache_tree)

@@ -1,4 +1,5 @@
-"""Serving-step builders: prefill and greedy single-token decode (port of
+"""Serving-step builders: prefill, chunked prefill and greedy single-token
+decode (port of
 ``repro/runtime/serve_step.py``). PyTorch runs eagerly, so a "step" is a
 closure over the config; sampling comes with a later slice."""
 
@@ -19,6 +20,19 @@ def make_prefill_step(cfg, yoco: YocoConfig = DEFAULT_YOCO,
         return model_mod.prefill(params, batch, cache, cfg, yoco, rt,
                                  last_pos=last_pos)
     return prefill_step
+
+
+def make_chunk_prefill_step(cfg, yoco: YocoConfig = DEFAULT_YOCO,
+                            rt: ModelRuntime = DEFAULT_RT):
+    """Chunked-prefill step ``(params, batch, offset, limit, cache) ->
+    (logits, cache)``: one C-token slice of a longer prompt at absolute
+    positions [offset, min(offset + C, limit)). The serve loop runs it over a
+    prompt's chunks; prefix-cache hits prefill only the unshared suffix.
+    The logits are meaningful on the final chunk only."""
+    def chunk_prefill_step(params, batch, offset, limit, cache):
+        return model_mod.prefill_chunk(params, batch, offset, limit, cache,
+                                       cfg, yoco, rt)
+    return chunk_prefill_step
 
 
 def logits_health(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

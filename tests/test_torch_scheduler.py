@@ -128,8 +128,16 @@ def test_check_invariants_catches_corruption():
     kv.counts[1] = 1
     with pytest.raises(ValueError, match='owned twice'):
         kv.check_invariants()
-    with pytest.raises(NotImplementedError, match='prefix caching'):
-        tkvc.PagedKVCache(4, 4, 2, 1, prefix_cache=True)
+    # the sharing allocator audits its refcounts too
+    pc = tkvc.PagedKVCache(num_pages=6, page_size=4, max_blocks=3, slots=2,
+                           prefix_cache=True)
+    prompt = np.arange(1, 9, dtype=np.int32)
+    assert pc.admit_prompt(0, prompt) is not None
+    pc.seal_slot(0, prompt)
+    pc.check_invariants()
+    pc.refs[int(pc.tables[0, 0])] += 1
+    with pytest.raises(ValueError, match='refcount'):
+        pc.check_invariants()
 
 
 def test_event_log_terminal_accounting_audits():

@@ -131,8 +131,14 @@ def test_cli_runs_and_rejects_later_flags(capsys):
                        'w8a8', '--prequantize'])
     assert out['completed'] == 2
     assert '"completed": 2' in capsys.readouterr().out
-    for flags in (['--kv-quant'], ['--prefix-cache'], ['--chunk-prefill', '4'],
-                  ['--tp', '2'], ['--chaos'], ['--sample'], ['--metrics'],
+    for flags in (['--kv-quant', '--hot-window', '1'],
+                  ['--prefix-cache', '--shared-prefix', '4'],
+                  ['--chunk-prefill', '4']):
+        out = tserve.main(['--continuous', '--device', 'cpu', '--requests',
+                           '2', '--prompt-len', '8', '--gen-len', '4']
+                          + flags)
+        assert out['completed'] == 2
+    for flags in (['--tp', '2'], ['--chaos'], ['--sample'], ['--metrics'],
                   ['--trace', 'x.json'], ['--ragged'], []):
         args = flags + (['--continuous'] if flags else [])
         with pytest.raises(NotImplementedError):
