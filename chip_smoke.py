@@ -1,46 +1,67 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
+Two main paths: continuous paged serving of stablelm-1.6b (GQA; kernels
+K1-K6) and of deepseek-v3's dense prefix (its first 3 layers, MLA with a
+dense MLP, at the published width, the MoE layers dropped; registered at
+run time as ``deepseek-v3-dense3``; kernels K8-K10, and K3/K4 in dynamic
+w8a8).
+
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. build   — print the card's name and power limit, compile every CUDA
              kernel from ``src/repro_torch/csrc`` (one nvcc per source, all
              at once).
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             at the serving path's full-width shapes (int outputs and int8
-             codes bit-exact; attention 1e-5 on f32 and on bf16 pools, since
-             kernel and plain version both compute in f32 on the same pools,
-             with a sliding window on half the slots; K5 on the rows below
-             its limit, every row finite; K6 also bit-equal to K1 when the
-             hot window covers the table, over poisoned int8 pools) and time
-             kernel, plain version and, where one exists, the one PyTorch
-             call computing the same function (device time of each call's
-             kernels, from torch.profiler; CUDA events where the profiler
-             records no device kernel, named in each row's ``timer``).
-3. smoke   — the port's GPU path against its own CPU plain path on the smoke
-             config in f32: prefill plus decode in all three modes, decode
-             over the int8 tier (hot window 1), and a prefix hit served by
-             chunked prefill; logits within 1e-4 and equal greedy tokens.
-4. profile — the device busy share of a short full-width bf16 and
-             w8a8 --prequantize serve under torch.profiler (None where the
-             profiler records no device kernel).
-5. serve   — continuous paged serving of stablelm-1.6b at the published
-             width (random weights from a seed) in bf16, w8a8 --prequantize
-             and dynamic w8a8, plus one bf16 run whose pool forces
-             preemption; then bf16 and w8a8 --prequantize with the int8 KV
-             tier (--kv-quant --hot-window 2), and a stream of 128-token
-             prompts sharing a 96-token prefix served privately, with
-             --prefix-cache --chunk-prefill 32, and with --prefix-cache
-             --kv-quant --hot-window 2. Every request must finish, no lane
-             may produce a non-finite logits row, and each kernel's launch
-             counter must show the run went through it (K1 24 times per
-             decode step, K6 in its place with the tier; K5 24 times per
-             prefill chunk; K3 and K2 169 times per forward with
-             --prequantize); the tier must quantize pages, and the prefix
-             cache must hit on at least 15 of 16 admissions with fewer peak
-             pages than the private run.
+             at the serving paths' full-width shapes (K3/K4 at the linear
+             shapes of both models, K2 at stablelm's; int outputs and int8
+             codes bit-exact; GQA attention 1e-5 on f32 and on bf16 pools,
+             since kernel and plain version both compute in f32 on the same
+             pools, with a sliding window on half the slots; K5 and K9 on
+             the rows below their limit, every row finite; K6 also
+             bit-equal to K1, and K10 to K8, when the hot window covers the
+             table, over poisoned int8 pools; MLA attention 2e-5, the
+             reference's tolerance, at H=128, DK=576, r=512, with the
+             kernels' resident blocks per SM) and time kernel, plain
+             version and, where one exists, the one PyTorch call computing
+             the same function (device time of each call's kernels, from
+             torch.profiler; CUDA events where the profiler records no
+             device kernel, named in each row's ``timer``).
+3. smoke   — the port's GPU path against its own CPU plain path on each
+             smoke config in f32: prefill plus decode in every served mode,
+             decode over the int8 tier (hot window 1), and a prefix hit
+             served by chunked prefill; every forward's logits within
+             1e-4 and equal greedy tokens. The card runs first; the CPU
+             run takes the card's int8 codes (K3, the tier's page
+             quantize) where its own differ by rounding-boundary flips
+             only, and fails on any other difference (see SMOKE_TOL).
+4. profile — the device busy share of a short full-width serve under
+             torch.profiler: stablelm in bf16 and w8a8 --prequantize, the
+             dense prefix in bf16 (None where the profiler records no
+             device kernel).
+5. serve   — continuous paged serving at the published width (random
+             weights from a seed). stablelm-1.6b in bf16, w8a8
+             --prequantize and dynamic w8a8, plus one bf16 run whose pool
+             forces preemption; then bf16 and w8a8 --prequantize with the
+             int8 KV tier (--kv-quant --hot-window 2), and a stream of
+             128-token prompts sharing a 96-token prefix served privately,
+             with --prefix-cache --chunk-prefill 32, and with
+             --prefix-cache --kv-quant --hot-window 2. The dense prefix in
+             bf16, dynamic w8a8, bf16 with the int8 latent tier, and the
+             same three shared-prefix runs. Every request must finish, no
+             lane may produce a non-finite logits row, and each kernel's
+             launch counter must equal the path's (K1 24 times per decode
+             step, K6 in its place with the tier; K5 24 times per prefill
+             chunk; K3 and K2 169 times per forward with --prequantize;
+             K8 3 times per decode step, K10 in its place with the tier,
+             K9 3 times per prefill chunk, and in dynamic w8a8 22 linears
+             per decode step or chunk, 25 per monolithic prefill); the tier
+             must quantize pages, and the prefix cache must hit on at least
+             15 of 16 admissions with fewer peak pages than the private
+             run.
 
-Prints a ``{"kernels": [...]}`` line, a ``{"serve": [...]}`` line, the
+Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
+runs on, with that path's launches), a ``{"serve": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
 reports) go to ``build/chip_smoke.json``.
@@ -68,6 +89,25 @@ BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor rate
 ARCH = 'stablelm-1.6b'
 LAYERS_FULL = 24
 LINEARS_PER_FORWARD = 7 * LAYERS_FULL + 1      # q k v o gate up down + lm_head
+# deepseek-v3's dense prefix: its first 3 layers (MLA + a dense SwiGLU MLP
+# of d_ff 18432) at the published width, the 58 MoE layers dropped;
+# registered at run time by register_dense_prefix()
+MLA_ARCH = 'deepseek-v3-dense3'
+MLA_LAYERS = 3
+# linears a forward runs per MLA layer: w_dq w_uq w_dkv wo + gate up down;
+# a monolithic prefill also expands k/v through w_ukv (decode and chunks
+# absorb it into f32 einsums instead); plus one lm_head per forward
+MLA_LINEARS_DECODE = 7 * MLA_LAYERS + 1
+MLA_LINEARS_PREFILL = 8 * MLA_LAYERS + 1
+# (K, N) of every linear each main path runs through K3/K4 (and K2):
+# stablelm q/k/v/o, MLP in and out, lm_head; the dense prefix's w_dq,
+# w_uq, w_dkv, wo, MLP in and out, lm_head, and the prefill's w_ukv
+LINEAR_SHAPES = (
+    (ARCH, ((2048, 2048), (2048, 5632), (5632, 2048), (2048, 100352)), True),
+    (MLA_ARCH, ((7168, 1536), (1536, 24576), (7168, 576), (16384, 7168),
+                (7168, 18432), (18432, 7168), (7168, 129280), (512, 32768)),
+     False),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -77,6 +117,22 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def register_dense_prefix():
+    """Register deepseek-v3's dense prefix, ``replace(FULL, n_layers=3,
+    moe=None)`` (and the smoke config cut the same way), as MLA_ARCH;
+    returns the full config."""
+    import dataclasses
+
+    from repro_torch import configs
+    full = configs.get('deepseek-v3-671b')
+    smoke = configs.get('deepseek-v3-671b', smoke=True)
+    configs.base.register(
+        dataclasses.replace(full, name=MLA_ARCH, n_layers=MLA_LAYERS,
+                            moe=None),
+        dataclasses.replace(smoke, name=MLA_ARCH, moe=None))
+    return configs.get(MLA_ARCH)
 
 
 def smi_line() -> str:
@@ -225,65 +281,79 @@ def kernel_phase(torch, kmods):
                None, nbytes, source='src/repro_torch/csrc/flash_decode.cu',
                replaces='src/repro/kernels/flash_decode.py:304')
 
-    # K3 / K2 / K4 at the linears' shapes: M in {8 slots, 128-token prompt}
-    kn = ((2048, 2048), (2048, 5632), (5632, 2048), (2048, 100352))
-    for m in (8, 128):
+    # K3 / K2 / K4 at each main path's linear shapes, M in {8 slots,
+    # 128-token prompt}: K3 on the bf16 activation and on the f32 weight's
+    # transpose (dynamic w8a8 quantizes it every call), K4 on both; K2 on
+    # stablelm only (the dense prefix is served without --prequantize)
+    for arch, kn, with_k2 in LINEAR_SHAPES:
+        seen = set()                    # one K3 activation row per (M, K)
         for k, n in kn:
-            x = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            x[0, :] = 0              # an all-zero row: scale 1e-8 / 127
             wf = torch.randn((k, n), generator=gen, device=dev)
-            xq, sx = kq.quantize_rows(x)
-            xq_p, sx_p = kq.quantize_rows_plain(x)
-            torch.cuda.synchronize()
-            check(bool(torch.equal(xq, xq_p) and torch.equal(sx, sx_p)),
-                  f'K3 ({m},{k}) bf16 not bit-exact')
-            record('quantize_rows', dict(M=m, K=k, dtype='bfloat16'), 0.0,
-                   0.0, lambda: kq.quantize_rows(x),
-                   lambda: kq.quantize_rows_plain(x), None,
-                   m * k * 2 + m * k + m * 4,
-                   source='src/repro_torch/csrc/quantize.cu',
-                   replaces='src/repro/kernels/quantize.py:35')
             wt = wf.t().contiguous()          # dynamic w8a8: rows of w.T
+            del wf
             wq_t, sw_t = kq.quantize_rows(wt)
             wq_tp, sw_tp = kq.quantize_rows_plain(wt)
             torch.cuda.synchronize()
             check(bool(torch.equal(wq_t, wq_tp) and torch.equal(sw_t, sw_tp)),
                   f'K3 ({n},{k}) f32 not bit-exact')
-            if m == 8:
-                record('quantize_rows', dict(M=n, K=k, dtype='float32'), 0.0,
-                       0.0, lambda: kq.quantize_rows(wt),
-                       lambda: kq.quantize_rows_plain(wt), None,
-                       n * k * 4 + n * k + n * 4,
-                       source='src/repro_torch/csrc/quantize.cu',
-                       replaces='src/repro/kernels/quantize.py:35')
+            del wq_tp, sw_tp
+            record('quantize_rows', dict(arch=arch, M=n, K=k,
+                                         dtype='float32'), 0.0, 0.0,
+                   lambda: kq.quantize_rows(wt),
+                   lambda: kq.quantize_rows_plain(wt), None,
+                   n * k * 4 + n * k + n * 4,
+                   source='src/repro_torch/csrc/quantize.cu',
+                   replaces='src/repro/kernels/quantize.py:35')
+            del wt
             wq = wq_t.t().contiguous()
             sw = sw_t.reshape(1, n).contiguous()
-            acc = ky.int8_matmul(xq, wq)
-            acc_p = ky.int8_matmul_plain(xq, wq)
-            torch.cuda.synchronize()
-            check(bool(torch.equal(acc, acc_p)),
-                  f'K2 ({m},{k},{n}) not bit-exact')
-            mm_bytes = m * k + k * n
-            record('int8_matmul', dict(M=m, K=k, N=n), 0.0, 0.0,
-                   lambda: ky.int8_matmul(xq, wq),
-                   lambda: ky.int8_matmul_plain(xq, wq),
-                   lambda: torch._int_mm(xq, wq),
-                   mm_bytes + 4 * m * n, 2.0 * m * k * n,
-                   source='src/repro_torch/csrc/yoco_vmm.cu',
-                   replaces='src/repro/kernels/yoco_vmm.py:116')
-            y = ky.yoco_vmm_int8(xq, wq, sx, sw)
-            y_p = ky.yoco_vmm_int8_plain(xq, wq, sx, sw)
-            torch.cuda.synchronize()
-            check(bool(torch.equal(y, y_p)),
-                  f'K4 ({m},{k},{n}) differs from its plain version')
-            record('yoco_vmm_int8', dict(M=m, K=k, N=n), 0.0, 0.0,
-                   lambda: ky.yoco_vmm_int8(xq, wq, sx, sw),
-                   lambda: ky.yoco_vmm_int8_plain(xq, wq, sx, sw), None,
-                   mm_bytes + 4 * (m + n) + 4 * m * n, 2.0 * m * k * n,
-                   source='src/repro_torch/csrc/yoco_vmm.cu',
-                   replaces='src/repro/kernels/yoco_vmm.py:65')
-            del wf, wt, wq_t, wq_tp, wq, acc, acc_p, y, y_p
+            del wq_t
+            for m in (8, 128):
+                x = torch.randn((m, k), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                x[0, :] = 0          # an all-zero row: scale 1e-8 / 127
+                xq, sx = kq.quantize_rows(x)
+                xq_p, sx_p = kq.quantize_rows_plain(x)
+                torch.cuda.synchronize()
+                check(bool(torch.equal(xq, xq_p) and torch.equal(sx, sx_p)),
+                      f'K3 ({m},{k}) bf16 not bit-exact')
+                if (m, k) not in seen:
+                    seen.add((m, k))
+                    record('quantize_rows', dict(arch=arch, M=m, K=k,
+                                                 dtype='bfloat16'), 0.0,
+                           0.0, lambda: kq.quantize_rows(x),
+                           lambda: kq.quantize_rows_plain(x), None,
+                           m * k * 2 + m * k + m * 4,
+                           source='src/repro_torch/csrc/quantize.cu',
+                           replaces='src/repro/kernels/quantize.py:35')
+                mm_bytes = m * k + k * n
+                if with_k2:
+                    acc = ky.int8_matmul(xq, wq)
+                    acc_p = ky.int8_matmul_plain(xq, wq)
+                    torch.cuda.synchronize()
+                    check(bool(torch.equal(acc, acc_p)),
+                          f'K2 ({m},{k},{n}) not bit-exact')
+                    del acc, acc_p
+                    record('int8_matmul', dict(arch=arch, M=m, K=k, N=n),
+                           0.0, 0.0, lambda: ky.int8_matmul(xq, wq),
+                           lambda: ky.int8_matmul_plain(xq, wq),
+                           lambda: torch._int_mm(xq, wq),
+                           mm_bytes + 4 * m * n, 2.0 * m * k * n,
+                           source='src/repro_torch/csrc/yoco_vmm.cu',
+                           replaces='src/repro/kernels/yoco_vmm.py:116')
+                y = ky.yoco_vmm_int8(xq, wq, sx, sw)
+                y_p = ky.yoco_vmm_int8_plain(xq, wq, sx, sw)
+                torch.cuda.synchronize()
+                check(bool(torch.equal(y, y_p)),
+                      f'K4 ({m},{k},{n}) differs from its plain version')
+                del y, y_p
+                record('yoco_vmm_int8', dict(arch=arch, M=m, K=k, N=n), 0.0,
+                       0.0, lambda: ky.yoco_vmm_int8(xq, wq, sx, sw),
+                       lambda: ky.yoco_vmm_int8_plain(xq, wq, sx, sw), None,
+                       mm_bytes + 4 * (m + n) + 4 * m * n, 2.0 * m * k * n,
+                       source='src/repro_torch/csrc/yoco_vmm.cu',
+                       replaces='src/repro/kernels/yoco_vmm.py:65')
+            del wq, sw
     return rows
 
 
@@ -440,10 +510,272 @@ def tier_chunk_kernel_phase(torch, kmods):
     return rows
 
 
+def mla_kernel_phase(torch, kmods):
+    """K8 (absorbed MLA paged decode), K9 (its chunked prefill) and K10
+    (K8 over the int8 latent tier) against their plain versions at
+    deepseek-v3's full width: H=128, DK = r + d_rope = 576, r=512, page
+    size 8, W=20 (128 + 32 tokens). Tolerance 2e-5, the reference's own
+    for its MLA kernel against the absorbed oracle on f32 latents (kernel
+    and plain version both compute in f32, bf16 pools included); K9 on
+    the rows below its limit, every row finite; K10 with a hot window
+    covering the table bit-equal to K8 over poisoned int8 pools. Bounds:
+    the larger of the latent rows each slot's live pages hold (from their
+    tier, plus a scale per cold page), q in and the f32 latent out over
+    3.35 TB/s, and 2*H*(DK + r) flops a visible key and row over the bf16
+    tensor rate."""
+    from repro_torch.runtime import kv_quant as kvq
+
+    fd, build = kmods[0], kmods[3]
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    src = 'src/repro_torch/csrc/flash_decode.cu'
+    h, r, dr, ps, w = 128, 512, 64, 8, 20
+    dk = r + dr
+    scale = 1.0 / (128 + 64) ** 0.5            # 1/sqrt(nope + rope)
+    tol = 2e-5
+    flops_per_key = 2.0 * h * (dk + r)
+    occupancy = {}
+    import ctypes
+    fn = build.function('flash_decode', 'flash_mla_occupancy',
+                        [build.I] * 5 + [build.P, build.P])
+    for tiered in (0, 1):
+        for bf16 in (1, 0):
+            blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+            build.check(fn(h, dk, r, bf16, tiered, ctypes.byref(blocks),
+                           ctypes.byref(smem)), 'flash_decode',
+                        'flash_mla_occupancy')
+            occupancy[f'{"K10" if tiered else "K8/K9"} '
+                      f'{"bf16" if bf16 else "f32"}'] = dict(
+                blocks_per_sm=blocks.value, smem_bytes=smem.value)
+    print(f'MLA kernels, resident blocks per SM: {json.dumps(occupancy)}',
+          flush=True)
+
+    # K8 and K10: B=8 slots at positions 96..159 (prompts of 128 and their
+    # generation) and one idle slot at pos 0 against the garbage page; no
+    # window (MLA never windows)
+    b = 8
+    n_pages = 1 + b * w
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1) \
+        .reshape(b, w).to(torch.int32).contiguous()
+    pos = torch.randint(96, w * ps, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos[0] = 0
+    bt[0] = 0
+    pos[2] = w * ps - 1
+    win = torch.full((b,), w * ps + 1, dtype=torch.int32, device=dev)
+    q = torch.randn((b, 1, h, dk), generator=gen, device=dev)
+    pos_h = pos.cpu().tolist()
+    live_keys = sum(p + 1 for p in pos_h)
+    q_out_bytes = b * h * (dk + r) * 4
+    hw = 2
+    hwt = torch.tensor([hw], dtype=torch.int32, device=dev)
+    cold = kvq.cold_page_list(bt.cpu(), pos_h, ps, hw)
+    check(len(cold) >= 60, f'K10 case has only {len(cold)} cold pages')
+    for dt in (torch.bfloat16, torch.float32):
+        cl = torch.randn((n_pages, ps, dk), generator=gen, device=dev).to(dt)
+        elt = cl.element_size()
+        args = (q, cl, pos, win, bt)
+        got = fd.flash_decode_mla_paged(*args, scale=scale, r=r)
+        want = fd.flash_decode_mla_paged_plain(*args, scale=scale, r=r)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), 'K8 output not finite')
+        err = float((got - want).abs().max())
+        shape = dict(B=b, H=h, DK=dk, r=r, page_size=ps, W=w,
+                     pool=str(dt).replace('torch.', ''),
+                     live_keys=live_keys, idle_slots=1)
+        record_row(torch, rows, 'flash_decode_paged_mla', shape, err, tol,
+                   lambda: fd.flash_decode_mla_paged(*args, scale=scale,
+                                                     r=r),
+                   lambda: fd.flash_decode_mla_paged_plain(*args,
+                                                           scale=scale, r=r),
+                   None, live_keys * dk * elt + q_out_bytes,
+                   flops_per_key * live_keys, BF16_OPS_PER_S, source=src,
+                   replaces='src/repro/kernels/flash_decode.py:365')
+
+        c = dict(cl=cl, clq=torch.zeros((n_pages, ps, dk), dtype=torch.int8,
+                                        device=dev),
+                 cs=torch.zeros((n_pages, 1), device=dev))
+        kvq.quantize_latent_pages_layer(c, torch.tensor(cold, device=dev))
+        qargs = (q, cl, c['clq'], c['cs'], pos, win, bt, hwt)
+        got = fd.flash_decode_mla_paged_q8(*qargs, scale=scale, r=r)
+        want = fd.flash_decode_mla_paged_q8_plain(*qargs, scale=scale, r=r)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), 'K10 output not finite')
+        err = float((got - want).abs().max())
+        nbytes = q_out_bytes
+        for p_ in pos_h:
+            first_hot = p_ // ps - hw + 1
+            for blk in range(p_ // ps + 1):
+                n = min(ps, p_ + 1 - blk * ps)     # live rows of the page
+                nbytes += n * dk * (elt if blk >= first_hot else 1)
+                nbytes += 0 if blk >= first_hot else 4
+        record_row(torch, rows, 'flash_decode_paged_mla_q8',
+                   dict(shape, hot_window=hw, cold_pages=len(cold)), err, tol,
+                   lambda: fd.flash_decode_mla_paged_q8(*qargs, scale=scale,
+                                                        r=r),
+                   lambda: fd.flash_decode_mla_paged_q8_plain(
+                       *qargs, scale=scale, r=r),
+                   None, nbytes, flops_per_key * live_keys, BF16_OPS_PER_S,
+                   source=src,
+                   replaces='src/repro/kernels/flash_decode.py:556')
+        # what the tier costs on the device: K8 over the same fp pool
+        rows[-1]['k8_ms_same_inputs'], _ = device_ms(
+            torch, lambda: fd.flash_decode_mla_paged(*args, scale=scale,
+                                                     r=r))
+        # a hot window covering the table never reads the int8 tier: K10
+        # is then bit-equal to K8, even over poisoned int8 pools
+        c['clq'][::2] = 127
+        c['clq'][1::2] = -127
+        c['cs'][::2] = float('nan')
+        c['cs'][1::2] = 1e6
+        full = torch.tensor([w], dtype=torch.int32, device=dev)
+        q8 = fd.flash_decode_mla_paged_q8(q, cl, c['clq'], c['cs'], pos, win,
+                                          bt, full, scale=scale, r=r)
+        k8 = fd.flash_decode_mla_paged(*args, scale=scale, r=r)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(q8, k8)),
+              f'K10 with hw >= W differs from K8 ({dt}): max '
+              f'{float((q8 - k8).abs().max())}')
+        rows[-1]['bit_equal_k8_at_full_hot_window'] = True
+        del c, q8, k8
+
+    # K9: one admission, limit 128: C=8 at offsets 96 and 120 (the first
+    # and last page-size chunk of a prefix hit's suffix), C=32 at offset 96
+    # (the suffix at --chunk-prefill 32; C*H = 1024 and 4096 rows) and an
+    # unaligned C=7 whose last 3 positions (384 rows) are padding
+    b, limit = 1, 128
+    n_pages = 1 + w
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1) \
+        .reshape(b, w).to(torch.int32).contiguous()
+    for dt in (torch.bfloat16, torch.float32):
+        cl = torch.randn((n_pages, ps, dk), generator=gen, device=dev).to(dt)
+        for cc, off in ((8, 96), (8, 120), (32, 96), (7, 124)):
+            qc = torch.randn((b, 1, cc * h, dk), generator=gen, device=dev)
+            offv, posv, winv = fd._chunk_scalars(off, limit, None, b, cc,
+                                                 w * ps, dev)
+            args = (qc, cl, posv, winv, bt, offv)
+            got = fd.flash_decode_mla_paged(*args, scale=scale, r=r,
+                                            chunk=cc)
+            want = fd.flash_decode_mla_paged_plain(*args, scale=scale, r=r,
+                                                   chunk=cc)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f'K9 C={cc} offset={off}: output not finite')
+            n_valid = min(cc, limit - off)
+            valid = off + torch.arange(cc * h, device=dev) // h < limit
+            err = float((got - want)[:, :, valid].abs().max())
+            keys = int(posv[0]) + 1             # keys [0, pos]
+            nbytes = (keys * dk * cl.element_size()
+                      + n_valid * h * (dk + r) * 4)
+            row_keys = sum(off + i + 1 for i in range(n_valid))
+            record_row(torch, rows, 'flash_chunk_paged_mla',
+                       dict(B=b, H=h, DK=dk, r=r, page_size=ps, W=w, C=cc,
+                            offset=off, limit=limit,
+                            pool=str(dt).replace('torch.', ''),
+                            rows=cc * h, padding_rows=(cc - n_valid) * h,
+                            all_rows_max_abs_err=float(
+                                (got - want).abs().max())),
+                       err, tol,
+                       lambda: fd.flash_decode_mla_paged(
+                           *args, scale=scale, r=r, chunk=cc),
+                       lambda: fd.flash_decode_mla_paged_plain(
+                           *args, scale=scale, r=r, chunk=cc),
+                       None, nbytes, flops_per_key * row_keys,
+                       BF16_OPS_PER_S, source=src,
+                       replaces='src/repro/kernels/flash_decode.py:889')
+    for row in rows:
+        row['occupancy'] = occupancy
+    return rows
+
+
 # ----------------------------------------------------------------------------
 # phase 3: GPU path vs the CPU plain path, smoke config, f32
 # ----------------------------------------------------------------------------
-def smoke_phase(torch):
+# GPU-vs-CPU logits tolerance of the smoke parity runs, every forward: f32
+# end to end the two paths differ by reduction order only. Some f32
+# results (rmsnorm, the absorb and W_uv einsums) end a few ulps apart on
+# the two devices, and a value that close to an int8 rounding boundary
+# takes the neighbouring code on one side (K3 in w8a8, the tier's page
+# quantize); left alone, one such code moved the dense prefix's logits by
+# 0.0444 (dynamic w8a8) or 7.9e-4 (latent tier at hot window 1) on an
+# H100. So the card runs first and records every int8 code it
+# quantizes; the CPU run then takes the card's codes wherever its own are
+# at most rounding-boundary flips of them (one code step, in at most
+# max(4, 1%) of a call's codes; anything else fails), and every forward is
+# held to 1e-4 on equal codes. K3, K4 and the page quantize are exact on
+# equal inputs (phase 2).
+SMOKE_TOL = 1e-4
+
+
+def _match_codes(mine, card, forward, flips):
+    """The card's int8 codes ``card`` for a quantization whose codes here
+    are ``mine``, once they differ by rounding-boundary flips only: one
+    code step, in at most max(4, 1%) of the codes. Each flip is recorded
+    in ``flips``."""
+    check(mine.shape == card.shape, f'int8 codes {tuple(mine.shape)} on the '
+                                    f'CPU, {tuple(card.shape)} on the card')
+    step = (mine.short() - card.short()).abs()
+    n = int((step > 0).sum())
+    if n:
+        flip = dict(forward=forward, codes=n, of=step.numel(),
+                    max_step=int(step.max()))
+        check(flip['max_step'] == 1 and n <= max(4, step.numel() // 100),
+              f'int8 codes differ beyond rounding-boundary flips: {flip}')
+        flips.append(flip)
+    return card
+
+
+class _K3Codes:
+    """While active, records the int8 codes of every K3 call, each tagged
+    with the forward that made it (``forward``, set by the caller). Given
+    the card run's record as ``follow``, each call returns the card's codes
+    instead, through :func:`_match_codes`."""
+
+    def __init__(self, follow=None):
+        self.forward, self.codes, self.flips = 0, [], []
+        self._follow = follow
+
+    def __enter__(self):
+        from repro_torch.kernels import quantize as kq
+        self._kq, self._orig = kq, kq.quantize_rows
+
+        def recorded(x):
+            q, s = self._orig(x)
+            if self._follow is not None:
+                check(len(self.codes) < len(self._follow),
+                      'more K3 calls on the CPU than on the card')
+                fwd, card = self._follow[len(self.codes)]
+                check(fwd == self.forward, f'K3 call {len(self.codes)} in '
+                      f'forward {self.forward} here, {fwd} on the card')
+                q = _match_codes(q, card.to(q.device), fwd, self.flips)
+            self.codes.append((self.forward, q.cpu()))
+            return q, s
+        kq.quantize_rows = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._kq.quantize_rows = self._orig
+
+
+def _hold_smoke(tag, cpu, gpu):
+    """Hold every forward of a smoke run to SMOKE_TOL and the greedy tokens
+    to equality; returns the report row's numbers. ``cpu``, ``gpu``:
+    (logits by forward, tokens, codes, code flips)."""
+    import torch
+    per = _per_step(cpu[0], gpu[0])
+    check(len(cpu[2]) == len(gpu[2]),
+          f'{tag}: {len(cpu[2])} int8 quantizations on the CPU, '
+          f'{len(gpu[2])} on the card')
+    check(max(per) <= SMOKE_TOL, f'{tag}: GPU vs CPU logits differ by '
+                                 f'{max(per)} > {SMOKE_TOL}')
+    check(bool(torch.equal(cpu[1], gpu[1])), f'{tag}: greedy tokens differ')
+    return dict(max_abs_logit_err=max(per), tol=SMOKE_TOL,
+                code_flips=cpu[3], per_step=per)
+
+
+def smoke_phase(torch, arch=ARCH, modes=(('bf16', False), ('w8a8', True),
+                                          ('w8a8', False))):
     from repro_torch import configs
     from repro_torch.core import yoco_linear
     from repro_torch.core.yoco_linear import YocoConfig
@@ -451,7 +783,7 @@ def smoke_phase(torch):
     from repro_torch.runtime import kv_cache as kvc
     from repro_torch.runtime import layouts
 
-    cfg = configs.get(ARCH, smoke=True)
+    cfg = configs.get(arch, smoke=True)
     f32 = torch.float32
     base = M.init_params(torch.Generator().manual_seed(0), cfg, device='cpu')
     b, plen, steps, ps = 4, 12, 8, 4
@@ -459,12 +791,12 @@ def smoke_phase(torch):
     gen = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen)
     results = []
-    for mode, prequant in (('bf16', False), ('w8a8', True), ('w8a8', False)):
+    for mode, prequant in modes:
         yoco = YocoConfig(mode=mode, compute_dtype=f32)
         rt = M.ModelRuntime(attn_impl='flash', compute_dtype=f32)
         host = yoco_linear.quantize_tree(base) if prequant else base
         runs = {}
-        for dev in ('cpu', 'cuda'):
+        for dev in ('cuda', 'cpu'):     # the CPU run follows the card's codes
             params = _to(host, dev)
             kv = kvc.PagedKVCache(1 + b * max_blocks, ps, max_blocks, b)
             cache = M.init_paged_cache_tree(
@@ -473,33 +805,37 @@ def smoke_phase(torch):
             for s in range(b):
                 kv.alloc_blocks(s, max_blocks)
             cache = layouts.with_block_tables(cache, kv.tables)
-            logits, cache = M.prefill(params, dict(inputs=prompts.to(dev)),
-                                      cache, cfg, yoco, rt)
-            rows, toks = [logits.cpu()], []
-            tok = torch.argmax(logits, -1)
-            for i in range(steps):
-                toks.append(tok.cpu())
-                pos = torch.full((b,), plen + i, dtype=torch.int32, device=dev)
-                logits, cache = M.decode_step(params, tok, pos, cache, cfg,
-                                              yoco, rt)
-                rows.append(logits.cpu())
+            follow = runs['cuda'][2] if dev == 'cpu' else None
+            with _K3Codes(follow) as k3:
+                logits, cache = M.prefill(params,
+                                          dict(inputs=prompts.to(dev)),
+                                          cache, cfg, yoco, rt)
+                rows, toks = [logits.cpu()], []
                 tok = torch.argmax(logits, -1)
-            runs[dev] = (torch.stack(rows), torch.stack(toks))
-        err = float((runs['cpu'][0] - runs['cuda'][0]).abs().max())
-        check(err <= 1e-4, f'smoke {mode} prequant={prequant}: GPU vs CPU '
-                           f'logits differ by {err} > 1e-4')
-        check(bool(torch.equal(runs['cpu'][1], runs['cuda'][1])),
-              f'smoke {mode} prequant={prequant}: greedy tokens differ')
-        results.append(dict(mode=mode, prequantize=prequant,
-                            max_abs_logit_err=err, tol=1e-4))
+                for i in range(steps):
+                    k3.forward = i + 1
+                    toks.append(tok.cpu())
+                    pos = torch.full((b,), plen + i, dtype=torch.int32,
+                                     device=dev)
+                    logits, cache = M.decode_step(params, tok, pos, cache,
+                                                  cfg, yoco, rt)
+                    rows.append(logits.cpu())
+                    tok = torch.argmax(logits, -1)
+            runs[dev] = (torch.stack(rows), torch.stack(toks), k3.codes,
+                         k3.flips)
+        results.append(dict(arch=arch, mode=mode, prequantize=prequant,
+                            **_hold_smoke(f'smoke {arch} {mode} prequant='
+                                          f'{prequant}', runs['cpu'],
+                                          runs['cuda'])))
     return results
 
 
-def smoke_tier_prefix_phase(torch):
-    """The slice-2 paths on the smoke config in f32, GPU against CPU:
+def smoke_tier_prefix_phase(torch, arch=ARCH):
+    """The slice-2 paths on ``arch``'s smoke config in f32, GPU against CPU:
     decode over the int8 tier with hot window 1 (K6; aged-out pages
     quantized before each step), and a prefix hit whose unshared suffix is
-    prefilled in chunks (K5) and then decoded beside its donor (K1)."""
+    prefilled in chunks (K5) and then decoded beside its donor (K1); K10,
+    K9 and K8 on an MLA config."""
     from repro_torch import configs
     from repro_torch.core.yoco_linear import YocoConfig
     from repro_torch.models import model as M
@@ -507,7 +843,7 @@ def smoke_tier_prefix_phase(torch):
     from repro_torch.runtime import kv_quant as kvq
     from repro_torch.runtime import layouts
 
-    cfg = configs.get(ARCH, smoke=True)
+    cfg = configs.get(arch, smoke=True)
     f32 = torch.float32
     base = M.init_params(torch.Generator().manual_seed(0), cfg, device='cpu')
     yoco = YocoConfig(mode='bf16', compute_dtype=f32)
@@ -516,7 +852,7 @@ def smoke_tier_prefix_phase(torch):
     prompts = torch.randint(0, cfg.vocab_size, (4, 12), generator=gen)
     suffix = torch.randint(0, cfg.vocab_size, (5,), generator=gen)
 
-    def tier_run(dev):
+    def tier_run(dev, follow=None):
         b, plen, steps, ps = 4, 12, 8, 4
         w = -(-(plen + steps) // ps)
         params = _to(base, dev)
@@ -531,7 +867,7 @@ def smoke_tier_prefix_phase(torch):
         tier = kvq.KVTierTracker(1, ps)
         logits, cache = M.prefill(params, dict(inputs=prompts.to(dev)),
                                   cache, cfg, yoco, rt)
-        rows, toks, quantized = [logits.cpu()], [], 0
+        rows, toks, quantized, codes, flips = [logits.cpu()], [], 0, [], []
         tok = torch.argmax(logits, -1)
         for i in range(steps):
             toks.append(tok.cpu())
@@ -539,17 +875,31 @@ def smoke_tier_prefix_phase(torch):
                      for p in tier.aged_out(s, plen + i, kv.tables[s])]
             if pages:
                 quantized += len(pages)
-                cache = kvq.quantize_tree_pages(
-                    cache, torch.tensor(pages, device=dev))
+                idx = torch.tensor(pages, device=dev)
+                cache = kvq.quantize_tree_pages(cache, idx)
+                # the codes just written, first read by forward i + 1;
+                # int8 leaves are stacked (L, P, ...)
+                for _, leaf in sorted(cache['layers'].items()):
+                    if leaf.dtype != torch.int8:
+                        continue
+                    if follow is not None:
+                        check(len(codes) < len(follow)
+                              and follow[len(codes)][0] == i + 1,
+                              'the tier quantizes otherwise on the CPU')
+                        leaf[:, idx] = _match_codes(
+                            leaf[:, idx], follow[len(codes)][1].to(dev),
+                            i + 1, flips)
+                    codes.append((i + 1, leaf[:, idx].cpu()))
             pos = torch.full((b,), plen + i, dtype=torch.int32, device=dev)
             logits, cache = M.decode_step(params, tok, pos, cache, cfg,
                                           yoco, rt)
             rows.append(logits.cpu())
             tok = torch.argmax(logits, -1)
         check(quantized > 0, 'smoke tier run quantized no page')
-        return torch.stack(rows), torch.stack(toks)
+        return torch.stack(rows), torch.stack(toks), codes, flips
 
-    def prefix_run(dev):
+    def prefix_run(dev, follow=None):
+        del follow                      # no int8 tier: nothing quantized
         ps, w, steps, c = 4, 5, 6, 4
         params = _to(base, dev)
         donor = prompts[0].numpy()
@@ -590,20 +940,21 @@ def smoke_tier_prefix_phase(torch):
                 .to(dev), cache, cfg, yoco, rt)
             rows.append(logits.cpu())
             tok = torch.argmax(logits, -1)
-        return torch.cat(rows), torch.stack(toks)
+        return torch.cat(rows), torch.stack(toks), [], []
 
     results = []
     for name, fn in (('kv_quant hot_window=1', tier_run),
                      ('prefix hit, chunked prefill C=4', prefix_run)):
-        cpu, gpu = fn('cpu'), fn('cuda')
-        err = float((cpu[0] - gpu[0]).abs().max())
-        check(err <= 1e-4, f'smoke {name}: GPU vs CPU logits differ by '
-                           f'{err} > 1e-4')
-        check(bool(torch.equal(cpu[1], gpu[1])),
-              f'smoke {name}: greedy tokens differ')
-        results.append(dict(mode='bf16', path=name, max_abs_logit_err=err,
-                            tol=1e-4))
+        gpu = fn('cuda')
+        cpu = fn('cpu', gpu[2])         # the CPU run follows the card's codes
+        results.append(dict(arch=arch, mode='bf16', path=name,
+                            **_hold_smoke(f'smoke {arch} {name}', cpu, gpu)))
     return results
+
+
+def _per_step(a, b):
+    """Largest |a - b| of each forward's logits (leading axis)."""
+    return [float(x) for x in (a - b).abs().flatten(1).amax(dim=1)]
 
 
 def _to(tree, dev):
@@ -642,6 +993,17 @@ SERVE_RUNS = (
      dict(prefix_cache=True, chunk_prefill=32)),
     ('bf16', False, 8, 16, None, 'shared', dict(prefix_cache=True, **TIER)),
 )
+# deepseek-v3's dense prefix (MLA_ARCH): bf16 and dynamic w8a8 only (the
+# port refuses --prequantize on MLA, where the reference fails)
+MLA_SERVE_RUNS = (
+    ('bf16', False, 8, 16, None, 'ragged', {}),
+    ('w8a8', False, 8, 8, None, 'ragged', {}),
+    ('bf16', False, 8, 16, None, 'ragged', TIER),
+    ('bf16', False, 8, 16, None, 'shared', {}),
+    ('bf16', False, 8, 16, None, 'shared',
+     dict(prefix_cache=True, chunk_prefill=32)),
+    ('bf16', False, 8, 16, None, 'shared', dict(prefix_cache=True, **TIER)),
+)
 SHARED_PREFIX = 96
 
 
@@ -661,40 +1023,79 @@ def _stream(SV, cfg, kind, n_req):
 
 
 def _prefill_chunks(out, stream, opts):
-    """Chunked-prefill calls of a run, from its admit events: prefix hits
-    (prefill_start > 0) always take chunks, misses only with chunk_prefill."""
+    """(chunked-prefill calls, admissions prefilled in chunks) of a run,
+    from its admit events: prefix hits (prefill_start > 0) always take
+    chunks, misses only with chunk_prefill."""
     if out['chunk_prefill'] is None:
-        return 0
+        return 0, 0
     plen = {req.rid: len(req.prompt) for req in stream}
     c = out['chunk_prefill']
-    return sum(-(-(plen[e['rid']] - e['prefill_start']) // c)
-               for e in out['event_log'] if e['kind'] == 'admit'
-               and (opts.get('chunk_prefill') or e['prefill_start'] > 0))
+    admits = [e for e in out['event_log'] if e['kind'] == 'admit'
+              and (opts.get('chunk_prefill') or e['prefill_start'] > 0)]
+    return (sum(-(-(plen[e['rid']] - e['prefill_start']) // c)
+                for e in admits), len(admits))
 
 
-def serve_phase(torch, build):
+def _gqa_launches(out, mode, prequant, chunks, chunked_admits):
+    """Launches the stablelm path must make: K1 24 a decode step (K6 in
+    its place with the tier), K5 24 a prefill chunk, and per forward 169
+    linears (K3 + K2 with --prequantize, 2 K3 + K4 dynamic)."""
+    del chunked_admits
+    decode = LAYERS_FULL * out['steps']
+    want = dict(flash_decode_paged=0 if out['kv_quant'] else decode,
+                flash_decode_paged_q8=decode if out['kv_quant'] else 0,
+                flash_chunk_paged=LAYERS_FULL * chunks)
+    linears = LINEARS_PER_FORWARD * (out['steps'] + out['events']['admit'])
+    if mode == 'w8a8' and prequant:
+        want.update(quantize_rows=linears, int8_matmul=linears)
+    elif mode == 'w8a8':
+        want.update(quantize_rows=2 * linears, yoco_vmm_int8=linears)
+    return want
+
+
+def _mla_launches(out, mode, prequant, chunks, chunked_admits):
+    """Launches the dense-prefix MLA path must make: K8 3 a decode step
+    (K10 in its place with the tier), K9 3 a prefill chunk; in dynamic
+    w8a8, 22 linears a decode step or chunk and 25 a monolithic prefill
+    (w_ukv expands the prompt's k/v), each 2 K3 + 1 K4."""
+    check(not prequant, 'the port serves no --prequantize on MLA')
+    decode = MLA_LAYERS * out['steps']
+    want = dict(flash_decode_paged_mla=0 if out['kv_quant'] else decode,
+                flash_decode_paged_mla_q8=decode if out['kv_quant'] else 0,
+                flash_chunk_paged_mla=MLA_LAYERS * chunks)
+    if mode == 'w8a8':
+        monolithic = out['events']['admit'] - chunked_admits
+        linears = (MLA_LINEARS_DECODE * (out['steps'] + chunks)
+                   + MLA_LINEARS_PREFILL * monolithic)
+        want.update(quantize_rows=2 * linears, yoco_vmm_int8=linears)
+    return want
+
+
+def serve_phase(torch, build, arch=ARCH, runs=SERVE_RUNS,
+                launches_of=_gqa_launches):
+    """Serve each of ``runs`` on ``arch`` at full width and hold every
+    request, logits row and launch count to the path; returns (rows,
+    launch totals)."""
     from repro_torch import configs
     from repro_torch.launch import serve as SV
     from repro_torch.models import model as M
 
-    cfg = configs.get(ARCH, smoke=False)
-    check(cfg.n_layers == LAYERS_FULL and cfg.d_model == 2048,
-          'stablelm-1.6b FULL config changed')
+    cfg = configs.get(arch, smoke=False)
     gen = torch.Generator(device='cuda').manual_seed(0)
     params = M.init_params(gen, cfg, device='cuda')
     totals = {k: 0 for k in build.LAUNCHES}
     results = []
     private_peak = None
-    for mode, prequant, slots, n_req, num_pages, kind, opts in SERVE_RUNS:
+    for mode, prequant, slots, n_req, num_pages, kind, opts in runs:
         # warm-up (library handles, allocator) outside the measured run
-        SV.serve_continuous(ARCH, smoke=False, slots=slots, n_requests=1,
+        SV.serve_continuous(arch, smoke=False, slots=slots, n_requests=1,
                             prompt_len=128, gen_len=2, mode=mode,
                             prequantize=prequant, params=params, quiet=True,
                             **opts)
         torch.cuda.synchronize()
         stream = _stream(SV, cfg, kind, n_req)
         build.reset_counts()
-        out = SV.serve_continuous(ARCH, smoke=False, slots=slots,
+        out = SV.serve_continuous(arch, smoke=False, slots=slots,
                                   n_requests=n_req, prompt_len=128,
                                   gen_len=32, page_size=8,
                                   num_pages=num_pages, mode=mode,
@@ -703,26 +1104,16 @@ def serve_phase(torch, build):
                                   quiet=True, **opts)
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
-        tag = (f'serve {mode} prequant={prequant} pages={num_pages} '
+        tag = (f'serve {arch} {mode} prequant={prequant} pages={num_pages} '
                f'stream={kind} {opts}')
         check(out['completed'] == n_req and out['failed'] == 0
               and out['rejected'] == 0 and out['cancelled'] == 0,
               f'{tag}: not every request finished: {out["events"]}')
         check(out['quarantined'] == 0,
               f'{tag}: {out["quarantined"]} lanes had non-finite logits')
-        chunks = _prefill_chunks(out, stream, opts)
-        forwards = out['steps'] + out['events']['admit']
-        decode = LAYERS_FULL * out['steps']
-        want = dict(flash_decode_paged=0 if out['kv_quant'] else decode,
-                    flash_decode_paged_q8=decode if out['kv_quant'] else 0,
-                    flash_chunk_paged=LAYERS_FULL * chunks,
-                    quantize_rows=0, int8_matmul=0, yoco_vmm_int8=0)
-        if mode == 'w8a8' and prequant:
-            want.update(quantize_rows=LINEARS_PER_FORWARD * forwards,
-                        int8_matmul=LINEARS_PER_FORWARD * forwards)
-        elif mode == 'w8a8':
-            want.update(quantize_rows=2 * LINEARS_PER_FORWARD * forwards,
-                        yoco_vmm_int8=LINEARS_PER_FORWARD * forwards)
+        chunks, chunked_admits = _prefill_chunks(out, stream, opts)
+        want = {k: 0 for k in build.LAUNCHES}
+        want.update(launches_of(out, mode, prequant, chunks, chunked_admits))
         for name, n in want.items():
             check(launches[name] == n,
                   f'{tag}: {name} launched {launches[name]} times, '
@@ -746,6 +1137,7 @@ def serve_phase(torch, build):
             totals[k] += launches[k]
         decode_s = out['wall_s'] - out['prefill_s']
         results.append(dict(
+            arch=arch,
             decode_step_ms=decode_s / max(out['steps'], 1) * 1e3,
             mode=mode, prequantize=prequant, slots=slots, requests=n_req,
             num_pages=out['total_pages'] + 1, prompt_len=128, gen_len=32,
@@ -755,7 +1147,8 @@ def serve_phase(torch, build):
             decode_tokens=out['decode_tokens'], preempted=out['preempted'],
             peak_pages=out['peak_pages'],
             pages_quantized=out['pages_quantized'], prefix=out['prefix'],
-            prefill_chunks=chunks, launches=launches))
+            prefill_chunks=chunks,
+            launches={k: v for k, v in launches.items() if v}))
         print(f'serve run: {json.dumps(results[-1])}', flush=True)
     return results, totals
 
@@ -763,9 +1156,9 @@ def serve_phase(torch, build):
 # ----------------------------------------------------------------------------
 # phase 4: device busy share of full-width serving
 # ----------------------------------------------------------------------------
-def profile_phase(torch):
+def profile_phase(torch, arch=ARCH, modes=(('bf16', False), ('w8a8', True))):
     """Device busy share of full-width decode.
-    A short bf16 and w8a8 --prequantize serve, timed once bare and once
+    A short serve in each of ``modes``, timed once bare and once
     under ``torch.profiler``: the summed duration of every device kernel
     over the bare run's wall time, and the kernels that took most of it.
     Where the profiler records no device kernel, the share is reported as
@@ -774,25 +1167,26 @@ def profile_phase(torch):
     from repro_torch.launch import serve as SV
     from repro_torch.models import model as M
 
-    cfg = configs.get(ARCH, smoke=False)
+    cfg = configs.get(arch, smoke=False)
     params = M.init_params(torch.Generator(device='cuda').manual_seed(0),
                            cfg, device='cuda')
     out = []
-    for mode, prequant in (('bf16', False), ('w8a8', True)):
+    for mode, prequant in modes:
         kw = dict(smoke=False, slots=8, n_requests=8, prompt_len=128,
                   gen_len=8, mode=mode, prequantize=prequant, params=params,
                   quiet=True)
-        SV.serve_continuous(ARCH, **kw)                     # warm-up
+        SV.serve_continuous(arch, **kw)                     # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        SV.serve_continuous(ARCH, **kw)
+        SV.serve_continuous(arch, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         by_name = profiled_kernels(
-            torch, lambda: SV.serve_continuous(ARCH, **kw))
+            torch, lambda: SV.serve_continuous(arch, **kw))
         busy_ms = sum(v[0] for v in by_name.values()) if by_name else None
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-        out.append(dict(mode=mode, prequantize=prequant, wall_ms=wall_ms,
+        out.append(dict(arch=arch, mode=mode, prequantize=prequant,
+                        wall_ms=wall_ms,
                         device_busy_ms=busy_ms,
                         device_busy_share=(None if busy_ms is None
                                            else busy_ms / wall_ms),
@@ -805,19 +1199,40 @@ def profile_phase(torch):
 
 def run_phases(torch, report, kmods):
     """The check phases after the build; fills ``report`` as they pass and
-    returns the main path's launch totals."""
+    returns each main path's launch totals, by arch."""
+    from repro_torch import configs
+    gqa = configs.get(ARCH, smoke=False)
+    check(gqa.n_layers == LAYERS_FULL and gqa.d_model == 2048,
+          'stablelm-1.6b FULL config changed')
+    mla = register_dense_prefix()
+    check(mla.n_layers == MLA_LAYERS and mla.d_model == 7168
+          and mla.n_heads == 128 and mla.d_ff == 18432
+          and mla.vocab_size == 129280 and mla.moe is None
+          and mla.mla.kv_lora_rank == 512 and mla.mla.rope_head_dim == 64,
+          'deepseek-v3 dense prefix is not at the published width')
     report['kernel_sweep'] = kernel_phase(torch, kmods)
     print(f'kernel checks passed: {len(report["kernel_sweep"])} shapes',
           flush=True)
     report['kernel_sweep'] += tier_chunk_kernel_phase(torch, kmods)
     print('K5/K6 checks passed', flush=True)
-    report['smoke'] = smoke_phase(torch) + smoke_tier_prefix_phase(torch)
+    report['kernel_sweep'] += mla_kernel_phase(torch, kmods)
+    print('K8/K9/K10 checks passed', flush=True)
+    report['smoke'] = (smoke_phase(torch) + smoke_tier_prefix_phase(torch)
+                       + smoke_phase(torch, MLA_ARCH, (('bf16', False),
+                                                       ('w8a8', False)))
+                       + smoke_tier_prefix_phase(torch, MLA_ARCH))
     print(f'smoke parity: {json.dumps(report["smoke"])}', flush=True)
-    report['profile'] = profile_phase(torch)
-    report['serve'], totals = serve_phase(torch, kmods[3])
-    for k, n in totals.items():
-        check(n > 0, f'kernel {k} was never launched on the main path')
-    return totals
+    report['profile'] = (profile_phase(torch)
+                         + profile_phase(torch, MLA_ARCH,
+                                         (('bf16', False),)))
+    report['serve'], gqa_totals = serve_phase(torch, kmods[3])
+    mla_serve, mla_totals = serve_phase(torch, kmods[3], MLA_ARCH,
+                                        MLA_SERVE_RUNS, _mla_launches)
+    report['serve'] += mla_serve
+    for k in gqa_totals:
+        check(gqa_totals[k] + mla_totals[k] > 0,
+              f'kernel {k} was never launched on the main paths')
+    return {ARCH: gqa_totals, MLA_ARCH: mla_totals}
 
 
 def main() -> int:
@@ -854,30 +1269,45 @@ def main() -> int:
         with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
             json.dump(report, f, indent=1)
     rows = report['kernel_sweep']
-    # one line per kernel, at its serving-path decode shape; K5 at the
-    # page-size chunk of a prefix hit, which carries most of its launches
-    pick = {'flash_decode_paged': dict(pool='bfloat16'),
-            'flash_chunk_paged': dict(pool='bfloat16', C=8, offset=96),
-            'flash_decode_paged_q8': dict(pool='bfloat16'),
-            'quantize_rows': dict(M=8, K=2048, dtype='bfloat16'),
-            'int8_matmul': dict(M=8, K=2048, N=100352),
-            'yoco_vmm_int8': dict(M=8, K=2048, N=100352)}
+    # one line per kernel and main path it runs on, at that path's decode
+    # shape, with that path's launches; K5 and K9 at the page-size chunk
+    # of a prefix hit, which carries most of their launches
+    pick = (('flash_decode_paged', ARCH, dict(pool='bfloat16')),
+            ('flash_chunk_paged', ARCH, dict(pool='bfloat16', C=8,
+                                             offset=96)),
+            ('flash_decode_paged_q8', ARCH, dict(pool='bfloat16')),
+            ('flash_decode_paged_mla', MLA_ARCH, dict(pool='bfloat16')),
+            ('flash_chunk_paged_mla', MLA_ARCH, dict(pool='bfloat16', C=8,
+                                                     offset=96)),
+            ('flash_decode_paged_mla_q8', MLA_ARCH, dict(pool='bfloat16')),
+            ('quantize_rows', ARCH, dict(arch=ARCH, M=8, K=2048,
+                                         dtype='bfloat16')),
+            ('quantize_rows', MLA_ARCH, dict(arch=MLA_ARCH, M=8, K=7168,
+                                             dtype='bfloat16')),
+            ('int8_matmul', ARCH, dict(arch=ARCH, M=8, K=2048, N=100352)),
+            ('yoco_vmm_int8', ARCH, dict(arch=ARCH, M=8, K=2048, N=100352)),
+            ('yoco_vmm_int8', MLA_ARCH, dict(arch=MLA_ARCH, M=8, K=7168,
+                                             N=129280)))
+    check({name for name, _, _ in pick} == set(totals[ARCH]),
+          'the kernels line does not cover every kernel')
     kernels = []
-    for name, want in pick.items():
+    for name, path, want in pick:
         for r in rows:
             if r['name'] == name and all(r['shape'].get(k) == v
                                          for k, v in want.items()):
                 kernels.append(dict(
-                    name=name, route=r['route'], source=r['source'],
-                    replaces=r['replaces'],
-                    launches=totals[name],
+                    name=name, path=path, route=r['route'],
+                    source=r['source'], replaces=r['replaces'],
+                    launches=totals[path][name],
                     max_abs_err=r['max_abs_err'], ms=r['ms'],
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                     bound_by=r['bound_by'], library_ms=r['library_ms'],
                     timer=r['timer'], shape=r['shape']))
                 break
-    check(sorted(k['name'] for k in kernels) == sorted(pick),
-          'a kernel is missing from the kernels line')
+        else:
+            check(False, f'no kernel row for {name} at {want}')
+        check(kernels[-1]['launches'] > 0,
+              f'{name} was never launched on the {path} path')
     print(json.dumps(dict(kernels=kernels)), flush=True)
     print(json.dumps(dict(serve=report['serve'])), flush=True)
     print(smi, flush=True)

@@ -1,11 +1,39 @@
-"""Architecture configs: a copy of the reference's ``ArchConfig`` and its
-registry. This slice registers stablelm-1.6b only; other architectures
-join with the families that serve them."""
+"""Architecture configs: a copy of the reference's ``ArchConfig``, its
+``MLAConfig`` and ``MoEConfig``, and its registry. Registered so far:
+stablelm-1.6b and deepseek-v3-671b (whose MoE layers the port does not
+serve yet: ``models.model`` refuses a config with ``moe`` set, so callers
+serve its dense prefix, ``dataclasses.replace(cfg, n_layers=3, moe=None)``);
+other architectures, and the reference's SSM and hybrid fields, join with
+the families that serve them."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek Multi-head Latent Attention (arXiv:2412.19437)."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    d_ff_expert: int = 0           # per-expert hidden size
+    n_shared: int = 0              # shared experts (deepseek/qwen style)
+    d_ff_shared: int = 0           # total shared hidden size
+    first_k_dense: int = 0         # leading dense layers (deepseek: 3)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001
+    impl: str = 'dense'            # dense | ep  (expert-parallel all_to_all)
+    pad_experts_to: int = 0        # pad expert stacks for even EP sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,8 +52,10 @@ class ArchConfig:
     sliding_window: Optional[int] = None
     qk_norm: bool = False
     attn_bias: bool = False
+    mla: Optional[MLAConfig] = None
     mlp_type: str = 'swiglu'       # swiglu | gelu | geglu
     norm_type: str = 'rmsnorm'     # rmsnorm | layernorm
+    moe: Optional[MoEConfig] = None
     input_kind: str = 'tokens'
     tie_embeddings: bool = False
     max_seq_len: int = 131072

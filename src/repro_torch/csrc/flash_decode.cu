@@ -1,4 +1,5 @@
-// Paged flash attention over a GQA KV pool: kernels K1, K5 and K6.
+// Paged flash attention over a GQA KV pool (kernels K1, K5, K6) and over
+// an absorbed-MLA latent pool (kernels K8, K9, K10).
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_decode.py that share
 // the Pallas body `_softmax_tile` under the `_flash_core` scalar-prefetch
@@ -19,11 +20,28 @@
 //       pools times its per-page, per-head f32 scale, the product rounded
 //       through the pool dtype as the reference's loader and
 //       dequant_gather round it. Each page is read from one tier only.
-// All three return f32 (B, Hkv, rows, dh).
+//   K8  flash_decode_mla_paged, chunk=1 (via flash_decode_paged_mla):
+//       absorbed MLA decode. q (B, 1, H, DK) f32 (DK = r + d_rope = 576
+//       for deepseek-v3: the query absorbed through W_uk, then the rope
+//       query), one latent pool (P, page_size, DK) bf16 or f32 holding
+//       ckv | krope per token. MLA is GQA with ONE KV head and G = H query
+//       rows sharing it: a latent tile is staged once and used twice, all
+//       DK columns as the keys, its first DV = r columns as the values.
+//   K9  flash_decode_mla_paged, chunk=C>1 (via flash_chunk_paged_mla): K8
+//       over C*H rows, row i at offset + i / H, K5's row policy with
+//       group = H and its fetch-union scalars.
+//   K10 flash_decode_mla_paged_q8 (via flash_decode_paged_mla_q8): K8 over
+//       the int8 latent tier; a cold page reads clq * cs[page] (ONE scale
+//       per page: the latent is shared by every head) rounded through the
+//       pool dtype, a hot page the fp pool, each page from one tier only.
+// K1, K5 and K6 return f32 (B, Hkv, rows, dh); K8, K9 and K10 return the
+// f32 latent output (B, 1, rows, DV), never cast to the pool dtype (the
+// caller applies W_uv to it).
 //
 // As in the reference, one online-softmax body serves every layout; what
-// differs is a page loader (FpPages, TieredPages) and the row positions
-// (one position for decode, offset + r / G for a chunk).
+// differs is a page loader (FpPages, TieredPages for K/V pools;
+// LatentPages, TieredLatentPages for the one latent pool) and the row
+// positions (one position for decode, offset + r / group for a chunk).
 //
 // Bound on the H100: bytes for K1/K6 (each live key is read once and used
 // for 2*G*dh multiply-adds, far below the card's operations-per-byte
@@ -44,6 +62,17 @@
 // garbage page 0, always hot) read one page and stay finite. Splitting the
 // page axis across blocks, cp.async/TMA staging, vector loads and wgmma
 // for K5's C*G rows are later work.
+//
+// MLA at full width (H = 128, DK = 576, DV = 512) is no longer clearly
+// bytes-bound: each latent value feeds 2*H*(DK + DV)/DK ~ 480 flops (in
+// f32 accumulation), so the bound is the larger of the latent, q and out
+// bytes over 3.35 TB/s and those flops over the card's rate. A row's
+// query, accumulator, max and sum take 4.35 KB of shared memory in f32,
+// so the H rows are split over grid.y in groups of kLatentRows (110 KB a
+// block with the 32-key tile, two blocks an SM); each latent tile is then
+// read by H / kLatentRows blocks per slot and the repeats come from L2.
+// The staged latent tile has a row stride of DK + 1 floats, so the 32
+// keys of a warp's dot products fall in 32 distinct banks.
 #include <math.h>
 
 #include "common.cuh"
@@ -54,6 +83,7 @@ constexpr int kKeys = 32;       // keys per pass: one per lane in the softmax
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunkRows = 32;  // K5 query rows per block
+constexpr int kLatentRows = 8;  // K8/K9/K10 query rows per block
 
 // a dequantized value rounded through the pool dtype, as the reference's
 // loader casts it (`.astype(k_ref.dtype).astype(f32)`)
@@ -71,6 +101,7 @@ __device__ __forceinline__ float round_to_pool<__nv_bfloat16>(float x) {
 // Page loader of the fp pools (K1, K5).
 template <typename KV>
 struct FpPages {
+  static constexpr bool kLatent = false;
   const KV* __restrict__ k;
   const KV* __restrict__ v;
 
@@ -86,6 +117,7 @@ struct FpPages {
 // Page loader of the hybrid tier (K6): one tier per page.
 template <typename KV>
 struct TieredPages {
+  static constexpr bool kLatent = false;
   const KV* __restrict__ k;
   const KV* __restrict__ v;
   const int8_t* __restrict__ kq;
@@ -113,6 +145,40 @@ struct TieredPages {
   }
 };
 
+// Page loader of the fp latent pool (K8, K9): one value per (page, row,
+// column), used as a key and, in its first DV columns, as a value.
+template <typename KV>
+struct LatentPages {
+  static constexpr bool kLatent = true;
+  const KV* __restrict__ c;
+
+  __device__ __forceinline__ void setup(int, int) {}
+  __device__ __forceinline__ float load(int64_t off, int, int) const {
+    return to_f32(c[off]);
+  }
+};
+
+// Page loader of the int8 latent tier (K10): one tier per page, one scale
+// per page, the hotness rule and the rounding of TieredPages.
+template <typename KV>
+struct TieredLatentPages {
+  static constexpr bool kLatent = true;
+  const KV* __restrict__ c;
+  const int8_t* __restrict__ cq;
+  const float* __restrict__ cs;   // (P, 1)
+  const int* __restrict__ hw;
+  int first_hot;
+
+  __device__ __forceinline__ void setup(int pos, int page_size) {
+    first_hot = max(pos, 0) / page_size - hw[0] + 1;
+  }
+  __device__ __forceinline__ float load(int64_t off, int page,
+                                        int blk) const {
+    if (blk >= first_hot) return to_f32(c[off]);
+    return round_to_pool<KV>(static_cast<float>(cq[off]) * cs[page]);
+  }
+};
+
 // One block: request b = blockIdx.x / hkv, KV head h = blockIdx.x % hkv,
 // query rows [blockIdx.y * rpb, +rpb) of `rows`. Row r sits at position
 // base + r / group, base = offset[b] (chunk) or pos[b] (decode, group =
@@ -125,14 +191,18 @@ paged_attend_kernel(Pages pages, const float* __restrict__ q,
                     const int* __restrict__ off_v,
                     const int* __restrict__ block_tables,
                     float* __restrict__ out, int hkv, int rows, int rpb,
-                    int dh, int page_size, int w, int chunk, int group,
-                    float scale) {
+                    int dk, int dv, int ks, int page_size, int w, int chunk,
+                    int group, float scale) {
+  // dk: key (and query) width; dv: value width; ks: row stride of the
+  // staged key tile. Fp pools: dk = dv = ks = dh, separate K and V tiles.
+  // Latent pools: the value tile is the first dv columns of the key tile.
   extern __shared__ float smem[];
-  float* s_q = smem;                   // rpb * dh
-  float* s_acc = s_q + rpb * dh;       // rpb * dh
-  float* s_k = s_acc + rpb * dh;       // kKeys * dh
-  float* s_v = s_k + kKeys * dh;       // kKeys * dh
-  float* s_p = s_v + kKeys * dh;       // rpb * kKeys
+  float* s_q = smem;                   // rpb * dk
+  float* s_acc = s_q + rpb * dk;       // rpb * dv
+  float* s_k = s_acc + rpb * dv;       // kKeys * ks
+  float* s_v = Pages::kLatent ? s_k : s_k + kKeys * ks;   // kKeys * dv
+  const int vs = Pages::kLatent ? ks : dv;                // its row stride
+  float* s_p = s_k + kKeys * ks + (Pages::kLatent ? 0 : kKeys * dv);
   float* s_m = s_p + rpb * kKeys;      // rpb
   float* s_l = s_m + rpb;              // rpb
   float* s_alpha = s_l + rpb;          // rpb
@@ -145,14 +215,13 @@ paged_attend_kernel(Pages pages, const float* __restrict__ q,
   const int base = off_v != nullptr ? off_v[b] : pos;
   const int row_win = win - (chunk - 1);
   const int* bt = block_tables + static_cast<int64_t>(b) * w;
-  const int64_t qo = (static_cast<int64_t>(blockIdx.x) * rows + r0) * dh;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows + r0;
+  const int64_t qo = row0 * dk, oo = row0 * dv;
   Pages pg = pages;
   pg.setup(pos, page_size);
 
-  for (int i = tid; i < nr * dh; i += kThreads) {
-    s_q[i] = q[qo + i];
-    s_acc[i] = 0.f;
-  }
+  for (int i = tid; i < nr * dk; i += kThreads) s_q[i] = q[qo + i];
+  for (int i = tid; i < nr * dv; i += kThreads) s_acc[i] = 0.f;
   for (int i = tid; i < nr; i += kThreads) {
     s_m[i] = -INFINITY;
     s_l[i] = 0.f;
@@ -166,8 +235,8 @@ paged_attend_kernel(Pages pages, const float* __restrict__ q,
   const int k_begin = first * page_size, k_end = (last + 1) * page_size;
 
   for (int t0 = k_begin; t0 < k_end; t0 += kKeys) {
-    for (int i = tid; i < kKeys * dh; i += kThreads) {
-      const int j = i / dh, d = i - j * dh;
+    for (int i = tid; i < kKeys * dk; i += kThreads) {
+      const int j = i / dk, d = i - j * dk;
       const int kpos = t0 + j;
       float kk = 0.f, vv = 0.f;
       if (kpos < k_end) {
@@ -175,11 +244,14 @@ paged_attend_kernel(Pages pages, const float* __restrict__ q,
         const int page = bt[blk];
         const int64_t off =
             ((static_cast<int64_t>(page) * page_size + kpos % page_size) * hkv +
-             h) * dh + d;
-        pg.load(off, page, blk, h, kk, vv);
+             h) * dk + d;
+        if constexpr (Pages::kLatent)
+          kk = pg.load(off, page, blk);
+        else
+          pg.load(off, page, blk, h, kk, vv);
       }
-      s_k[i] = kk;
-      s_v[i] = vv;
+      s_k[j * ks + d] = kk;
+      if constexpr (!Pages::kLatent) s_v[i] = vv;
     }
     __syncthreads();
     for (int i = tid; i < nr * kKeys; i += kThreads) {
@@ -189,7 +261,7 @@ paged_attend_kernel(Pages pages, const float* __restrict__ q,
       const bool valid = kpos < k_end && kpos <= qp && kpos > qp - row_win;
       float dot = 0.f;
       if (valid)
-        for (int d = 0; d < dh; ++d) dot += s_q[gi * dh + d] * s_k[j * dh + d];
+        for (int d = 0; d < dk; ++d) dot += s_q[gi * dk + d] * s_k[j * ks + d];
       s_p[i] = valid ? dot * scale : -INFINITY;
     }
     __syncthreads();
@@ -213,41 +285,77 @@ paged_attend_kernel(Pages pages, const float* __restrict__ q,
       }
     }
     __syncthreads();
-    for (int i = tid; i < nr * dh; i += kThreads) {
-      const int gi = i / dh, d = i - gi * dh;
+    for (int i = tid; i < nr * dv; i += kThreads) {
+      const int gi = i / dv, d = i - gi * dv;
       float pv = 0.f;
-      for (int j = 0; j < kKeys; ++j) pv += s_p[gi * kKeys + j] * s_v[j * dh + d];
+      for (int j = 0; j < kKeys; ++j)
+        pv += s_p[gi * kKeys + j] * s_v[j * vs + d];
       s_acc[i] = s_acc[i] * s_alpha[gi] + pv;
     }
     __syncthreads();
   }
 
   // the one output conversion: normalise once, after the full reduction
-  for (int i = tid; i < nr * dh; i += kThreads)
-    out[qo + i] = s_acc[i] / fmaxf(s_l[i / dh], 1e-30f);
+  for (int i = tid; i < nr * dv; i += kThreads)
+    out[oo + i] = s_acc[i] / fmaxf(s_l[i / dv], 1e-30f);
+}
+
+// Dynamic shared memory of one block (see the kernel's carve-up).
+template <typename Pages>
+size_t smem_bytes(int rpb, int dk, int dv, int ks) {
+  return sizeof(float) * (rpb * dk + rpb * dv + kKeys * ks +
+                          (Pages::kLatent ? 0 : kKeys * dv) + rpb * kKeys +
+                          3 * rpb);
+}
+
+// Opt in to more than 48 KB of dynamic shared memory where needed.
+template <typename Pages>
+cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(paged_attend_kernel<Pages>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 template <typename Pages>
 int launch(const Pages& pages, const void* q, const void* pos,
            const void* win, const void* off, const void* bt, void* out,
-           int b, int hkv, int rows, int rpb, int dh, int page_size, int w,
-           int chunk, float scale, void* stream) {
-  const size_t smem =
-      sizeof(float) * (2 * rpb * dh + 2 * kKeys * dh + rpb * kKeys + 3 * rpb);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_attend_kernel<Pages>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+           int b, int hkv, int rows, int rpb, int dk, int dv, int ks,
+           int page_size, int w, int chunk, float scale, void* stream) {
+  const size_t smem = smem_bytes<Pages>(rpb, dk, dv, ks);
+  const cudaError_t e = allow_smem<Pages>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(b * hkv, (rows + rpb - 1) / rpb);
   paged_attend_kernel<Pages><<<grid, kThreads, smem,
                                static_cast<cudaStream_t>(stream)>>>(
       pages, static_cast<const float*>(q), static_cast<const int*>(pos),
       static_cast<const int*>(win), static_cast<const int*>(off),
       static_cast<const int*>(bt), static_cast<float*>(out), hkv, rows, rpb,
-      dh, page_size, w, chunk, rows / chunk, scale);
+      dk, dv, ks, page_size, w, chunk, rows / chunk, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// GQA pools: key, value and stride widths are all dh.
+template <typename Pages>
+int launch_gqa(const Pages& pages, const void* q, const void* pos,
+               const void* win, const void* off, const void* bt, void* out,
+               int b, int hkv, int rows, int rpb, int dh, int page_size,
+               int w, int chunk, float scale, void* stream) {
+  return launch(pages, q, pos, win, off, bt, out, b, hkv, rows, rpb, dh, dh,
+                dh, page_size, w, chunk, scale, stream);
+}
+
+// Latent pools: one KV head, dk-wide keys, dv-wide values, the staged
+// tile padded to a dk + 1 stride.
+template <typename Pages>
+int launch_mla(const Pages& pages, const void* q, const void* pos,
+               const void* win, const void* off, const void* bt, void* out,
+               int b, int rows, int dk, int dv, int page_size, int w,
+               int chunk, float scale, void* stream) {
+  if (dv <= 0 || dv >= dk) return static_cast<int>(cudaErrorInvalidValue);
+  const int rpb = rows < kLatentRows ? rows : kLatentRows;
+  return launch(pages, q, pos, win, off, bt, out, b, 1, rows, rpb, dk, dv,
+                dk + 1, page_size, w, chunk, scale, stream);
 }
 
 template <typename KV>
@@ -268,6 +376,33 @@ TieredPages<KV> tiered_pages(const void* kp, const void* vp, const void* kq,
                          static_cast<const int*>(hw), hkv, 0};
 }
 
+template <typename KV>
+LatentPages<KV> latent_pages(const void* c) {
+  return LatentPages<KV>{static_cast<const KV*>(c)};
+}
+
+template <typename KV>
+TieredLatentPages<KV> tiered_latent_pages(const void* c, const void* cq,
+                                          const void* cs, const void* hw) {
+  return TieredLatentPages<KV>{static_cast<const KV*>(c),
+                               static_cast<const int8_t*>(cq),
+                               static_cast<const float*>(cs),
+                               static_cast<const int*>(hw), 0};
+}
+
+template <typename Pages>
+int occupancy(int rows, int dk, int dv, int* blocks_per_sm,
+              int* smem_per_block) {
+  const int rpb = rows < kLatentRows ? rows : kLatentRows;
+  const size_t smem = smem_bytes<Pages>(rpb, dk, dv, dk + 1);
+  cudaError_t e = allow_smem<Pages>(smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, paged_attend_kernel<Pages>, kThreads, smem);
+  *smem_per_block = static_cast<int>(smem);
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
 // K1: g query heads per KV head at one position each.
@@ -279,10 +414,11 @@ REPRO_EXPORT int flash_decode_paged(const void* q, const void* kp,
                                     int is_bf16, void* stream) {
   if (b == 0 || hkv == 0 || g == 0) return 0;
   if (is_bf16)
-    return launch(fp_pages<__nv_bfloat16>(kp, vp), q, pos, win, nullptr, bt,
-                  out, b, hkv, g, g, dh, page_size, w, 1, scale, stream);
-  return launch(fp_pages<float>(kp, vp), q, pos, win, nullptr, bt, out, b,
-                hkv, g, g, dh, page_size, w, 1, scale, stream);
+    return launch_gqa(fp_pages<__nv_bfloat16>(kp, vp), q, pos, win, nullptr,
+                      bt, out, b, hkv, g, g, dh, page_size, w, 1, scale,
+                      stream);
+  return launch_gqa(fp_pages<float>(kp, vp), q, pos, win, nullptr, bt, out,
+                    b, hkv, g, g, dh, page_size, w, 1, scale, stream);
 }
 
 // K5: rows = chunk * G query rows per KV head, row r at offset + r / G.
@@ -298,10 +434,11 @@ REPRO_EXPORT int flash_chunk_paged(const void* q, const void* kp,
     return static_cast<int>(cudaErrorInvalidValue);
   const int rpb = rows < kChunkRows ? rows : kChunkRows;
   if (is_bf16)
-    return launch(fp_pages<__nv_bfloat16>(kp, vp), q, pos, win, off, bt, out,
-                  b, hkv, rows, rpb, dh, page_size, w, chunk, scale, stream);
-  return launch(fp_pages<float>(kp, vp), q, pos, win, off, bt, out, b, hkv,
-                rows, rpb, dh, page_size, w, chunk, scale, stream);
+    return launch_gqa(fp_pages<__nv_bfloat16>(kp, vp), q, pos, win, off, bt,
+                      out, b, hkv, rows, rpb, dh, page_size, w, chunk, scale,
+                      stream);
+  return launch_gqa(fp_pages<float>(kp, vp), q, pos, win, off, bt, out, b,
+                    hkv, rows, rpb, dh, page_size, w, chunk, scale, stream);
 }
 
 // K6: K1 over the fp/int8 tier pair with (P, Hkv) scales and a (1,) hot
@@ -314,11 +451,79 @@ REPRO_EXPORT int flash_decode_paged_q8(
     void* stream) {
   if (b == 0 || hkv == 0 || g == 0) return 0;
   if (is_bf16)
-    return launch(
+    return launch_gqa(
         tiered_pages<__nv_bfloat16>(kp, vp, kq, vq, ks, vs, hw, hkv), q, pos,
         win, nullptr, bt, out, b, hkv, g, g, dh, page_size, w, 1, scale,
         stream);
-  return launch(tiered_pages<float>(kp, vp, kq, vq, ks, vs, hw, hkv), q, pos,
-                win, nullptr, bt, out, b, hkv, g, g, dh, page_size, w, 1,
-                scale, stream);
+  return launch_gqa(tiered_pages<float>(kp, vp, kq, vq, ks, vs, hw, hkv), q,
+                    pos, win, nullptr, bt, out, b, hkv, g, g, dh, page_size,
+                    w, 1, scale, stream);
+}
+
+// K8: absorbed MLA decode, h query heads over one latent pool.
+REPRO_EXPORT int flash_decode_paged_mla(const void* q, const void* cp,
+                                        const void* pos, const void* win,
+                                        const void* bt, void* out, int b,
+                                        int h, int dk, int dv, int page_size,
+                                        int w, float scale, int is_bf16,
+                                        void* stream) {
+  if (b == 0 || h == 0) return 0;
+  if (is_bf16)
+    return launch_mla(latent_pages<__nv_bfloat16>(cp), q, pos, win, nullptr,
+                      bt, out, b, h, dk, dv, page_size, w, 1, scale, stream);
+  return launch_mla(latent_pages<float>(cp), q, pos, win, nullptr, bt, out, b,
+                    h, dk, dv, page_size, w, 1, scale, stream);
+}
+
+// K9: rows = chunk * H latent query rows, row r at offset + r / H.
+REPRO_EXPORT int flash_chunk_paged_mla(const void* q, const void* cp,
+                                       const void* pos, const void* win,
+                                       const void* off, const void* bt,
+                                       void* out, int b, int rows, int dk,
+                                       int dv, int page_size, int w,
+                                       int chunk, float scale, int is_bf16,
+                                       void* stream) {
+  if (b == 0 || rows == 0) return 0;
+  if (chunk < 1 || rows % chunk != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16)
+    return launch_mla(latent_pages<__nv_bfloat16>(cp), q, pos, win, off, bt,
+                      out, b, rows, dk, dv, page_size, w, chunk, scale,
+                      stream);
+  return launch_mla(latent_pages<float>(cp), q, pos, win, off, bt, out, b,
+                    rows, dk, dv, page_size, w, chunk, scale, stream);
+}
+
+// K10: K8 over the fp/int8 latent tier pair with (P, 1) scales and a (1,)
+// hot window in device memory.
+REPRO_EXPORT int flash_decode_paged_mla_q8(
+    const void* q, const void* cp, const void* cq, const void* cs,
+    const void* hw, const void* pos, const void* win, const void* bt,
+    void* out, int b, int h, int dk, int dv, int page_size, int w,
+    float scale, int is_bf16, void* stream) {
+  if (b == 0 || h == 0) return 0;
+  if (is_bf16)
+    return launch_mla(tiered_latent_pages<__nv_bfloat16>(cp, cq, cs, hw), q,
+                      pos, win, nullptr, bt, out, b, h, dk, dv, page_size, w,
+                      1, scale, stream);
+  return launch_mla(tiered_latent_pages<float>(cp, cq, cs, hw), q, pos, win,
+                    nullptr, bt, out, b, h, dk, dv, page_size, w, 1, scale,
+                    stream);
+}
+
+// Resident blocks per SM and dynamic shared memory per block of the K8/K9
+// (tiered = 0) or K10 (tiered = 1) kernel at these widths, for the build
+// report.
+REPRO_EXPORT int flash_mla_occupancy(int rows, int dk, int dv, int is_bf16,
+                                     int tiered, int* blocks_per_sm,
+                                     int* smem_per_block) {
+  if (tiered)
+    return is_bf16 ? occupancy<TieredLatentPages<__nv_bfloat16>>(
+                         rows, dk, dv, blocks_per_sm, smem_per_block)
+                   : occupancy<TieredLatentPages<float>>(
+                         rows, dk, dv, blocks_per_sm, smem_per_block);
+  return is_bf16 ? occupancy<LatentPages<__nv_bfloat16>>(
+                       rows, dk, dv, blocks_per_sm, smem_per_block)
+                 : occupancy<LatentPages<float>>(rows, dk, dv, blocks_per_sm,
+                                                 smem_per_block);
 }

@@ -32,8 +32,12 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 #: kernel name -> launches since the last :func:`reset_counts`
 LAUNCHES: Dict[str, int] = {'flash_decode_paged': 0, 'flash_chunk_paged': 0,
-                            'flash_decode_paged_q8': 0, 'quantize_rows': 0,
-                            'int8_matmul': 0, 'yoco_vmm_int8': 0}
+                            'flash_decode_paged_q8': 0,
+                            'flash_decode_paged_mla': 0,
+                            'flash_chunk_paged_mla': 0,
+                            'flash_decode_paged_mla_q8': 0,
+                            'quantize_rows': 0, 'int8_matmul': 0,
+                            'yoco_vmm_int8': 0}
 #: source name -> the compiler's report (ptxas registers / shared memory)
 BUILD_LOGS: Dict[str, str] = {}
 

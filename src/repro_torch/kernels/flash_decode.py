@@ -1,6 +1,7 @@
-"""Paged flash attention for batched serving: kernels K1, K5 and K6.
+"""Paged flash attention for batched serving: kernels K1, K5, K6 (GQA)
+and K8, K9, K10 (absorbed MLA over a latent pool).
 
-Ports of the GQA paged entry points of ``repro/kernels/flash_decode.py``.
+Ports of the paged entry points of ``repro/kernels/flash_decode.py``.
 The reference runs every entry point through one online-softmax body
 (``_softmax_tile``) and one grid harness (``_flash_core``) and differs per
 layout only in a tile loader and a row mask; the port does the same, in
@@ -19,6 +20,20 @@ layout only in a tile loader and a row mask; the port does the same, in
   K1 over the hybrid int8 tier; each page is read from one tier only, hot
   pages from the fp pools, cold pages from the int8 pools times a per-page,
   per-head scale, rounded through the pool dtype.
+* **K8** ``flash_decode_mla_paged`` with ``chunk=1`` (through
+  ``flash_decode_paged_mla``): absorbed MLA decode over a latent pool
+  (P, page_size, r + d_rope). MLA is GQA with one KV head and all H query
+  heads in its group; each latent tile is read once and used twice: all
+  r + d_rope columns as the keys (against the absorbed+rope query), the
+  first r columns as the values. Returns the f32 latent output; the caller
+  applies ``W_uv``.
+* **K9** the same function with ``chunk > 1`` (through
+  ``flash_chunk_paged_mla``): C·H query rows, row i at position
+  ``offset + i // H``, with K5's fetch-union scalars.
+* **K10** ``flash_decode_mla_paged_q8`` (through
+  ``flash_decode_paged_mla_q8``): K8 over the int8 latent tier, cold pages
+  ``int8 * scale[page]`` (one scale per page) rounded through the pool
+  dtype.
 
 The plain versions are page-by-page loops that mirror ``_softmax_tile``,
 dead-step semantics included. The wrappers take them only for CPU tensors;
@@ -37,10 +52,11 @@ NEG_INF = float('-inf')
 def _paged_softmax_plain(q: torch.Tensor, load_kv, pos: torch.Tensor,
                          window: torch.Tensor, block_tables: torch.Tensor,
                          page_size: int, *, scale: float, offset=None,
-                         chunk: int = 1) -> torch.Tensor:
+                         chunk: int = 1, dv=None) -> torch.Tensor:
     """The one online-softmax body of the plain versions. q (B, Hkv, R,
-    dh); ``load_kv(s, page)`` -> f32 (B, ps, Hkv, dh) K and V tiles of
-    logical block ``s`` (``page`` (B,) its physical pages). Row r sits at
+    dh); ``load_kv(s, page)`` -> f32 (B, ps, Hkv, dh) K and (B, ps, Hkv,
+    dv) V tiles of logical block ``s`` (``page`` (B,) its physical pages;
+    ``dv`` defaults to dh). Returns f32 (B, Hkv, R, dv). Row r sits at
     ``pos`` (``chunk == 1``) or at ``offset + r // (R // chunk)`` with the
     row window ``window - (chunk - 1)``. One step per block, all requests
     at once; a request whose block ``s`` is outside its live range keeps
@@ -51,7 +67,8 @@ def _paged_softmax_plain(q: torch.Tensor, load_kv, pos: torch.Tensor,
     qf = q.to(torch.float32)
     pos = pos.to(torch.int64)
     win = window.to(torch.int64)
-    acc = torch.zeros((b, hkv, rows, dh), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, rows, dh if dv is None else dv),
+                      dtype=torch.float32, device=dev)
     m = torch.full((b, hkv, rows, 1), NEG_INF, dtype=torch.float32,
                    device=dev)
     l = torch.zeros((b, hkv, rows, 1), dtype=torch.float32, device=dev)
@@ -145,6 +162,58 @@ def flash_decode_gqa_paged_q8_plain(q, k_pages, v_pages, kq_pages, vq_pages,
                                 scale=scale)
 
 
+def _latent_loader(c_pages, r: int):
+    """Fetch once, use twice: the (B, ps, 1, r + d_rope) latent tile as
+    the keys, its first ``r`` columns as the values."""
+    def load(s, page):
+        lat = c_pages[page].to(torch.float32)[:, :, None, :]
+        return lat, lat[..., :r]
+    return load
+
+
+def flash_decode_mla_paged_plain(q: torch.Tensor, c_pages: torch.Tensor,
+                                 pos: torch.Tensor, window: torch.Tensor,
+                                 block_tables: torch.Tensor, offset=None, *,
+                                 scale: float, r: int,
+                                 chunk: int = 1) -> torch.Tensor:
+    """q (B, 1, R, r + d_rope) f32, the absorbed+rope query (R = H, or
+    C * H with row i = head i % H at ``offset + i // H`` when
+    ``chunk > 1``); c_pages (P, page_size, r + d_rope); pos, window (B,)
+    int (fetch-union scalars for a chunk); block_tables (B, W) int.
+    Returns the f32 latent output (B, 1, R, r), before ``W_uv``."""
+    if (offset is None) != (chunk == 1) or q.shape[2] % chunk:
+        raise ValueError(f'chunk={chunk} needs an offset and R % chunk == 0 '
+                         f'(R={q.shape[2]}, offset={offset is not None})')
+    return _paged_softmax_plain(q, _latent_loader(c_pages, r), pos, window,
+                                block_tables, c_pages.shape[1], scale=scale,
+                                offset=offset, chunk=chunk, dv=r)
+
+
+def flash_decode_mla_paged_q8_plain(q, c_pages, cq_pages, c_scales, pos,
+                                    window, block_tables, hot_window, *,
+                                    scale: float, r: int) -> torch.Tensor:
+    """K8 over the int8 latent tier: cq_pages (P, ps, r + d_rope) int8,
+    c_scales (P, 1) f32, hot_window (1,) int. Block ``s`` is hot iff
+    ``s > max(pos, 0) // ps - hot_window``; a cold block reads
+    ``int8 * scale[page]`` rounded through the pool dtype (selected, so an
+    unread tier never reaches the result). Returns f32 (B, 1, H, r)."""
+    ps = c_pages.shape[1]
+    last = torch.clamp_min(pos.to(torch.int64), 0) // ps
+    hw = hot_window.reshape(-1)[0].to(torch.int64)
+
+    def load(s, page):
+        hot = (s > last - hw)[:, None, None, None]
+        cold = (cq_pages[page].to(torch.float32)
+                * c_scales[page].to(torch.float32)[:, :, None])
+        cold = cold.to(c_pages.dtype).to(torch.float32)[:, :, None, :]
+        lat = torch.where(hot, c_pages[page].to(torch.float32)[:, :, None, :],
+                          cold)
+        return lat, lat[..., :r]
+
+    return _paged_softmax_plain(q, load, pos, window, block_tables, ps,
+                                scale=scale, dv=r)
+
+
 _FP = (torch.float32, torch.bfloat16)
 _I32 = (torch.int32,)
 
@@ -171,6 +240,9 @@ def _check_paged(name, q, k_pages, v_pages, pos, window, block_tables):
 _K1_ARGS = [build.P] * 7 + [build.I] * 6 + [build.F, build.I, build.P]
 _K5_ARGS = [build.P] * 8 + [build.I] * 7 + [build.F, build.I, build.P]
 _K6_ARGS = [build.P] * 12 + [build.I] * 6 + [build.F, build.I, build.P]
+_K8_ARGS = [build.P] * 6 + [build.I] * 6 + [build.F, build.I, build.P]
+_K9_ARGS = [build.P] * 7 + [build.I] * 7 + [build.F, build.I, build.P]
+_K10_ARGS = [build.P] * 9 + [build.I] * 6 + [build.F, build.I, build.P]
 
 
 def flash_decode_gqa_paged(q: torch.Tensor, k_pages: torch.Tensor,
@@ -261,6 +333,110 @@ def flash_decode_gqa_paged_q8(q, k_pages, v_pages, kq_pages, vq_pages,
              int(k_pages.dtype == torch.bfloat16), build.stream_of(q))
     build.check(err, 'flash_decode', name)
     build.count('flash_decode_paged_q8')
+    return out
+
+
+def _check_latent(name, q, c_pages, pos, window, block_tables, r):
+    """Shape checks shared by the MLA kernel wrappers; returns
+    (b, rows, dk, page_size, w)."""
+    b, one, rows, dk = q.shape
+    w = block_tables.shape[1]
+    if (one != 1 or c_pages.ndim != 3 or c_pages.shape[2] != dk
+            or not 0 < r < dk or tuple(pos.shape) != (b,)
+            or tuple(window.shape) != (b,)
+            or tuple(block_tables.shape) != (b, w)):
+        raise ValueError(
+            f'{name}: q {tuple(q.shape)}, latent pool '
+            f'{tuple(c_pages.shape)}, r={r}, pos {tuple(pos.shape)}, window '
+            f'{tuple(window.shape)}, tables {tuple(block_tables.shape)}')
+    return b, rows, dk, c_pages.shape[1], w
+
+
+def flash_decode_mla_paged(q: torch.Tensor, c_pages: torch.Tensor,
+                           pos: torch.Tensor, window: torch.Tensor,
+                           block_tables: torch.Tensor, offset=None, *,
+                           scale: float, r: int,
+                           chunk: int = 1) -> torch.Tensor:
+    """Same contract as :func:`flash_decode_mla_paged_plain`: kernel K8
+    (``chunk == 1``) or K9 (``chunk > 1``). On CUDA the query must be f32,
+    the latent pool bf16 or f32, and pos, window, offset and block tables
+    int32."""
+    tensors = (q, c_pages, pos, window, block_tables) + (
+        () if offset is None else (offset,))
+    if all(t.device.type == 'cpu' for t in tensors):
+        return flash_decode_mla_paged_plain(q, c_pages, pos, window,
+                                            block_tables, offset,
+                                            scale=scale, r=r, chunk=chunk)
+    name = 'flash_decode_mla_paged'
+    b, rows, dk, page_size, w = _check_latent(name, q, c_pages, pos, window,
+                                              block_tables, r)
+    if (offset is None) != (chunk == 1) or rows % chunk \
+            or (offset is not None and tuple(offset.shape) != (b,)):
+        raise ValueError(f'{name}: chunk={chunk} needs a (B,) offset and '
+                         f'rows % chunk == 0 (rows={rows})')
+    build.require_cuda(name, *tensors,
+                       dtypes=[(torch.float32,), _FP, _I32, _I32, _I32,
+                               _I32])
+    out = torch.empty((b, 1, rows, r), dtype=torch.float32, device=q.device)
+    is_bf16 = int(c_pages.dtype == torch.bfloat16)
+    if chunk == 1:
+        fn = build.function('flash_decode', 'flash_decode_paged_mla',
+                            _K8_ARGS)
+        err = fn(q.data_ptr(), c_pages.data_ptr(), pos.data_ptr(),
+                 window.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
+                 b, rows, dk, r, page_size, w, float(scale), is_bf16,
+                 build.stream_of(q))
+        build.check(err, 'flash_decode', name)
+        build.count('flash_decode_paged_mla')
+    else:
+        fn = build.function('flash_decode', 'flash_chunk_paged_mla',
+                            _K9_ARGS)
+        err = fn(q.data_ptr(), c_pages.data_ptr(), pos.data_ptr(),
+                 window.data_ptr(), offset.data_ptr(),
+                 block_tables.data_ptr(), out.data_ptr(), b, rows, dk, r,
+                 page_size, w, chunk, float(scale), is_bf16,
+                 build.stream_of(q))
+        build.check(err, 'flash_decode', name)
+        build.count('flash_chunk_paged_mla')
+    return out
+
+
+def flash_decode_mla_paged_q8(q, c_pages, cq_pages, c_scales, pos, window,
+                              block_tables, hot_window, *, scale: float,
+                              r: int) -> torch.Tensor:
+    """Kernel K10; same contract as :func:`flash_decode_mla_paged_q8_plain`.
+    On CUDA: f32 query, bf16 or f32 latent pool, an int8 pool of the same
+    shape, f32 (P, 1) scales, int32 pos/window/tables and a (1,) int32 hot
+    window, read by the kernel from device memory (no host sync)."""
+    tensors = (q, c_pages, cq_pages, c_scales, pos, window, block_tables,
+               hot_window)
+    if all(t.device.type == 'cpu' for t in tensors):
+        return flash_decode_mla_paged_q8_plain(
+            q, c_pages, cq_pages, c_scales, pos, window, block_tables,
+            hot_window, scale=scale, r=r)
+    name = 'flash_decode_mla_paged_q8'
+    b, h, dk, page_size, w = _check_latent(name, q, c_pages, pos, window,
+                                           block_tables, r)
+    if (cq_pages.shape != c_pages.shape
+            or tuple(c_scales.shape) != (c_pages.shape[0], 1)
+            or tuple(hot_window.shape) != (1,)):
+        raise ValueError(
+            f'{name}: int8 pool {tuple(cq_pages.shape)}, scales '
+            f'{tuple(c_scales.shape)}, hot window {tuple(hot_window.shape)} '
+            f'for latent pool {tuple(c_pages.shape)}')
+    build.require_cuda(name, *tensors,
+                       dtypes=[(torch.float32,), _FP, (torch.int8,),
+                               (torch.float32,), _I32, _I32, _I32, _I32])
+    out = torch.empty((b, 1, h, r), dtype=torch.float32, device=q.device)
+    fn = build.function('flash_decode', 'flash_decode_paged_mla_q8',
+                        _K10_ARGS)
+    err = fn(q.data_ptr(), c_pages.data_ptr(), cq_pages.data_ptr(),
+             c_scales.data_ptr(), hot_window.data_ptr(), pos.data_ptr(),
+             window.data_ptr(), block_tables.data_ptr(), out.data_ptr(), b,
+             h, dk, r, page_size, w, float(scale),
+             int(c_pages.dtype == torch.bfloat16), build.stream_of(q))
+    build.check(err, 'flash_decode', name)
+    build.count('flash_decode_paged_mla_q8')
     return out
 
 
@@ -365,3 +541,76 @@ def flash_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
     out = out.reshape(b, hkv, c, g, dh).permute(0, 2, 1, 3, 4) \
         .reshape(b, c, h, dh)
     return out.to(v_pages.dtype)
+
+
+def _mla_decode_operands(q, c_pages, pos, block_tables, window):
+    """(q (B, 1, H, dk) f32, pos, window, tables, had_q_axis) for an MLA
+    decode wrapper; q is (B, 1, H, dk) or (B, H, dk)."""
+    had_q_axis = q.ndim == 4
+    if had_q_axis:
+        if q.shape[1] != 1:
+            raise ValueError(f'decode query must have one token, got '
+                             f'{tuple(q.shape)}')
+    else:
+        q = q[:, None]
+    b = q.shape[0]
+    s_logical = block_tables.shape[1] * c_pages.shape[1]
+    dev = q.device
+    return (q.to(torch.float32).contiguous(), _norm_scalar_vec(pos, b, dev),
+            _norm_scalar_vec(window, b, dev, fill=s_logical + 1),
+            block_tables.to(torch.int32).contiguous(), had_q_axis)
+
+
+def flash_decode_paged_mla(q: torch.Tensor, c_pages: torch.Tensor, pos,
+                           block_tables: torch.Tensor, *, r: int,
+                           scale: float, window=None) -> torch.Tensor:
+    """Shape-flexible wrapper around :func:`flash_decode_mla_paged` (K8).
+
+    q: (B, 1, H, r + d_rope) or (B, H, r + d_rope), the absorbed+rope
+    query; c_pages: (P, page_size, r + d_rope) latent pool; pos: scalar or
+    (B,); block_tables: (B, W) int. Returns the latent output shaped like
+    q with last dim ``r``, in f32 (the caller applies ``W_uv``)."""
+    q4, posv, win, bt, had_q_axis = _mla_decode_operands(
+        q, c_pages, pos, block_tables, window)
+    out = flash_decode_mla_paged(q4, c_pages, posv, win, bt, scale=scale,
+                                 r=r)
+    return out if had_q_axis else out[:, 0]
+
+
+def flash_decode_paged_mla_q8(q, c_pages, cq_pages, c_scales, pos,
+                              block_tables, hot_window, *, r: int,
+                              scale: float, window=None) -> torch.Tensor:
+    """Shape-flexible wrapper around :func:`flash_decode_mla_paged_q8`
+    (K10): as :func:`flash_decode_paged_mla`, plus the int8 latent pool,
+    its (P, 1) or (P,) scales and the hot window (int or (1,) tensor)."""
+    q4, posv, win, bt, had_q_axis = _mla_decode_operands(
+        q, c_pages, pos, block_tables, window)
+    hw = torch.as_tensor(hot_window, dtype=torch.int32,
+                         device=q.device).reshape(-1)[:1].contiguous()
+    cs = c_scales.to(torch.float32).reshape(c_pages.shape[0], 1) \
+        .contiguous()
+    out = flash_decode_mla_paged_q8(q4, c_pages, cq_pages, cs, posv, win,
+                                    bt, hw, scale=scale, r=r)
+    return out if had_q_axis else out[:, 0]
+
+
+def flash_chunk_paged_mla(q: torch.Tensor, c_pages: torch.Tensor, offset,
+                          limit, block_tables: torch.Tensor, *, r: int,
+                          scale: float, window=None) -> torch.Tensor:
+    """Chunked-prefill absorbed-MLA attention over a paged latent pool
+    (K9): :func:`flash_chunk_paged`'s contract with the absorbed query of
+    :func:`flash_decode_paged_mla`.
+
+    q: (B, C, H, r + d_rope); c_pages: (P, page_size, r + d_rope);
+    offset/limit: scalar or (B,); block_tables: (B, W) int. Returns
+    (B, C, H, r) f32 (the caller applies ``W_uv``)."""
+    b, c, h, dk = q.shape
+    # row i -> head i % H at position offset + i // H
+    qg = q.reshape(b, 1, c * h, dk).to(torch.float32).contiguous()
+    s_logical = block_tables.shape[1] * c_pages.shape[1]
+    offv, posv, winv = _chunk_scalars(offset, limit, window, b, c, s_logical,
+                                      q.device)
+    out = flash_decode_mla_paged(qg, c_pages, posv, winv,
+                                 block_tables.to(torch.int32).contiguous(),
+                                 offv, scale=scale, r=r, chunk=c)
+    return out.reshape(b, c, h, r)

@@ -17,7 +17,11 @@ unshared suffix in chunks; ``--chunk-prefill C`` chunks every admission.
 
 Decode attention reads the cache through kernel K1, or K6 over the int8
 tier (``attn_impl='flash'``, the default), or the einsum oracle; chunked
-prefill reads it through kernel K5 or the oracle. ``--mode w8a8`` routes
+prefill reads it through kernel K5 or the oracle. MLA configs (deepseek-v3's
+dense prefix) take the latent twins: K8, K10 over the int8 latent tier, K9
+for chunks. The path is layout-driven: nothing here is family-specific
+except the refusal of ``--prequantize`` on MLA configs (see
+:func:`serve_continuous`). ``--mode w8a8`` routes
 every linear through the int8 kernels (K3 + K2 with ``--prequantize``,
 K3 + K4 without).
 Unlike the reference there is no flash->einsum degrade: a kernel that fails
@@ -376,8 +380,17 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     from ``model.params_from_numpy``) replaces the seeded random init.
     ``step_hook(sched, kv, cache)`` runs after every absorbed step.
     Pools are updated in place. Returns the reference's report keys."""
-    dev = device_mod.resolve(device)
     cfg = configs.get(arch, smoke=smoke)
+    if prequantize and cfg.mla is not None:
+        # the reference fails here: quantize_tree turns w_ukv into a
+        # QuantizedWeight, which mla_attention_decode/_chunk then reshape
+        # (src/repro/models/attention.py:608, :670) -> AttributeError
+        raise ValueError(
+            f'{arch}: --prequantize is not served on MLA configs: the '
+            f'reference quantizes w_ukv and its absorbed decode then '
+            f'reshapes the QuantizedWeight (src/repro/models/attention.py:'
+            f'608), an AttributeError; serve bf16 or dynamic --mode w8a8')
+    dev = device_mod.resolve(device)
     if attn_impl not in ('flash', 'einsum'):
         raise ValueError(f'attn_impl must be flash or einsum, got '
                          f'{attn_impl!r}')

@@ -1,5 +1,7 @@
-"""GQA attention with a paged KV cache (port of the GQA part of
-``repro/models/attention.py``; MLA comes with deepseek-v3).
+"""GQA attention and DeepSeek MLA (multi-head latent attention, absorbed
+decode) over a paged KV cache (port of ``repro/models/attention.py``; its
+sequence-parallel training branch, ``_mla_sdpa_latent_2d``, waits for
+tensor-parallel training).
 
 All projections route through ``core.yoco_linear``. Prompt attention is the
 ``_sdpa`` einsum (the reference has no kernel there). Decode reads the
@@ -7,8 +9,13 @@ cache either through the layout's densify view plus ``sdpa_decode`` (the
 ``einsum`` route, the oracle) or through the layout's flash kernel
 (``rt.attn_impl == 'flash'``: K1, or K6 over the int8 tier); a chunked
 prefill (``attention_chunk``) reads it through the fp densify view or
-kernel K5. Cache dicts are classified by
-``runtime.layouts`` only; this module never looks at their leaves.
+kernel K5. MLA caches hold one latent row ``ckv ‖ krope`` (r + d_rope
+values) per token: decode absorbs ``W_uk`` into the query and reads the
+latent pool through the einsum oracle (:func:`mla_absorbed_attend`) or
+kernel K8 (K10 over the int8 latent tier); a chunk reads it through K9;
+``W_uv`` is applied once, to the f32 latent output. Cache dicts are
+classified by ``runtime.layouts`` only; this module never looks at their
+leaves.
 
 Pools are written in place (see ``runtime/layouts.py``).
 """
@@ -49,6 +56,24 @@ def init_attention(gen: torch.Generator, cfg, *, device) -> dict:
     return p
 
 
+def init_mla(gen: torch.Generator, cfg, *, device) -> dict:
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    return dict(
+        w_dq=dense_init(gen, d, m.q_lora_rank, device=device),
+        w_uq=dense_init(gen, m.q_lora_rank,
+                        h * (m.nope_head_dim + m.rope_head_dim),
+                        device=device),
+        w_dkv=dense_init(gen, d, m.kv_lora_rank + m.rope_head_dim,
+                         device=device),
+        w_ukv=dense_init(gen, m.kv_lora_rank,
+                         h * (m.nope_head_dim + m.v_head_dim), device=device),
+        wo=dense_init(gen, h * m.v_head_dim, d, device=device),
+        q_ln=torch.zeros((m.q_lora_rank,), dtype=torch.float32,
+                         device=device),
+        kv_ln=torch.zeros((m.kv_lora_rank,), dtype=torch.float32,
+                          device=device))
+
+
 def init_paged_cache(cfg, batch: int, *, num_pages: int, page_size: int,
                      max_blocks: int, dtype=torch.bfloat16,
                      kv_dtype: Optional[str] = None, hot_window: int = 1,
@@ -56,8 +81,11 @@ def init_paged_cache(cfg, batch: int, *, num_pages: int, page_size: int,
     """Empty paged KV cache: one pool pair (page 0 = garbage page) plus
     all-garbage block tables. ``kv_dtype='int8'`` adds the int8 cold tier
     (``runtime/kv_quant.py``): int8 pools, per-page per-head scales and the
-    ``hot_window`` in pages (>= 1). ``device`` defaults to the card; with
-    no card it raises unless the caller passes ``device='cpu'``."""
+    ``hot_window`` in pages (>= 1). MLA configs get the latent layout
+    instead: one ``cl`` pool (P, page_size, r + d_rope) and, tiered, an
+    int8 ``clq`` twin with ONE absmax scale per page (``cs`` (P, 1)).
+    ``device`` defaults to the card; with no card it raises unless the
+    caller passes ``device='cpu'``."""
     if kv_dtype not in (None, 'fp', 'int8'):
         raise ValueError(f'kv_dtype must be None/"fp"/"int8", got '
                          f'{kv_dtype!r}')
@@ -66,6 +94,20 @@ def init_paged_cache(cfg, batch: int, *, num_pages: int, page_size: int,
         raise ValueError('hot_window must be >= 1: the page being written '
                          'is always full-precision')
     device = device_mod.resolve(device)
+    if cfg.mla is not None:
+        m = cfg.mla
+        shape = (num_pages, page_size, m.kv_lora_rank + m.rope_head_dim)
+        cache = dict(cl=torch.zeros(shape, dtype=dtype, device=device),
+                     bt=torch.zeros((batch, max_blocks), dtype=torch.int32,
+                                    device=device))
+        if tiered:
+            cache.update(
+                clq=torch.zeros(shape, dtype=torch.int8, device=device),
+                cs=torch.zeros((num_pages, 1), dtype=torch.float32,
+                               device=device),
+                hw=torch.full((1,), hot_window, dtype=torch.int32,
+                              device=device))
+        return cache
     hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     shape = (num_pages, page_size, hkv, dh)
     cache = dict(k=torch.zeros(shape, dtype=dtype, device=device),
@@ -275,4 +317,192 @@ def attention_chunk(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
         mask = chunk_mask(offset, c, kd.shape[1], window)
         out = _sdpa(q, kd, vd, mask[:, None, None, :, :], scale)
     out = yoco_linear.linear(out.reshape(b, c, -1), p['wo'], cfg=yoco)
+    return out, cache
+
+
+# ----------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ----------------------------------------------------------------------------
+def _mla_scale(m) -> float:
+    """The softmax scale of the absorbed paths, 1/sqrt(nope + rope) as a
+    Python float (the reference's kernels take it as a static argument)."""
+    return 1.0 / float(m.nope_head_dim + m.rope_head_dim) ** 0.5
+
+
+def _mla_q(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
+           positions: torch.Tensor):
+    """(q_nope, roped q_rope), both (B, S, H, .), from the low-rank query."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    cq = rmsnorm(yoco_linear.linear(x, p['w_dq'], cfg=yoco), p['q_ln'])
+    q = yoco_linear.linear(cq, p['w_uq'], cfg=yoco)
+    q = q.reshape(b, s, -1, m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    return q_nope, rope_mod.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
+                positions: torch.Tensor):
+    """(ckv (B, S, r), roped krope (B, S, d_rope)): what the cache holds."""
+    m = cfg.mla
+    dkv = yoco_linear.linear(x, p['w_dkv'], cfg=yoco)
+    ckv = rmsnorm(dkv[..., :m.kv_lora_rank], p['kv_ln'])
+    krope = dkv[..., m.kv_lora_rank:]
+    krope = rope_mod.apply_rope(krope[:, :, None, :], positions,
+                                cfg.rope_theta)[:, :, 0, :]
+    return ckv, krope
+
+
+def _mla_qkv_full(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
+                  positions: torch.Tensor):
+    """Naive (non-absorbed) q/k/v for prefill: per-head k_nope and v
+    expanded from the latent through ``w_ukv``."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, cfg, yoco, positions)
+    ckv, krope = _mla_latent(p, x, cfg, yoco, positions)
+    kv = yoco_linear.linear(ckv, p['w_ukv'], cfg=yoco)
+    kv = kv.reshape(b, s, -1, m.nope_head_dim + m.v_head_dim)
+    k_nope, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
+    return q_nope, q_rope, k_nope, krope, v, ckv
+
+
+def mla_attention(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
+                  positions: Optional[torch.Tensor] = None,
+                  cache: Optional[dict] = None,
+                  ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """MLA prefill: materializes per-head k/v for the prompt, caches only
+    the latent rows ``ckv ‖ krope`` (written at [0, s)). The prompt
+    attention is einsums, as in the reference (no kernel there)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    if positions is None:
+        positions = rope_mod.default_positions(b, s, device=x.device)
+    q_nope, q_rope, k_nope, krope, v, ckv = _mla_qkv_full(
+        p, x, cfg, yoco, positions)
+    if cache is not None:
+        from repro_torch.runtime import layouts
+        cache = layouts.get_layout(cache).write_prefill(
+            cache, dict(ckv=ckv, krope=krope))
+    # the reference's scale is 1 / sqrt(nope + rope) computed in f32
+    scale = 1.0 / torch.sqrt(torch.tensor(
+        float(m.nope_head_dim + m.rope_head_dim), dtype=torch.float32,
+        device=x.device))
+    mask = causal_mask(s, s, device=x.device)
+    f32 = torch.float32
+    lo = torch.einsum('bqhd,bshd->bhqs', q_nope.to(f32), k_nope.to(f32))
+    lo = lo + torch.einsum('bqhd,bsd->bhqs', q_rope.to(f32), krope.to(f32))
+    probs = torch.softmax(lo * scale + mask, dim=-1)
+    out = torch.einsum('bhqs,bshd->bqhd', probs.to(v.dtype).to(f32),
+                       v.to(f32))
+    out = yoco_linear.linear(out.reshape(b, s, -1).to(x.dtype), p['wo'],
+                             cfg=yoco)
+    return out, cache
+
+
+def mla_absorbed_attend(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                        ckv: torch.Tensor, krope: torch.Tensor, pos,
+                        scale: float) -> torch.Tensor:
+    """Absorbed latent-space decode attention — the einsum oracle kernels
+    K8 and K10 are held against. q_lat (B, 1, H, r) (q_nope through
+    ``W_uk``); q_rope (B, 1, H, d_rope); ckv/krope (B, S, r)/(B, S,
+    d_rope) dense latent views; pos 0-d or (B,). Math in f32; returns the
+    (B, 1, H, r) latent output, before ``W_uv``."""
+    f32 = torch.float32
+    lo = torch.einsum('bqhr,bsr->bhqs', q_lat.to(f32), ckv.to(f32))
+    lo = lo + torch.einsum('bqhd,bsd->bhqs', q_rope.to(f32), krope.to(f32))
+    pos = torch.as_tensor(pos, device=q_lat.device)
+    mask = decode_mask(pos, ckv.shape[1])
+    if pos.ndim != 0:
+        mask = mask[:, None, None, :]               # lo is (b, h, q, s)
+    probs = torch.softmax(lo * scale + mask, dim=-1)
+    return torch.einsum('bhqs,bsr->bqhr', probs, ckv.to(f32))
+
+
+def _absorb_weights(p: dict, m):
+    """(W_uk, W_uv) as f32 (r, H, dn) / (r, H, dv) views of ``w_ukv``."""
+    w = p['w_ukv'].reshape(m.kv_lora_rank, -1,
+                           m.nope_head_dim + m.v_head_dim).to(torch.float32)
+    return w[..., :m.nope_head_dim], w[..., m.nope_head_dim:]
+
+
+def mla_attention_decode(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
+                         cache: dict, pos, rt=None
+                         ) -> Tuple[torch.Tensor, dict]:
+    """Absorbed MLA decode: scores ``(q_nope @ W_uk) · ckv + q_rope ·
+    krope`` and output ``(probs · ckv) @ W_uv``, per head, over the latent
+    cache (r + d_rope values a token). ``rt.attn_impl == 'flash'`` reads a
+    paged latent pool through the layout's kernel (K8, or K10 over the
+    int8 tier), ``'einsum'`` through the layout's (tier-mixing) densify
+    view and :func:`mla_absorbed_attend`. x: (B, 1, d); pos 0-d or
+    (B,)."""
+    m = cfg.mla
+    b = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    positions = pos.reshape(-1, 1).expand(b, 1)
+    q_nope, q_rope = _mla_q(p, x, cfg, yoco, positions)
+    ckv_t, krope_t = _mla_latent(p, x, cfg, yoco, positions)
+    w_uk, w_uv = _absorb_weights(p, m)
+    q_lat = torch.einsum('bqhd,rhd->bqhr', q_nope.to(torch.float32), w_uk)
+    scale = _mla_scale(m)
+    r = m.kv_lora_rank
+    from repro_torch.runtime import layouts
+    layout = layouts.get_layout(cache)
+    posr = pos.reshape(-1).expand(b) if layout.paged else pos
+    # writes always land in the fp latent pool, tiered layout or not
+    cache = layout.write_token(cache, dict(ckv=ckv_t, krope=krope_t), posr)
+    if rt is not None and rt.attn_impl == 'flash' and layout.paged:
+        o_lat = layout.flash_decode(
+            torch.cat([q_lat, q_rope.to(torch.float32)], -1), cache, posr,
+            scale=scale, r=r)
+    else:
+        ckv_d, krope_d = layout.gather(cache, posr, r=r)
+        o_lat = mla_absorbed_attend(q_lat, q_rope, ckv_d, krope_d, posr,
+                                    scale)
+    out = torch.einsum('bqhr,rhd->bqhd', o_lat, w_uv)
+    out = yoco_linear.linear(out.reshape(b, 1, -1).to(x.dtype), p['wo'],
+                             cfg=yoco)
+    return out, cache
+
+
+def mla_attention_chunk(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
+                        cache: dict, offset, limit, rt=None
+                        ) -> Tuple[torch.Tensor, dict]:
+    """Chunked MLA prefill through the absorbed math: C tokens at absolute
+    positions offset[b] .. offset[b] + C - 1 attend the paged latent cache
+    (earlier chunks, shared prefix pages, the chunk itself). Same contract
+    as :func:`attention_chunk`: reads go through the fp latent pool only
+    (kernel K9 under ``rt.attn_impl == 'flash'``), and ``W_uv`` is applied
+    once, outside the softmax."""
+    m = cfg.mla
+    b, c, _ = x.shape
+    offset = torch.as_tensor(offset, dtype=torch.int32,
+                             device=x.device).reshape(-1)
+    positions = offset[:, None] + torch.arange(c, dtype=torch.int32,
+                                               device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, x, cfg, yoco, positions)
+    ckv_t, krope_t = _mla_latent(p, x, cfg, yoco, positions)
+    w_uk, w_uv = _absorb_weights(p, m)
+    f32 = torch.float32
+    q_lat = torch.einsum('bqhd,rhd->bqhr', q_nope.to(f32), w_uk)
+    scale = _mla_scale(m)
+    r = m.kv_lora_rank
+    from repro_torch.runtime import layouts
+    layout = layouts.get_layout(cache)
+    cache = layout.write_chunk(cache, dict(ckv=ckv_t, krope=krope_t),
+                               offset, limit)
+    if rt is not None and rt.attn_impl == 'flash' and layout.paged:
+        o_lat = layout.flash_chunk(torch.cat([q_lat, q_rope.to(f32)], -1),
+                                   cache, offset, limit, scale=scale, r=r)
+    else:
+        ckv_d, krope_d = layout.gather_fp(cache, r=r)
+        lo = torch.einsum('bqhr,bsr->bhqs', q_lat, ckv_d.to(f32))
+        lo = lo + torch.einsum('bqhd,bsd->bhqs', q_rope.to(f32),
+                               krope_d.to(f32))
+        mask = chunk_mask(offset, c, ckv_d.shape[1])
+        probs = torch.softmax(lo * scale + mask[:, None, :, :], dim=-1)
+        o_lat = torch.einsum('bhqs,bsr->bqhr', probs, ckv_d.to(f32))
+    out = torch.einsum('bqhr,rhd->bqhd', o_lat, w_uv)
+    out = yoco_linear.linear(out.reshape(b, c, -1).to(x.dtype), p['wo'],
+                             cfg=yoco)
     return out, cache

@@ -1,5 +1,6 @@
-"""Per-layer transformer block on the dense path (port of
-``repro/models/blocks.py``; MoE, Mamba2 and shared blocks come later)."""
+"""Per-layer transformer block with a dense MLP and GQA or MLA attention
+(port of ``repro/models/blocks.py``; MoE, Mamba2 and shared blocks come
+later)."""
 
 from __future__ import annotations
 
@@ -13,11 +14,38 @@ from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 
 def init_transformer_block(gen: torch.Generator, cfg, *, device) -> dict:
-    return dict(attn_norm=init_norm(cfg, device=device),
-                attn=attn_mod.init_attention(gen, cfg, device=device),
+    attn = (attn_mod.init_mla(gen, cfg, device=device)
+            if cfg.mla is not None
+            else attn_mod.init_attention(gen, cfg, device=device))
+    return dict(attn_norm=init_norm(cfg, device=device), attn=attn,
                 mlp_norm=init_norm(cfg, device=device),
                 mlp=init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
                              device=device))
+
+
+def _mix_attn(p, x, cfg, yoco, *, window, theta, cache, decode_pos, rt,
+              chunk_ctx):
+    """Route the attention: chunked prefill, decode or prompt, MLA or GQA."""
+    mla = cfg.mla is not None
+    if chunk_ctx is not None:
+        if mla:
+            return attn_mod.mla_attention_chunk(
+                p['attn'], x, cfg, yoco, cache=cache,
+                offset=chunk_ctx['offset'], limit=chunk_ctx['limit'], rt=rt)
+        return attn_mod.attention_chunk(
+            p['attn'], x, cfg, yoco, cache=cache, offset=chunk_ctx['offset'],
+            limit=chunk_ctx['limit'], window=window, theta=theta, rt=rt)
+    if decode_pos is not None:
+        if mla:
+            return attn_mod.mla_attention_decode(
+                p['attn'], x, cfg, yoco, cache=cache, pos=decode_pos, rt=rt)
+        return attn_mod.attention_decode(p['attn'], x, cfg, yoco,
+                                         cache=cache, pos=decode_pos,
+                                         window=window, theta=theta, rt=rt)
+    if mla:
+        return attn_mod.mla_attention(p['attn'], x, cfg, yoco, cache=cache)
+    return attn_mod.attention(p['attn'], x, cfg, yoco, window=window,
+                              theta=theta, cache=cache)
 
 
 def transformer_block(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
@@ -28,18 +56,9 @@ def transformer_block(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     (dict(offset=, limit=), both (B,) int32) routes the attention through
     the chunked-prefill path."""
     h = apply_norm(p['attn_norm'], x, cfg)
-    if chunk_ctx is not None:
-        a, cache = attn_mod.attention_chunk(
-            p['attn'], h, cfg, yoco, cache=cache, offset=chunk_ctx['offset'],
-            limit=chunk_ctx['limit'], window=window, theta=theta, rt=rt)
-    elif decode_pos is not None:
-        a, cache = attn_mod.attention_decode(p['attn'], h, cfg, yoco,
-                                             cache=cache, pos=decode_pos,
-                                             window=window, theta=theta,
-                                             rt=rt)
-    else:
-        a, cache = attn_mod.attention(p['attn'], h, cfg, yoco, window=window,
-                                      theta=theta, cache=cache)
+    a, cache = _mix_attn(p, h, cfg, yoco, window=window, theta=theta,
+                         cache=cache, decode_pos=decode_pos, rt=rt,
+                         chunk_ctx=chunk_ctx)
     x = x + a
     h = apply_norm(p['mlp_norm'], x, cfg)
     return x + apply_mlp(p['mlp'], h, cfg.mlp_type, yoco), cache

@@ -10,8 +10,10 @@
 Parameters are a plain dict with the reference's names; ``layers`` is a
 list of per-layer dicts (a Python loop replaces ``lax.scan``). Caches keep
 the reference's layer-stacked schema, ``dict(layers=dict(k=(L, P, ps, Hkv,
-dh), v=..., bt=(L, B, W)))``; each layer works on views of the stacked pools
-and writes them IN PLACE.
+dh), v=..., bt=(L, B, W)))`` (MLA configs: one latent pool ``cl`` (L, P,
+ps, r + d_rope)); each layer works on views of the stacked pools and
+writes them IN PLACE. Served: token models with dense MLPs and GQA or MLA
+attention (:func:`_check_dense` refuses the rest by feature).
 
 ``params_from_numpy`` / ``cache_from_numpy`` / ``cache_to_numpy`` carry the
 reference's trees (as numpy arrays) across, so the two packages can be run
@@ -36,7 +38,7 @@ from repro_torch.models.layers import apply_norm, dense_init, embed_init, init_n
 
 @dataclasses.dataclass(frozen=True)
 class ModelRuntime:
-    attn_impl: str = 'einsum'      # einsum (oracle) | flash (K1/K5/K6)
+    attn_impl: str = 'einsum'      # einsum (oracle) | flash (the kernels)
     compute_dtype: Any = torch.bfloat16
 
 
@@ -44,21 +46,32 @@ DEFAULT_RT = ModelRuntime()
 
 
 def _check_dense(cfg) -> None:
-    if cfg.family != 'dense' or cfg.input_kind != 'tokens':
-        raise NotImplementedError(
-            f'{cfg.name}: family={cfg.family!r} input={cfg.input_kind!r}; '
-            f'this slice of the port runs dense token models only')
+    """Refuse, by feature, what the port does not serve yet. A family name
+    says too little: deepseek-v3's dense prefix keeps ``family='moe'``
+    with ``moe=None``, as in the reference."""
+    later = [(cfg.moe is not None, 'MoE layers (ROADMAP Queue 1 item 11)'),
+             (cfg.input_kind != 'tokens',
+              f'{cfg.input_kind!r} input (Queue 1 item 11)')]
+    for refused, what in later:
+        if refused:
+            raise NotImplementedError(
+                f'{cfg.name}: {what} belong to a later slice of the port; '
+                f'it serves token models with dense MLPs and GQA or MLA '
+                f'attention')
 
 
 # ----------------------------------------------------------------------------
 # init and interchange
 # ----------------------------------------------------------------------------
-def init_params(gen: torch.Generator, cfg, *, device) -> dict:
+def init_params(gen: torch.Generator, cfg, *, device=None) -> dict:
     """Random weights with the reference's distributions (embeddings
     N(0, 0.02^2), linears N(0, 1/d_in), norms at identity), drawn from
-    ``gen`` directly on ``device``. The draws differ from JAX's PRNG; to
-    compare with the reference use :func:`params_from_numpy`."""
+    ``gen`` directly on ``device`` (default: the card; with no card it
+    raises unless the caller passes ``device='cpu'``). The draws differ
+    from JAX's PRNG; to compare with the reference use
+    :func:`params_from_numpy`."""
     _check_dense(cfg)
+    device = device_mod.resolve(device)
     p = dict(embed=embed_init(gen, cfg.vocab_size, cfg.d_model,
                               device=device))
     p['layers'] = [blk.init_transformer_block(gen, cfg, device=device)
@@ -98,16 +111,25 @@ def params_from_numpy(tree: dict, cfg, device) -> dict:
     return out
 
 
+# Kept f32 by cast_linear_weights: MLA decode absorbs W_uk into the query
+# and applies W_uv to the latent output in f32 on the f32 weights, as the
+# reference does (its params are f32 masters); its prefill linear casts
+# w_ukv to the compute dtype per call, as every reference linear does.
+_F32_WEIGHTS = ('w_ukv',)
+
+
 def cast_linear_weights(params: dict, dtype: torch.dtype) -> dict:
     """Store every float linear weight once in ``dtype`` (the bf16 mode's
-    compute dtype), which the reference casts to on every call instead."""
+    compute dtype), which the reference casts to on every call instead;
+    the weights in ``_F32_WEIGHTS`` stay f32."""
     def walk(node, name=''):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v, name) for v in node]
         if (isinstance(node, torch.Tensor) and node.is_floating_point()
-                and node.ndim == 2 and name in yoco_linear._WEIGHT_NAMES):
+                and node.ndim == 2 and name in yoco_linear._WEIGHT_NAMES
+                and name not in _F32_WEIGHTS):
             return node.to(dtype)
         return node
     return walk(params)
@@ -174,11 +196,13 @@ def init_paged_cache_tree(cfg, batch: int, *, num_pages: int, page_size: int,
                           max_blocks: int, dtype=torch.bfloat16,
                           kv_dtype: Optional[str] = None, hot_window: int = 1,
                           device=None) -> dict:
-    """One physical pool pair per layer (stacked over L) and one set of
-    block tables broadcast per layer (a view; ``with_block_tables``
-    refreshes it). ``kv_dtype='int8'`` adds the int8 cold tier per layer
-    (``kq``/``vq`` (L, P, ps, Hkv, dh), ``ks``/``vs`` (L, P, Hkv) f32) and
-    the hot window ``hw``, a (1,) int32 broadcast per layer like ``bt``.
+    """One physical pool pair per layer (stacked over L; MLA configs: one
+    latent pool ``cl``) and one set of block tables broadcast per layer (a
+    view; ``with_block_tables`` refreshes it). ``kv_dtype='int8'`` adds
+    the int8 cold tier per layer (``kq``/``vq`` (L, P, ps, Hkv, dh),
+    ``ks``/``vs`` (L, P, Hkv) f32; MLA: ``clq`` (L, P, ps, r + d_rope),
+    ``cs`` (L, P, 1)) and the hot window ``hw``, a (1,) int32 broadcast
+    per layer like ``bt``.
     ``device`` defaults to the card; with no card it raises unless the
     caller passes ``device='cpu'``."""
     _check_dense(cfg)

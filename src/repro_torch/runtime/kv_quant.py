@@ -1,13 +1,18 @@
 """Hybrid-precision KV tiering: int8 cold pages + a full-precision hot
-window over the paged pool (port of the GQA part of
-``repro/runtime/kv_quant.py``; the MLA latent tier comes with the MLA
-slice).
+window over the paged pool (port of ``repro/runtime/kv_quant.py``).
 
 The last ``hot_window`` pages of every request stay in the fp pools (the
 "SRAM" tier: every write lands there); pages that age out of the window are
 quantized once, per page and per KV head, into int8 pools with f32 absmax
 scales (the "ReRAM" tier) and decode reads them from there. Leaf schema
 and routing live in ``runtime/layouts.py`` (:class:`PagedQ8Layout`).
+
+The MLA latent tier (:class:`PagedMLAQ8Layout`) quantizes each aged-out
+page of the ``cl`` latent pool with ONE absmax scale over the whole
+(page_size, r + d_rope) page, *before* the W_uk/W_uv expansion: the
+rounding error reaches every head's keys and values at once (its own
+error model, held against the tier-mixing absorbed oracle,
+:func:`dequant_gather_mla`).
 
 Hotness rule (shared by kernel K6, :func:`dequant_gather` and
 :class:`KVTierTracker`): block ``s`` of a request at ``pos`` is HOT iff
@@ -67,6 +72,31 @@ def quantize_pages_layer(c: dict, pages) -> dict:
     return c
 
 
+def quantize_latent_pages_layer(c: dict, pages) -> dict:
+    """Quantize physical pages ``pages`` of one quantized MLA latent cache
+    dict (single layer, or layer-stacked) from the fp ``cl`` pool into the
+    int8 ``clq`` pool with one absmax scale per page (``cs`` (P, 1)); the
+    scale in the compiled form, as :func:`quantize_pages_layer`. Same
+    idempotence and garbage-page padding contract. In place; returns
+    ``c``."""
+    stacked = c['cs'].ndim == 3
+    idx = torch.as_tensor(pages, dtype=torch.int64,
+                          device=c['cl'].device).reshape(-1)
+    tiles = (c['cl'][:, idx] if stacked else c['cl'][idx]).to(
+        torch.float32)                           # ([L,] N, ps, r + d_rope)
+    amax = tiles.abs().amax(dim=(-2, -1), keepdim=True)
+    scale = torch.clamp_min(amax, 1e-8) * INV_INT8_MAX
+    q8 = torch.clamp(torch.round(tiles / scale), -INT8_MAX,
+                     INT8_MAX).to(torch.int8)
+    if stacked:
+        c['clq'][:, idx] = q8
+        c['cs'][:, idx] = scale[..., 0, :]
+    else:
+        c['clq'][idx] = q8
+        c['cs'][idx] = scale[..., 0, :]
+    return c
+
+
 def quantize_tree_pages(cache_tree, pages):
     """Quantize ``pages`` in every quantized layer dict of a (possibly
     layer-stacked) cache tree. Page indices are physical, so one vector
@@ -76,11 +106,14 @@ def quantize_tree_pages(cache_tree, pages):
     return layouts.quantize_tree_pages(cache_tree, pages)
 
 
-def _hot_mask(c: dict, pos: torch.Tensor) -> torch.Tensor:
+def _hot_mask(c: dict, pos: torch.Tensor, pool_key: str = 'k'
+              ) -> torch.Tensor:
     """(B, W * page_size) bool hot mask of one quantized cache dict at
-    per-request ``pos`` — THE hotness rule, as kernel K6 evaluates it."""
+    per-request ``pos`` — THE hotness rule, as kernels K6 and K10
+    evaluate it. ``pool_key`` names the fp pool that gives the page
+    size."""
     bt = c['bt']
-    ps = c['k'].shape[1]
+    ps = c[pool_key].shape[1]
     w = bt.shape[1]
     pos = torch.as_tensor(pos, dtype=torch.int64,
                           device=bt.device).reshape(-1)
@@ -107,6 +140,21 @@ def dequant_gather(c: dict, pos):
         return torch.where(hot, fp, cold)
 
     return densify(c['k'], 'kq', 'ks'), densify(c['v'], 'vq', 'vs')
+
+
+def dequant_gather_mla(c: dict, pos) -> torch.Tensor:
+    """Densify one quantized MLA latent cache dict into the contiguous
+    (B, W * ps, r + d_rope) latent view in the fp pool's dtype, mixing
+    tiers per the hotness rule (the absorbed-einsum-oracle path of the
+    latent tier; the caller splits ckv/krope at ``r``). The cold dequant
+    is rounded through the pool dtype, as kernel K10 rounds it."""
+    hot = _hot_mask(c, pos, pool_key='cl')[:, :, None]
+    bt = c['bt'].to(torch.int64)
+    fp = kvc.gather_pages(c['cl'], bt)
+    q_pages = c['clq'][bt].to(torch.float32)         # (B, W, ps, dk)
+    scales = c['cs'][bt][:, :, None, :]              # (B, W, 1, 1)
+    cold = (q_pages * scales).reshape(fp.shape).to(c['cl'].dtype)
+    return torch.where(hot, fp, cold)
 
 
 # ----------------------------------------------------------------------------

@@ -6,6 +6,9 @@ the returned layout owns its write ops, its densify oracle and its kernel
 entrypoint. Layouts ported so far (single layer; layer stacks prepend (L,)):
 
 ==================  ======================================================
+PagedMLAQ8Layout    PagedMLALayout + ``clq`` (P, ps, r + d_rope) int8,
+                    ``cs`` (P, 1) f32, ``hw`` (1,) int32
+PagedMLALayout      ``cl`` (P, ps, r + d_rope), ``bt`` (B, W) int32
 PagedQ8Layout       PagedLayout + ``kq``/``vq`` (P, ps, Hkv, dh) int8,
                     ``ks``/``vs`` (P, Hkv) f32, ``hw`` (1,) int32
 PagedLayout         ``k``/``v`` (P, ps, Hkv, dh), ``bt`` (B, W) int32
@@ -13,9 +16,12 @@ ContiguousLayout    ``k``/``v`` (B, S_max, Hkv, dh)
 ==================  ======================================================
 
 ``hw`` is the hot window in pages (>= 1; >= W never reads the int8 tier;
-see ``runtime/kv_quant.py``). The MLA and recurrent layouts are later
-slices. Write ops and tree walkers update pools IN PLACE (the reference
-returns new arrays); the returned dicts share the caller's tensors.
+see ``runtime/kv_quant.py``). An MLA latent row is ``ckv ‖ krope`` (one
+pool, written together, scored together; the first r columns are the
+values); its gathers and kernels take the latent rank ``r``. The
+contiguous MLA and the recurrent layouts are later slices. Write ops and
+tree walkers update pools IN PLACE (the reference returns new arrays); the
+returned dicts share the caller's tensors.
 """
 
 from __future__ import annotations
@@ -65,6 +71,12 @@ def dense_token_update(c: torch.Tensor, t: torch.Tensor, pos) -> torch.Tensor:
     posv = _pos_vec(pos, c.shape[0], c.device).to(torch.int64)
     c[torch.arange(c.shape[0], device=c.device), posv] = t[:, 0].to(c.dtype)
     return c
+
+
+def _latent_row(updates: dict) -> torch.Tensor:
+    """MLA write slab: ckv ‖ krope, the one-pool row the latent layouts
+    store."""
+    return torch.cat([updates['ckv'], updates['krope']], dim=-1)
 
 
 class CacheLayout:
@@ -120,6 +132,120 @@ class CacheLayout:
     def quantize_pages(cls, cache: dict, pages) -> dict:
         raise NotImplementedError(
             f'{cls.name} has no int8 tier to quantize into')
+
+
+@_register
+class PagedMLAQ8Layout(CacheLayout):
+    """Paged MLA latent pool plus its int8 cold tier: ``cl``/``clq``/
+    ``cs``/``bt``/``hw``. Writes land in the fp ``cl`` pool; aged-out pages
+    are quantized with one absmax scale per page, before the W_uk/W_uv
+    expansion. Registered ahead of :class:`PagedMLALayout`, whose leaves
+    it carries."""
+    name = 'paged_mla_q8'
+    required = frozenset({'cl', 'clq', 'cs', 'bt', 'hw'})
+    paged = True
+    quantized = True
+    table_leaves = ('bt',)
+    shared_leaves = ('bt', 'hw')
+    scrub_leaves = ('cl', 'clq', 'cs')
+    poison_leaves = ('cl',)
+
+    @classmethod
+    def write_token(cls, cache, updates, pos):
+        return PagedMLALayout.write_token(cache, updates, pos)
+
+    @classmethod
+    def write_prefill(cls, cache, updates):
+        return PagedMLALayout.write_prefill(cache, updates)
+
+    @classmethod
+    def write_chunk(cls, cache, updates, offset, limit):
+        return PagedMLALayout.write_chunk(cache, updates, offset, limit)
+
+    @classmethod
+    def gather(cls, cache, pos, r=None):
+        dense = kvq.dequant_gather_mla(
+            cache, _pos_vec(pos, cache['bt'].shape[0], cache['bt'].device))
+        return dense[..., :r], dense[..., r:]
+
+    @classmethod
+    def gather_fp(cls, cache, r=None):
+        return PagedMLALayout.gather(cache, 0, r=r)
+
+    @classmethod
+    def flash_decode(cls, q, cache, pos, *, scale, window=None, r=None):
+        from repro_torch.kernels import flash_decode as fd
+        return fd.flash_decode_paged_mla_q8(
+            q, cache['cl'], cache['clq'], cache['cs'], pos, cache['bt'],
+            cache['hw'], r=r, scale=scale, window=window)
+
+    @classmethod
+    def flash_chunk(cls, q, cache, offset, limit, *, scale, window=None,
+                    r=None):
+        # fp pool only: earlier chunks' pages are not quantized yet
+        return PagedMLALayout.flash_chunk(q, cache, offset, limit,
+                                          scale=scale, window=window, r=r)
+
+    @classmethod
+    def quantize_pages(cls, cache, pages):
+        return kvq.quantize_latent_pages_layer(cache, pages)
+
+
+@_register
+class PagedMLALayout(CacheLayout):
+    """Paged MLA latent pool: one ``cl`` pool (ckv ‖ krope per row) and
+    shared ``bt`` block tables."""
+    name = 'paged_mla'
+    required = frozenset({'cl', 'bt'})
+    paged = True
+    table_leaves = ('bt',)
+    shared_leaves = ('bt',)
+    scrub_leaves = ('cl',)
+    poison_leaves = ('cl',)
+
+    @classmethod
+    def write_token(cls, cache, updates, pos):
+        lat = _latent_row(updates)
+        kvc.paged_token_update(cache['cl'], lat,
+                               _pos_vec(pos, lat.shape[0], lat.device),
+                               cache['bt'])
+        return cache
+
+    @classmethod
+    def write_prefill(cls, cache, updates):
+        kvc.paged_prefill_update(cache['cl'], _latent_row(updates),
+                                 cache['bt'])
+        return cache
+
+    @classmethod
+    def write_chunk(cls, cache, updates, offset, limit):
+        kvc.paged_chunk_update(cache['cl'], _latent_row(updates), offset,
+                               limit, cache['bt'])
+        return cache
+
+    @classmethod
+    def gather(cls, cache, pos, r=None):
+        del pos
+        dense = kvc.gather_pages(cache['cl'], cache['bt'])
+        return dense[..., :r], dense[..., r:]
+
+    @classmethod
+    def gather_fp(cls, cache, r=None):
+        return cls.gather(cache, 0, r=r)
+
+    @classmethod
+    def flash_decode(cls, q, cache, pos, *, scale, window=None, r=None):
+        from repro_torch.kernels import flash_decode as fd
+        return fd.flash_decode_paged_mla(q, cache['cl'], pos, cache['bt'],
+                                         r=r, scale=scale, window=window)
+
+    @classmethod
+    def flash_chunk(cls, q, cache, offset, limit, *, scale, window=None,
+                    r=None):
+        from repro_torch.kernels import flash_decode as fd
+        return fd.flash_chunk_paged_mla(q, cache['cl'], offset, limit,
+                                        cache['bt'], r=r, scale=scale,
+                                        window=window)
 
 
 @_register

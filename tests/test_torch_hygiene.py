@@ -87,6 +87,35 @@ def test_entry_points_refuse_a_missing_card():
                list(tree['layers'].values()) + list(one.values()))
 
 
+def test_mla_entry_points_refuse_a_missing_card():
+    """The same discipline on deepseek-v3's dense prefix (MLA latent
+    caches, the int8 latent tier) and for the parameter init."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is visible: the default device is real')
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.models import attention, model
+    cfg = dataclasses.replace(get('deepseek-v3-671b', smoke=True), moe=None)
+    sizes = dict(num_pages=5, page_size=4, max_blocks=2)
+    for kv_dtype in (None, 'int8'):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            model.init_paged_cache_tree(cfg, 2, kv_dtype=kv_dtype, **sizes)
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            attention.init_paged_cache(cfg, 2, kv_dtype=kv_dtype, **sizes)
+        tree = model.init_paged_cache_tree(cfg, 2, kv_dtype=kv_dtype,
+                                           device='cpu', **sizes)
+        one = attention.init_paged_cache(cfg, 2, kv_dtype=kv_dtype,
+                                         device='cpu', **sizes)
+        assert 'cl' in tree['layers'] and 'cl' in one
+        assert all(t.device.type == 'cpu' for t in
+                   list(tree['layers'].values()) + list(one.values()))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        model.init_params(torch.Generator(), cfg)
+    params = model.init_params(torch.Generator(), cfg, device='cpu')
+    assert params['layers'][0]['attn']['w_ukv'].device.type == 'cpu'
+
+
 def test_synthetic_data_is_seeded_and_affine():
     from repro_torch.configs import get
     from repro_torch.data import synthetic
