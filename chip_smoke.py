@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
-Two main paths: continuous paged serving of stablelm-1.6b (GQA; kernels
+Three main paths: continuous paged serving of stablelm-1.6b (GQA; kernels
 K1-K6) and of deepseek-v3's dense prefix (its first 3 layers, MLA with a
 dense MLP, at the published width, the MoE layers dropped; registered at
 run time as ``deepseek-v3-dense3``; kernels K8-K10, and K3/K4 in dynamic
-w8a8).
+w8a8), and the static ``serve()`` of stablelm-1.6b over a contiguous cache,
+lock-step or ragged, greedy or sampled (kernel K7; K2/K3 with
+--prequantize, K3/K4 in dynamic w8a8).
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -14,7 +16,9 @@ Phases, in order; any failure exits non-zero and prints no result:
              at once).
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at the serving paths' full-width shapes (K3/K4 at the linear
-             shapes of both models, K2 at stablelm's; int outputs and int8
+             shapes of both models, K2 at stablelm's, each at M = 8 and
+             128 and, for stablelm's layer linears, at the static
+             prefill's M = 8 * 128 = 1024; int outputs and int8
              codes bit-exact; GQA attention 1e-5 on f32 and on bf16 pools,
              since kernel and plain version both compute in f32 on the same
              pools, with a sliding window on half the slots; K5 and K9 on
@@ -26,12 +30,19 @@ Phases, in order; any failure exits non-zero and prints no result:
              version and, where one exists, the one PyTorch call computing
              the same function (device time of each call's kernels, from
              torch.profiler; CUDA events where the profiler records no
-             device kernel, named in each row's ``timer``).
+             device kernel, named in each row's ``timer``). K7 at
+             stablelm's static shape (B=8, Hkv=32, dh=64, S=160; lock-step
+             and ragged, a window on half the slots) and at G=4, dh=128,
+             S=200, f32 and bf16 caches, 1e-5, every row finite, its
+             streamed path bit-equal to the prefetch path, beside
+             scaled_dot_product_attention on the same cache.
 3. smoke   — the port's GPU path against its own CPU plain path on each
              smoke config in f32: prefill plus decode in every served mode,
              decode over the int8 tier (hot window 1), and a prefix hit
-             served by chunked prefill; every forward's logits within
-             1e-4 and equal greedy tokens. The card runs first; the CPU
+             served by chunked prefill, and the static serve() with
+             --attn-impl flash, lock-step and --ragged, in bf16 and w8a8
+             --prequantize mode; every forward's logits within 1e-4 and
+             equal greedy tokens. The card runs first; the CPU
              run takes the card's int8 codes (K3, the tier's page
              quantize) where its own differ by rounding-boundary flips
              only, and fails on any other difference (see SMOKE_TOL).
@@ -58,10 +69,22 @@ Phases, in order; any failure exits non-zero and prints no result:
              per decode step or chunk, 25 per monolithic prefill); the tier
              must quantize pages, and the prefix cache must hit on at least
              15 of 16 admissions with fewer peak pages than the private
-             run.
+             run. Then the static serve() at the published width (batch 8,
+             prompt 128, generation 32): stablelm bf16 flash lock-step,
+             bf16 flash --ragged, bf16 einsum --ragged, w8a8 --prequantize
+             flash --ragged, one sampled run (temperature 0.8, top-k 40),
+             one temperature-0 run whose tokens must equal the greedy flash
+             run's, the dense prefix in bf16 einsum lock-step (the
+             contiguous latent cache), and stablelm in dynamic w8a8 flash
+             --ragged; every logits row finite, shape [8, 32], K7 launched
+             24 * 31 = 744 times per flash run and never by einsum, no
+             paged kernel, K3 and K2 169 times per forward with
+             --prequantize, K4 169 and K3 338 in dynamic w8a8; and the
+             device busy share of the bf16 flash lock-step run.
 
 Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
-runs on, with that path's launches), a ``{"serve": [...]}`` line, the
+runs on, with that path's launches), a ``{"serve": [...]}`` and a
+``{"static_serve": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
 reports) go to ``build/chip_smoke.json``.
@@ -99,6 +122,8 @@ MLA_LAYERS = 3
 # absorb it into f32 einsums instead); plus one lm_head per forward
 MLA_LINEARS_DECODE = 7 * MLA_LAYERS + 1
 MLA_LINEARS_PREFILL = 8 * MLA_LAYERS + 1
+# the static serve() runs at full width: batch 8, prompt 128, generation 32
+STATIC_BATCH, STATIC_PROMPT, STATIC_GEN = 8, 128, 32
 # (K, N) of every linear each main path runs through K3/K4 (and K2):
 # stablelm q/k/v/o, MLP in and out, lm_head; the dense prefix's w_dq,
 # w_uq, w_dkv, wo, MLP in and out, lm_head, and the prefill's w_ukv
@@ -108,6 +133,11 @@ LINEAR_SHAPES = (
                 (7168, 18432), (18432, 7168), (7168, 129280), (512, 32768)),
      False),
 )
+# stablelm's layer linears (q/k/v/o, MLP in and out) also run at the static
+# prefill's M = batch * prompt rows; its lm_head reads only the last
+# positions there (M = batch)
+STATIC_PREFILL_LINEARS = ((2048, 2048), (2048, 5632), (5632, 2048))
+STATIC_PREFILL_ROWS = STATIC_BATCH * STATIC_PROMPT
 
 
 class SmokeFailure(RuntimeError):
@@ -142,6 +172,14 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# spin kernels (``torch.cuda._sleep``) launched on each side of a profiled
+# window: a session of torch.profiler was seen to drop kernels at its edge,
+# more of them the more sessions the process had opened (up to half of 20
+# single-kernel calls), so the window's edges hold kernels nothing else
+# launches and that are left out of every sum
+PAD_KERNELS = 128
+
+
 def profiled_kernels(torch, fn, attempts=2):
     """``{kernel name: [device ms, calls]}`` of every device kernel ``fn()``
     launches, from ``torch.profiler``; empty when the profiler recorded no
@@ -151,14 +189,22 @@ def profiled_kernels(torch, fn, attempts=2):
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        for _ in range(PAD_KERNELS):
+            torch.cuda._sleep(1)
+
     by_name = defaultdict(lambda: [0.0, 0])
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            pad()
             fn()
+            pad()
             torch.cuda.synchronize()
         for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
+            if ev.device_type == DeviceType.CUDA \
+                    and 'spin_kernel' not in ev.name:
                 by_name[ev.name][0] += ev.time_range.elapsed_us() / 1e3
                 by_name[ev.name][1] += 1
         if by_name:
@@ -166,14 +212,16 @@ def profiled_kernels(torch, fn, attempts=2):
     return dict(by_name)
 
 
-def device_ms(torch, fn, iters=20, warmup=3):
-    """``(ms, timer)`` of one call. With ``timer == 'profiler'``, the summed
-    duration of every kernel the call launches over ``iters`` calls (CUDA
-    events around one call would also count the host's launch latency,
-    which dominates a kernel of a few microseconds). Where the profiler
-    records no device kernel, ``timer == 'cuda_events'``: the time of
-    ``iters`` back-to-back calls between two CUDA events, which includes
-    host launch time where that exceeds the kernel's."""
+def device_ms(torch, fn, iters=20, warmup=3, expect=None):
+    """``(ms, timer, kernels)`` of one call. With ``timer == 'profiler'``,
+    the summed duration of every kernel the call launches over ``iters``
+    calls (CUDA events around one call would also count the host's launch
+    latency, which dominates a kernel of a few microseconds), and
+    ``kernels`` the device kernels recorded a call. Where the profiler
+    records no device kernel, or fewer than ``expect`` a call in two
+    sessions, ``timer == 'cuda_events'``: the time of ``iters``
+    back-to-back calls between two CUDA events, which includes host launch
+    time where that exceeds the kernel's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -182,16 +230,22 @@ def device_ms(torch, fn, iters=20, warmup=3):
         for _ in range(iters):
             fn()
 
-    kernels = profiled_kernels(torch, calls)
-    if kernels:
-        return sum(v[0] for v in kernels.values()) / iters, 'profiler'
+    n = None
+    for _ in range(2):
+        kernels = profiled_kernels(torch, calls)
+        if not kernels:
+            break
+        n = sum(v[1] for v in kernels.values()) / iters
+        if expect is None or n == expect:
+            return (sum(v[0] for v in kernels.values()) / iters, 'profiler',
+                    n)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     calls()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, 'cuda_events'
+    return start.elapsed_time(end) / iters, 'cuda_events', n
 
 
 def bound(nbytes: float, ops: float = 0.0, ops_rate: float = INT8_OPS_PER_S):
@@ -207,7 +261,10 @@ def record_row(torch, rows, name, shape, err, tol, fn, plain, lib, nbytes,
                ops=0.0, ops_rate=INT8_OPS_PER_S, route='cuda', source='',
                replaces=''):
     """Hold one kernel case to its tolerance, then time the kernel, its
-    plain version and the library call, and append the row."""
+    plain version and the library call, and append the row. The kernel's
+    time counts only a profiler session that recorded every launch its
+    wrapper counted (``kernels_per_call``)."""
+    from repro_torch.kernels import build
     check(err <= tol, f'{name} {shape}: max |kernel - plain| = {err} '
                       f'> {tol}')
     b_ms, b_by = bound(nbytes, ops, ops_rate)
@@ -218,13 +275,17 @@ def record_row(torch, rows, name, shape, err, tol, fn, plain, lib, nbytes,
         except RuntimeError:
             lib = None          # the library call does not take this shape
     if lib is not None:
-        lib_ms, lib_timer = device_ms(torch, lib)
-    ms, timer = device_ms(torch, fn)
-    plain_ms, plain_timer = device_ms(torch, plain)
+        lib_ms, lib_timer, _ = device_ms(torch, lib)
+    before = sum(build.LAUNCHES.values())
+    fn()
+    launches = sum(build.LAUNCHES.values()) - before
+    ms, timer, kernels = device_ms(torch, fn, expect=launches)
+    plain_ms, plain_timer, _ = device_ms(torch, plain)
     rows.append(dict(name=name, shape=shape, route=route, source=source,
                      replaces=replaces, max_abs_err=err, tol=tol,
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                      bound_by=b_by, library_ms=lib_ms,
+                     kernels_per_call=kernels,
                      timer=dict(ms=timer, plain_ms=plain_timer,
                                 library_ms=lib_timer)))
 
@@ -282,9 +343,11 @@ def kernel_phase(torch, kmods):
                replaces='src/repro/kernels/flash_decode.py:304')
 
     # K3 / K2 / K4 at each main path's linear shapes, M in {8 slots,
-    # 128-token prompt}: K3 on the bf16 activation and on the f32 weight's
-    # transpose (dynamic w8a8 quantizes it every call), K4 on both; K2 on
-    # stablelm only (the dense prefix is served without --prequantize)
+    # 128-token prompt} and, for stablelm's layer linears, the static
+    # prefill's 1024 rows: K3 on the bf16 activation and on the f32
+    # weight's transpose (dynamic w8a8 quantizes it every call), K4 on
+    # both; K2 on stablelm only (the dense prefix is served without
+    # --prequantize)
     for arch, kn, with_k2 in LINEAR_SHAPES:
         seen = set()                    # one K3 activation row per (M, K)
         for k, n in kn:
@@ -308,7 +371,8 @@ def kernel_phase(torch, kmods):
             wq = wq_t.t().contiguous()
             sw = sw_t.reshape(1, n).contiguous()
             del wq_t
-            for m in (8, 128):
+            static = arch == ARCH and (k, n) in STATIC_PREFILL_LINEARS
+            for m in (8, 128) + ((STATIC_PREFILL_ROWS,) if static else ()):
                 x = torch.randn((m, k), generator=gen, device=dev).to(
                     torch.bfloat16)
                 x[0, :] = 0          # an all-zero row: scale 1e-8 / 127
@@ -434,9 +498,10 @@ def tier_chunk_kernel_phase(torch, kmods):
                    None, nbytes, source=src,
                    replaces='src/repro/kernels/flash_decode.py:475')
         # what the tier costs on the device: K1 over the same fp pools
-        rows[-1]['k1_ms_same_inputs'], _ = device_ms(
+        rows[-1]['k1_ms_same_inputs'], *_ = device_ms(
             torch, lambda: fd.flash_decode_gqa_paged(q, c['k'], c['v'], pos,
-                                                     win, bt, scale=scale))
+                                                     win, bt, scale=scale),
+            expect=1)
         # a hot window covering the table never reads the int8 tier: K6 is
         # then bit-equal to K1, even over poisoned int8 pools
         c['kq'].fill_(127)
@@ -507,6 +572,91 @@ def tier_chunk_kernel_phase(torch, kmods):
                            *args, scale=scale, chunk=c),
                        None, nbytes, ops, BF16_OPS_PER_S, source=src,
                        replaces='src/repro/kernels/flash_decode.py:304')
+    return rows
+
+
+def contig_kernel_phase(torch, kmods):
+    """K7 (flash decode over a contiguous cache) against its plain version
+    at stablelm-1.6b's static-serve shape, B=8, Hkv=32, G=1, dh=64, S=160
+    (prompt 128 + 32 generated): lock-step at pos 144 and ragged
+    positions, a 33-key sliding window on every odd slot, bf16 and f32
+    caches; and one G > 1 case at an S that is not a multiple of 32 or 128
+    (Hkv=8, G=4, dh=128, S=200). Tolerance 1e-5, as K1 (kernel and plain
+    version both compute in f32 on the same cache); every row finite;
+    ``impl='streamed'`` bit-equal to the prefetch path. Timed beside the
+    one PyTorch call computing the same function,
+    ``scaled_dot_product_attention`` on the same cache (a permuted view)
+    with a (B, 1, 1, S) boolean mask and ``enable_gqa`` when G > 1."""
+    import torch.nn.functional as F
+
+    fd = kmods[0]
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    src = 'src/repro_torch/csrc/flash_decode.cu'
+    cases = (('lockstep', 8, 32, 1, 64, 160, torch.bfloat16),
+             ('lockstep', 8, 32, 1, 64, 160, torch.float32),
+             ('ragged', 8, 32, 1, 64, 160, torch.bfloat16),
+             ('ragged', 8, 32, 1, 64, 160, torch.float32),
+             ('g4_unaligned', 8, 8, 4, 128, 200, torch.bfloat16),
+             ('g4_unaligned', 8, 8, 4, 128, 200, torch.float32))
+    for case, b, hkv, g, dh, s_max, dt in cases:
+        scale = 1.0 / dh ** 0.5
+        if case == 'lockstep':
+            pos = torch.full((b,), 144, dtype=torch.int32, device=dev)
+        else:
+            pos = torch.randint(s_max // 2, s_max, (b,), generator=gen,
+                                device=dev, dtype=torch.int32)
+            pos[0] = 0                          # a one-key request
+            pos[1] = s_max - 1
+        win = torch.full((b,), s_max + 1, dtype=torch.int32, device=dev)
+        win[1::2] = 33
+        q = torch.randn((b, hkv, g, dh), generator=gen, device=dev)
+        k = torch.randn((b, s_max, hkv, dh), generator=gen,
+                        device=dev).to(dt)
+        v = torch.randn((b, s_max, hkv, dh), generator=gen,
+                        device=dev).to(dt)
+        args = (q, k, v, pos, win)
+        got = fd.flash_decode_gqa(*args, scale=scale)
+        streamed = fd.flash_decode_gqa(*args, scale=scale, prefetch=False)
+        want = fd.flash_decode_gqa_plain(*args, scale=scale)
+        torch.cuda.synchronize()
+        tag = f'K7 {case} G={g} {dt}'
+        check(bool(torch.isfinite(got).all()), f'{tag}: output not finite')
+        check(bool(torch.equal(streamed, got)),
+              f'{tag}: streamed differs from prefetch by '
+              f'{float((streamed - got).abs().max())}')
+        err = float((got - want).abs().max())
+        pos_h, win_h = pos.cpu().tolist(), win.cpu().tolist()
+        live_keys = sum(min(p + 1, w_) for p, w_ in zip(pos_h, win_h))
+        nbytes = (2 * live_keys * hkv * dh * k.element_size()
+                  + 2 * q.numel() * 4)
+        # the library call: the same function on the same cache, q in the
+        # cache dtype (it takes one dtype), keys masked as K7 masks them
+        kpos = torch.arange(s_max, device=dev)
+        mask = ((kpos[None] <= pos[:, None].long())
+                & (kpos[None] > (pos - win)[:, None].long()))[:, None, None]
+        q_lib = q.reshape(b, hkv * g, 1, dh).to(dt)
+        k_lib, v_lib = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        gqa = dict(enable_gqa=True) if g > 1 else {}
+        record_row(torch, rows, 'flash_decode_contig',
+                   dict(case=case, B=b, Hkv=hkv, G=g, dh=dh, S=s_max,
+                        pool=str(dt).replace('torch.', ''),
+                        live_keys=live_keys, pos=pos_h,
+                        windowed_slots=int((win <= s_max).sum()),
+                        streamed_bit_equal=True),
+                   err, 1e-5,
+                   lambda: fd.flash_decode_gqa(*args, scale=scale),
+                   lambda: fd.flash_decode_gqa_plain(*args, scale=scale),
+                   lambda: F.scaled_dot_product_attention(
+                       q_lib, k_lib, v_lib, attn_mask=mask, scale=scale,
+                       **gqa),
+                   nbytes, 4.0 * dh * hkv * g * live_keys, BF16_OPS_PER_S,
+                   source=src,
+                   replaces='src/repro/kernels/flash_decode.py:252')
+        rows[-1]['streamed_ms'], *_ = device_ms(
+            torch, lambda: fd.flash_decode_gqa(*args, scale=scale,
+                                               prefetch=False), expect=1)
     return rows
 
 
@@ -620,9 +770,9 @@ def mla_kernel_phase(torch, kmods):
                    source=src,
                    replaces='src/repro/kernels/flash_decode.py:556')
         # what the tier costs on the device: K8 over the same fp pool
-        rows[-1]['k8_ms_same_inputs'], _ = device_ms(
+        rows[-1]['k8_ms_same_inputs'], *_ = device_ms(
             torch, lambda: fd.flash_decode_mla_paged(*args, scale=scale,
-                                                     r=r))
+                                                     r=r), expect=1)
         # a hot window covering the table never reads the int8 tier: K10
         # is then bit-equal to K8, even over poisoned int8 pools
         c['clq'][::2] = 127
@@ -952,6 +1102,53 @@ def smoke_tier_prefix_phase(torch, arch=ARCH):
     return results
 
 
+def smoke_static_phase(torch, arch=ARCH, modes=(('bf16', False),
+                                                 ('w8a8', True))):
+    """The static ``serve()`` on ``arch``'s smoke config in f32, GPU
+    against CPU: lock-step and ``--ragged``, ``attn_impl='flash'`` (K7 on
+    the card), in each of ``modes``; every forward's logits (from
+    ``step_hook``) and the tokens held by :func:`_hold_smoke`."""
+    from repro_torch import configs
+    from repro_torch.core import yoco_linear
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as M
+
+    cfg = configs.get(arch, smoke=True)
+    base = M.init_params(torch.Generator().manual_seed(0), cfg, device='cpu')
+    b, plen, gen_len = 4, 12, 8
+    prompts = np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (b, plen)).astype(np.int32)
+    results = []
+    for ragged in (False, True):
+        for mode, prequant in modes:
+            host = yoco_linear.quantize_tree(base) if prequant else base
+            runs = {}
+            for dev in ('cuda', 'cpu'):   # the CPU run follows the card's
+                follow = runs['cuda'][2] if dev == 'cpu' else None
+                rows = []
+                with _K3Codes(follow) as k3:
+                    def hook(logits, tok, rows=rows, k3=k3):
+                        rows.append(logits.cpu())
+                        k3.forward += 1
+                    out = SV.serve(arch, batch=b, prompt_len=plen,
+                                   gen_len=gen_len, mode=mode,
+                                   prequantize=prequant, attn_impl='flash',
+                                   ragged=ragged, quiet=True, device=dev,
+                                   compute_dtype=torch.float32,
+                                   params=_to(host, dev), prompts=prompts,
+                                   step_hook=hook)
+                runs[dev] = (torch.stack(rows),
+                             torch.from_numpy(out['tokens']), k3.codes,
+                             k3.flips)
+            tag = (f'smoke static serve {arch} {mode} prequant={prequant} '
+                   f'ragged={ragged}')
+            results.append(dict(arch=arch, mode=mode, prequantize=prequant,
+                                path=f'static serve flash ragged={ragged}',
+                                **_hold_smoke(tag, runs['cpu'],
+                                              runs['cuda'])))
+    return results
+
+
 def _per_step(a, b):
     """Largest |a - b| of each forward's logits (leading axis)."""
     return [float(x) for x in (a - b).abs().flatten(1).amax(dim=1)]
@@ -1005,6 +1202,8 @@ MLA_SERVE_RUNS = (
     ('bf16', False, 8, 16, None, 'shared', dict(prefix_cache=True, **TIER)),
 )
 SHARED_PREFIX = 96
+# the static serve() path's name in the kernels line
+STATIC_PATH = f'{ARCH} static serve()'
 
 
 def _stream(SV, cfg, kind, n_req):
@@ -1153,6 +1352,122 @@ def serve_phase(torch, build, arch=ARCH, runs=SERVE_RUNS,
     return results, totals
 
 
+# the static serve() runs at full width: (arch, mode, prequantize,
+# attn_impl, ragged, sampling)
+STATIC_RUNS = (
+    (ARCH, 'bf16', False, 'flash', False, None),
+    (ARCH, 'bf16', False, 'flash', True, None),
+    (ARCH, 'bf16', False, 'einsum', True, None),
+    (ARCH, 'w8a8', True, 'flash', True, None),
+    (ARCH, 'bf16', False, 'flash', True, dict(temperature=0.8, top_k=40)),
+    # temperature 0 is the argmax: its tokens must equal run 0's
+    (ARCH, 'bf16', False, 'flash', False, dict(temperature=0.0)),
+    (MLA_ARCH, 'bf16', False, 'einsum', False, None),
+    (ARCH, 'w8a8', False, 'flash', True, None),
+)
+
+
+def static_serve_phase(torch, build):
+    """The static ``serve()`` path at the published width (random weights
+    from a seed), each of STATIC_RUNS once after a warm-up per model. Gates:
+    every logits row finite, ``generated_shape == [8, 32]``, K7 launched
+    exactly 24 * 31 = 744 times per flash run and never by einsum, no paged
+    kernel launched, K3 and K2 169 times per forward with --prequantize,
+    K4 169 and K3 338 times per forward in dynamic w8a8, and the
+    temperature-0 run's tokens equal to the greedy flash run's.
+    Then the device busy share of the bf16 flash lock-step run. Returns
+    (rows, launch totals)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve_step as SS
+
+    kw = dict(smoke=False, batch=STATIC_BATCH, prompt_len=STATIC_PROMPT,
+              quiet=True)
+    params = {}
+    for arch in (ARCH, MLA_ARCH):
+        cfg = configs.get(arch, smoke=False)
+        params[arch] = M.init_params(
+            torch.Generator(device='cuda').manual_seed(0), cfg,
+            device='cuda')
+        # warm-up (library handles, allocator) outside the measured runs
+        SV.serve(arch, gen_len=2, params=params[arch], **kw)
+        torch.cuda.synchronize()
+    totals = {k: 0 for k in build.LAUNCHES}
+    results, tokens = [], []
+    for arch, mode, prequant, impl, ragged, sampling in STATIC_RUNS:
+        finite = []
+        build.reset_counts()
+        out = SV.serve(arch, gen_len=STATIC_GEN, mode=mode,
+                       prequantize=prequant, attn_impl=impl, ragged=ragged,
+                       greedy=sampling is None, **(sampling or {}),
+                       params=params[arch],
+                       step_hook=lambda logits, tok: finite.append(
+                           SS.logits_health(logits)[0].all()), **kw)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        tokens.append(out['tokens'])
+        tag = (f'static serve {arch} {mode} prequant={prequant} {impl} '
+               f'ragged={ragged} sampling={sampling}')
+        check(len(finite) == STATIC_GEN and bool(torch.stack(finite).all()),
+              f'{tag}: a logits row is not finite')
+        check(out['generated_shape'] == [STATIC_BATCH, STATIC_GEN],
+              f'{tag}: generated_shape {out["generated_shape"]}')
+        layers = configs.get(arch, smoke=False).n_layers
+        want = {k: 0 for k in build.LAUNCHES}
+        if impl == 'flash':
+            want['flash_decode_contig'] = layers * (STATIC_GEN - 1)
+        linears = LINEARS_PER_FORWARD * STATIC_GEN
+        if mode == 'w8a8' and prequant:
+            want['quantize_rows'] = want['int8_matmul'] = linears
+        elif mode == 'w8a8':
+            want.update(quantize_rows=2 * linears, yoco_vmm_int8=linears)
+        for name, n in want.items():
+            check(launches[name] == n, f'{tag}: {name} launched '
+                                       f'{launches[name]} times, expected {n}')
+        for k in totals:
+            totals[k] += launches[k]
+        results.append(dict(
+            arch=arch, mode=mode, prequantize=prequant, attn_impl=impl,
+            ragged=ragged, sampling=sampling, batch=STATIC_BATCH,
+            prompt_len=STATIC_PROMPT, gen_len=STATIC_GEN,
+            tokens_per_s=out['tokens_per_s'], prefill_s=out['prefill_s'],
+            decode_s=out['decode_s'],
+            decode_step_ms=out['decode_s'] / (STATIC_GEN - 1) * 1e3,
+            prompt_lens=out.get('prompt_lens'), sample=out['sample'],
+            launches={k: v for k, v in launches.items() if v}))
+        print(f'static serve run: {json.dumps(results[-1])}', flush=True)
+    check(np.array_equal(tokens[5], tokens[0]),
+          'static serve: temperature-0 tokens differ from the greedy run\'s')
+    # the device busy share of the bf16 flash lock-step run: its kernels'
+    # summed device time under torch.profiler over the wall time of the
+    # same run bare (None where the profiler records no device kernel)
+    def flash_run():
+        SV.serve(ARCH, gen_len=STATIC_GEN, attn_impl='flash',
+                 params=params[ARCH], **kw)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flash_run()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = profiled_kernels(torch, flash_run)
+    busy_ms = sum(v[0] for v in by_name.values()) if by_name else None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    results.append(dict(
+        profile='bf16 flash lock-step', wall_ms=wall_ms,
+        device_busy_ms=busy_ms,
+        device_busy_share=None if busy_ms is None else busy_ms / wall_ms,
+        kernel_launches=sum(v[1] for v in by_name.values()),
+        top=[dict(kernel=k[:80], device_ms=v[0], calls=v[1])
+             for k, v in top]))
+    print(f'static serve profile: {json.dumps(results[-1])}', flush=True)
+    # information, not a gate: bf16 rounds differently on the two routes
+    agree = float((tokens[1] == tokens[2]).mean())
+    print(f'static serve: flash vs einsum token agreement (ragged, bf16): '
+          f'{agree}', flush=True)
+    results.append(dict(flash_vs_einsum_token_agreement=agree))
+    return results, totals
+
+
 # ----------------------------------------------------------------------------
 # phase 4: device busy share of full-width serving
 # ----------------------------------------------------------------------------
@@ -1217,10 +1532,13 @@ def run_phases(torch, report, kmods):
     print('K5/K6 checks passed', flush=True)
     report['kernel_sweep'] += mla_kernel_phase(torch, kmods)
     print('K8/K9/K10 checks passed', flush=True)
+    report['kernel_sweep'] += contig_kernel_phase(torch, kmods)
+    print('K7 checks passed', flush=True)
     report['smoke'] = (smoke_phase(torch) + smoke_tier_prefix_phase(torch)
                        + smoke_phase(torch, MLA_ARCH, (('bf16', False),
                                                        ('w8a8', False)))
-                       + smoke_tier_prefix_phase(torch, MLA_ARCH))
+                       + smoke_tier_prefix_phase(torch, MLA_ARCH)
+                       + smoke_static_phase(torch))
     print(f'smoke parity: {json.dumps(report["smoke"])}', flush=True)
     report['profile'] = (profile_phase(torch)
                          + profile_phase(torch, MLA_ARCH,
@@ -1229,10 +1547,13 @@ def run_phases(torch, report, kmods):
     mla_serve, mla_totals = serve_phase(torch, kmods[3], MLA_ARCH,
                                         MLA_SERVE_RUNS, _mla_launches)
     report['serve'] += mla_serve
+    report['static_serve'], static_totals = static_serve_phase(torch,
+                                                               kmods[3])
     for k in gqa_totals:
-        check(gqa_totals[k] + mla_totals[k] > 0,
+        check(gqa_totals[k] + mla_totals[k] + static_totals[k] > 0,
               f'kernel {k} was never launched on the main paths')
-    return {ARCH: gqa_totals, MLA_ARCH: mla_totals}
+    return {ARCH: gqa_totals, MLA_ARCH: mla_totals,
+            STATIC_PATH: static_totals}
 
 
 def main() -> int:
@@ -1271,8 +1592,13 @@ def main() -> int:
     rows = report['kernel_sweep']
     # one line per kernel and main path it runs on, at that path's decode
     # shape, with that path's launches; K5 and K9 at the page-size chunk
-    # of a prefix hit, which carries most of their launches
+    # of a prefix hit, which carries most of their launches; K2/K3/K4 on
+    # the static path at its prefill's 1024 rows through q/k/v/o, the
+    # shape no other path gives them (its decode shape is the continuous
+    # path's M=8)
     pick = (('flash_decode_paged', ARCH, dict(pool='bfloat16')),
+            ('flash_decode_contig', STATIC_PATH, dict(pool='bfloat16',
+                                                      case='lockstep')),
             ('flash_chunk_paged', ARCH, dict(pool='bfloat16', C=8,
                                              offset=96)),
             ('flash_decode_paged_q8', ARCH, dict(pool='bfloat16')),
@@ -1284,8 +1610,15 @@ def main() -> int:
                                          dtype='bfloat16')),
             ('quantize_rows', MLA_ARCH, dict(arch=MLA_ARCH, M=8, K=7168,
                                              dtype='bfloat16')),
+            ('quantize_rows', STATIC_PATH,
+             dict(arch=ARCH, M=STATIC_PREFILL_ROWS, K=2048,
+                  dtype='bfloat16')),
             ('int8_matmul', ARCH, dict(arch=ARCH, M=8, K=2048, N=100352)),
+            ('int8_matmul', STATIC_PATH,
+             dict(arch=ARCH, M=STATIC_PREFILL_ROWS, K=2048, N=2048)),
             ('yoco_vmm_int8', ARCH, dict(arch=ARCH, M=8, K=2048, N=100352)),
+            ('yoco_vmm_int8', STATIC_PATH,
+             dict(arch=ARCH, M=STATIC_PREFILL_ROWS, K=2048, N=2048)),
             ('yoco_vmm_int8', MLA_ARCH, dict(arch=MLA_ARCH, M=8, K=7168,
                                              N=129280)))
     check({name for name, _, _ in pick} == set(totals[ARCH]),
@@ -1302,6 +1635,7 @@ def main() -> int:
                     max_abs_err=r['max_abs_err'], ms=r['ms'],
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                     bound_by=r['bound_by'], library_ms=r['library_ms'],
+                    kernels_per_call=r['kernels_per_call'],
                     timer=r['timer'], shape=r['shape']))
                 break
         else:
@@ -1310,6 +1644,7 @@ def main() -> int:
               f'{name} was never launched on the {path} path')
     print(json.dumps(dict(kernels=kernels)), flush=True)
     print(json.dumps(dict(serve=report['serve'])), flush=True)
+    print(json.dumps(dict(static_serve=report['static_serve'])), flush=True)
     print(smi, flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform='gpu', kind=torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-// Paged flash attention over a GQA KV pool (kernels K1, K5, K6) and over
-// an absorbed-MLA latent pool (kernels K8, K9, K10).
+// Flash attention over a GQA KV cache, paged (kernels K1, K5, K6) or
+// contiguous (kernel K7), and over an absorbed-MLA latent pool (kernels
+// K8, K9, K10).
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_decode.py that share
 // the Pallas body `_softmax_tile` under the `_flash_core` scalar-prefetch
@@ -20,6 +21,18 @@
 //       pools times its per-page, per-head f32 scale, the product rounded
 //       through the pool dtype as the reference's loader and
 //       dequant_gather round it. Each page is read from one tier only.
+//   K7  flash_decode_gqa (via flash_decode): K1's function over a
+//       contiguous cache; k/v (B, S, Hkv, dh) bf16 or f32, key (b, kpos)
+//       at ((b * S + kpos) * Hkv + h) * dh, no block table. The reference
+//       pads k/v to a tile multiple on every call (a copy of each layer's
+//       cache a step); here the key loop is bounded by S and keys at or
+//       past S are masked, the same function without the copy. The live
+//       range is cut at 32-key granularity (the prefetch path): only the
+//       tiles holding [max(pos - win + 1, 0), min(pos, S - 1)] are read.
+//       The streamed flag (the reference's legacy baseline,
+//       impl='streamed') loops over every tile of [0, S) and masks; a
+//       fully masked tile leaves the running max, sum and accumulator
+//       bit-unchanged, so both paths give bit-equal outputs.
 //   K8  flash_decode_mla_paged, chunk=1 (via flash_decode_paged_mla):
 //       absorbed MLA decode. q (B, 1, H, DK) f32 (DK = r + d_rope = 576
 //       for deepseek-v3: the query absorbed through W_uk, then the rope
@@ -34,34 +47,35 @@
 //       the int8 latent tier; a cold page reads clq * cs[page] (ONE scale
 //       per page: the latent is shared by every head) rounded through the
 //       pool dtype, a hot page the fp pool, each page from one tier only.
-// K1, K5 and K6 return f32 (B, Hkv, rows, dh); K8, K9 and K10 return the
-// f32 latent output (B, 1, rows, DV), never cast to the pool dtype (the
-// caller applies W_uv to it).
+// K1, K5, K6 and K7 return f32 (B, Hkv, rows, dh); K8, K9 and K10 return
+// the f32 latent output (B, 1, rows, DV), never cast to the pool dtype (the
+// caller applies W_uv).
 //
 // As in the reference, one online-softmax body serves every layout; what
-// differs is a page loader (FpPages, TieredPages for K/V pools;
-// LatentPages, TieredLatentPages for the one latent pool) and the row
-// positions (one position for decode, offset + r / group for a chunk).
+// differs is a key loader (FpPages, TieredPages for K/V pools; ContigKV for
+// the contiguous cache; LatentPages, TieredLatentPages for the one latent
+// pool) and the row positions (one position for decode, offset + r / group
+// for a chunk).
 //
-// Bound on the H100: bytes for K1/K6 (each live key is read once and used
-// for 2*G*dh multiply-adds, far below the card's operations-per-byte
+// Bound on the H100: bytes for K1/K6/K7 (each live key is read once and
+// used for 2*G*dh multiply-adds, far below the card's operations-per-byte
 // balance); K5 reuses each key for C*G rows, still bytes-bound at the
 // serving chunk sizes. Design: one block per (request, KV head) and, for
-// K5, per group of at most kChunkRows query rows (grid.y), so shared
-// memory stays bounded whatever C is. The block reads its own pos, window,
-// offset, hot window and block-table row from device memory (this
-// replaces scalar prefetch: no host sync) and loops only over the live
-// pages [first, last], so dead pages are never read. One pass covers 32
-// keys, i.e. several pages at the serving page size of 8: K/V rows are
-// gathered page by page into shared memory as f32; the query rows, the
-// running max and sum and the unnormalised accumulator stay in shared
-// memory for the whole loop. The online softmax copies `_softmax_tile`'s
-// guards: alpha = 0 while the running max is still -inf, masked keys
-// contribute p = 0, and the output is normalised once,
-// acc / max(l, 1e-30), after the last pass. Idle slots (pos 0 against
-// garbage page 0, always hot) read one page and stay finite. Splitting the
-// page axis across blocks, cp.async/TMA staging, vector loads and wgmma
-// for K5's C*G rows are later work.
+// K5 and K7, per group of at most kChunkRows query rows (grid.y), so
+// shared memory stays bounded whatever C or G is. The block reads its own
+// pos, window, offset, hot window and block-table row from device memory
+// (this replaces scalar prefetch: no host sync) and loops only over the
+// live pages [first, last] (K7: the live 32-key tiles), so dead keys are
+// never read. One pass covers 32 keys, i.e. several pages at the serving
+// page size of 8: K/V rows are gathered page by page into shared memory
+// as f32; the query rows, the running max and sum and the unnormalised
+// accumulator stay in shared memory for the whole loop. The online softmax
+// copies `_softmax_tile`'s guards: alpha = 0 while the running max is
+// still -inf, masked keys contribute p = 0, and the output is normalised
+// once, acc / max(l, 1e-30), after the last pass. Idle slots (pos 0
+// against garbage page 0, always hot) read one page and stay finite.
+// Splitting the page axis across blocks, cp.async/TMA staging, vector
+// loads and wgmma for K5's C*G rows are later work.
 //
 // MLA at full width (H = 128, DK = 576, DV = 512) is no longer clearly
 // bytes-bound: each latent value feeds 2*H*(DK + DV)/DK ~ 480 flops (in
@@ -102,6 +116,7 @@ __device__ __forceinline__ float round_to_pool<__nv_bfloat16>(float x) {
 template <typename KV>
 struct FpPages {
   static constexpr bool kLatent = false;
+  static constexpr bool kContig = false;
   const KV* __restrict__ k;
   const KV* __restrict__ v;
 
@@ -118,6 +133,7 @@ struct FpPages {
 template <typename KV>
 struct TieredPages {
   static constexpr bool kLatent = false;
+  static constexpr bool kContig = false;
   const KV* __restrict__ k;
   const KV* __restrict__ v;
   const int8_t* __restrict__ kq;
@@ -145,11 +161,22 @@ struct TieredPages {
   }
 };
 
+// Key loader of the contiguous cache (K7): k/v (B, S, Hkv, dh), no block
+// table; FpPages' reads at the offset of (b, kpos, head, d). The kernel
+// takes S in its page_size argument (w = 1) and cuts the live range at key
+// granularity; kStreamed walks every tile of [0, S).
+template <typename KV, bool kStreamedT>
+struct ContigKV : FpPages<KV> {
+  static constexpr bool kContig = true;
+  static constexpr bool kStreamed = kStreamedT;
+};
+
 // Page loader of the fp latent pool (K8, K9): one value per (page, row,
 // column), used as a key and, in its first DV columns, as a value.
 template <typename KV>
 struct LatentPages {
   static constexpr bool kLatent = true;
+  static constexpr bool kContig = false;
   const KV* __restrict__ c;
 
   __device__ __forceinline__ void setup(int, int) {}
@@ -163,6 +190,7 @@ struct LatentPages {
 template <typename KV>
 struct TieredLatentPages {
   static constexpr bool kLatent = true;
+  static constexpr bool kContig = false;
   const KV* __restrict__ c;
   const int8_t* __restrict__ cq;
   const float* __restrict__ cs;   // (P, 1)
@@ -182,7 +210,9 @@ struct TieredLatentPages {
 // One block: request b = blockIdx.x / hkv, KV head h = blockIdx.x % hkv,
 // query rows [blockIdx.y * rpb, +rpb) of `rows`. Row r sits at position
 // base + r / group, base = offset[b] (chunk) or pos[b] (decode, group =
-// rows), and attends kpos in (qp - (win - (chunk - 1)), qp].
+// rows), and attends kpos in (qp - (win - (chunk - 1)), qp]. For the
+// contiguous loader page_size is the cache length S, w is 1 and
+// block_tables is null.
 template <typename Pages>
 __global__ void __launch_bounds__(kThreads)
 paged_attend_kernel(Pages pages, const float* __restrict__ q,
@@ -214,7 +244,8 @@ paged_attend_kernel(Pages pages, const float* __restrict__ q,
   const int pos = pos_v[b], win = win_v[b];
   const int base = off_v != nullptr ? off_v[b] : pos;
   const int row_win = win - (chunk - 1);
-  const int* bt = block_tables + static_cast<int64_t>(b) * w;
+  const int* bt =
+      Pages::kContig ? nullptr : block_tables + static_cast<int64_t>(b) * w;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows + r0;
   const int64_t qo = row0 * dk, oo = row0 * dv;
   Pages pg = pages;
@@ -229,10 +260,19 @@ paged_attend_kernel(Pages pages, const float* __restrict__ q,
   __syncthreads();
 
   // _live_block_range of the (fetch-union) scalars: [first, last] blocks
-  // holding any valid key
-  const int first = max(pos - win + 1, 0) / page_size;
-  const int last = min(max(pos, 0) / page_size, w - 1);
-  const int k_begin = first * page_size, k_end = (last + 1) * page_size;
+  // holding any valid key. Contiguous: the 32-key tiles holding
+  // [max(pos - win + 1, 0), min(pos, S - 1)] (every tile when streamed),
+  // tile-aligned so both paths reduce over the same tiles.
+  int k_begin, k_end;
+  if constexpr (Pages::kContig) {
+    k_begin = Pages::kStreamed ? 0 : max(pos - win + 1, 0) / kKeys * kKeys;
+    k_end = Pages::kStreamed ? page_size : min(pos, page_size - 1) + 1;
+  } else {
+    const int first = max(pos - win + 1, 0) / page_size;
+    const int last = min(max(pos, 0) / page_size, w - 1);
+    k_begin = first * page_size;
+    k_end = (last + 1) * page_size;
+  }
 
   for (int t0 = k_begin; t0 < k_end; t0 += kKeys) {
     for (int i = tid; i < kKeys * dk; i += kThreads) {
@@ -240,11 +280,17 @@ paged_attend_kernel(Pages pages, const float* __restrict__ q,
       const int kpos = t0 + j;
       float kk = 0.f, vv = 0.f;
       if (kpos < k_end) {
-        const int blk = kpos / page_size;
-        const int page = bt[blk];
-        const int64_t off =
-            ((static_cast<int64_t>(page) * page_size + kpos % page_size) * hkv +
-             h) * dk + d;
+        int blk = 0, page = 0;
+        int64_t off;
+        if constexpr (Pages::kContig) {
+          off = ((static_cast<int64_t>(b) * page_size + kpos) * hkv + h) * dk +
+                d;
+        } else {
+          blk = kpos / page_size;
+          page = bt[blk];
+          off = ((static_cast<int64_t>(page) * page_size + kpos % page_size) *
+                     hkv + h) * dk + d;
+        }
         if constexpr (Pages::kLatent)
           kk = pg.load(off, page, blk);
         else
@@ -376,6 +422,16 @@ TieredPages<KV> tiered_pages(const void* kp, const void* vp, const void* kq,
                          static_cast<const int*>(hw), hkv, 0};
 }
 
+template <typename KV, bool kStreamed>
+int launch_contig(const void* k, const void* v, const void* q,
+                  const void* pos, const void* win, void* out, int b, int s,
+                  int hkv, int g, int dh, float scale, void* stream) {
+  const int rpb = g < kChunkRows ? g : kChunkRows;
+  return launch_gqa(ContigKV<KV, kStreamed>{fp_pages<KV>(k, v)}, q, pos, win,
+                    nullptr, nullptr, out, b, hkv, g, rpb, dh, s, 1, 1, scale,
+                    stream);
+}
+
 template <typename KV>
 LatentPages<KV> latent_pages(const void* c) {
   return LatentPages<KV>{static_cast<const KV*>(c)};
@@ -458,6 +514,28 @@ REPRO_EXPORT int flash_decode_paged_q8(
   return launch_gqa(tiered_pages<float>(kp, vp, kq, vq, ks, vs, hw, hkv), q,
                     pos, win, nullptr, bt, out, b, hkv, g, g, dh, page_size,
                     w, 1, scale, stream);
+}
+
+// K7: g query heads per KV head at one position each, over a contiguous
+// (B, S, Hkv, dh) cache; streamed = 1 walks every key tile of [0, S).
+REPRO_EXPORT int flash_decode_contig(const void* q, const void* k,
+                                     const void* v, const void* pos,
+                                     const void* win, void* out, int b,
+                                     int s, int hkv, int g, int dh,
+                                     float scale, int is_bf16, int streamed,
+                                     void* stream) {
+  if (b == 0 || hkv == 0 || g == 0 || s == 0) return 0;
+  if (is_bf16)
+    return streamed ? launch_contig<__nv_bfloat16, true>(
+                          k, v, q, pos, win, out, b, s, hkv, g, dh, scale,
+                          stream)
+                    : launch_contig<__nv_bfloat16, false>(
+                          k, v, q, pos, win, out, b, s, hkv, g, dh, scale,
+                          stream);
+  return streamed ? launch_contig<float, true>(k, v, q, pos, win, out, b, s,
+                                               hkv, g, dh, scale, stream)
+                  : launch_contig<float, false>(k, v, q, pos, win, out, b, s,
+                                                hkv, g, dh, scale, stream);
 }
 
 // K8: absorbed MLA decode, h query heads over one latent pool.

@@ -33,6 +33,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: kernel name -> launches since the last :func:`reset_counts`
 LAUNCHES: Dict[str, int] = {'flash_decode_paged': 0, 'flash_chunk_paged': 0,
                             'flash_decode_paged_q8': 0,
+                            'flash_decode_contig': 0,
                             'flash_decode_paged_mla': 0,
                             'flash_chunk_paged_mla': 0,
                             'flash_decode_paged_mla_q8': 0,

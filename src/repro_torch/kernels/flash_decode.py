@@ -1,7 +1,8 @@
-"""Paged flash attention for batched serving: kernels K1, K5, K6 (GQA)
-and K8, K9, K10 (absorbed MLA over a latent pool).
+"""Flash attention for batched serving: kernels K1, K5, K6 (GQA over a
+paged pool), K7 (GQA over a contiguous cache) and K8, K9, K10 (absorbed
+MLA over a latent pool).
 
-Ports of the paged entry points of ``repro/kernels/flash_decode.py``.
+Ports of the entry points of ``repro/kernels/flash_decode.py``.
 The reference runs every entry point through one online-softmax body
 (``_softmax_tile``) and one grid harness (``_flash_core``) and differs per
 layout only in a tile loader and a row mask; the port does the same, in
@@ -20,6 +21,11 @@ layout only in a tile loader and a row mask; the port does the same, in
   K1 over the hybrid int8 tier; each page is read from one tier only, hot
   pages from the fp pools, cold pages from the int8 pools times a per-page,
   per-head scale, rounded through the pool dtype.
+* **K7** ``flash_decode_gqa`` (through ``flash_decode``): K1's function
+  over a contiguous (B, S_max, Hkv, dh) cache, the static ``serve()``
+  path's. Unlike the reference it pads nothing: keys at or past S_max are
+  masked. ``impl='streamed'`` (the reference's legacy baseline) reads
+  every key tile instead of the live ones, with bit-equal output.
 * **K8** ``flash_decode_mla_paged`` with ``chunk=1`` (through
   ``flash_decode_paged_mla``): absorbed MLA decode over a latent pool
   (P, page_size, r + d_rope). MLA is GQA with one KV head and all H query
@@ -35,9 +41,10 @@ layout only in a tile loader and a row mask; the port does the same, in
   ``int8 * scale[page]`` (one scale per page) rounded through the pool
   dtype.
 
-The plain versions are page-by-page loops that mirror ``_softmax_tile``,
-dead-step semantics included. The wrappers take them only for CPU tensors;
-for CUDA tensors they launch the kernel or raise.
+The plain versions are tile-by-tile loops (a page, or K7's 32 keys) that
+mirror ``_softmax_tile``, dead-step semantics included. The wrappers take
+them only for CPU tensors; for CUDA tensors they launch the kernel or
+raise.
 """
 
 from __future__ import annotations
@@ -49,20 +56,20 @@ from repro_torch.kernels import build
 NEG_INF = float('-inf')
 
 
-def _paged_softmax_plain(q: torch.Tensor, load_kv, pos: torch.Tensor,
-                         window: torch.Tensor, block_tables: torch.Tensor,
-                         page_size: int, *, scale: float, offset=None,
-                         chunk: int = 1, dv=None) -> torch.Tensor:
+def _softmax_plain(q: torch.Tensor, load_kv, pos: torch.Tensor,
+                   window: torch.Tensor, n_tiles: int, tile: int, *,
+                   scale: float, offset=None, chunk: int = 1, dv=None,
+                   prefetch: bool = True) -> torch.Tensor:
     """The one online-softmax body of the plain versions. q (B, Hkv, R,
-    dh); ``load_kv(s, page)`` -> f32 (B, ps, Hkv, dh) K and (B, ps, Hkv,
-    dv) V tiles of logical block ``s`` (``page`` (B,) its physical pages;
-    ``dv`` defaults to dh). Returns f32 (B, Hkv, R, dv). Row r sits at
-    ``pos`` (``chunk == 1``) or at ``offset + r // (R // chunk)`` with the
-    row window ``window - (chunk - 1)``. One step per block, all requests
-    at once; a request whose block ``s`` is outside its live range keeps
-    its state, as the reference's dead grid steps do."""
+    dh); ``load_kv(s)`` -> f32 (B, n, Hkv, dh) K and (B, n, Hkv, dv) V
+    tiles of the keys [s * tile, s * tile + n), n <= ``tile`` (``dv``
+    defaults to dh). Returns f32 (B, Hkv, R, dv). Row r sits at ``pos``
+    (``chunk == 1``) or at ``offset + r // (R // chunk)`` with the row
+    window ``window - (chunk - 1)``. One step per tile, all requests at
+    once; a request whose tile ``s`` is outside its live range keeps its
+    state, as the reference's dead grid steps do (``prefetch=False``: every
+    tile is computed, masked, which leaves the state bit-unchanged)."""
     b, hkv, rows, dh = q.shape
-    ps = page_size
     dev = q.device
     qf = q.to(torch.float32)
     pos = pos.to(torch.int64)
@@ -72,9 +79,8 @@ def _paged_softmax_plain(q: torch.Tensor, load_kv, pos: torch.Tensor,
     m = torch.full((b, hkv, rows, 1), NEG_INF, dtype=torch.float32,
                    device=dev)
     l = torch.zeros((b, hkv, rows, 1), dtype=torch.float32, device=dev)
-    first = torch.clamp_min(pos - win + 1, 0) // ps
-    last = torch.clamp_min(pos, 0) // ps
-    keys = torch.arange(ps, device=dev)
+    first = torch.clamp_min(pos - win + 1, 0) // tile
+    last = torch.clamp_min(pos, 0) // tile
     if chunk == 1:
         qp = pos[:, None]                                        # (B, 1)
         row_win = win[:, None]
@@ -83,16 +89,17 @@ def _paged_softmax_plain(q: torch.Tensor, load_kv, pos: torch.Tensor,
         qp = (offset.to(torch.int64)[:, None]
               + torch.arange(rows, device=dev)[None, :] // group)  # (B, R)
         row_win = (win - (chunk - 1))[:, None]
-    for s in range(block_tables.shape[1]):
+    for s in range(n_tiles):
         live = (s >= first) & (s <= last)                        # (B,)
+        if not prefetch:
+            live = torch.ones_like(live)
         if not bool(live.any()):
             continue
-        page = block_tables[:, s].to(torch.int64)
-        kt, vt = load_kv(s, page)                       # (B, ps, Hkv, dh)
-        kpos = (s * ps + keys)[None, None, :]
+        kt, vt = load_kv(s)                             # (B, n, Hkv, dh)
+        kpos = (s * tile + torch.arange(kt.shape[1], device=dev))[None, None]
         valid = ((kpos <= qp[:, :, None])
                  & (kpos > qp[:, :, None] - row_win[:, :, None]))
-        valid = valid[:, None]                          # (B, 1, R|1, ps)
+        valid = valid[:, None]                          # (B, 1, R|1, n)
         logits = torch.einsum('bhgd,bshd->bhgs', qf, kt) * scale
         logits = torch.where(valid, logits, NEG_INF)
         m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
@@ -107,6 +114,17 @@ def _paged_softmax_plain(q: torch.Tensor, load_kv, pos: torch.Tensor,
         m = torch.where(lv, m_new, m)
     # the one output conversion: normalize once, after the full reduction
     return acc / torch.clamp_min(l, 1e-30)
+
+
+def _paged_softmax_plain(q: torch.Tensor, load_kv, pos: torch.Tensor,
+                         window: torch.Tensor, block_tables: torch.Tensor,
+                         page_size: int, **kw) -> torch.Tensor:
+    """:func:`_softmax_plain` over a paged pool, one step per logical
+    block: ``load_kv(s, page)`` reads block ``s`` from its physical pages
+    ``page`` (B,)."""
+    return _softmax_plain(
+        q, lambda s: load_kv(s, block_tables[:, s].to(torch.int64)), pos,
+        window, block_tables.shape[1], page_size, **kw)
 
 
 def _fp_loader(k_pages, v_pages):
@@ -214,6 +232,28 @@ def flash_decode_mla_paged_q8_plain(q, c_pages, cq_pages, c_scales, pos,
                                 scale=scale, dv=r)
 
 
+#: keys per step of K7 and of its plain version (the kernel's 32-key pass)
+CONTIG_TILE = 32
+
+
+def flash_decode_gqa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           pos: torch.Tensor, window: torch.Tensor, *,
+                           scale: float, prefetch: bool = True
+                           ) -> torch.Tensor:
+    """q (B, Hkv, G, dh); k/v (B, S, Hkv, dh); pos, window (B,) int: row b
+    attends ``pos[b] - window[b] < kpos <= pos[b]``, keys past S masked.
+    Returns f32 (B, Hkv, G, dh). ``prefetch=False`` is the streamed
+    baseline: every tile computed, masked, with bit-equal output."""
+    s_max = k.shape[1]
+
+    def load(s):
+        sl = slice(s * CONTIG_TILE, min((s + 1) * CONTIG_TILE, s_max))
+        return k[:, sl].to(torch.float32), v[:, sl].to(torch.float32)
+
+    return _softmax_plain(q, load, pos, window, -(-s_max // CONTIG_TILE),
+                          CONTIG_TILE, scale=scale, prefetch=prefetch)
+
+
 _FP = (torch.float32, torch.bfloat16)
 _I32 = (torch.int32,)
 
@@ -240,6 +280,8 @@ def _check_paged(name, q, k_pages, v_pages, pos, window, block_tables):
 _K1_ARGS = [build.P] * 7 + [build.I] * 6 + [build.F, build.I, build.P]
 _K5_ARGS = [build.P] * 8 + [build.I] * 7 + [build.F, build.I, build.P]
 _K6_ARGS = [build.P] * 12 + [build.I] * 6 + [build.F, build.I, build.P]
+_K7_ARGS = [build.P] * 6 + [build.I] * 5 + [build.F, build.I, build.I,
+                                              build.P]
 _K8_ARGS = [build.P] * 6 + [build.I] * 6 + [build.F, build.I, build.P]
 _K9_ARGS = [build.P] * 7 + [build.I] * 7 + [build.F, build.I, build.P]
 _K10_ARGS = [build.P] * 9 + [build.I] * 6 + [build.F, build.I, build.P]
@@ -333,6 +375,39 @@ def flash_decode_gqa_paged_q8(q, k_pages, v_pages, kq_pages, vq_pages,
              int(k_pages.dtype == torch.bfloat16), build.stream_of(q))
     build.check(err, 'flash_decode', name)
     build.count('flash_decode_paged_q8')
+    return out
+
+
+def flash_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor, window: torch.Tensor, *,
+                     scale: float, prefetch: bool = True) -> torch.Tensor:
+    """Kernel K7; same contract as :func:`flash_decode_gqa_plain`. On CUDA
+    the query must be f32, the cache bf16 or f32 (one dtype), pos and
+    window int32; no padding copy is made."""
+    tensors = (q, k, v, pos, window)
+    if all(t.device.type == 'cpu' for t in tensors):
+        return flash_decode_gqa_plain(q, k, v, pos, window, scale=scale,
+                                      prefetch=prefetch)
+    name = 'flash_decode_gqa'
+    b, hkv, g, dh = q.shape
+    s_max = k.shape[1]
+    if (tuple(k.shape) != (b, s_max, hkv, dh) or v.shape != k.shape
+            or v.dtype != k.dtype or tuple(pos.shape) != (b,)
+            or tuple(window.shape) != (b,)):
+        raise ValueError(
+            f'{name}: q {tuple(q.shape)}, cache {tuple(k.shape)}/'
+            f'{tuple(v.shape)} ({k.dtype}/{v.dtype}), pos '
+            f'{tuple(pos.shape)}, window {tuple(window.shape)}')
+    build.require_cuda(name, *tensors,
+                       dtypes=[(torch.float32,), _FP, _FP, _I32, _I32])
+    out = torch.empty((b, hkv, g, dh), dtype=torch.float32, device=q.device)
+    fn = build.function('flash_decode', 'flash_decode_contig', _K7_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+             window.data_ptr(), out.data_ptr(), b, s_max, hkv, g, dh,
+             float(scale), int(k.dtype == torch.bfloat16),
+             int(not prefetch), build.stream_of(q))
+    build.check(err, 'flash_decode', name)
+    build.count('flash_decode_contig')
     return out
 
 
@@ -465,6 +540,36 @@ def _decode_operands(q, k_pages, block_tables, pos, window):
     return (qg, _norm_scalar_vec(pos, b, dev),
             _norm_scalar_vec(window, b, dev, fill=s_logical + 1),
             block_tables.to(torch.int32).contiguous())
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
+                 scale: float, window=None,
+                 impl: str = 'prefetch') -> torch.Tensor:
+    """Shape-flexible wrapper around :func:`flash_decode_gqa` (K7).
+
+    q: (B, 1, H, dh) or (B, H, dh); k/v: (B, S_max, Hkv, dh); pos: scalar
+    or (B,); window: None (filled with S_max + 1), int or (B,). ``impl``:
+    'prefetch' (live key tiles only) or 'streamed' (every tile, the
+    reference's legacy baseline; bit-equal output). Returns attention
+    output shaped like q, in v.dtype (the one conversion back to the
+    serving dtype happens here, after the fused normalize)."""
+    if impl not in ('prefetch', 'streamed'):
+        raise ValueError(f'impl must be prefetch or streamed, got {impl!r}')
+    squeeze = q.ndim == 4
+    if squeeze:
+        if q.shape[1] != 1:
+            raise ValueError(f'decode query must have one token, got '
+                             f'{tuple(q.shape)}')
+        q = q[:, 0]
+    b, h, dh = q.shape
+    s_max, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, dh).to(torch.float32).contiguous()
+    out = flash_decode_gqa(qg, k, v, _norm_scalar_vec(pos, b, q.device),
+                           _norm_scalar_vec(window, b, q.device,
+                                            fill=s_max + 1),
+                           scale=scale, prefetch=impl == 'prefetch')
+    out = out.reshape(b, h, dh).to(v.dtype)
+    return out[:, None] if squeeze else out
 
 
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,

@@ -1,13 +1,23 @@
-"""Continuous-batching serving driver over the paged KV cache (port of the
-``--continuous`` path of ``repro/launch/serve.py``).
+"""Serving entry points (port of ``repro/launch/serve.py``): the static
+``serve()`` path, lock-step or ``--ragged``, over a contiguous KV cache,
+and continuous batching over the paged KV cache (``--continuous``).
 
-A stream of heterogeneous-length requests is served over a fixed number of
-decode *slots*: admit-on-release, per-slot positions, page-granular cache
-growth, eviction on EOS or budget, youngest-first preempt-and-requeue when
-the pool runs dry, deadlines, a retry budget and queue backpressure, with
-``EventLog.terminal_accounting()`` audited on every run. Each admission runs
-a batch-1 prefill of the padded prompt; each step runs one greedy decode
-over every slot (idle slots decode at pos 0 against the garbage page).
+``serve()`` prefills a batch of prompts and decodes ``gen_len`` tokens in
+lock-step (one 0-d position for the batch) or, with ``ragged``, with
+per-request prompt lengths (a padded prefill whose logits are gathered at
+each request's last prompt position, then a (B,) position vector). Its
+decode reads the contiguous cache through kernel K7
+(``attn_impl='flash'``) or the einsum oracle (the default, as in the
+reference); MLA configs are einsum-only there, as in the reference.
+
+``--continuous`` serves a stream of heterogeneous-length requests over a
+fixed number of decode *slots*: admit-on-release, per-slot positions,
+page-granular cache growth, eviction on EOS or budget, youngest-first
+preempt-and-requeue when the pool runs dry, deadlines, a retry budget and
+queue backpressure, with ``EventLog.terminal_accounting()`` audited on
+every run. Each admission runs a batch-1 prefill of the padded prompt;
+each step runs one decode over every slot (idle slots decode at pos 0
+against the garbage page).
 
 ``--kv-quant`` keeps the last ``--hot-window`` pages of each request full
 precision and quantizes older pages once into the int8 tier.
@@ -15,20 +25,25 @@ precision and quantizes older pages once into the int8 tier.
 (copy-on-write for a fully covered prompt), and hits prefill only the
 unshared suffix in chunks; ``--chunk-prefill C`` chunks every admission.
 
-Decode attention reads the cache through kernel K1, or K6 over the int8
-tier (``attn_impl='flash'``, the default), or the einsum oracle; chunked
-prefill reads it through kernel K5 or the oracle. MLA configs (deepseek-v3's
-dense prefix) take the latent twins: K8, K10 over the int8 latent tier, K9
-for chunks. The path is layout-driven: nothing here is family-specific
-except the refusal of ``--prequantize`` on MLA configs (see
-:func:`serve_continuous`). ``--mode w8a8`` routes
-every linear through the int8 kernels (K3 + K2 with ``--prequantize``,
-K3 + K4 without).
+Continuous decode attention reads the cache through kernel K1, or K6 over
+the int8 tier (``attn_impl='flash'``, the default there), or the einsum
+oracle; chunked prefill reads it through kernel K5 or the oracle. MLA
+configs (deepseek-v3's dense prefix) take the latent twins: K8, K10 over
+the int8 latent tier, K9 for chunks. The path is layout-driven: nothing
+here is family-specific except the refusals of ``--prequantize`` on MLA
+configs (see :func:`_refuse_mla_prequantize`) and of ``--attn-impl flash``
+on MLA in ``serve()``. ``--mode w8a8`` routes every linear through the
+int8 kernels (K3 + K2 with ``--prequantize``, K3 + K4 without).
+``--sample`` (with ``--temperature`` / ``--top-k``) replaces the greedy
+argmax with temperature / top-k sampling on both paths.
 Unlike the reference there is no flash->einsum degrade: a kernel that fails
 to build or launch raises.
 
 Usage (the card is the default device; ``--device cpu`` runs the plain
 versions of the kernels):
+  python -m repro_torch.launch.serve --arch stablelm-1.6b --no-smoke \
+      --batch 8 --prompt-len 128 --gen-len 32 --attn-impl flash --ragged \
+      [--sample --temperature 0.8 --top-k 40]
   python -m repro_torch.launch.serve --arch stablelm-1.6b --continuous \
       --no-smoke --slots 8 --requests 16 --prompt-len 128 --gen-len 32 \
       --mode w8a8 --prequantize [--kv-quant --hot-window 2] \
@@ -61,6 +76,166 @@ from repro_torch.runtime import layouts as layouts_mod
 from repro_torch.runtime import serve_step as SS
 
 
+def _ragged_lens(batch: int, prompt_len: int) -> torch.Tensor:
+    """Deterministic per-request prompt lengths in [~half, prompt_len]."""
+    lo = max(4, prompt_len // 2)
+    lens = [prompt_len - (i * 3) % max(1, prompt_len - lo)
+            for i in range(batch)]
+    return torch.tensor([max(lo, min(prompt_len, n)) for n in lens],
+                        dtype=torch.int32)
+
+
+def _refuse_mla_prequantize(arch: str, cfg, prequantize: bool) -> None:
+    """The reference fails on MLA with ``--prequantize``: quantize_tree
+    turns w_ukv into a QuantizedWeight, which mla_attention_decode/_chunk
+    then reshape (src/repro/models/attention.py:608, :670) ->
+    AttributeError. The port refuses it up front, on both paths."""
+    if prequantize and cfg.mla is not None:
+        raise ValueError(
+            f'{arch}: --prequantize is not served on MLA configs: the '
+            f'reference quantizes w_ukv and its absorbed decode then '
+            f'reshapes the QuantizedWeight (src/repro/models/attention.py:'
+            f'608), an AttributeError; serve bf16 or dynamic --mode w8a8')
+
+
+def _serving_params(cfg, params, dev, *, seed: int, mode: str,
+                    prequantize: bool, compute_dtype) -> dict:
+    """Seeded random weights on ``dev`` unless ``params`` is given, then
+    quantized in situ (``prequantize``) or, in bf16 mode, cast once to the
+    compute dtype."""
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = model_mod.init_params(gen, cfg, device=dev)
+    if prequantize:
+        # load the network "into the array": int8 weights in situ
+        return yoco_linear.quantize_tree(params)
+    if mode == 'bf16':
+        return model_mod.cast_linear_weights(params, compute_dtype)
+    return params
+
+
+def _check_attn_impl(attn_impl: str) -> None:
+    if attn_impl not in ('flash', 'einsum'):
+        raise ValueError(f'attn_impl must be flash or einsum, got '
+                         f'{attn_impl!r}')
+
+
+def serve(arch: str, *, smoke: bool = True, batch: int = 4,
+          prompt_len: int = 32, gen_len: int = 32, mode: str = 'bf16',
+          prequantize: bool = False, seed: int = 0,
+          attn_impl: str = 'einsum', ragged: bool = False,
+          greedy: bool = True, temperature: float = 1.0, top_k: int = 0,
+          quiet: bool = False, device=None, compute_dtype=torch.bfloat16,
+          params: Optional[dict] = None, prompts=None,
+          step_hook=None) -> dict:
+    """Prefill ``batch`` prompts of ``prompt_len`` tokens into a contiguous
+    cache and decode ``gen_len`` tokens, on ``device`` (default: the CUDA
+    card; ``'cpu'`` runs the kernels' plain versions). ``ragged`` gives
+    the requests the lengths of :func:`_ragged_lens` (padded prompts, the
+    prefill's logits gathered at ``lens - 1``, decode at ``lens + i``).
+    ``greedy=False`` samples (``temperature``, ``top_k``; generator seeded
+    ``seed + 1``). ``params`` (the port's f32 param tree on ``device``)
+    replaces the seeded random init; ``prompts`` ((batch, prompt_len)
+    int) replaces the synthetic batch. ``step_hook(logits, tokens)`` runs
+    after the prefill and after every decode step. Prints the reference's
+    report keys plus ``device``, then attaches the (batch, gen_len) int32
+    token array under ``tokens``."""
+    cfg = configs.get(arch, smoke=smoke)
+    if attn_impl == 'flash' and (cfg.mla is not None
+                                 or cfg.family == 'ssm'):
+        kind = 'MLA' if cfg.mla is not None else 'SSM'
+        hint = ('MLA flash decode is the paged kernel — serve it with '
+                '--continuous' if cfg.mla is not None
+                else 'a pure-SSM decode has no attention cache to '
+                     'flash-read; drop --attn-impl')
+        raise ValueError(f'--attn-impl flash covers GQA decode on the '
+                         f'contiguous cache; {arch} uses {kind} layers '
+                         f'({hint})')
+    _refuse_mla_prequantize(arch, cfg, prequantize)
+    _check_attn_impl(attn_impl)
+    dev = device_mod.resolve(device)
+    yoco = YocoConfig(mode=mode, compute_dtype=compute_dtype)
+    rt = ModelRuntime(attn_impl=attn_impl, compute_dtype=compute_dtype)
+    max_seq = prompt_len + gen_len
+
+    params = _serving_params(cfg, params, dev, seed=seed, mode=mode,
+                             prequantize=prequantize,
+                             compute_dtype=compute_dtype)
+    if prompts is None:
+        dc = synthetic.for_arch(cfg, global_batch=batch, seq_len=prompt_len)
+        prompts = synthetic.make_batch(dc, 0)['inputs']
+    prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(dev)
+    if tuple(prompts.shape) != (batch, prompt_len):
+        raise ValueError(f'prompts {tuple(prompts.shape)}, expected '
+                         f'({batch}, {prompt_len})')
+
+    prefill_fn = SS.make_prefill_step(cfg, yoco, rt)
+    decode_fn = SS.make_decode_step(cfg, yoco, rt, greedy=greedy,
+                                    temperature=temperature, top_k=top_k)
+    sample_gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def sync():
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+
+    cache = model_mod.init_cache_tree(cfg, batch, max_seq,
+                                      dtype=compute_dtype, device=dev)
+    lens = _ragged_lens(batch, prompt_len).to(dev) if ragged else None
+    # lock-step positions, made once: no host-to-device copy per step
+    steps_pos = torch.arange(prompt_len, max_seq, dtype=torch.int32,
+                             device=dev)
+    sync()
+    t0 = time.time()
+    # ragged: padded prompts; K/V beyond each request's length stay masked
+    # (kpos > pos) and are overwritten as that request advances
+    logits, cache = prefill_fn(params, dict(inputs=prompts), cache,
+                               last_pos=lens - 1 if ragged else None)
+    sync()
+    t_prefill = time.time() - t0
+
+    if greedy:
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    else:
+        tok = SS.sample_tokens(logits, sample_gen, temperature=temperature,
+                               top_k=top_k)
+    if step_hook is not None:
+        step_hook(logits, tok)
+    generated = [tok]
+    t0 = time.time()
+    for i in range(gen_len - 1):
+        pos = lens + i if ragged else steps_pos[i]
+        if greedy:
+            tok, logits, cache = decode_fn(params, tok, pos, cache)
+        else:
+            tok, logits, cache = decode_fn(params, tok, pos, cache,
+                                           sample_gen)
+        if step_hook is not None:
+            step_hook(logits, tok)
+        generated.append(tok)
+    sync()
+    t_decode = time.time() - t0
+    toks = torch.stack(generated, dim=1).cpu()
+    out = dict(
+        prefill_s=round(t_prefill, 4),
+        decode_s=round(t_decode, 4),
+        tokens_per_s=round(batch * (gen_len - 1) / max(t_decode, 1e-9), 1),
+        generated_shape=list(toks.shape),
+        sample=[int(x) for x in toks.reshape(-1)[:8]],
+        attn_impl=attn_impl,
+        ragged=bool(ragged),
+    )
+    if ragged:
+        out['prompt_lens'] = [int(x) for x in lens]
+    out['device'] = str(dev)
+    if not quiet:
+        print(json.dumps(out))
+    out['tokens'] = toks.numpy()
+    return out
+
+
+# ----------------------------------------------------------------------------
+# continuous batching over a paged KV cache
+# ----------------------------------------------------------------------------
 @dataclasses.dataclass
 class Request:
     """One serving request: a prompt and a generation budget."""
@@ -353,6 +528,8 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
                      num_pages: Optional[int] = None, mode: str = 'bf16',
                      prequantize: bool = False, seed: int = 0,
                      attn_impl: str = 'flash',
+                     greedy: bool = True, temperature: float = 1.0,
+                     top_k: int = 0,
                      eos_id: Optional[int] = None,
                      kv_quant: bool = False, hot_window: int = 2,
                      prefix_cache: bool = False,
@@ -368,7 +545,8 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     """Serve a stream of requests end to end (admit, decode, evict,
     re-admit) on ``device`` (default: the CUDA card; ``'cpu'`` runs the
     kernels' plain versions). ``compute_dtype`` is the activation and KV
-    pool dtype.
+    pool dtype. ``greedy=False`` samples every first and decoded token
+    (``temperature``, ``top_k``; generator seeded ``seed + 1``).
 
     ``kv_quant`` adds the int8 KV tier: pages older than ``hot_window``
     pages are quantized as they age out (``hot_window >= max_blocks``
@@ -381,19 +559,9 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     ``step_hook(sched, kv, cache)`` runs after every absorbed step.
     Pools are updated in place. Returns the reference's report keys."""
     cfg = configs.get(arch, smoke=smoke)
-    if prequantize and cfg.mla is not None:
-        # the reference fails here: quantize_tree turns w_ukv into a
-        # QuantizedWeight, which mla_attention_decode/_chunk then reshape
-        # (src/repro/models/attention.py:608, :670) -> AttributeError
-        raise ValueError(
-            f'{arch}: --prequantize is not served on MLA configs: the '
-            f'reference quantizes w_ukv and its absorbed decode then '
-            f'reshapes the QuantizedWeight (src/repro/models/attention.py:'
-            f'608), an AttributeError; serve bf16 or dynamic --mode w8a8')
+    _refuse_mla_prequantize(arch, cfg, prequantize)
     dev = device_mod.resolve(device)
-    if attn_impl not in ('flash', 'einsum'):
-        raise ValueError(f'attn_impl must be flash or einsum, got '
-                         f'{attn_impl!r}')
+    _check_attn_impl(attn_impl)
     yoco = YocoConfig(mode=mode, compute_dtype=compute_dtype)
     rt = ModelRuntime(attn_impl=attn_impl, compute_dtype=compute_dtype)
     max_seq = prompt_len + gen_len
@@ -413,14 +581,9 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
                                 max_queue=max_queue,
                                 vocab_size=cfg.vocab_size, events=events)
 
-    if params is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        params = model_mod.init_params(gen, cfg, device=dev)
-    if prequantize:
-        # load the network "into the array": int8 weights in situ
-        params = yoco_linear.quantize_tree(params)
-    elif mode == 'bf16':
-        params = model_mod.cast_linear_weights(params, compute_dtype)
+    params = _serving_params(cfg, params, dev, seed=seed, mode=mode,
+                             prequantize=prequantize,
+                             compute_dtype=compute_dtype)
     if request_stream is None:
         dc = synthetic.for_arch(cfg, global_batch=max(n_requests, 1),
                                 seq_len=prompt_len)
@@ -469,7 +632,17 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         return in_page_chunks(kvq.quantize_tree_pages, cache, pages)
 
     prefill_fn = SS.make_prefill_step(cfg, yoco, rt)
-    decode_fn = SS.make_decode_step(cfg, yoco, rt)
+    decode_fn = SS.make_decode_step(cfg, yoco, rt, greedy=greedy,
+                                    temperature=temperature, top_k=top_k)
+    sample_gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def next_tokens(logits):
+        """The first token of an admission, by the step's rule."""
+        if greedy:
+            return torch.argmax(logits, dim=-1)
+        return SS.sample_tokens(logits, sample_gen, temperature=temperature,
+                                top_k=top_k)
+
     # chunked prefill: prefix hits must take it (a monolithic padded prefill
     # would rewrite the shared pages they acquired); misses take it only
     # when chunk_prefill asks for it
@@ -523,7 +696,7 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         cache = layouts_mod.merge_state_slot(cache, part, slot)
         # sealing right after prefill lets the next admission share it
         kv.seal_slot(slot, req.prompt)
-        first = int(torch.argmax(logits, dim=-1)[0])    # synchronises
+        first = int(next_tokens(logits)[0])             # synchronises
         tp_end = time.perf_counter()
         t_prefill += tp_end - tp
         events.annotate_last('admit', req.rid, prefill_s=tp_end - tp)
@@ -556,8 +729,10 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         toks, pos = sched.step_vectors()
         cache = kvc.with_block_tables(cache, kv.tables)
         busy_slot_steps += len(sched.active)
-        tok, logits, cache = decode_fn(params, torch.from_numpy(toks).to(dev),
-                                       torch.from_numpy(pos).to(dev), cache)
+        step_args = (params, torch.from_numpy(toks).to(dev),
+                     torch.from_numpy(pos).to(dev), cache)
+        tok, logits, cache = decode_fn(*step_args) if greedy else \
+            decode_fn(*step_args, sample_gen)
         ok, _ = SS.logits_health(logits)
         ok = ok.cpu().numpy()
         for slot in [s for s in sorted(sched.active) if not ok[s]]:
@@ -634,31 +809,35 @@ _LATER = {
     'metrics': ('--metrics', 'telemetry (Queue 1 item 10)'),
     'metrics_out': ('--metrics-out', 'telemetry (Queue 1 item 10)'),
     'trace': ('--trace', 'telemetry (Queue 1 item 10)'),
-    'sample': ('--sample', 'sampled decoding'),
-    'temperature': ('--temperature', 'sampled decoding'),
-    'top_k': ('--top-k', 'sampled decoding'),
-    'ragged': ('--ragged', 'the static serve() path'),
 }
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description='Continuous paged serving on the CUDA card (PyTorch '
-                    'port of repro.launch.serve).')
+        description='Static and continuous paged serving on the CUDA card '
+                    '(PyTorch port of repro.launch.serve).')
     ap.add_argument('--arch', default='stablelm-1.6b')
     ap.add_argument('--smoke', action=argparse.BooleanOptionalAction,
                     default=True,
                     help='--no-smoke serves the published width')
+    ap.add_argument('--batch', type=int, default=4)
     ap.add_argument('--prompt-len', type=int, default=32)
     ap.add_argument('--gen-len', type=int, default=32)
     ap.add_argument('--mode', default='bf16',
                     choices=['bf16', 'qat', 'w8a8', 'analog_sim'])
     ap.add_argument('--prequantize', action='store_true')
     ap.add_argument('--attn-impl', default=None, choices=['einsum', 'flash'],
-                    help='default: flash (kernels K1, K5, K6)')
+                    help='default: flash under --continuous (kernels K1, '
+                         'K5, K6; K8-K10 on MLA), einsum otherwise (flash: '
+                         'kernel K7)')
+    ap.add_argument('--ragged', action='store_true',
+                    help='per-request prompt lengths (static path)')
+    ap.add_argument('--sample', action='store_true',
+                    help='temperature/top-k sampling instead of greedy')
+    ap.add_argument('--temperature', type=float, default=1.0)
+    ap.add_argument('--top-k', type=int, default=0)
     ap.add_argument('--continuous', action='store_true',
-                    help='continuous batching over a paged KV cache (the '
-                         'only serving shape ported so far)')
+                    help='continuous batching over a paged KV cache')
     ap.add_argument('--slots', type=int, default=4)
     ap.add_argument('--requests', type=int, default=8)
     ap.add_argument('--page-size', type=int, default=8)
@@ -692,10 +871,6 @@ def main(argv=None):
                     default=False)
     ap.add_argument('--metrics-out', default=None)
     ap.add_argument('--trace', default=None)
-    ap.add_argument('--sample', action='store_true')
-    ap.add_argument('--temperature', type=float, default=None)
-    ap.add_argument('--top-k', type=int, default=None)
-    ap.add_argument('--ragged', action='store_true')
     args = ap.parse_args(argv)
     for key, (flag, what) in _LATER.items():
         if getattr(args, key) not in (None, False):
@@ -705,16 +880,21 @@ def main(argv=None):
         raise NotImplementedError('--tp (tensor-parallel serving, Queue 1 '
                                   'item 13) is a later slice of the port')
     if not args.continuous:
-        raise NotImplementedError(
-            'the static and --ragged serve() paths are a later slice of the '
-            'port; pass --continuous')
+        return serve(args.arch, smoke=args.smoke, batch=args.batch,
+                     prompt_len=args.prompt_len, gen_len=args.gen_len,
+                     mode=args.mode, prequantize=args.prequantize,
+                     seed=args.seed, attn_impl=args.attn_impl or 'einsum',
+                     ragged=args.ragged, greedy=not args.sample,
+                     temperature=args.temperature, top_k=args.top_k,
+                     device=args.device)
     return serve_continuous(
         args.arch, smoke=args.smoke, slots=args.slots,
         n_requests=args.requests, prompt_len=args.prompt_len,
         gen_len=args.gen_len, page_size=args.page_size,
         num_pages=args.num_pages, mode=args.mode,
         prequantize=args.prequantize, seed=args.seed,
-        attn_impl=args.attn_impl or 'flash', eos_id=args.eos_id,
+        attn_impl=args.attn_impl or 'flash', greedy=not args.sample,
+        temperature=args.temperature, top_k=args.top_k, eos_id=args.eos_id,
         kv_quant=args.kv_quant, hot_window=args.hot_window,
         prefix_cache=args.prefix_cache, chunk_prefill=args.chunk_prefill,
         shared_prefix=args.shared_prefix, deadline=args.deadline,

@@ -1,5 +1,6 @@
 """GQA attention and DeepSeek MLA (multi-head latent attention, absorbed
-decode) over a paged KV cache (port of ``repro/models/attention.py``; its
+decode) over a paged or contiguous KV cache (port of
+``repro/models/attention.py``; its
 sequence-parallel training branch, ``_mla_sdpa_latent_2d``, waits for
 tensor-parallel training).
 
@@ -7,7 +8,8 @@ All projections route through ``core.yoco_linear``. Prompt attention is the
 ``_sdpa`` einsum (the reference has no kernel there). Decode reads the
 cache either through the layout's densify view plus ``sdpa_decode`` (the
 ``einsum`` route, the oracle) or through the layout's flash kernel
-(``rt.attn_impl == 'flash'``: K1, or K6 over the int8 tier); a chunked
+(``rt.attn_impl == 'flash'``: K1, K6 over the int8 tier, or K7 over a
+contiguous cache); a chunked
 prefill (``attention_chunk``) reads it through the fp densify view or
 kernel K5. MLA caches hold one latent row ``ckv ‖ krope`` (r + d_rope
 values) per token: decode absorbs ``W_uk`` into the query and reads the
@@ -72,6 +74,25 @@ def init_mla(gen: torch.Generator, cfg, *, device) -> dict:
                          device=device),
         kv_ln=torch.zeros((m.kv_lora_rank,), dtype=torch.float32,
                           device=device))
+
+
+def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
+               device=None) -> dict:
+    """Empty contiguous KV cache: ``k``/``v`` (B, max_seq, Hkv, dh), or for
+    MLA configs the latent rows ``ckv`` (B, max_seq, r) and ``krope``
+    (B, max_seq, d_rope). ``device`` defaults to the card; with no card it
+    raises unless the caller passes ``device='cpu'``."""
+    device = device_mod.resolve(device)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return dict(
+            ckv=torch.zeros((batch, max_seq, m.kv_lora_rank), dtype=dtype,
+                            device=device),
+            krope=torch.zeros((batch, max_seq, m.rope_head_dim), dtype=dtype,
+                              device=device))
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return dict(k=torch.zeros(shape, dtype=dtype, device=device),
+                v=torch.zeros(shape, dtype=dtype, device=device))
 
 
 def init_paged_cache(cfg, batch: int, *, num_pages: int, page_size: int,
@@ -263,8 +284,8 @@ def attention_decode(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
                      ) -> Tuple[torch.Tensor, dict]:
     """One-token decode. x: (B, 1, d); ``pos``: 0-d or (B,) absolute
     positions being generated. ``rt.attn_impl == 'flash'`` reads the cache
-    through the layout's kernel (K1, or K6 over the int8 tier);
-    ``'einsum'`` through the layout's densify view."""
+    through the layout's kernel (K1, K6 over the int8 tier, K7 over a
+    contiguous cache); ``'einsum'`` through the layout's densify view."""
     b = x.shape[0]
     dh = cfg.resolved_head_dim
     theta = theta if theta is not None else cfg.rope_theta

@@ -1,6 +1,7 @@
 """Model assembly on the dense path (port of ``repro/models/model.py``).
 
   init_params(gen, cfg, device)                  -> param tree
+  init_cache_tree(cfg, batch, max_seq, ...)      -> contiguous cache tree
   init_paged_cache_tree(cfg, batch, ...)         -> paged cache tree
   prefill(params, batch, cache, cfg, ...)        -> (last_logits, cache)
   prefill_chunk(params, batch, offset, limit, cache, ...)
@@ -11,9 +12,11 @@ Parameters are a plain dict with the reference's names; ``layers`` is a
 list of per-layer dicts (a Python loop replaces ``lax.scan``). Caches keep
 the reference's layer-stacked schema, ``dict(layers=dict(k=(L, P, ps, Hkv,
 dh), v=..., bt=(L, B, W)))`` (MLA configs: one latent pool ``cl`` (L, P,
-ps, r + d_rope)); each layer works on views of the stacked pools and
-writes them IN PLACE. Served: token models with dense MLPs and GQA or MLA
-attention (:func:`_check_dense` refuses the rest by feature).
+ps, r + d_rope)), or contiguous ``dict(layers=dict(k=(L, B, S_max, Hkv,
+dh), v=...))`` (MLA: ``ckv``/``krope`` (L, B, S_max, ·)); each layer works
+on views of the stacked tensors and writes them IN PLACE. Served: token
+models with dense MLPs and GQA or MLA attention (:func:`_check_dense`
+refuses the rest by feature).
 
 ``params_from_numpy`` / ``cache_from_numpy`` / ``cache_to_numpy`` carry the
 reference's trees (as numpy arrays) across, so the two packages can be run
@@ -192,6 +195,19 @@ def _backbone(params: dict, x: torch.Tensor, cfg, yoco, rt, *,
 # ----------------------------------------------------------------------------
 # cache construction
 # ----------------------------------------------------------------------------
+def init_cache_tree(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
+                    device=None) -> dict:
+    """One contiguous cache per layer, stacked over L (the static
+    ``serve()`` path's): ``k``/``v`` (L, B, max_seq, Hkv, dh), MLA configs
+    ``ckv``/``krope`` (L, B, max_seq, ·). ``device`` defaults to the card;
+    with no card it raises unless the caller passes ``device='cpu'``."""
+    _check_dense(cfg)
+    one = attn_mod.init_cache(cfg, batch, max_seq, dtype=dtype,
+                              device=device)
+    from repro_torch.runtime import layouts
+    return dict(layers=layouts.stack_layers(one, cfg.n_layers))
+
+
 def init_paged_cache_tree(cfg, batch: int, *, num_pages: int, page_size: int,
                           max_blocks: int, dtype=torch.bfloat16,
                           kv_dtype: Optional[str] = None, hot_window: int = 1,

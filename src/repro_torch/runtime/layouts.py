@@ -12,6 +12,7 @@ PagedMLALayout      ``cl`` (P, ps, r + d_rope), ``bt`` (B, W) int32
 PagedQ8Layout       PagedLayout + ``kq``/``vq`` (P, ps, Hkv, dh) int8,
                     ``ks``/``vs`` (P, Hkv) f32, ``hw`` (1,) int32
 PagedLayout         ``k``/``v`` (P, ps, Hkv, dh), ``bt`` (B, W) int32
+ContiguousMLALayout ``ckv`` (B, S_max, r), ``krope`` (B, S_max, d_rope)
 ContiguousLayout    ``k``/``v`` (B, S_max, Hkv, dh)
 ==================  ======================================================
 
@@ -19,7 +20,10 @@ ContiguousLayout    ``k``/``v`` (B, S_max, Hkv, dh)
 see ``runtime/kv_quant.py``). An MLA latent row is ``ckv ‖ krope`` (one
 pool, written together, scored together; the first r columns are the
 values); its gathers and kernels take the latent rank ``r``. The
-contiguous MLA and the recurrent layouts are later slices. Write ops and
+contiguous caches serve the static ``serve()`` path: GQA through kernel K7
+or the einsum oracle, MLA through the einsum oracle only (as in the
+reference, its flash kernels are paged). The recurrent layouts are a later
+slice. Write ops and
 tree walkers update pools IN PLACE (the reference returns new arrays); the
 returned dicts share the caller's tensors.
 """
@@ -355,6 +359,33 @@ class PagedLayout(CacheLayout):
 
 
 @_register
+class ContiguousMLALayout(CacheLayout):
+    """Contiguous MLA latent cache: ``ckv``/``krope`` (B, S_max, ·). The
+    einsum-only decode layout (the MLA flash kernels are paged: serve long
+    contexts through ``--continuous``)."""
+    name = 'contiguous_mla'
+    required = frozenset({'ckv', 'krope'})
+
+    @classmethod
+    def write_token(cls, cache, updates, pos):
+        dense_token_update(cache['ckv'], updates['ckv'], pos)
+        dense_token_update(cache['krope'], updates['krope'], pos)
+        return cache
+
+    @classmethod
+    def write_prefill(cls, cache, updates):
+        s = updates['ckv'].shape[1]
+        cache['ckv'][:, :s] = updates['ckv'].to(cache['ckv'].dtype)
+        cache['krope'][:, :s] = updates['krope'].to(cache['krope'].dtype)
+        return cache
+
+    @classmethod
+    def gather(cls, cache, pos, r=None):
+        del pos, r
+        return cache['ckv'], cache['krope']
+
+
+@_register
 class ContiguousLayout(CacheLayout):
     """Contiguous GQA cache: ``k``/``v`` (B, S_max, Hkv, dh)."""
     name = 'contiguous'
@@ -380,9 +411,9 @@ class ContiguousLayout(CacheLayout):
 
     @classmethod
     def flash_decode(cls, q, cache, pos, *, scale, window=None):
-        raise NotImplementedError(
-            'flash decode over a contiguous cache is kernel K7, a later '
-            'slice of the port; use the paged cache or attn_impl="einsum"')
+        from repro_torch.kernels import flash_decode as fd
+        return fd.flash_decode(q, cache['k'], cache['v'], pos, scale=scale,
+                               window=window)
 
 
 # ----------------------------------------------------------------------------

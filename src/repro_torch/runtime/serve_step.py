@@ -1,7 +1,14 @@
-"""Serving-step builders: prefill, chunked prefill and greedy single-token
-decode (port of
-``repro/runtime/serve_step.py``). PyTorch runs eagerly, so a "step" is a
-closure over the config; sampling comes with a later slice."""
+"""Serving steps: prefill, chunked prefill and single-token decode,
+greedy or sampled (port of ``repro/runtime/serve_step.py``). PyTorch runs
+eagerly, so a "step" is a closure over the config. The decode step's
+``pos`` is 0-d for a lock-step batch over a contiguous cache (the static
+``serve()`` path) or (B,) for per-request positions (``--ragged``, and
+every paged cache); ``rt.attn_impl == 'flash'`` reads the cache through
+the layout's kernel (K7 contiguous, K1/K6 paged, K8/K10 latent).
+
+Sampling draws from a ``torch.Generator`` where the reference splits a JAX
+PRNG key; the two streams differ, so tests hold the sampler to its
+distribution, not to the reference's draws."""
 
 from __future__ import annotations
 
@@ -44,13 +51,49 @@ def logits_health(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.where(finite, lf.abs(), 0.0).amax())
 
 
-def make_decode_step(cfg, yoco: YocoConfig = DEFAULT_YOCO,
-                     rt: ModelRuntime = DEFAULT_RT):
-    """Greedy decode step ``(params, token, pos, cache) -> (next_tok int32,
-    logits, cache)``; the cache is updated in place."""
+def sample_tokens(logits: torch.Tensor, generator: torch.Generator, *,
+                  temperature: float = 1.0, top_k: int = 0) -> torch.Tensor:
+    """Temperature / top-k sampling over (..., V) logits -> int32 ids.
 
-    def decode_step(params, token, pos, cache):
-        logits, cache = model_mod.decode_step(params, token, pos, cache,
-                                              cfg, yoco, rt)
-        return torch.argmax(logits, dim=-1).to(torch.int32), logits, cache
-    return decode_step
+    ``temperature <= 0`` is the argmax (the greedy limit); ``top_k`` in
+    (0, V) keeps the k largest logits (ties with the k-th included) and
+    masks the rest with -inf; otherwise every logit stays. The draw is
+    categorical over ``softmax(logits / temperature)``, taken by the
+    Gumbel-max rule as ``jax.random.categorical`` takes it, from uniforms
+    of ``generator`` (which must live on the logits' device)."""
+    lf = logits.to(torch.float32)
+    if temperature <= 0.0:
+        return torch.argmax(lf, dim=-1).to(torch.int32)
+    if top_k and 0 < top_k < lf.shape[-1]:
+        kth = torch.topk(lf, top_k, dim=-1).values[..., -1:]
+        lf = torch.where(lf < kth, float('-inf'), lf)
+    u = torch.rand(lf.shape, generator=generator, device=lf.device)
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+    return torch.argmax(lf / temperature + gumbel, dim=-1).to(torch.int32)
+
+
+def make_decode_step(cfg, yoco: YocoConfig = DEFAULT_YOCO,
+                     rt: ModelRuntime = DEFAULT_RT, *, greedy: bool = True,
+                     temperature: float = 1.0, top_k: int = 0):
+    """Greedy steps keep the 4-argument signature ``(params, token, pos,
+    cache) -> (next_tok int32, logits, cache)``; sampling steps take a
+    ``torch.Generator`` as a 5th argument and draw from the temperature /
+    top-k filtered logits (:func:`sample_tokens`). The cache is updated in
+    place."""
+    def decode_logits(params, token, pos, cache):
+        return model_mod.decode_step(params, token, pos, cache, cfg, yoco,
+                                     rt)
+
+    if greedy:
+        def decode_step(params, token, pos, cache):
+            logits, cache = decode_logits(params, token, pos, cache)
+            return (torch.argmax(logits, dim=-1).to(torch.int32), logits,
+                    cache)
+        return decode_step
+
+    def decode_step_sampled(params, token, pos, cache, generator):
+        logits, cache = decode_logits(params, token, pos, cache)
+        return (sample_tokens(logits, generator, temperature=temperature,
+                              top_k=top_k), logits, cache)
+    return decode_step_sampled

@@ -77,6 +77,14 @@ def test_entry_points_refuse_a_missing_card():
     with pytest.raises(RuntimeError, match='no CUDA device'):
         serve.main(['--continuous'])
     with pytest.raises(RuntimeError, match='no CUDA device'):
+        serve.serve('stablelm-1.6b', quiet=True)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        serve.main([])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        model.init_cache_tree(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        attention.init_cache(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
         model.init_paged_cache_tree(cfg, 2, **sizes)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         attention.init_paged_cache(cfg, 2, **sizes)

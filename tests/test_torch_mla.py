@@ -343,6 +343,37 @@ def test_latent_layout_writes_match_reference(kv_dtype):
          np.array([8, 16], np.int32))
 
 
+@pytest.mark.parametrize('pos', [5, (1, 7)], ids=['scalar', 'per_slot'])
+def test_contiguous_latent_layout_matches_reference(pos):
+    """``ContiguousMLALayout`` (the static path's MLA cache): prefill and
+    token writes of ckv and krope rows and the densify view, against the
+    reference's on the same numpy inputs."""
+    rng = np.random.RandomState(14)
+    b, s_max, plen = 2, 9, 4
+    shapes = dict(ckv=(b, s_max, R), krope=(b, s_max, M.rope_head_dim))
+
+    def slab(s):
+        return {k: rng.randn(b, s, shp[2]).astype(np.float32)
+                for k, shp in shapes.items()}
+
+    pre, tok = slab(plen), slab(1)
+    posv = np.asarray(pos, np.int32)
+    rc = {k: jnp.zeros(shp, jnp.float32) for k, shp in shapes.items()}
+    tc = {k: torch.zeros(shp) for k, shp in shapes.items()}
+    rl, tl = rlayouts.get_layout(rc), tlayouts.get_layout(tc)
+    assert rl.name == tl.name == 'contiguous_mla'
+    assert tl is tlayouts.ContiguousMLALayout and not tl.paged
+    rc = rl.write_prefill(rc, {k: jnp.asarray(a) for k, a in pre.items()})
+    rc = rl.write_token(rc, {k: jnp.asarray(a) for k, a in tok.items()},
+                        jnp.asarray(posv))
+    tc = tl.write_prefill(tc, {k: torch.from_numpy(a)
+                               for k, a in pre.items()})
+    tc = tl.write_token(tc, {k: torch.from_numpy(a) for k, a in tok.items()},
+                        torch.from_numpy(posv))
+    for want, got in zip(rl.gather(rc, posv, r=R), tl.gather(tc, posv, r=R)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_latent_tree_walkers_match_reference():
     """copy, scrub and zero-tail over a layer-stacked int8 latent tree."""
     ref = rmodel.init_paged_cache_tree(CFG, 2, num_pages=9, page_size=4,

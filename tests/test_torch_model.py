@@ -183,8 +183,43 @@ def test_contiguous_layout_matches_reference(pos):
                           torch.from_numpy(posv))
     for want, got in zip(rlay.gather(rc, posv), tlay.gather(tc, posv)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match='K7'):
-        tlay.flash_decode(torch.zeros(3, 1, 2, 4), tc, posv, scale=0.5)
+    # the layout's flash read (K7's plain version here) against the
+    # reference's (its Pallas kernel, interpret mode) on the same cache
+    q = rng.randn(3, 1, 2, 4).astype(np.float32)
+    want = rlay.flash_decode(jnp.asarray(q), rc, jnp.asarray(posv),
+                             scale=0.5, interpret=True)
+    got = tlay.flash_decode(torch.from_numpy(q), tc, torch.from_numpy(posv),
+                            scale=0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize('mla', [False, True], ids=['gqa', 'mla'])
+def test_init_cache_and_tree_match_reference(mla):
+    """Contiguous caches: the one-layer dict and the layer-stacked tree,
+    leaf for leaf in shape, dtype and (zero) content, and the layout each
+    classifies as."""
+    import dataclasses
+    cfg = rconfigs.get(ARCH, smoke=True)
+    if mla:
+        cfg = dataclasses.replace(rconfigs.get('deepseek-v3-671b',
+                                               smoke=True), moe=None)
+    for dt_j, dt_t in ((jnp.bfloat16, torch.bfloat16),
+                       (jnp.float32, torch.float32)):
+        want = rattention.init_cache(cfg, 3, 11, dt_j)
+        got = tattention.init_cache(cfg, 3, 11, dt_t, device='cpu')
+        rtree = rmodel.init_cache_tree(cfg, 3, 11, dt_j)
+        ttree = tmodel.init_cache_tree(cfg, 3, 11, dt_t, device='cpu')
+        assert set(got) == set(want) and set(ttree) == set(rtree)
+        assert set(ttree['layers']) == set(rtree['layers'])
+        for one, ref in ((got, want), (ttree['layers'], rtree['layers'])):
+            for key, leaf in ref.items():
+                assert tuple(one[key].shape) == leaf.shape, key
+                assert one[key].dtype == dt_t and leaf.dtype == dt_j, key
+                assert not bool(one[key].any()), key
+        assert tlayouts.get_layout(got).name == \
+            rlayouts.get_layout(want).name == \
+            ('contiguous_mla' if mla else 'contiguous')
 
 
 def test_scatter_gather_pages_match_reference():
