@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. build   — print the card's name and power limit, compile every CUDA
              kernel from ``src/repro_torch/csrc`` (one nvcc per source, all
-             at once).
+             at once) and print the redesigned kernels' registers, shared
+             memory and spills (a ``{"ptxas": [...]}`` line).
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at the serving paths' full-width shapes (K3/K4 at the linear
              shapes of both models, K2 at stablelm's, each at M = 8 and
@@ -30,12 +31,15 @@ Phases, in order; any failure exits non-zero and prints no result:
              version and, where one exists, the one PyTorch call computing
              the same function (device time of each call's kernels, from
              torch.profiler; CUDA events where the profiler records no
-             device kernel, named in each row's ``timer``). K7 at
-             stablelm's static shape (B=8, Hkv=32, dh=64, S=160; lock-step
-             and ragged, a window on half the slots) and at G=4, dh=128,
-             S=200, f32 and bf16 caches, 1e-5, every row finite, its
-             streamed path bit-equal to the prefetch path, beside
-             scaled_dot_product_attention on the same cache.
+             device kernel, named in each row's ``timer``). K2 runs on
+             prequantize_weight's K-major weights, refuses a row-major
+             one, and is timed beside torch._int_mm on the same operands.
+             K7 at stablelm's static shape (B=8, Hkv=32, dh=64, S=160;
+             lock-step and ragged, a window on half the slots), at G=4,
+             dh=128, S=200, f32 and bf16 caches, and lock-step at S=4096,
+             1e-5, every row finite, its streamed path bit-equal to the
+             prefetch path, beside scaled_dot_product_attention on the
+             same cache, each warm and with L2 flushed between calls.
 3. smoke   — the port's GPU path against its own CPU plain path on each
              smoke config in f32: prefill plus decode in every served mode,
              decode over the int8 tier (hot window 1), and a prefix hit
@@ -83,7 +87,8 @@ Phases, in order; any failure exits non-zero and prints no result:
              device busy share of the bf16 flash lock-step run.
 
 Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
-runs on, with that path's launches), a ``{"serve": [...]}`` and a
+runs on, with that path's launches), a ``{"redesigned": [...]}`` line
+(every K2 and K7 row), a ``{"serve": [...]}`` and a
 ``{"static_serve": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
@@ -248,6 +253,74 @@ def device_ms(torch, fn, iters=20, warmup=3, expect=None):
     return start.elapsed_time(end) / iters, 'cuda_events', n
 
 
+# bytes written between two calls of a cold-L2 reading: more than the 50 MB
+# L2, as a serving step reads each layer's cache after the other layers'
+FLUSH_BYTES = 128 << 20
+
+
+def cold_device_ms(torch, fn, iters=10):
+    """Device time of one ``fn()`` with the L2 cache flushed before each
+    call (a uint8 fill of FLUSH_BYTES): the summed duration of the kernels
+    ``fn`` launches, from torch.profiler, leaving out the fill's kernels.
+    None where the profiler records none of ``fn``'s kernels."""
+    buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device='cuda')
+
+    def flush():
+        buf.fill_(1)
+
+    flush()
+    fn()
+    torch.cuda.synchronize()
+    flush_names = set(profiled_kernels(torch, flush))
+
+    def calls():
+        for _ in range(iters):
+            flush()
+            fn()
+
+    kernels = profiled_kernels(torch, calls)
+    del buf
+    ms = [v[0] for name, v in kernels.items() if name not in flush_names]
+    return sum(ms) / iters if ms else None
+
+
+# kernels of this PR's redesign whose compiler report chip_smoke prints
+PTXAS_KERNELS = ('int8_gemm_wgmma', 'int8_gemv_splitk', 'contig_split_kernel',
+                 'contig_combine_kernel')
+
+
+def ptxas_summary(logs) -> list:
+    """Registers, shared memory and spills of each PTXAS_KERNELS entry
+    function, from ``nvcc -Xptxas -v`` reports ({source: text})."""
+    import re
+    out, cur = [], None
+    for src, log in logs.items():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name = m.group(1)
+                cur = None
+                short = [k for k in PTXAS_KERNELS if k in name]
+                if short:
+                    cur = dict(name=short[0], source=f'{src}.cu',
+                               kernel=name)
+                    out.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                          line)
+            if m:
+                cur['spill_stores'] = int(m.group(1))
+                cur['spill_loads'] = int(m.group(2))
+            m = re.search(r'Used (\d+) registers', line)
+            if m:
+                cur['registers'] = int(m.group(1))
+                sm = re.search(r'(\d+) bytes smem', line)
+                cur['static_smem'] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def bound(nbytes: float, ops: float = 0.0, ops_rate: float = INT8_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_rate * 1e3
@@ -259,11 +332,12 @@ def bound(nbytes: float, ops: float = 0.0, ops_rate: float = INT8_OPS_PER_S):
 # ----------------------------------------------------------------------------
 def record_row(torch, rows, name, shape, err, tol, fn, plain, lib, nbytes,
                ops=0.0, ops_rate=INT8_OPS_PER_S, route='cuda', source='',
-               replaces=''):
+               replaces='', kernels_per_launch=1):
     """Hold one kernel case to its tolerance, then time the kernel, its
     plain version and the library call, and append the row. The kernel's
-    time counts only a profiler session that recorded every launch its
-    wrapper counted (``kernels_per_call``)."""
+    time counts only a profiler session that recorded every device kernel
+    of the launches its wrapper counted (``kernels_per_call``; K7 runs two
+    kernels a launch, its key splits and their combine)."""
     from repro_torch.kernels import build
     check(err <= tol, f'{name} {shape}: max |kernel - plain| = {err} '
                       f'> {tol}')
@@ -279,7 +353,8 @@ def record_row(torch, rows, name, shape, err, tol, fn, plain, lib, nbytes,
     before = sum(build.LAUNCHES.values())
     fn()
     launches = sum(build.LAUNCHES.values()) - before
-    ms, timer, kernels = device_ms(torch, fn, expect=launches)
+    ms, timer, kernels = device_ms(torch, fn,
+                                   expect=launches * kernels_per_launch)
     plain_ms, plain_timer, _ = device_ms(torch, plain)
     rows.append(dict(name=name, shape=shape, route=route, source=source,
                      replaces=replaces, max_abs_err=err, tol=tol,
@@ -348,11 +423,16 @@ def kernel_phase(torch, kmods):
     # weight's transpose (dynamic w8a8 quantizes it every call), K4 on
     # both; K2 on stablelm only (the dense prefix is served without
     # --prequantize)
+    from repro_torch.core.yoco_linear import prequantize_weight
     for arch, kn, with_k2 in LINEAR_SHAPES:
         seen = set()                    # one K3 activation row per (M, K)
         for k, n in kn:
             wf = torch.randn((k, n), generator=gen, device=dev)
             wt = wf.t().contiguous()          # dynamic w8a8: rows of w.T
+            # K2's weight as served: prequantize_weight's K-major int8
+            wk = prequantize_weight(wf).wq if with_k2 else None
+            check(wk is None or wk.t().is_contiguous(),
+                  f'prequantize_weight ({k},{n}) is not K-major')
             del wf
             wq_t, sw_t = kq.quantize_rows(wt)
             wq_tp, sw_tp = kq.quantize_rows_plain(wt)
@@ -392,16 +472,25 @@ def kernel_phase(torch, kmods):
                            replaces='src/repro/kernels/quantize.py:35')
                 mm_bytes = m * k + k * n
                 if with_k2:
-                    acc = ky.int8_matmul(xq, wq)
-                    acc_p = ky.int8_matmul_plain(xq, wq)
+                    # no hidden per-call transpose: a row-major weight is
+                    # refused
+                    try:
+                        ky.int8_matmul(xq, wq)
+                    except ValueError:
+                        pass
+                    else:
+                        check(False, 'K2 took a row-major (K, N) weight')
+                    acc = ky.int8_matmul(xq, wk)
+                    acc_p = ky.int8_matmul_plain(xq, wk)
                     torch.cuda.synchronize()
                     check(bool(torch.equal(acc, acc_p)),
                           f'K2 ({m},{k},{n}) not bit-exact')
                     del acc, acc_p
+                    # the library call on the same K-major operands
                     record('int8_matmul', dict(arch=arch, M=m, K=k, N=n),
-                           0.0, 0.0, lambda: ky.int8_matmul(xq, wq),
-                           lambda: ky.int8_matmul_plain(xq, wq),
-                           lambda: torch._int_mm(xq, wq),
+                           0.0, 0.0, lambda: ky.int8_matmul(xq, wk),
+                           lambda: ky.int8_matmul_plain(xq, wk),
+                           lambda: torch._int_mm(xq, wk),
                            mm_bytes + 4 * m * n, 2.0 * m * k * n,
                            source='src/repro_torch/csrc/yoco_vmm.cu',
                            replaces='src/repro/kernels/yoco_vmm.py:116')
@@ -417,7 +506,7 @@ def kernel_phase(torch, kmods):
                        mm_bytes + 4 * (m + n) + 4 * m * n, 2.0 * m * k * n,
                        source='src/repro_torch/csrc/yoco_vmm.cu',
                        replaces='src/repro/kernels/yoco_vmm.py:65')
-            del wq, sw
+            del wq, sw, wk
     return rows
 
 
@@ -578,15 +667,17 @@ def tier_chunk_kernel_phase(torch, kmods):
 def contig_kernel_phase(torch, kmods):
     """K7 (flash decode over a contiguous cache) against its plain version
     at stablelm-1.6b's static-serve shape, B=8, Hkv=32, G=1, dh=64, S=160
-    (prompt 128 + 32 generated): lock-step at pos 144 and ragged
+    (prompt 128 + 32 generated): lock-step at pos S - 16 = 144 and ragged
     positions, a 33-key sliding window on every odd slot, bf16 and f32
-    caches; and one G > 1 case at an S that is not a multiple of 32 or 128
-    (Hkv=8, G=4, dh=128, S=200). Tolerance 1e-5, as K1 (kernel and plain
-    version both compute in f32 on the same cache); every row finite;
+    caches; one G > 1 case at an S that is not a multiple of 32 or 128
+    (Hkv=8, G=4, dh=128, S=200); and lock-step at stablelm's max_seq_len,
+    S=4096, bf16. Tolerance 1e-5, as K1 (kernel and plain version both
+    compute in f32 on the same cache); every row finite;
     ``impl='streamed'`` bit-equal to the prefetch path. Timed beside the
     one PyTorch call computing the same function,
     ``scaled_dot_product_attention`` on the same cache (a permuted view)
-    with a (B, 1, 1, S) boolean mask and ``enable_gqa`` when G > 1."""
+    with a (B, 1, 1, S) boolean mask and ``enable_gqa`` when G > 1, each
+    with a warm and a cold-L2 reading (cold_device_ms)."""
     import torch.nn.functional as F
 
     fd = kmods[0]
@@ -599,11 +690,12 @@ def contig_kernel_phase(torch, kmods):
              ('ragged', 8, 32, 1, 64, 160, torch.bfloat16),
              ('ragged', 8, 32, 1, 64, 160, torch.float32),
              ('g4_unaligned', 8, 8, 4, 128, 200, torch.bfloat16),
-             ('g4_unaligned', 8, 8, 4, 128, 200, torch.float32))
+             ('g4_unaligned', 8, 8, 4, 128, 200, torch.float32),
+             ('lockstep', 8, 32, 1, 64, 4096, torch.bfloat16))
     for case, b, hkv, g, dh, s_max, dt in cases:
         scale = 1.0 / dh ** 0.5
         if case == 'lockstep':
-            pos = torch.full((b,), 144, dtype=torch.int32, device=dev)
+            pos = torch.full((b,), s_max - 16, dtype=torch.int32, device=dev)
         else:
             pos = torch.randint(s_max // 2, s_max, (b,), generator=gen,
                                 device=dev, dtype=torch.int32)
@@ -639,6 +731,8 @@ def contig_kernel_phase(torch, kmods):
         q_lib = q.reshape(b, hkv * g, 1, dh).to(dt)
         k_lib, v_lib = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
         gqa = dict(enable_gqa=True) if g > 1 else {}
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q_lib, k_lib, v_lib, attn_mask=mask, scale=scale, **gqa)
         record_row(torch, rows, 'flash_decode_contig',
                    dict(case=case, B=b, Hkv=hkv, G=g, dh=dh, S=s_max,
                         pool=str(dt).replace('torch.', ''),
@@ -648,15 +742,16 @@ def contig_kernel_phase(torch, kmods):
                    err, 1e-5,
                    lambda: fd.flash_decode_gqa(*args, scale=scale),
                    lambda: fd.flash_decode_gqa_plain(*args, scale=scale),
-                   lambda: F.scaled_dot_product_attention(
-                       q_lib, k_lib, v_lib, attn_mask=mask, scale=scale,
-                       **gqa),
-                   nbytes, 4.0 * dh * hkv * g * live_keys, BF16_OPS_PER_S,
-                   source=src,
-                   replaces='src/repro/kernels/flash_decode.py:252')
+                   sdpa, nbytes, 4.0 * dh * hkv * g * live_keys,
+                   BF16_OPS_PER_S, source=src,
+                   replaces='src/repro/kernels/flash_decode.py:252',
+                   kernels_per_launch=2)
         rows[-1]['streamed_ms'], *_ = device_ms(
             torch, lambda: fd.flash_decode_gqa(*args, scale=scale,
-                                               prefetch=False), expect=1)
+                                               prefetch=False), expect=2)
+        rows[-1]['cold_ms'] = cold_device_ms(
+            torch, lambda: fd.flash_decode_gqa(*args, scale=scale))
+        rows[-1]['library_cold_ms'] = cold_device_ms(torch, sdpa)
     return rows
 
 
@@ -1583,6 +1678,8 @@ def main() -> int:
     print(f'built kernels in {report["build_s"]:.1f} s', flush=True)
     for name, log in build.BUILD_LOGS.items():
         print(f'--- nvcc {name}.cu\n{log.strip()}', flush=True)
+    report['ptxas'] = ptxas_summary(build.BUILD_LOGS)
+    print(json.dumps(dict(ptxas=report['ptxas'])), flush=True)
     try:
         totals = run_phases(torch, report, (fd, kq, ky, build))
     finally:
@@ -1643,6 +1740,16 @@ def main() -> int:
         check(kernels[-1]['launches'] > 0,
               f'{name} was never launched on the {path} path')
     print(json.dumps(dict(kernels=kernels)), flush=True)
+    # every shape of the two redesigned kernels, K2 (M = 8, 128 and the
+    # static prefill's 1024) and K7 (warm and cold)
+    keys = ('shape', 'ms', 'bound_ms', 'bound_by', 'library_ms',
+            'kernels_per_call', 'max_abs_err', 'streamed_ms', 'cold_ms',
+            'library_cold_ms')
+    print(json.dumps(dict(redesigned=[
+        dict(name=r['name'], **{k: r[k] for k in keys if k in r})
+        for r in rows if r['name'] in ('int8_matmul',
+                                       'flash_decode_contig')])),
+        flush=True)
     print(json.dumps(dict(serve=report['serve'])), flush=True)
     print(json.dumps(dict(static_serve=report['static_serve'])), flush=True)
     print(smi, flush=True)

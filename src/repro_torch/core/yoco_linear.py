@@ -34,15 +34,23 @@ from repro_torch.kernels import ops
 
 class QuantizedWeight(NamedTuple):
     """int8 weight + per-out-channel scale: weights 'in situ'."""
-    wq: torch.Tensor        # (..., K, N) int8
+    wq: torch.Tensor        # (..., K, N) int8, K-major (see k_major)
     scale: torch.Tensor     # (..., 1, N) f32
 
 
+def k_major(wq: torch.Tensor) -> torch.Tensor:
+    """The same (..., K, N) values as a view of a (..., N, K)-contiguous
+    tensor: each output column's K codes are contiguous, the layout kernel
+    K2 reads (Hopper's 8-bit wgmma takes B only K-major)."""
+    return wq.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
 def prequantize_weight(w: torch.Tensor) -> QuantizedWeight:
-    """Per-out-channel scales; the contraction dim is axis -2."""
+    """Per-out-channel scales; the contraction dim is axis -2. ``wq`` keeps
+    the reference's (..., K, N) shape and values, stored K-major."""
     keep = tuple(a for a in range(w.ndim) if a != w.ndim - 2)
     sw = quant.absmax_scale(w, axis=keep)
-    return QuantizedWeight(quant.quantize(w, sw), sw)
+    return QuantizedWeight(k_major(quant.quantize(w, sw)), sw)
 
 
 @dataclasses.dataclass(frozen=True)

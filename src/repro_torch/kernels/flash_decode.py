@@ -24,8 +24,10 @@ layout only in a tile loader and a row mask; the port does the same, in
 * **K7** ``flash_decode_gqa`` (through ``flash_decode``): K1's function
   over a contiguous (B, S_max, Hkv, dh) cache, the static ``serve()``
   path's. Unlike the reference it pads nothing: keys at or past S_max are
-  masked. ``impl='streamed'`` (the reference's legacy baseline) reads
-  every key tile instead of the live ones, with bit-equal output.
+  masked. The kernel splits the key axis over blocks
+  (:func:`contig_split_plan`) and merges the splits in a second kernel.
+  ``impl='streamed'`` (the reference's legacy baseline) walks every key
+  tile instead of the live ones, with bit-equal output.
 * **K8** ``flash_decode_mla_paged`` with ``chunk=1`` (through
   ``flash_decode_paged_mla``): absorbed MLA decode over a latent pool
   (P, page_size, r + d_rope). MLA is GQA with one KV head and all H query
@@ -232,8 +234,41 @@ def flash_decode_mla_paged_q8_plain(q, c_pages, cq_pages, c_scales, pos,
                                 scale=scale, dv=r)
 
 
-#: keys per step of K7 and of its plain version (the kernel's 32-key pass)
+#: keys per step of K7's plain version
 CONTIG_TILE = 32
+
+#: K7's key split (``csrc/flash_decode.cu``, ``contig_split_kernel``): warps
+#: a block, keys a lane group takes per online-softmax update, the least
+#: tile, and the blocks a launch aims at (16 resident on each of 132 SMs)
+CONTIG_WARPS = 4
+CONTIG_STEP_KEYS = 4
+CONTIG_MIN_TILE = 64
+CONTIG_TARGET_BLOCKS = 16 * 132
+
+
+def contig_split_plan(b: int, s: int, hkv: int, g: int, dh: int,
+                      itemsize: int) -> dict:
+    """How K7 cuts the key axis of a (B, S, Hkv, dh) cache of ``itemsize``
+    bytes an element: ``lpk`` lanes (16 bytes each) read one key row,
+    absolute tiles of ``tile`` keys, ``tiles_per_split`` tiles a block,
+    ``n_splits`` blocks a (request, KV head) and row group of ``rows`` query
+    rows. It depends on the shapes only, never on positions, so the
+    prefetch and streamed walks cut the keys identically."""
+    vec = 16 // itemsize
+    lpk = 1 << (-(-dh // vec) - 1).bit_length()
+    if lpk > 32:
+        raise ValueError(f'flash_decode_gqa: dh={dh} exceeds the kernel '
+                         f'limit of {32 * vec} for {itemsize}-byte cache '
+                         f'elements')
+    span = CONTIG_WARPS * (32 // lpk) * CONTIG_STEP_KEYS
+    tile = max(CONTIG_MIN_TILE, span)
+    n_tiles = -(-s // tile)
+    rows = 1 if g == 1 else 2
+    blocks = b * hkv * -(-g // rows)
+    want = max(1, -(-CONTIG_TARGET_BLOCKS // max(blocks, 1)))
+    per = -(-n_tiles // want)
+    return dict(lpk=lpk, tile=tile, tiles_per_split=per,
+                n_splits=-(-n_tiles // per), rows=rows)
 
 
 def flash_decode_gqa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -280,7 +315,7 @@ def _check_paged(name, q, k_pages, v_pages, pos, window, block_tables):
 _K1_ARGS = [build.P] * 7 + [build.I] * 6 + [build.F, build.I, build.P]
 _K5_ARGS = [build.P] * 8 + [build.I] * 7 + [build.F, build.I, build.P]
 _K6_ARGS = [build.P] * 12 + [build.I] * 6 + [build.F, build.I, build.P]
-_K7_ARGS = [build.P] * 6 + [build.I] * 5 + [build.F, build.I, build.I,
+_K7_ARGS = [build.P] * 9 + [build.I] * 10 + [build.F, build.I, build.I,
                                               build.P]
 _K8_ARGS = [build.P] * 6 + [build.I] * 6 + [build.F, build.I, build.P]
 _K9_ARGS = [build.P] * 7 + [build.I] * 7 + [build.F, build.I, build.P]
@@ -383,7 +418,9 @@ def flash_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float, prefetch: bool = True) -> torch.Tensor:
     """Kernel K7; same contract as :func:`flash_decode_gqa_plain`. On CUDA
     the query must be f32, the cache bf16 or f32 (one dtype), pos and
-    window int32; no padding copy is made."""
+    window int32; no padding copy is made. One launch runs two kernels,
+    the key splits of :func:`contig_split_plan` and their combine, with the
+    splits' partials in scratch allocated here."""
     tensors = (q, k, v, pos, window)
     if all(t.device.type == 'cpu' for t in tensors):
         return flash_decode_gqa_plain(q, k, v, pos, window, scale=scale,
@@ -400,10 +437,22 @@ def flash_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f'{tuple(pos.shape)}, window {tuple(window.shape)}')
     build.require_cuda(name, *tensors,
                        dtypes=[(torch.float32,), _FP, _FP, _I32, _I32])
-    out = torch.empty((b, hkv, g, dh), dtype=torch.float32, device=q.device)
+    plan = contig_split_plan(b, s_max, hkv, g, dh, k.element_size())
+    n_splits = plan['n_splits']
+    dev = q.device
+    # the splits' partials: running max, sum, unnormalised accumulator
+    part_m = torch.empty((b * hkv, n_splits, g), dtype=torch.float32,
+                         device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((b * hkv, n_splits, g, dh), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((b, hkv, g, dh), dtype=torch.float32, device=dev)
     fn = build.function('flash_decode', 'flash_decode_contig', _K7_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-             window.data_ptr(), out.data_ptr(), b, s_max, hkv, g, dh,
+             window.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+             part_acc.data_ptr(), out.data_ptr(), b, s_max, hkv, g, dh,
+             plan['rows'], plan['lpk'], plan['tile'],
+             plan['tiles_per_split'], n_splits,
              float(scale), int(k.dtype == torch.bfloat16),
              int(not prefetch), build.stream_of(q))
     build.check(err, 'flash_decode', name)

@@ -20,9 +20,11 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """int8 (..., K) @ int8 (K, N) -> int32 (..., N)."""
+    """int8 (..., K) @ int8 (K, N) -> int32 (..., N); on the card ``wq`` is
+    K-major (see :func:`yoco_vmm.int8_matmul`) and reaches the kernel
+    uncopied."""
     lead, k = xq.shape[:-1], xq.shape[-1]
-    out = _yoco.int8_matmul(xq.reshape(-1, k).contiguous(), wq.contiguous())
+    out = _yoco.int8_matmul(xq.reshape(-1, k).contiguous(), wq)
     return out.reshape(*lead, wq.shape[-1])
 
 

@@ -5,8 +5,12 @@ int32, no epilogue; the prequantized serving path) and ``yoco_vmm_int8``
 (the same product with the fused f32 scale epilogue ``acc * sx * sw``, the
 single output conversion; the dynamic ``w8a8`` path). The CUDA kernels are
 ``csrc/yoco_vmm.cu``; they take ragged M, N and K themselves, so nothing
-here pads to a block multiple. The ``*_plain`` functions are the same
-functions in plain PyTorch; the wrappers take them only for CPU tensors.
+here pads to a block multiple. On the card K2 takes its weight K-major: a
+(K, N) view whose transpose is contiguous, as ``prequantize_weight`` stores
+it; any other layout raises instead of being copied on every call. K4 still
+takes a row-major (K, N) weight. The ``*_plain`` functions are the same
+functions in plain PyTorch, for any layout; the wrappers take them only for
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -46,15 +50,27 @@ _VMM_ARGS = [build.P] * 5 + [build.I, build.I, build.I, build.P]
 
 
 def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """int8 (M, K) @ int8 (K, N) -> int32 (M, N)."""
+    """int8 (M, K) @ int8 (K, N) -> int32 (M, N). On the card ``wq`` must be
+    K-major (``wq.t()`` contiguous): the kernel reads the (N, K) tensor
+    behind the view."""
     if xq.device.type == 'cpu' and wq.device.type == 'cpu':
         return int8_matmul_plain(xq, wq)
-    _check_operands('int8_matmul', xq, wq)
+    name = 'int8_matmul'
+    if xq.ndim != 2 or wq.ndim != 2 or xq.shape[1] != wq.shape[0]:
+        raise ValueError(f'{name}: shapes {tuple(xq.shape)} x '
+                         f'{tuple(wq.shape)} do not multiply')
+    w_nk = wq.t()
+    if wq.device.type == 'cuda' and not w_nk.is_contiguous():
+        raise ValueError(
+            f'{name}: the weight must be K-major, a (K, N) view of an '
+            f'(N, K)-contiguous tensor (prequantize_weight stores it so); '
+            f'got strides {wq.stride()} for shape {tuple(wq.shape)}')
+    build.require_cuda(name, xq, w_nk, dtypes=[(torch.int8,), (torch.int8,)])
     m, k = xq.shape
     n = wq.shape[1]
     out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
     fn = build.function('yoco_vmm', 'int8_matmul', _MM_ARGS)
-    err = fn(xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, n, k,
+    err = fn(xq.data_ptr(), w_nk.data_ptr(), out.data_ptr(), m, n, k,
              build.stream_of(xq))
     build.check(err, 'yoco_vmm', 'int8_matmul')
     build.count('int8_matmul')

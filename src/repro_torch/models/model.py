@@ -93,7 +93,8 @@ def _is_quantized_leaf(x) -> bool:
 def params_from_numpy(tree: dict, cfg, device) -> dict:
     """The reference's param tree, as numpy arrays (stacked ``(L, ...)``
     layer leaves, ``QuantizedWeight(wq, scale)`` leaves allowed), to the
-    port's: tensors on ``device`` with the layer stack split into a list."""
+    port's: tensors on ``device`` with the layer stack split into a list,
+    int8 weights stored K-major as kernel K2 reads them."""
     _check_dense(cfg)
 
     def conv(node, layer=None):
@@ -101,7 +102,8 @@ def params_from_numpy(tree: dict, cfg, device) -> dict:
             wq, scale = node
             if layer is not None:
                 wq, scale = wq[layer], scale[layer]
-            return QuantizedWeight(conv(wq), conv(scale))
+            return QuantizedWeight(yoco_linear.k_major(conv(wq)),
+                                   conv(scale))
         if isinstance(node, dict):
             return {k: conv(v, layer) for k, v in node.items()}
         arr = np.asarray(node)
