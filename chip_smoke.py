@@ -33,13 +33,18 @@ Phases, in order; any failure exits non-zero and prints no result:
              torch.profiler; CUDA events where the profiler records no
              device kernel, named in each row's ``timer``). K2 runs on
              prequantize_weight's K-major weights, refuses a row-major
-             one, and is timed beside torch._int_mm on the same operands.
+             one, and is timed beside torch._int_mm on the same operands;
+             K4 runs on views of K3's codes of the K-major float weight's
+             transpose, as dynamic w8a8 serves it, and refuses row-major
+             codes, ops.yoco_vmm a row-major float weight; the whole
+             dynamic linear (ops.yoco_vmm) is bit-equal to yoco_vmm_ref.
              K7 at stablelm's static shape (B=8, Hkv=32, dh=64, S=160;
              lock-step and ragged, a window on half the slots), at G=4,
              dh=128, S=200, f32 and bf16 caches, and lock-step at S=4096,
              1e-5, every row finite, its streamed path bit-equal to the
              prefetch path, beside scaled_dot_product_attention on the
-             same cache, each warm and with L2 flushed between calls.
+             same cache, each warm and with L2 flushed between calls
+             (three cold readings each, in turns, at lock-step).
 3. smoke   — the port's GPU path against its own CPU plain path on each
              smoke config in f32: prefill plus decode in every served mode,
              decode over the int8 tier (hot window 1), and a prefix hit
@@ -50,10 +55,11 @@ Phases, in order; any failure exits non-zero and prints no result:
              run takes the card's int8 codes (K3, the tier's page
              quantize) where its own differ by rounding-boundary flips
              only, and fails on any other difference (see SMOKE_TOL).
-4. profile — the device busy share of a short full-width serve under
-             torch.profiler: stablelm in bf16 and w8a8 --prequantize, the
-             dense prefix in bf16 (None where the profiler records no
-             device kernel).
+4. profile — the device busy share and device kernels of a short
+             full-width serve under torch.profiler: stablelm in bf16, w8a8
+             --prequantize and dynamic w8a8, the dense prefix in bf16 and
+             dynamic w8a8 (None where the profiler records no device
+             kernel).
 5. serve   — continuous paged serving at the published width (random
              weights from a seed). stablelm-1.6b in bf16, w8a8
              --prequantize and dynamic w8a8, plus one bf16 run whose pool
@@ -84,17 +90,23 @@ Phases, in order; any failure exits non-zero and prints no result:
              24 * 31 = 744 times per flash run and never by einsum, no
              paged kernel, K3 and K2 169 times per forward with
              --prequantize, K4 169 and K3 338 in dynamic w8a8; and the
-             device busy share of the bf16 flash lock-step run.
+             device busy share of the bf16 flash lock-step run and of the
+             dynamic w8a8 flash --ragged run.
 
 Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
 runs on, with that path's launches), a ``{"redesigned": [...]}`` line
-(every K2 and K7 row), a ``{"serve": [...]}`` and a
+(every K2, K4 and K7 row), a ``{"serve": [...]}`` and a
 ``{"static_serve": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
 reports) go to ``build/chip_smoke.json``.
 
 Usage: python3 chip_smoke.py (every phase runs, always).
+       python3 chip_smoke.py --phase kernels|profile|static: the build
+       and that phase alone (its report in
+       ``build/chip_smoke_<phase>.json``, no result line), to rehearse a
+       kernel or to measure another tree with this script copied into its
+       root.
 """
 
 from __future__ import annotations
@@ -217,16 +229,23 @@ def profiled_kernels(torch, fn, attempts=2):
     return dict(by_name)
 
 
+# profiler sessions one reading may open before it falls back to CUDA
+# events: on the H100 a session now and then records no device kernel, or
+# drops a few, at any row; the misses are counted here and reported
+PROFILE_SESSIONS = 6
+PROFILER_MISSES = dict(empty=0, short=0, fallbacks=0)
+
+
 def device_ms(torch, fn, iters=20, warmup=3, expect=None):
     """``(ms, timer, kernels)`` of one call. With ``timer == 'profiler'``,
     the summed duration of every kernel the call launches over ``iters``
     calls (CUDA events around one call would also count the host's launch
     latency, which dominates a kernel of a few microseconds), and
-    ``kernels`` the device kernels recorded a call. Where the profiler
-    records no device kernel, or fewer than ``expect`` a call in two
-    sessions, ``timer == 'cuda_events'``: the time of ``iters``
-    back-to-back calls between two CUDA events, which includes host launch
-    time where that exceeds the kernel's."""
+    ``kernels`` the device kernels recorded a call. A session that records
+    no device kernel, or fewer than ``expect`` a call, is retried, up to
+    PROFILE_SESSIONS; after that ``timer == 'cuda_events'``: the time of
+    ``iters`` back-to-back calls between two CUDA events, which includes
+    host launch time where that exceeds the kernel's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -236,14 +255,17 @@ def device_ms(torch, fn, iters=20, warmup=3, expect=None):
             fn()
 
     n = None
-    for _ in range(2):
-        kernels = profiled_kernels(torch, calls)
+    for _ in range(PROFILE_SESSIONS):
+        kernels = profiled_kernels(torch, calls, attempts=1)
         if not kernels:
-            break
+            PROFILER_MISSES['empty'] += 1
+            continue
         n = sum(v[1] for v in kernels.values()) / iters
         if expect is None or n == expect:
             return (sum(v[0] for v in kernels.values()) / iters, 'profiler',
                     n)
+        PROFILER_MISSES['short'] += 1
+    PROFILER_MISSES['fallbacks'] += 1
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -284,9 +306,12 @@ def cold_device_ms(torch, fn, iters=10):
     return sum(ms) / iters if ms else None
 
 
-# kernels of this PR's redesign whose compiler report chip_smoke prints
+# the redesigned kernels' entry functions whose compiler report chip_smoke
+# prints (every template instance: K2's and K4's epilogue of each K2/K4
+# mainloop), and the wrappers whose every row it prints
 PTXAS_KERNELS = ('int8_gemm_wgmma', 'int8_gemv_splitk', 'contig_split_kernel',
                  'contig_combine_kernel')
+REDESIGNED = ('int8_matmul', 'yoco_vmm_int8', 'flash_decode_contig')
 
 
 def ptxas_summary(logs) -> list:
@@ -420,19 +445,34 @@ def kernel_phase(torch, kmods):
     # K3 / K2 / K4 at each main path's linear shapes, M in {8 slots,
     # 128-token prompt} and, for stablelm's layer linears, the static
     # prefill's 1024 rows: K3 on the bf16 activation and on the f32
-    # weight's transpose (dynamic w8a8 quantizes it every call), K4 on
-    # both; K2 on stablelm only (the dense prefix is served without
-    # --prequantize)
+    # weight's transpose (dynamic w8a8 quantizes it every call, in place:
+    # the weight is stored K-major at load), K4 on both; K2 on stablelm
+    # only (the dense prefix is served without --prequantize)
     from repro_torch.core.yoco_linear import prequantize_weight
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models.model import k_major_linear_weights
     for arch, kn, with_k2 in LINEAR_SHAPES:
         seen = set()                    # one K3 activation row per (M, K)
         for k, n in kn:
             wf = torch.randn((k, n), generator=gen, device=dev)
-            wt = wf.t().contiguous()          # dynamic w8a8: rows of w.T
+            # dynamic w8a8's weight as served: k_major_linear_weights'
+            # K-major f32, whose transpose wt K3 reads in place
+            wt = k_major_linear_weights(dict(wq=wf))['wq'].t()
+            check(wt.is_contiguous(), f'k_major_linear_weights ({k},{n}) '
+                                      f'is not K-major')
             # K2's weight as served: prequantize_weight's K-major int8
             wk = prequantize_weight(wf).wq if with_k2 else None
             check(wk is None or wk.t().is_contiguous(),
                   f'prequantize_weight ({k},{n}) is not K-major')
+            # no hidden per-call transpose: a row-major float weight is
+            # refused before any launch
+            try:
+                ops.yoco_vmm(torch.zeros((8, k), device=dev), wf)
+            except ValueError:
+                pass
+            else:
+                check(False, 'ops.yoco_vmm took a row-major (K, N) weight')
             del wf
             wq_t, sw_t = kq.quantize_rows(wt)
             wq_tp, sw_tp = kq.quantize_rows_plain(wt)
@@ -447,10 +487,10 @@ def kernel_phase(torch, kmods):
                    n * k * 4 + n * k + n * 4,
                    source='src/repro_torch/csrc/quantize.cu',
                    replaces='src/repro/kernels/quantize.py:35')
-            del wt
-            wq = wq_t.t().contiguous()
-            sw = sw_t.reshape(1, n).contiguous()
-            del wq_t
+            # K4's operands as ops.yoco_vmm hands them over: views of K3's
+            # (N, K) codes and (N, 1) scales, uncopied
+            wq, sw = wq_t.t(), sw_t.reshape(1, n)
+            wr = wq.contiguous()      # row-major codes: K2 and K4 refuse them
             static = arch == ARCH and (k, n) in STATIC_PREFILL_LINEARS
             for m in (8, 128) + ((STATIC_PREFILL_ROWS,) if static else ()):
                 x = torch.randn((m, k), generator=gen, device=dev).to(
@@ -475,7 +515,7 @@ def kernel_phase(torch, kmods):
                     # no hidden per-call transpose: a row-major weight is
                     # refused
                     try:
-                        ky.int8_matmul(xq, wq)
+                        ky.int8_matmul(xq, wr)
                     except ValueError:
                         pass
                     else:
@@ -494,6 +534,23 @@ def kernel_phase(torch, kmods):
                            mm_bytes + 4 * m * n, 2.0 * m * k * n,
                            source='src/repro_torch/csrc/yoco_vmm.cu',
                            replaces='src/repro/kernels/yoco_vmm.py:116')
+                # a row-major weight is refused, as K2's is
+                try:
+                    ky.yoco_vmm_int8(xq, wr, sx, sw)
+                except ValueError:
+                    pass
+                else:
+                    check(False, 'K4 took a row-major (K, N) weight')
+                if m == 8:
+                    # the whole dynamic linear on the served weight: K3,
+                    # K3 on wᵀ in place, K4, against the plain composition
+                    y = ops.yoco_vmm(x, wt.t())
+                    y_p = kref.yoco_vmm_ref(x, wt.t())
+                    torch.cuda.synchronize()
+                    check(bool(torch.equal(y, y_p)),
+                          f'ops.yoco_vmm ({m},{k},{n}) differs from '
+                          f'yoco_vmm_ref')
+                    del y, y_p
                 y = ky.yoco_vmm_int8(xq, wq, sx, sw)
                 y_p = ky.yoco_vmm_int8_plain(xq, wq, sx, sw)
                 torch.cuda.synchronize()
@@ -506,7 +563,7 @@ def kernel_phase(torch, kmods):
                        mm_bytes + 4 * (m + n) + 4 * m * n, 2.0 * m * k * n,
                        source='src/repro_torch/csrc/yoco_vmm.cu',
                        replaces='src/repro/kernels/yoco_vmm.py:65')
-            del wq, sw, wk
+            del wt, wq_t, sw_t, wq, sw, wr, wk
     return rows
 
 
@@ -749,10 +806,25 @@ def contig_kernel_phase(torch, kmods):
         rows[-1]['streamed_ms'], *_ = device_ms(
             torch, lambda: fd.flash_decode_gqa(*args, scale=scale,
                                                prefetch=False), expect=2)
-        rows[-1]['cold_ms'] = cold_device_ms(
-            torch, lambda: fd.flash_decode_gqa(*args, scale=scale))
-        rows[-1]['library_cold_ms'] = cold_device_ms(torch, sdpa)
+        # L2-cold readings, taken in turns: three each at lock-step (for
+        # their spread), one elsewhere; the row keeps the median
+        cold, lib_cold = [], []
+        for _ in range(3 if case == 'lockstep' else 1):
+            cold.append(cold_device_ms(
+                torch, lambda: fd.flash_decode_gqa(*args, scale=scale)))
+            lib_cold.append(cold_device_ms(torch, sdpa))
+        rows[-1]['cold_ms'] = _median(cold)
+        rows[-1]['library_cold_ms'] = _median(lib_cold)
+        if len(cold) > 1:
+            rows[-1]['cold_ms_runs'] = cold
+            rows[-1]['library_cold_ms_runs'] = lib_cold
     return rows
+
+
+def _median(xs):
+    """The median of the readings that are not None (None if none is)."""
+    xs = sorted(x for x in xs if x is not None)
+    return xs[len(xs) // 2] if xs else None
 
 
 def mla_kernel_phase(torch, kmods):
@@ -1039,7 +1111,11 @@ def smoke_phase(torch, arch=ARCH, modes=(('bf16', False), ('w8a8', True),
     for mode, prequant in modes:
         yoco = YocoConfig(mode=mode, compute_dtype=f32)
         rt = M.ModelRuntime(attn_impl='flash', compute_dtype=f32)
-        host = yoco_linear.quantize_tree(base) if prequant else base
+        # the trees serve() loads: int8 in situ, or dynamic w8a8's K-major
+        # float weights (K4 refuses any other layout on the card)
+        host = (yoco_linear.quantize_tree(base) if prequant
+                else M.k_major_linear_weights(base) if mode == 'w8a8'
+                else base)
         runs = {}
         for dev in ('cuda', 'cpu'):     # the CPU run follows the card's codes
             params = _to(host, dev)
@@ -1470,8 +1546,8 @@ def static_serve_phase(torch, build):
     kernel launched, K3 and K2 169 times per forward with --prequantize,
     K4 169 and K3 338 times per forward in dynamic w8a8, and the
     temperature-0 run's tokens equal to the greedy flash run's.
-    Then the device busy share of the bf16 flash lock-step run. Returns
-    (rows, launch totals)."""
+    Then the device busy share of the bf16 flash lock-step run and of the
+    dynamic w8a8 flash --ragged run. Returns (rows, launch totals)."""
     from repro_torch import configs
     from repro_torch.launch import serve as SV
     from repro_torch.models import model as M
@@ -1534,27 +1610,32 @@ def static_serve_phase(torch, build):
         print(f'static serve run: {json.dumps(results[-1])}', flush=True)
     check(np.array_equal(tokens[5], tokens[0]),
           'static serve: temperature-0 tokens differ from the greedy run\'s')
-    # the device busy share of the bf16 flash lock-step run: its kernels'
-    # summed device time under torch.profiler over the wall time of the
-    # same run bare (None where the profiler records no device kernel)
-    def flash_run():
-        SV.serve(ARCH, gen_len=STATIC_GEN, attn_impl='flash',
-                 params=params[ARCH], **kw)
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    flash_run()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = profiled_kernels(torch, flash_run)
-    busy_ms = sum(v[0] for v in by_name.values()) if by_name else None
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    results.append(dict(
-        profile='bf16 flash lock-step', wall_ms=wall_ms,
-        device_busy_ms=busy_ms,
-        device_busy_share=None if busy_ms is None else busy_ms / wall_ms,
-        kernel_launches=sum(v[1] for v in by_name.values()),
-        top=[dict(kernel=k[:80], device_ms=v[0], calls=v[1])
-             for k, v in top]))
-    print(f'static serve profile: {json.dumps(results[-1])}', flush=True)
+    # the device busy share of the bf16 flash lock-step run and of the
+    # dynamic w8a8 flash --ragged run (its load stores the weights K-major
+    # once, inside the call): their kernels' summed device time under
+    # torch.profiler over the wall time of the same run bare (None where
+    # the profiler records no device kernel)
+    for label, opts in (('bf16 flash lock-step', {}),
+                        ('dynamic w8a8 flash --ragged',
+                         dict(mode='w8a8', ragged=True))):
+        def run(opts=opts):
+            SV.serve(ARCH, gen_len=STATIC_GEN, attn_impl='flash',
+                     params=params[ARCH], **opts, **kw)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name = profiled_kernels(torch, run)
+        busy_ms = sum(v[0] for v in by_name.values()) if by_name else None
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        results.append(dict(
+            profile=label, wall_ms=wall_ms, device_busy_ms=busy_ms,
+            device_busy_share=None if busy_ms is None else busy_ms / wall_ms,
+            kernel_launches=sum(v[1] for v in by_name.values()),
+            top=[dict(kernel=k[:80], device_ms=v[0], calls=v[1])
+                 for k, v in top]))
+        print(f'static serve profile: {json.dumps(results[-1])}',
+              flush=True)
     # information, not a gate: bf16 rounds differently on the two routes
     agree = float((tokens[1] == tokens[2]).mean())
     print(f'static serve: flash vs einsum token agreement (ragged, bf16): '
@@ -1566,13 +1647,18 @@ def static_serve_phase(torch, build):
 # ----------------------------------------------------------------------------
 # phase 4: device busy share of full-width serving
 # ----------------------------------------------------------------------------
-def profile_phase(torch, arch=ARCH, modes=(('bf16', False), ('w8a8', True))):
+PROFILE_MODES = (('bf16', False), ('w8a8', True), ('w8a8', False))
+MLA_PROFILE_MODES = (('bf16', False), ('w8a8', False))
+
+
+def profile_phase(torch, arch=ARCH, modes=PROFILE_MODES):
     """Device busy share of full-width decode.
     A short serve in each of ``modes``, timed once bare and once
     under ``torch.profiler``: the summed duration of every device kernel
-    over the bare run's wall time, and the kernels that took most of it.
-    Where the profiler records no device kernel, the share is reported as
-    not measured (None)."""
+    over the bare run's wall time, the device kernels launched (with the
+    forwards the serve ran: decode steps plus admissions), and the kernels
+    that took most of it. Where the profiler records no device kernel, the
+    share is reported as not measured (None)."""
     from repro_torch import configs
     from repro_torch.launch import serve as SV
     from repro_torch.models import model as M
@@ -1588,7 +1674,7 @@ def profile_phase(torch, arch=ARCH, modes=(('bf16', False), ('w8a8', True))):
         SV.serve_continuous(arch, **kw)                     # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        SV.serve_continuous(arch, **kw)
+        run = SV.serve_continuous(arch, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         by_name = profiled_kernels(
@@ -1596,6 +1682,7 @@ def profile_phase(torch, arch=ARCH, modes=(('bf16', False), ('w8a8', True))):
         busy_ms = sum(v[0] for v in by_name.values()) if by_name else None
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
         out.append(dict(arch=arch, mode=mode, prequantize=prequant,
+                        forwards=run['steps'] + run['events']['admit'],
                         wall_ms=wall_ms,
                         device_busy_ms=busy_ms,
                         device_busy_share=(None if busy_ms is None
@@ -1605,6 +1692,48 @@ def profile_phase(torch, arch=ARCH, modes=(('bf16', False), ('w8a8', True))):
                              for k, v in top]))
         print(f'profile: {json.dumps(out[-1])}', flush=True)
     return out
+
+
+def all_kernel_phases(torch, kmods):
+    """Phase 2: every kernel against its plain version; the rows."""
+    rows = kernel_phase(torch, kmods)
+    print(f'kernel checks passed: {len(rows)} shapes', flush=True)
+    rows += tier_chunk_kernel_phase(torch, kmods)
+    print('K5/K6 checks passed', flush=True)
+    rows += mla_kernel_phase(torch, kmods)
+    print('K8/K9/K10 checks passed', flush=True)
+    rows += contig_kernel_phase(torch, kmods)
+    print('K7 checks passed', flush=True)
+    return rows
+
+
+def all_profiles(torch, kmods):
+    """Phase 4 on both models."""
+    del kmods
+    return (profile_phase(torch)
+            + profile_phase(torch, MLA_ARCH, MLA_PROFILE_MODES))
+
+
+def static_rows(torch, kmods):
+    """Phase 5's static serve() runs and their profiles."""
+    return static_serve_phase(torch, kmods[3])[0]
+
+
+# ``--phase NAME``: the build and that phase alone, to compare two trees
+# (copy this script into the other tree's root) or to rehearse a kernel
+PHASES = dict(kernels=all_kernel_phases, profile=all_profiles,
+              static=static_rows)
+
+
+def print_redesigned(rows):
+    """Every row of the redesigned kernels, on one line."""
+    keys = ('shape', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+            'kernels_per_call', 'timer', 'max_abs_err', 'streamed_ms',
+            'cold_ms', 'library_cold_ms', 'cold_ms_runs',
+            'library_cold_ms_runs')
+    print(json.dumps(dict(redesigned=[
+        dict(name=r['name'], **{k: r[k] for k in keys if k in r})
+        for r in rows if r['name'] in REDESIGNED])), flush=True)
 
 
 def run_phases(torch, report, kmods):
@@ -1620,24 +1749,14 @@ def run_phases(torch, report, kmods):
           and mla.vocab_size == 129280 and mla.moe is None
           and mla.mla.kv_lora_rank == 512 and mla.mla.rope_head_dim == 64,
           'deepseek-v3 dense prefix is not at the published width')
-    report['kernel_sweep'] = kernel_phase(torch, kmods)
-    print(f'kernel checks passed: {len(report["kernel_sweep"])} shapes',
-          flush=True)
-    report['kernel_sweep'] += tier_chunk_kernel_phase(torch, kmods)
-    print('K5/K6 checks passed', flush=True)
-    report['kernel_sweep'] += mla_kernel_phase(torch, kmods)
-    print('K8/K9/K10 checks passed', flush=True)
-    report['kernel_sweep'] += contig_kernel_phase(torch, kmods)
-    print('K7 checks passed', flush=True)
+    report['kernel_sweep'] = all_kernel_phases(torch, kmods)
     report['smoke'] = (smoke_phase(torch) + smoke_tier_prefix_phase(torch)
                        + smoke_phase(torch, MLA_ARCH, (('bf16', False),
                                                        ('w8a8', False)))
                        + smoke_tier_prefix_phase(torch, MLA_ARCH)
                        + smoke_static_phase(torch))
     print(f'smoke parity: {json.dumps(report["smoke"])}', flush=True)
-    report['profile'] = (profile_phase(torch)
-                         + profile_phase(torch, MLA_ARCH,
-                                         (('bf16', False),)))
+    report['profile'] = all_profiles(torch, kmods)
     report['serve'], gqa_totals = serve_phase(torch, kmods[3])
     mla_serve, mla_totals = serve_phase(torch, kmods[3], MLA_ARCH,
                                         MLA_SERVE_RUNS, _mla_launches)
@@ -1651,8 +1770,15 @@ def run_phases(torch, report, kmods):
             STATIC_PATH: static_totals}
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
+    phase = None
+    if argv:
+        if len(argv) != 2 or argv[0] != '--phase' or argv[1] not in PHASES:
+            print(f'usage: python3 chip_smoke.py [--phase '
+                  f'{"|".join(PHASES)}]', file=sys.stderr)
+            return 2
+        phase = argv[1]
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible', file=sys.stderr)
         return 1
@@ -1680,9 +1806,31 @@ def main() -> int:
         print(f'--- nvcc {name}.cu\n{log.strip()}', flush=True)
     report['ptxas'] = ptxas_summary(build.BUILD_LOGS)
     print(json.dumps(dict(ptxas=report['ptxas'])), flush=True)
+    kmods = (fd, kq, ky, build)
+    if phase is not None:
+        register_dense_prefix()
+        try:
+            report[phase] = PHASES[phase](torch, kmods)
+        finally:
+            report['profiler_misses'] = PROFILER_MISSES
+            os.makedirs(OUT_DIR, exist_ok=True)
+            with open(os.path.join(OUT_DIR, f'chip_smoke_{phase}.json'),
+                      'w') as f:
+                json.dump(report, f, indent=1)
+        if phase == 'kernels':
+            print_redesigned(report[phase])
+            print(json.dumps(dict(kernels=[
+                dict(name=r['name'], shape=r['shape'], ms=r['ms'],
+                     timer=r['timer']['ms'],
+                     kernels_per_call=r['kernels_per_call'])
+                for r in report[phase]])), flush=True)
+        print(json.dumps(dict(profiler_misses=PROFILER_MISSES)), flush=True)
+        print(smi, flush=True)
+        return 0
     try:
-        totals = run_phases(torch, report, (fd, kq, ky, build))
+        totals = run_phases(torch, report, kmods)
     finally:
+        report['profiler_misses'] = PROFILER_MISSES
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
             json.dump(report, f, indent=1)
@@ -1740,16 +1888,10 @@ def main() -> int:
         check(kernels[-1]['launches'] > 0,
               f'{name} was never launched on the {path} path')
     print(json.dumps(dict(kernels=kernels)), flush=True)
-    # every shape of the two redesigned kernels, K2 (M = 8, 128 and the
+    # every shape of the redesigned kernels, K2 and K4 (M = 8, 128 and the
     # static prefill's 1024) and K7 (warm and cold)
-    keys = ('shape', 'ms', 'bound_ms', 'bound_by', 'library_ms',
-            'kernels_per_call', 'max_abs_err', 'streamed_ms', 'cold_ms',
-            'library_cold_ms')
-    print(json.dumps(dict(redesigned=[
-        dict(name=r['name'], **{k: r[k] for k in keys if k in r})
-        for r in rows if r['name'] in ('int8_matmul',
-                                       'flash_decode_contig')])),
-        flush=True)
+    print_redesigned(rows)
+    print(json.dumps(dict(profiler_misses=PROFILER_MISSES)), flush=True)
     print(json.dumps(dict(serve=report['serve'])), flush=True)
     print(json.dumps(dict(static_serve=report['static_serve'])), flush=True)
     print(smi, flush=True)
@@ -1761,7 +1903,7 @@ def main() -> int:
 
 if __name__ == '__main__':
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except SmokeFailure as e:
         print(f'chip_smoke: FAIL: {e}', file=sys.stderr)
         sys.exit(1)

@@ -8,9 +8,13 @@ Modes ported so far:
          int8 x int8 -> int32 with no mid-reduction rounding, ONE dequant.
          With a float weight (dynamic quantization) the weight's output
          channels go through K3 as well and the product is K4 with its
-         fused scale epilogue; with a prequantized ``QuantizedWeight``
-         (int8 weights resident, the in-situ analogue) the product is K2
-         and the epilogue ``acc * sx * w.scale`` follows it.
+         fused scale epilogue: serving stores that weight K-major at load
+         (``models.model.k_major_linear_weights``), so K3 reads ``w.T``
+         in place and its (N, K) codes are K4's K-major operand; with a
+         prequantized ``QuantizedWeight`` (int8 weights resident, the
+         in-situ analogue) the product is K2 and the epilogue
+         ``acc * sx * w.scale`` follows it. On the card both kernels
+         refuse a weight that is not K-major rather than copy it.
 
 The reference routes w8a8 through its Pallas kernels only when
 ``use_pallas=True`` and through XLA otherwise; both compute the same
@@ -40,8 +44,9 @@ class QuantizedWeight(NamedTuple):
 
 def k_major(wq: torch.Tensor) -> torch.Tensor:
     """The same (..., K, N) values as a view of a (..., N, K)-contiguous
-    tensor: each output column's K codes are contiguous, the layout kernel
-    K2 reads (Hopper's 8-bit wgmma takes B only K-major)."""
+    tensor: each output column's K values are contiguous, the layout
+    kernels K2 and K4 read (Hopper's 8-bit wgmma takes B only K-major).
+    A tensor already K-major is returned uncopied."""
     return wq.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 

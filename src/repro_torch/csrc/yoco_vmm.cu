@@ -1,12 +1,14 @@
-// K2 and K4: int8 x int8 -> int32 matrix products.
+// K2 and K4: int8 x int8 matrix products over a K-major weight.
 //
 // Replaces two TPU kernels of src/repro/kernels/yoco_vmm.py:
 //   K2 `int8_matmul` (Pallas `_int8_matmul_kernel`): int8 (M, K) x int8
 //      (K, N) -> int32 (M, N), no epilogue (prequantized serving: every
 //      linear and lm_head of `w8a8 --prequantize`);
 //   K4 `yoco_vmm_int8` (Pallas `_yoco_vmm_kernel`): the same product with
-//      the fused f32 epilogue acc * sx[m] * sw[n], multiplied in the
-//      reference's order (dynamic `w8a8`).
+//      the fused f32 epilogue acc * sx[m] * sw[n] -> f32 (M, N), multiplied
+//      in the reference's order (dynamic `w8a8`: every linear, on the int8
+//      codes kernel K3 makes of the activation and of the weight's
+//      transpose).
 //
 // Bound on the H100: at decode (M = slots, a few rows) the product is bound
 // by bytes, the K x N int8 weight read over 3.35 TB/s; at prefill (M = the
@@ -14,10 +16,13 @@
 // 1979 TOP/s int8 tensor rate, come closer, and at M=128 the weight read
 // still binds.
 //
-// K2 takes its weight K-major: B is the (N, K) row-major int8 tensor behind
-// the (K, N) view `QuantizedWeight.wq` (Hopper's 8-bit wgmma reads B only
-// K-major, and a decode GEMV wants each output column's K bytes contiguous).
-// The entry point picks one of two kernels by M:
+// Both take their weight K-major: B is the (N, K) row-major int8 tensor
+// behind the (K, N) view the wrappers receive (`QuantizedWeight.wq` for K2,
+// K3's codes of the K-major float weight's transpose for K4; Hopper's 8-bit
+// wgmma reads B only K-major, and a decode GEMV wants each output column's
+// K bytes contiguous). The entry points share two kernels and pick one by
+// M; K4 is a compile-time variant of each (kScale) whose epilogue scales
+// the finished int32 sum, so one K4 call is one launch:
 //
 //   M >= 64 (prefill): `int8_gemm_wgmma`, a 128 x 128 output tile per block,
 //     K stepped 128 bytes at a time. One producer warp issues TMA loads
@@ -26,14 +31,15 @@
 //     empty mbarriers; two consumer warpgroups each run
 //     wgmma.mma_async m64n128k32 .s32.s8.s8 with both operands K-major in
 //     shared memory and keep the 64 x 128 int32 accumulator in registers,
-//     then store it straight from registers with the M and N edges masked.
-//     99 KB of shared memory a block: two blocks an SM, so one block's
-//     epilogue and pipeline fill overlap the other's main loop. Where the
-//     output tiles number at most a quarter of the SMs, K is split 4 ways
-//     over a thread block cluster and the int32 partial tiles (in the
-//     freed stages) are summed through distributed shared memory. TMA
-//     needs K % 16 == 0 and 16-byte aligned operands; other shapes take
-//     the streaming kernel at any M.
+//     then store it (K4: scaled) straight from registers with the M and N
+//     edges masked; in K4 one more warp fetches the tile's 256 scales into
+//     shared memory. 99 KB of shared memory a block: two blocks an SM, so
+//     one block's epilogue and pipeline fill overlap the other's main loop.
+//     Where the output tiles number at most a quarter of the SMs, K is
+//     split 4 ways over a thread block cluster and the int32 partial tiles
+//     (in the freed stages) are summed through distributed shared memory
+//     before the epilogue. TMA needs K % 16 == 0 and 16-byte aligned
+//     operands; other shapes take the streaming kernel at any M.
 //   M < 64 (decode): `int8_gemv_splitk`, bound by the weight read. Each
 //     warp streams 16-byte K-contiguous chunks of 16 output columns
 //     (ld.global.nc, no L1 allocation) and multiplies them on the tensor
@@ -44,15 +50,14 @@
 //     card (N = 2048 at K = 2048: 32 column tiles x 8 splits); the splits
 //     of one column tile form a thread block cluster, and their int32
 //     partials are summed through distributed shared memory in split order
-//     (one launch, no scratch, no zeroed output, deterministic).
+//     (one launch, no scratch, no zeroed output, deterministic) before the
+//     epilogue.
 //
 // Both accumulate in int32 and never round mid-reduction (the YOCO
-// property), so K2's result is bit-exact whichever kernel ran.
-//
-// K4 still runs the first design, `int8_gemm_kernel<true>` over a (K, N)
-// row-major weight (one 32 x 64 tile per 256-thread block, the weight tile
-// stored transposed in shared memory, __dp4a on the CUDA cores); it moves
-// onto K2's kernels and K-major weight in a later redesign.
+// property), so the sum is exact whichever kernel ran; K4 then rounds
+// twice, float(acc) * sx and that * sw (__int2float_rn, __fmul_rn: no
+// contraction), as the reference and the plain version do, so its output
+// is bit-equal to theirs.
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <dlfcn.h>
@@ -64,93 +69,61 @@ namespace cg = cooperative_groups;
 namespace {
 
 // ---------------------------------------------------------------------------
-// K4: the first design, row-major (K, N) weight
+// The epilogue: K2 stores the int32 sum; K4 (kScale) the f32
+// float(acc) * sx[row] * sw[col], in the reference's order, two roundings.
+// Where a thread stores from its accumulator registers, K4 reads scales
+// fetched while the K loop ran (by a warp of the wgmma kernel's own into
+// shared memory, by each GEMV lane into registers before its loop):
+// loaded at the end, between stores, their latencies added ~5 us a wave of
+// 128 x 128 tiles on the H100. It turns the accumulators into the f32
+// results' bits in place and stores them as K2 stores its sums.
 // ---------------------------------------------------------------------------
-constexpr int kBM = 32, kBN = 64, kBK = 64, kThreads = 256;
-constexpr int kTM = kBM / 16, kTN = kBN / 16;  // outputs per thread
-constexpr int kLds = kBK + 4;                  // padded row, 4-byte aligned
+__device__ __forceinline__ float dequant(int acc, float rs, float cs) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs);
+}
 
-template <bool kEpilogue>
-__global__ void __launch_bounds__(kThreads)
-int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-                 void* __restrict__ c, const float* __restrict__ sx,
-                 const float* __restrict__ sw, int m, int n, int k) {
-  __shared__ __align__(16) int8_t s_a[kBM][kLds];
-  __shared__ __align__(16) int8_t s_b[kBN][kLds];  // transposed: [n][k]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  int acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
+__device__ __forceinline__ int dequant_bits(int acc, float rs, float cs) {
+  return __float_as_int(dequant(acc, rs, cs));
+}
 
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    for (int i = tid; i < kBM * kBK; i += kThreads) {
-      const int r = i / kBK, cc = i % kBK;
-      const int gm = m0 + r, gk = k0 + cc;
-      s_a[r][cc] = (gm < m && gk < k) ? a[static_cast<int64_t>(gm) * k + gk]
-                                      : int8_t(0);
-    }
-    for (int i = tid; i < kBK * kBN; i += kThreads) {
-      const int r = i / kBN, cc = i % kBN;
-      const int gk = k0 + r, gn = n0 + cc;
-      s_b[cc][r] = (gk < k && gn < n) ? b[static_cast<int64_t>(gk) * n + gn]
-                                      : int8_t(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 4) {
-      int av[kTM], bv[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-        av[i] = *reinterpret_cast<const int*>(&s_a[ty + 16 * i][kk]);
-#pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        bv[j] = *reinterpret_cast<const int*>(&s_b[tx + 16 * j][kk]);
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+// output element idx, of row scale rs and column scale cs[j] (K4 only)
+template <bool kScale>
+__device__ __forceinline__ void put1(void* c, int64_t idx, int v, float rs,
+                                     const float* cs, int j) {
+  if constexpr (kScale)
+    static_cast<float*>(c)[idx] = dequant(v, rs, cs[j]);
+  else
+    static_cast<int*>(c)[idx] = v;
+}
 
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= m) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn >= n) continue;
-      const int64_t idx = static_cast<int64_t>(gm) * n + gn;
-      if (kEpilogue) {
-        // the single output conversion, in the reference's order:
-        // (acc * sx) * sw
-        const float y = static_cast<float>(acc[i][j]) * sx[gm];
-        static_cast<float*>(c)[idx] = y * sw[gn];
-      } else {
-        static_cast<int*>(c)[idx] = acc[i][j];
-      }
-    }
-  }
+// elements idx .. idx + 3 (16-byte aligned), column scales cs[j .. j + 3]
+template <bool kScale>
+__device__ __forceinline__ void put4(void* c, int64_t idx, int4 v, float rs,
+                                     const float* cs, int j) {
+  if constexpr (kScale)
+    *reinterpret_cast<float4*>(static_cast<float*>(c) + idx) = make_float4(
+        dequant(v.x, rs, cs[j]), dequant(v.y, rs, cs[j + 1]),
+        dequant(v.z, rs, cs[j + 2]), dequant(v.w, rs, cs[j + 3]));
+  else
+    *reinterpret_cast<int4*>(static_cast<int*>(c) + idx) = v;
 }
 
 // ---------------------------------------------------------------------------
-// K2, M >= 64: TMA + wgmma
+// M >= 64: TMA + wgmma
 // ---------------------------------------------------------------------------
 namespace wg {
 constexpr int kBM = 128, kBN = 128, kBK = 128;  // kBK bytes = one swizzle row
 constexpr int kStages = 3;
 constexpr int kConsumers = 2;                   // warpgroups of 64 rows each
-constexpr int kThreads = kConsumers * 128 + 32; // + one producer warp
+// + one producer warp, and in K4 one warp that fetches the tile's scales
+template <bool kScale>
+constexpr int kThreadsOf = kConsumers * 128 + (kScale ? 64 : 32);
 constexpr int kTileA = kBM * kBK, kTileB = kBN * kBK;
 constexpr int kStageBytes = kTileA + kTileB;
 // tiles, 1024-byte alignment slack for the swizzle pattern, full and empty
-// barriers
-constexpr size_t kSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
+// barriers, K4's scale barrier and the scales of the tile's rows and columns
+constexpr size_t kSmem =
+    kStages * kStageBytes + 1024 + (2 * kStages + 1) * 8 + (kBM + kBN) * 4;
 // a split's int32 partial tile reuses the stages (row stride padded so a
 // warp's stores spread over the banks)
 constexpr int kPartStride = kBN + 8;
@@ -241,16 +214,23 @@ __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-__global__ void __launch_bounds__(wg::kThreads, 2)
+template <bool kScale>
+__global__ void __launch_bounds__(wg::kThreadsOf<kScale>, 2)
 int8_gemm_wgmma(__grid_constant__ const CUtensorMap map_a,
                 __grid_constant__ const CUtensorMap map_b,
-                int* __restrict__ c, int m, int n, int k, int k_tiles) {
+                void* __restrict__ c, const float* __restrict__ sx,
+                const float* __restrict__ sw, int m, int n, int k,
+                int k_tiles) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + wg::kStages *
                                                           wg::kStageBytes);
   uint64_t* empty = full + wg::kStages;
+  // K4: sx of the tile's rows, then sw of its columns, fetched by the
+  // scale warp while the ring fills, behind `scaled`
+  uint64_t* scaled = empty + wg::kStages;
+  float* s_scale = reinterpret_cast<float*>(scaled + 1);
   const int m0 = blockIdx.y * wg::kBM, n0 = blockIdx.x * wg::kBN;
   // this block's K tiles: split blockIdx.z of gridDim.z (one cluster)
   const int kt0 = blockIdx.z * k_tiles;
@@ -261,14 +241,17 @@ int8_gemm_wgmma(__grid_constant__ const CUtensorMap map_a,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], wg::kConsumers * 128);
     }
+    mbar_init(scaled, 32);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   const int group = tid / 128;
 
   if (group == wg::kConsumers) {
-    // producer warp: one thread keeps the ring full
-    if (tid == wg::kConsumers * 128) {
+    // producer warp: one thread keeps the ring full; in K4 the next warp
+    // fetches the tile's scales
+    const int lane = tid - wg::kConsumers * 128;
+    if (lane == 0) {
       for (int i = 0; i < n_kt; ++i) {
         const int s = i % wg::kStages;
         const uint32_t phase = (i / wg::kStages) & 1;
@@ -278,6 +261,22 @@ int8_gemm_wgmma(__grid_constant__ const CUtensorMap map_a,
         const int kb = (kt0 + i) * wg::kBK;
         tma_load_2d(tile, &map_a, &full[s], kb, m0);
         tma_load_2d(tile + wg::kTileA, &map_b, &full[s], kb, n0);
+      }
+    } else if constexpr (kScale) {
+      if (lane >= 32) {
+        // every load first, then the stores: one load latency, not eight
+        constexpr int kPer = (wg::kBM + wg::kBN) / 32;
+        float v[kPer];
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          const int i = lane - 32 + 32 * u;
+          const int row = m0 + i, col = n0 + i - wg::kBM;
+          v[u] = i < wg::kBM ? (row < m ? sx[row] : 0.f)
+                             : (col < n ? sw[col] : 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) s_scale[lane - 32 + 32 * u] = v[u];
+        mbar_arrive(scaled);
       }
     }
   } else {
@@ -305,12 +304,29 @@ int8_gemm_wgmma(__grid_constant__ const CUtensorMap map_a,
     const int lane = tid & 31, w = (tid & 127) >> 5;
     const int g = lane >> 2, t = lane & 3;
     if (gridDim.z == 1) {
+      if constexpr (kScale) {
+        mbar_wait(scaled, 0);
+        const float* rsc = s_scale + group * 64 + w * 16 + g;
+        const float rs[2] = {rsc[0], rsc[8]};
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 cs = *reinterpret_cast<const float2*>(
+              s_scale + wg::kBM + 8 * j + 2 * t);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            d[4 * j + 2 * h] = dequant_bits(d[4 * j + 2 * h], rs[h], cs.x);
+            d[4 * j + 2 * h + 1] =
+                dequant_bits(d[4 * j + 2 * h + 1], rs[h], cs.y);
+          }
+        }
+      }
+      // K2's sums, or K4's f32 results as bits
       const bool pair_ok = (n & 1) == 0;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + group * 64 + w * 16 + g + 8 * h;
         if (row >= m) continue;
-        int* crow = c + static_cast<int64_t>(row) * n;
+        int* crow = static_cast<int*>(c) + static_cast<int64_t>(row) * n;
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const int col = n0 + 8 * j + 2 * t;
@@ -348,8 +364,9 @@ int8_gemm_wgmma(__grid_constant__ const CUtensorMap map_a,
     const int rank = static_cast<int>(cluster.block_rank());
     const int* part = reinterpret_cast<const int*>(smem);
     const bool quad_ok = (n & 3) == 0;
-    for (int i = rank * wg::kThreads + tid; i < wg::kBM * wg::kBN / 4;
-         i += splits * wg::kThreads) {
+    constexpr int kThreads = wg::kThreadsOf<kScale>;
+    for (int i = rank * kThreads + tid; i < wg::kBM * wg::kBN / 4;
+         i += splits * kThreads) {
       const int r = i / (wg::kBN / 4), c4 = (i % (wg::kBN / 4)) * 4;
       const int row = m0 + r, col = n0 + c4;
       if (row >= m || col >= n) continue;
@@ -362,12 +379,17 @@ int8_gemm_wgmma(__grid_constant__ const CUtensorMap map_a,
         v.z += p.z;
         v.w += p.w;
       }
-      int* dst = c + static_cast<int64_t>(row) * n + col;
+      // the epilogue sees the whole sum; the scales were fetched into
+      // every block of the cluster before the cluster barrier
+      const int64_t idx = static_cast<int64_t>(row) * n + col;
+      const float rs = kScale ? s_scale[r] : 0.f;
+      const float* cs = s_scale + wg::kBM;
       if (quad_ok && col + 3 < n) {
-        *reinterpret_cast<int4*>(dst) = v;
+        put4<kScale>(c, idx, v, rs, cs, c4);
       } else {
         const int vs[4] = {v.x, v.y, v.z, v.w};
-        for (int e = 0; e < 4 && col + e < n; ++e) dst[e] = vs[e];
+        for (int e = 0; e < 4 && col + e < n; ++e)
+          put1<kScale>(c, idx + e, vs[e], rs, cs, c4 + e);
       }
     }
     cluster.sync();   // keep this block's partial alive until all have read
@@ -410,15 +432,16 @@ bool k_major_map(CUtensorMap* map, const void* ptr, int rows, int k) {
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int launch_wgmma(const void* a, const void* b, int* c, int m, int n, int k,
-                 cudaStream_t stream) {
+template <bool kScale>
+int launch_wgmma(const void* a, const void* b, void* c, const float* sx,
+                 const float* sw, int m, int n, int k, cudaStream_t stream) {
   static_assert(wg::kBM == wg::kBN, "one box shape serves A and B");
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap map_a, map_b;
   if (!k_major_map(&map_a, a, m, k) || !k_major_map(&map_b, b, n, k))
     return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      int8_gemm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int8_gemm_wgmma<kScale>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(wg::kSmem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   // split K over a cluster of kSplit blocks when the output tiles alone
@@ -434,7 +457,7 @@ int launch_wgmma(const void* a, const void* b, int* c, int m, int n, int k,
 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_tiles, m_tiles, splits);
-  cfg.blockDim = dim3(wg::kThreads);
+  cfg.blockDim = dim3(wg::kThreadsOf<kScale>);
   cfg.dynamicSmemBytes = wg::kSmem;
   cfg.stream = stream;
   cudaLaunchAttribute attrs[1];
@@ -444,14 +467,15 @@ int launch_wgmma(const void* a, const void* b, int* c, int m, int n, int k,
   attrs[0].val.clusterDim.z = splits;
   cfg.attrs = attrs;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, int8_gemm_wgmma, map_a,
-                                           map_b, c, m, n, k, k_tiles);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, int8_gemm_wgmma<kScale>,
+                                           map_a, map_b, c, sx, sw, m, n, k,
+                                           k_tiles);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// K2, M < 64: split-K streaming GEMV on mma.sync
+// M < 64: split-K streaming GEMV on mma.sync
 // ---------------------------------------------------------------------------
 namespace sk {
 constexpr int kWarps = 4, kThreads = kWarps * 32;
@@ -504,10 +528,12 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
 // tile. mma.sync pairs A's and B's k by the owning lane's t, so feeding
 // both the same 16 bytes in the order (x, y) then (z, w) keeps the dot
 // product exact.
-template <bool kAligned, int kMT>
+template <bool kAligned, int kMT, bool kScale>
 __global__ void __launch_bounds__(sk::kThreads)
 int8_gemv_splitk(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-                 int* __restrict__ c, int m, int n, int k, int k_slice) {
+                 void* __restrict__ c, const float* __restrict__ sx,
+                 const float* __restrict__ sw, int m, int n, int k,
+                 int k_slice) {
   constexpr int kRows = kMT * 16;
   // steps whose weight loads fly at once: more where fewer rows leave the
   // registers free
@@ -535,6 +561,28 @@ int8_gemv_splitk(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     const int col = col0 + (warp * sk::kGroups + j) * 8 + g;
     col_ok[j] = col < n;
     bcol[j] = b + static_cast<int64_t>(col_ok[j] ? col : 0) * k;
+  }
+
+  // K4 without a split: the scales of this lane's outputs, fetched before
+  // the K loop
+  float cs[sk::kGroups][2], rs[kMT][2];
+  if constexpr (kScale) {
+    if (gridDim.y == 1) {
+#pragma unroll
+      for (int j = 0; j < sk::kGroups; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col0 + (warp * sk::kGroups + j) * 8 + 2 * t + e;
+          cs[j][e] = col < n ? sw[col] : 0.f;
+        }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m_base + i * 16 + g + 8 * h;
+          rs[i][h] = row < m ? sx[row] : 0.f;
+        }
+    }
   }
 
   for (int kb = k_begin; kb < k_end; kb += kUnroll * sk::kStep) {
@@ -574,6 +622,20 @@ int8_gemv_splitk(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   // accumulator fragment: acc[i][j][2h + e] is row 16i + g + 8h, column
   // 8 * (warp * kGroups + j) + 2t + e of the block's tile
   if (gridDim.y == 1) {
+    if constexpr (kScale) {
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < sk::kGroups; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              int& v = acc[i][j][2 * h + e];
+              v = dequant_bits(v, rs[i][h], cs[j][e]);
+            }
+    }
+    // K2's sums, or K4's f32 results as bits
 #pragma unroll
     for (int i = 0; i < kMT; ++i) {
       if (i >= n_mt) break;
@@ -587,7 +649,8 @@ int8_gemv_splitk(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
           for (int e = 0; e < 2; ++e) {
             const int col = col0 + (warp * sk::kGroups + j) * 8 + 2 * t + e;
             if (col < n)
-              c[static_cast<int64_t>(row) * n + col] = acc[i][j][2 * h + e];
+              static_cast<int*>(c)[static_cast<int64_t>(row) * n + col] =
+                  acc[i][j][2 * h + e];
           }
       }
     }
@@ -617,13 +680,18 @@ int8_gemv_splitk(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     int v = 0;
     for (int s = 0; s < splits; ++s) v += *cluster.map_shared_rank(s_part + i, s);
     const int row = m_base + i / sk::kCols, col = col0 + i % sk::kCols;
-    if (col < n) c[static_cast<int64_t>(row) * n + col] = v;
+    // the epilogue sees the whole sum
+    if (col < n)
+      put1<kScale>(c, static_cast<int64_t>(row) * n + col, v,
+                   kScale ? sx[row] : 0.f, sw, col);
   }
   cluster.sync();   // keep this block's partials alive until all have read
 }
 
-int launch_splitk(const void* a, const void* b, int* c, int m, int n, int k,
-                  bool aligned, cudaStream_t stream) {
+template <bool kScale>
+int launch_splitk(const void* a, const void* b, void* c, const float* sx,
+                  const float* sw, int m, int n, int k, bool aligned,
+                  cudaStream_t stream) {
   // one 16-row tile a block at decode's few rows, four above
   const int mt = m <= 16 ? 1 : 4;
   const int rows = 16 * mt;
@@ -652,26 +720,31 @@ int launch_splitk(const void* a, const void* b, int* c, int m, int n, int k,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const auto kernel =
-      mt == 1 ? (aligned ? int8_gemv_splitk<true, 1>
-                         : int8_gemv_splitk<false, 1>)
-              : (aligned ? int8_gemv_splitk<true, 4>
-                         : int8_gemv_splitk<false, 4>);
+      mt == 1 ? (aligned ? int8_gemv_splitk<true, 1, kScale>
+                         : int8_gemv_splitk<false, 1, kScale>)
+              : (aligned ? int8_gemv_splitk<true, 4, kScale>
+                         : int8_gemv_splitk<false, 4, kScale>);
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const int8_t*>(a),
-      static_cast<const int8_t*>(b), c, m, n, k, k_slice);
+      static_cast<const int8_t*>(b), c, sx, sw, m, n, k, k_slice);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_k4(const void* a, const void* b, void* c, const void* sx,
-              const void* sw, int m, int n, int k, void* stream) {
+// the product over a K-major weight b_nk, K2's (kScale false) or K4's
+template <bool kScale>
+int product(const void* a, const void* b_nk, void* c, const float* sx,
+            const float* sw, int m, int n, int k, cudaStream_t s) {
   if (m == 0 || n == 0) return 0;
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  int8_gemm_kernel<true><<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), c,
-      static_cast<const float*>(sx), static_cast<const float*>(sw), m, n, k);
-  return static_cast<int>(cudaGetLastError());
+  // an empty sum: int32 0, or K4's 0 * sx * sw (+0.0f, all bits 0)
+  if (k == 0) return static_cast<int>(cudaMemsetAsync(
+      c, 0, 4 * static_cast<size_t>(m) * n, s));
+  const bool aligned = k % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(b_nk) % 16 == 0;
+  if (m >= 64 && aligned)
+    return launch_wgmma<kScale>(a, b_nk, c, sx, sw, m, n, k, s);
+  return launch_splitk<kScale>(a, b_nk, c, sx, sw, m, n, k, aligned, s);
 }
 
 }  // namespace
@@ -680,21 +753,16 @@ int launch_k4(const void* a, const void* b, void* c, const void* sx,
 // weight), c (M, N) int32.
 REPRO_EXPORT int int8_matmul(const void* a, const void* b_nk, void* c, int m,
                              int n, int k, void* stream) {
-  if (m == 0 || n == 0) return 0;
-  const auto s = static_cast<cudaStream_t>(stream);
-  int* out = static_cast<int*>(c);
-  if (k == 0) return static_cast<int>(cudaMemsetAsync(
-      out, 0, sizeof(int) * static_cast<size_t>(m) * n, s));
-  const bool aligned = k % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(b_nk) % 16 == 0;
-  if (m >= 64 && aligned) return launch_wgmma(a, b_nk, out, m, n, k, s);
-  return launch_splitk(a, b_nk, out, m, n, k, aligned, s);
+  return product<false>(a, b_nk, c, nullptr, nullptr, m, n, k,
+                        static_cast<cudaStream_t>(stream));
 }
 
-// K4: a (M, K), b (K, N) row-major int8, sx (M, 1), sw (1, N) f32.
-REPRO_EXPORT int yoco_vmm_int8(const void* a, const void* b, const void* sx,
+// K4: a (M, K) int8 row-major, b_nk (N, K) int8 row-major (the K-major
+// weight), sx (M, 1) and sw (1, N) f32, c (M, N) f32.
+REPRO_EXPORT int yoco_vmm_int8(const void* a, const void* b_nk, const void* sx,
                                const void* sw, void* c, int m, int n, int k,
                                void* stream) {
-  return launch_k4(a, b, c, sx, sw, m, n, k, stream);
+  return product<true>(a, b_nk, c, static_cast<const float*>(sx),
+                       static_cast<const float*>(sw), m, n, k,
+                       static_cast<cudaStream_t>(stream));
 }

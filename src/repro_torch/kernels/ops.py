@@ -30,12 +30,21 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 def yoco_vmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """End-to-end YOCO matmul: dynamic per-token quantization of x and
-    per-out-channel quantization of w (rows of w.T), the int8 product and
-    one fused f32 dequant epilogue. x: (..., K) float, w: (K, N) float."""
+    per-out-channel quantization of w (K3 on the rows of w.T), the int8
+    product and one fused f32 dequant epilogue (K4). x: (..., K) float,
+    w: (K, N) float. On the card ``w`` must be K-major (``w.t()``
+    contiguous, as ``models.model.k_major_linear_weights`` stores dynamic
+    w8a8's weights at load): K3 then reads w.T in place and its (N, K)
+    codes reach K4 as the K-major view, so no call copies the weight. The
+    CPU takes any layout."""
     lead, k = x.shape[:-1], x.shape[-1]
     n = w.shape[-1]
+    if w.device.type == 'cuda' and not w.t().is_contiguous():
+        raise ValueError(
+            f'yoco_vmm: the weight must be K-major, a (K, N) view of an '
+            f'(N, K)-contiguous tensor (k_major_linear_weights stores it '
+            f'so); got strides {w.stride()} for shape {tuple(w.shape)}')
     xq, sx = quantize_rows(x.reshape(-1, k))
     wq_t, sw_t = quantize_rows(w.t())           # per-out-channel scales
-    out = _yoco.yoco_vmm_int8(xq, wq_t.t().contiguous(), sx,
-                              sw_t.reshape(1, n))
+    out = _yoco.yoco_vmm_int8(xq, wq_t.t(), sx, sw_t.reshape(1, n))
     return out.reshape(*lead, n)

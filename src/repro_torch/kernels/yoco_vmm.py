@@ -4,13 +4,14 @@ Port of ``repro/kernels/yoco_vmm.py``: ``int8_matmul`` (int8 x int8 ->
 int32, no epilogue; the prequantized serving path) and ``yoco_vmm_int8``
 (the same product with the fused f32 scale epilogue ``acc * sx * sw``, the
 single output conversion; the dynamic ``w8a8`` path). The CUDA kernels are
-``csrc/yoco_vmm.cu``; they take ragged M, N and K themselves, so nothing
-here pads to a block multiple. On the card K2 takes its weight K-major: a
-(K, N) view whose transpose is contiguous, as ``prequantize_weight`` stores
-it; any other layout raises instead of being copied on every call. K4 still
-takes a row-major (K, N) weight. The ``*_plain`` functions are the same
-functions in plain PyTorch, for any layout; the wrappers take them only for
-CPU tensors.
+``csrc/yoco_vmm.cu``, one launch a call (K4's epilogue is fused); they
+take ragged M, N and K themselves, so nothing here pads to a block
+multiple. On the card both take their weight K-major: a (K, N) view whose
+transpose is contiguous, as ``prequantize_weight`` stores K2's int8 weight
+and as K3 yields K4's codes from the K-major float weight's transpose; any
+other layout raises instead of being copied on every call. The ``*_plain``
+functions are the same functions in plain PyTorch, for any layout; the
+wrappers take them only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -38,11 +39,21 @@ def yoco_vmm_int8_plain(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     return int8_matmul_plain(xq, wq).to(torch.float32) * sx * sw
 
 
-def _check_operands(name, xq, wq):
+def _check_operands(name, xq, wq) -> torch.Tensor:
+    """Shapes, then on the card the K-major layout of ``wq``; returns the
+    (N, K)-contiguous tensor behind it, which the kernel reads."""
     if xq.ndim != 2 or wq.ndim != 2 or xq.shape[1] != wq.shape[0]:
         raise ValueError(f'{name}: shapes {tuple(xq.shape)} x '
                          f'{tuple(wq.shape)} do not multiply')
-    build.require_cuda(name, xq, wq, dtypes=[(torch.int8,), (torch.int8,)])
+    w_nk = wq.t()
+    if wq.device.type == 'cuda' and not w_nk.is_contiguous():
+        raise ValueError(
+            f'{name}: the weight must be K-major, a (K, N) view of an '
+            f'(N, K)-contiguous tensor (prequantize_weight and '
+            f'k_major_linear_weights store it so); got strides '
+            f'{wq.stride()} for shape {tuple(wq.shape)}')
+    build.require_cuda(name, xq, w_nk, dtypes=[(torch.int8,), (torch.int8,)])
+    return w_nk
 
 
 _MM_ARGS = [build.P, build.P, build.P, build.I, build.I, build.I, build.P]
@@ -55,17 +66,7 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     behind the view."""
     if xq.device.type == 'cpu' and wq.device.type == 'cpu':
         return int8_matmul_plain(xq, wq)
-    name = 'int8_matmul'
-    if xq.ndim != 2 or wq.ndim != 2 or xq.shape[1] != wq.shape[0]:
-        raise ValueError(f'{name}: shapes {tuple(xq.shape)} x '
-                         f'{tuple(wq.shape)} do not multiply')
-    w_nk = wq.t()
-    if wq.device.type == 'cuda' and not w_nk.is_contiguous():
-        raise ValueError(
-            f'{name}: the weight must be K-major, a (K, N) view of an '
-            f'(N, K)-contiguous tensor (prequantize_weight stores it so); '
-            f'got strides {wq.stride()} for shape {tuple(wq.shape)}')
-    build.require_cuda(name, xq, w_nk, dtypes=[(torch.int8,), (torch.int8,)])
+    w_nk = _check_operands('int8_matmul', xq, wq)
     m, k = xq.shape
     n = wq.shape[1]
     out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
@@ -80,10 +81,12 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 def yoco_vmm_int8(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
                   sw: torch.Tensor) -> torch.Tensor:
     """xq (M, K) int8; wq (K, N) int8; sx (M, 1) f32; sw (1, N) f32.
-    Returns (M, N) f32 = (xq @ wq) * sx * sw."""
+    Returns (M, N) f32 = (xq @ wq) * sx * sw. On the card ``wq`` must be
+    K-major (``wq.t()`` contiguous): the kernel reads the (N, K) tensor
+    behind the view."""
     if all(t.device.type == 'cpu' for t in (xq, wq, sx, sw)):
         return yoco_vmm_int8_plain(xq, wq, sx, sw)
-    _check_operands('yoco_vmm_int8', xq, wq)
+    w_nk = _check_operands('yoco_vmm_int8', xq, wq)
     m, k = xq.shape
     n = wq.shape[1]
     if tuple(sx.shape) != (m, 1) or tuple(sw.shape) != (1, n):
@@ -93,7 +96,7 @@ def yoco_vmm_int8(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
                        dtypes=[None, (torch.float32,), (torch.float32,)])
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
     fn = build.function('yoco_vmm', 'yoco_vmm_int8', _VMM_ARGS)
-    err = fn(xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+    err = fn(xq.data_ptr(), w_nk.data_ptr(), sx.data_ptr(), sw.data_ptr(),
              out.data_ptr(), m, n, k, build.stream_of(xq))
     build.check(err, 'yoco_vmm', 'yoco_vmm_int8')
     build.count('yoco_vmm_int8')

@@ -101,8 +101,9 @@ def _refuse_mla_prequantize(arch: str, cfg, prequantize: bool) -> None:
 def _serving_params(cfg, params, dev, *, seed: int, mode: str,
                     prequantize: bool, compute_dtype) -> dict:
     """Seeded random weights on ``dev`` unless ``params`` is given, then
-    quantized in situ (``prequantize``) or, in bf16 mode, cast once to the
-    compute dtype."""
+    quantized in situ (``prequantize``), in bf16 mode cast once to the
+    compute dtype, or in dynamic w8a8 stored K-major once, as kernels K3
+    and K4 read them with no per-call copy."""
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = model_mod.init_params(gen, cfg, device=dev)
@@ -111,7 +112,7 @@ def _serving_params(cfg, params, dev, *, seed: int, mode: str,
         return yoco_linear.quantize_tree(params)
     if mode == 'bf16':
         return model_mod.cast_linear_weights(params, compute_dtype)
-    return params
+    return model_mod.k_major_linear_weights(params)
 
 
 def _check_attn_impl(attn_impl: str) -> None:

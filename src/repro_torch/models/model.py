@@ -140,6 +140,25 @@ def cast_linear_weights(params: dict, dtype: torch.dtype) -> dict:
     return walk(params)
 
 
+def k_major_linear_weights(params: dict) -> dict:
+    """Store every float linear weight K-major once, at load: the same
+    (K, N) values as a view of an (N, K)-contiguous tensor
+    (``yoco_linear.k_major``), f32 as the reference keeps them. Dynamic
+    w8a8 serves these: kernel K3 reads ``w.T`` in place and kernel K4 takes
+    its codes as the K-major operand, so no call copies a weight. One
+    weight is copied at a time; one already K-major is not copied."""
+    def walk(node, name=''):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        if (isinstance(node, torch.Tensor) and node.is_floating_point()
+                and node.ndim == 2 and name in yoco_linear._WEIGHT_NAMES):
+            return yoco_linear.k_major(node)
+        return node
+    return walk(params)
+
+
 def cache_from_numpy(tree, device):
     """A reference cache tree (numpy leaves) to tensors on ``device``."""
     if isinstance(tree, dict):
