@@ -25,7 +25,10 @@ Phases, in order; any failure exits non-zero and prints no result:
              pools, with a sliding window on half the slots; K5 and K9 on
              the rows below their limit, every row finite; K6 also
              bit-equal to K1, and K10 to K8, when the hot window covers the
-             table, over poisoned int8 pools; MLA attention 2e-5, the
+             table, over poisoned int8 pools; K1 and K6 (the key split over
+             block tables, two device kernels a launch) also at Hkv=8, G=4,
+             dh=128 and at a 4,096-token context (W=512), each with an
+             L2-cold reading; MLA attention 2e-5, the
              reference's tolerance, at H=128, DK=576, r=512, with the
              kernels' resident blocks per SM) and time kernel, plain
              version and, where one exists, the one PyTorch call computing
@@ -95,7 +98,7 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
 runs on, with that path's launches), a ``{"redesigned": [...]}`` line
-(every K2, K4 and K7 row), a ``{"serve": [...]}`` and a
+(every K1, K2, K4, K6 and K7 row), a ``{"serve": [...]}`` and a
 ``{"static_serve": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
@@ -308,15 +311,19 @@ def cold_device_ms(torch, fn, iters=10):
 
 # the redesigned kernels' entry functions whose compiler report chip_smoke
 # prints (every template instance: K2's and K4's epilogue of each K2/K4
-# mainloop), and the wrappers whose every row it prints
-PTXAS_KERNELS = ('int8_gemm_wgmma', 'int8_gemv_splitk', 'contig_split_kernel',
-                 'contig_combine_kernel')
-REDESIGNED = ('int8_matmul', 'yoco_vmm_int8', 'flash_decode_contig')
+# mainloop, the key split's row loader of K7, K1 and K6), and the wrappers
+# whose every row it prints
+PTXAS_KERNELS = ('int8_gemm_wgmma', 'int8_gemv_splitk', 'key_split_kernel',
+                 'split_combine_kernel')
+SPLIT_LOADERS = ('TieredPagedKV', 'PagedKV', 'ContigKV')
+REDESIGNED = ('int8_matmul', 'yoco_vmm_int8', 'flash_decode_contig',
+              'flash_decode_paged', 'flash_decode_paged_q8')
 
 
 def ptxas_summary(logs) -> list:
     """Registers, shared memory and spills of each PTXAS_KERNELS entry
-    function, from ``nvcc -Xptxas -v`` reports ({source: text})."""
+    function, from ``nvcc -Xptxas -v`` reports ({source: text}); a key
+    split instance also names its row loader."""
     import re
     out, cur = [], None
     for src, log in logs.items():
@@ -329,6 +336,9 @@ def ptxas_summary(logs) -> list:
                 if short:
                     cur = dict(name=short[0], source=f'{src}.cu',
                                kernel=name)
+                    loader = [k for k in SPLIT_LOADERS if k in name]
+                    if loader:
+                        cur['loader'] = loader[0]
                     out.append(cur)
                 continue
             if cur is None:
@@ -357,12 +367,13 @@ def bound(nbytes: float, ops: float = 0.0, ops_rate: float = INT8_OPS_PER_S):
 # ----------------------------------------------------------------------------
 def record_row(torch, rows, name, shape, err, tol, fn, plain, lib, nbytes,
                ops=0.0, ops_rate=INT8_OPS_PER_S, route='cuda', source='',
-               replaces='', kernels_per_launch=1):
+               replaces='', kernels_per_launch=1, plain_iters=20):
     """Hold one kernel case to its tolerance, then time the kernel, its
-    plain version and the library call, and append the row. The kernel's
-    time counts only a profiler session that recorded every device kernel
-    of the launches its wrapper counted (``kernels_per_call``; K7 runs two
-    kernels a launch, its key splits and their combine)."""
+    plain version (over ``plain_iters`` calls) and the library call, and
+    append the row. The kernel's time counts only a profiler session that
+    recorded every device kernel of the launches its wrapper counted
+    (``kernels_per_call``; K1, K6 and K7 run two kernels a launch, their
+    key splits and the combine)."""
     from repro_torch.kernels import build
     check(err <= tol, f'{name} {shape}: max |kernel - plain| = {err} '
                       f'> {tol}')
@@ -380,7 +391,7 @@ def record_row(torch, rows, name, shape, err, tol, fn, plain, lib, nbytes,
     launches = sum(build.LAUNCHES.values()) - before
     ms, timer, kernels = device_ms(torch, fn,
                                    expect=launches * kernels_per_launch)
-    plain_ms, plain_timer, _ = device_ms(torch, plain)
+    plain_ms, plain_timer, _ = device_ms(torch, plain, iters=plain_iters)
     rows.append(dict(name=name, shape=shape, route=route, source=source,
                      replaces=replaces, max_abs_err=err, tol=tol,
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -388,6 +399,135 @@ def record_row(torch, rows, name, shape, err, tol, fn, plain, lib, nbytes,
                      kernels_per_call=kernels,
                      timer=dict(ms=timer, plain_ms=plain_timer,
                                 library_ms=lib_timer)))
+
+
+def _paged_shape(q, kp, pos, win, bt, **extra):
+    """The shape dict of a K1 or K6 row."""
+    b, hkv, g, dh = q.shape
+    w, ps = bt.shape[1], kp.shape[1]
+    pos_h, win_h = pos.cpu().tolist(), win.cpu().tolist()
+    return dict(B=b, Hkv=hkv, G=g, dh=dh, page_size=ps, W=w,
+                pool=str(kp.dtype).replace('torch.', ''),
+                live_keys=sum(min(p + 1, w_) for p, w_ in zip(pos_h, win_h)),
+                windowed_slots=sum(w_ <= w * ps for w_ in win_h), **extra)
+
+
+def k1_row(torch, fd, rows, q, kp, vp, pos, win, bt, plain_iters=20):
+    """Hold K1 (paged decode on the key split) to its plain version, 1e-5
+    on either pool dtype (both compute in f32 on the same pools), every
+    row finite; record its row with an L2-cold reading."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+
+    def k1():
+        return fd.flash_decode_gqa_paged(q, kp, vp, pos, win, bt,
+                                         scale=scale)
+
+    def plain():
+        return fd.flash_decode_gqa_paged_plain(q, kp, vp, pos, win, bt,
+                                               scale=scale)
+    got, want = k1(), plain()
+    torch.cuda.synchronize()
+    shape = _paged_shape(q, kp, pos, win, bt)
+    tag = f'K1 {shape}'
+    check(bool(torch.isfinite(got).all()), f'{tag}: output not finite')
+    _, hkv, _, dh = q.shape
+    nbytes = (2 * shape['live_keys'] * hkv * dh * kp.element_size()
+              + 2 * q.numel() * 4)
+    record_row(torch, rows, 'flash_decode_paged', shape,
+               float((got - want).abs().max()), 1e-5, k1, plain, None,
+               nbytes, source='src/repro_torch/csrc/flash_decode.cu',
+               replaces='src/repro/kernels/flash_decode.py:304',
+               kernels_per_launch=2, plain_iters=plain_iters)
+    rows[-1]['cold_ms'] = cold_device_ms(torch, k1)
+
+
+def k6_row(torch, fd, rows, q, c, pos, win, bt, hw, plain_iters=20):
+    """Hold K6 (K1 over the int8 tier, hot window ``hw``) to its plain
+    version (1e-5, every row finite) on pools ``c`` whose pages outside
+    the hot window are quantized, and record its row, with an L2-cold
+    reading and K1's time on the same fp pools. Then poison the int8 tier
+    (127 / -127 codes, NaN / 1e6 scales): with a hot window covering the
+    table K6 must equal K1 bit for bit."""
+    from repro_torch.runtime import kv_quant as kvq
+
+    scale = 1.0 / q.shape[-1] ** 0.5
+    ps, w = c['k'].shape[1], bt.shape[1]
+    hwt = torch.tensor([hw], dtype=torch.int32, device=q.device)
+    args = (q, c['k'], c['v'], c['kq'], c['vq'], c['ks'], c['vs'], pos, win,
+            bt)
+
+    def k6():
+        return fd.flash_decode_gqa_paged_q8(*args, hwt, scale=scale)
+
+    def plain():
+        return fd.flash_decode_gqa_paged_q8_plain(*args, hwt, scale=scale)
+
+    def k1():
+        return fd.flash_decode_gqa_paged(q, c['k'], c['v'], pos, win, bt,
+                                         scale=scale)
+    got, want = k6(), plain()
+    torch.cuda.synchronize()
+    pos_h, win_h = pos.cpu().tolist(), win.cpu().tolist()
+    shape = _paged_shape(
+        q, c['k'], pos, win, bt, hot_window=hw,
+        cold_pages=len(kvq.cold_page_list(bt.cpu(), pos_h, ps, hw)))
+    check(bool(torch.isfinite(got).all()), f'K6 {shape}: output not finite')
+    # bytes: each live key from its one tier, a scale pair per cold live
+    # page, q in and out
+    _, hkv, _, dh = q.shape
+    elt = c['k'].element_size()
+    nbytes = 2 * q.numel() * 4
+    for p_, w_ in zip(pos_h, win_h):
+        first_hot = max(p_, 0) // ps - hw + 1
+        cold_pages = set()
+        for kpos in range(max(p_ - w_ + 1, 0), p_ + 1):
+            if kpos // ps >= first_hot:
+                nbytes += 2 * hkv * dh * elt
+            else:
+                nbytes += 2 * hkv * dh
+                cold_pages.add(kpos // ps)
+        nbytes += len(cold_pages) * 2 * hkv * 4
+    record_row(torch, rows, 'flash_decode_paged_q8', shape,
+               float((got - want).abs().max()), 1e-5, k6, plain, None,
+               nbytes, source='src/repro_torch/csrc/flash_decode.cu',
+               replaces='src/repro/kernels/flash_decode.py:475',
+               kernels_per_launch=2, plain_iters=plain_iters)
+    rows[-1]['cold_ms'] = cold_device_ms(torch, k6)
+    # what the tier costs on the device: K1 over the same fp pools
+    rows[-1]['k1_ms_same_inputs'], *_ = device_ms(torch, k1, expect=2)
+    rows[-1]['k1_cold_ms_same_inputs'] = cold_device_ms(torch, k1)
+    # a hot window covering the table never reads the int8 tier: K6 is
+    # then bit-equal to K1, even over poisoned int8 pools
+    c['kq'].fill_(127)
+    c['vq'].fill_(-127)
+    c['ks'].fill_(float('nan'))
+    c['vs'].fill_(1e6)
+    full = torch.tensor([w], dtype=torch.int32, device=q.device)
+    q8 = fd.flash_decode_gqa_paged_q8(*args, full, scale=scale)
+    fp = k1()
+    torch.cuda.synchronize()
+    check(bool(torch.equal(q8, fp)),
+          f'K6 with hw >= W differs from K1 ({shape}): max '
+          f'{float((q8 - fp).abs().max())}')
+    rows[-1]['bit_equal_k1_at_full_hot_window'] = True
+
+
+def tiered_pools(torch, gen, q, bt, pos, n_pages, ps, hw, dt):
+    """Random fp pools of dtype ``dt`` and an int8 tier in which every page
+    outside its hot window is quantized (``quantize_pages_layer``)."""
+    from repro_torch.runtime import kv_quant as kvq
+    _, hkv, _, dh = q.shape
+    dev = q.device
+    shape = (n_pages, ps, hkv, dh)
+    c = dict(k=torch.randn(shape, generator=gen, device=dev).to(dt),
+             v=torch.randn(shape, generator=gen, device=dev).to(dt),
+             kq=torch.zeros(shape, dtype=torch.int8, device=dev),
+             vq=torch.zeros(shape, dtype=torch.int8, device=dev),
+             ks=torch.zeros((n_pages, hkv), device=dev),
+             vs=torch.zeros((n_pages, hkv), device=dev))
+    cold = kvq.cold_page_list(bt.cpu(), pos.cpu().tolist(), ps, hw)
+    kvq.quantize_pages_layer(c, torch.tensor(cold, device=dev))
+    return c
 
 
 def kernel_phase(torch, kmods):
@@ -413,34 +553,14 @@ def kernel_phase(torch, kmods):
     check(bool(((pos - win + 1) // ps > 0).any()),
           'K1 case: no window starts past the first page')
     q = torch.randn((b, hkv, g, dh), generator=gen, device=dev)
-    live_keys = int(torch.minimum(pos + 1, win).to(torch.int64).sum())
     # kernel and plain version both compute in f32 on the same pools, so
     # bf16 pools are held to the f32 tolerance
-    for dt, tol in ((torch.bfloat16, 1e-5), (torch.float32, 1e-5)):
+    for dt in (torch.bfloat16, torch.float32):
         kp = torch.randn((n_pages, ps, hkv, dh), generator=gen,
                          device=dev).to(dt)
         vp = torch.randn((n_pages, ps, hkv, dh), generator=gen,
                          device=dev).to(dt)
-        scale = 1.0 / dh ** 0.5
-        got = fd.flash_decode_gqa_paged(q, kp, vp, pos, win, bt, scale=scale)
-        want = fd.flash_decode_gqa_paged_plain(q, kp, vp, pos, win, bt,
-                                               scale=scale)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), 'K1 output not finite')
-        err = float((got - want).abs().max())
-        nbytes = (2 * live_keys * hkv * dh * kp.element_size()
-                  + 2 * q.numel() * 4)
-        record('flash_decode_paged',
-               dict(B=b, Hkv=hkv, G=g, dh=dh, page_size=ps, W=w,
-                    pool=str(dt).replace('torch.', ''), live_keys=live_keys,
-                    windowed_slots=int((win <= w * ps).sum())),
-               err, tol,
-               lambda: fd.flash_decode_gqa_paged(q, kp, vp, pos, win, bt,
-                                                 scale=scale),
-               lambda: fd.flash_decode_gqa_paged_plain(q, kp, vp, pos, win,
-                                                       bt, scale=scale),
-               None, nbytes, source='src/repro_torch/csrc/flash_decode.cu',
-               replaces='src/repro/kernels/flash_decode.py:304')
+        k1_row(torch, fd, rows, q, kp, vp, pos, win, bt)
 
     # K3 / K2 / K4 at each main path's linear shapes, M in {8 slots,
     # 128-token prompt} and, for stablelm's layer linears, the static
@@ -593,78 +713,13 @@ def tier_chunk_kernel_phase(torch, kmods):
     pos[2], pos[4], pos[6] = w * ps - 1, 130, 97
     win = torch.full((b,), w * ps + 1, dtype=torch.int32, device=dev)
     win[1::2] = 9
-    hwt = torch.tensor([hw], dtype=torch.int32, device=dev)
     q = torch.randn((b, hkv, g, dh), generator=gen, device=dev)
-    pos_h, win_h, bt_h = pos.cpu().tolist(), win.cpu().tolist(), bt.cpu()
-    cold = kvq.cold_page_list(bt_h, pos_h, ps, hw)
+    cold = kvq.cold_page_list(bt.cpu(), pos.cpu().tolist(), ps, hw)
     check(len(cold) >= 30, f'K6 case has only {len(cold)} cold pages')
     for dt in (torch.bfloat16, torch.float32):
-        c = dict(k=torch.randn((n_pages, ps, hkv, dh), generator=gen,
-                               device=dev).to(dt),
-                 v=torch.randn((n_pages, ps, hkv, dh), generator=gen,
-                               device=dev).to(dt),
-                 kq=torch.zeros((n_pages, ps, hkv, dh), dtype=torch.int8,
-                                device=dev),
-                 vq=torch.zeros((n_pages, ps, hkv, dh), dtype=torch.int8,
-                                device=dev),
-                 ks=torch.zeros((n_pages, hkv), device=dev),
-                 vs=torch.zeros((n_pages, hkv), device=dev))
-        kvq.quantize_pages_layer(c, torch.tensor(cold, device=dev))
-        args = (q, c['k'], c['v'], c['kq'], c['vq'], c['ks'], c['vs'], pos,
-                win, bt, hwt)
-        got = fd.flash_decode_gqa_paged_q8(*args, scale=scale)
-        want = fd.flash_decode_gqa_paged_q8_plain(*args, scale=scale)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), 'K6 output not finite')
-        err = float((got - want).abs().max())
-        # bytes: each live key from its one tier, a scale pair per cold
-        # live page, q in and out
-        elt = c['k'].element_size()
-        nbytes = 2 * q.numel() * 4
-        for p_, w_ in zip(pos_h, win_h):
-            first_hot = max(p_, 0) // ps - hw + 1
-            cold_pages = set()
-            for kpos in range(max(p_ - w_ + 1, 0), p_ + 1):
-                if kpos // ps >= first_hot:
-                    nbytes += 2 * hkv * dh * elt
-                else:
-                    nbytes += 2 * hkv * dh
-                    cold_pages.add(kpos // ps)
-            nbytes += len(cold_pages) * 2 * hkv * 4
-        live_keys = sum(min(p_ + 1, w_) for p_, w_ in zip(pos_h, win_h))
-        record_row(torch, rows, 'flash_decode_paged_q8',
-                   dict(B=b, Hkv=hkv, G=g, dh=dh, page_size=ps, W=w,
-                        hot_window=hw, pool=str(dt).replace('torch.', ''),
-                        cold_pages=len(cold), live_keys=live_keys,
-                        windowed_slots=int((win <= w * ps).sum())),
-                   err, 1e-5,
-                   lambda: fd.flash_decode_gqa_paged_q8(*args, scale=scale),
-                   lambda: fd.flash_decode_gqa_paged_q8_plain(*args,
-                                                              scale=scale),
-                   None, nbytes, source=src,
-                   replaces='src/repro/kernels/flash_decode.py:475')
-        # what the tier costs on the device: K1 over the same fp pools
-        rows[-1]['k1_ms_same_inputs'], *_ = device_ms(
-            torch, lambda: fd.flash_decode_gqa_paged(q, c['k'], c['v'], pos,
-                                                     win, bt, scale=scale),
-            expect=1)
-        # a hot window covering the table never reads the int8 tier: K6 is
-        # then bit-equal to K1, even over poisoned int8 pools
-        c['kq'].fill_(127)
-        c['vq'].fill_(-127)
-        c['ks'].fill_(float('nan'))
-        c['vs'].fill_(1e6)
-        full = torch.tensor([w], dtype=torch.int32, device=dev)
-        q8 = fd.flash_decode_gqa_paged_q8(q, c['k'], c['v'], c['kq'],
-                                          c['vq'], c['ks'], c['vs'], pos,
-                                          win, bt, full, scale=scale)
-        k1 = fd.flash_decode_gqa_paged(q, c['k'], c['v'], pos, win, bt,
-                                       scale=scale)
-        torch.cuda.synchronize()
-        check(bool(torch.equal(q8, k1)),
-              f'K6 with hw >= W differs from K1 ({dt}): max '
-              f'{float((q8 - k1).abs().max())}')
-        rows[-1]['bit_equal_k1_at_full_hot_window'] = True
+        c = tiered_pools(torch, gen, q, bt, pos, n_pages, ps, hw, dt)
+        k6_row(torch, fd, rows, q, c, pos, win, bt, hw)
+        del c
 
     # K5: one request, Hkv=32, G=1, dh=64, page size 8, W=20, limit 128:
     # C=32 at offsets 0 and 96 (a miss's first chunk, a prefix hit's
@@ -718,6 +773,48 @@ def tier_chunk_kernel_phase(torch, kmods):
                            *args, scale=scale, chunk=c),
                        None, nbytes, ops, BF16_OPS_PER_S, source=src,
                        replaces='src/repro/kernels/flash_decode.py:304')
+    return rows
+
+
+def paged_split_kernel_phase(torch, kmods):
+    """K1 and K6 on the key split beyond the serving rows, bf16 and f32
+    pools, K6 at hot window 2: a grouped head layout (Hkv=8, G=4, dh=128,
+    W=20: K7's G > 1 case, query rows in pairs; ragged positions, an idle
+    slot, a 33-key window on every odd slot) and a 4,096-token context
+    (Hkv=32, G=1, dh=64, W=512: 8 slots within 16 keys of full, where K1
+    should reach half its bound; the plain versions walk 512 pages, so
+    they are timed over 2 calls)."""
+    fd = kmods[0]
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    ps, hw = 8, 2
+    for case, b, hkv, g, dh, w in (('g4', 8, 8, 4, 128, 20),
+                                   ('long', 8, 32, 1, 64, 512)):
+        n_pages = 1 + b * w
+        bt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1) \
+            .reshape(b, w).to(torch.int32).contiguous()
+        win = torch.full((b,), w * ps + 1, dtype=torch.int32, device=dev)
+        if case == 'g4':
+            pos = torch.randint(w * ps // 2, w * ps, (b,), generator=gen,
+                                device=dev, dtype=torch.int32)
+            pos[0] = 0                     # an idle slot ...
+            bt[0] = 0                      # ... against the garbage page
+            win[1::2] = 33
+        else:
+            pos = w * ps - 1 - torch.randint(0, 16, (b,), generator=gen,
+                                             device=dev, dtype=torch.int32)
+        q = torch.randn((b, hkv, g, dh), generator=gen, device=dev)
+        iters = 2 if case == 'long' else 20
+        for dt in (torch.bfloat16, torch.float32):
+            c = tiered_pools(torch, gen, q, bt, pos, n_pages, ps, hw, dt)
+            k1_row(torch, fd, rows, q, c['k'], c['v'], pos, win, bt,
+                   plain_iters=iters)
+            rows[-1]['shape']['case'] = case
+            k6_row(torch, fd, rows, q, c, pos, win, bt, hw,
+                   plain_iters=iters)
+            rows[-1]['shape']['case'] = case
+            del c
     return rows
 
 
@@ -1700,6 +1797,8 @@ def all_kernel_phases(torch, kmods):
     print(f'kernel checks passed: {len(rows)} shapes', flush=True)
     rows += tier_chunk_kernel_phase(torch, kmods)
     print('K5/K6 checks passed', flush=True)
+    rows += paged_split_kernel_phase(torch, kmods)
+    print('K1/K6 G=4 and W=512 checks passed', flush=True)
     rows += mla_kernel_phase(torch, kmods)
     print('K8/K9/K10 checks passed', flush=True)
     rows += contig_kernel_phase(torch, kmods)
@@ -1730,7 +1829,8 @@ def print_redesigned(rows):
     keys = ('shape', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'kernels_per_call', 'timer', 'max_abs_err', 'streamed_ms',
             'cold_ms', 'library_cold_ms', 'cold_ms_runs',
-            'library_cold_ms_runs')
+            'library_cold_ms_runs', 'k1_ms_same_inputs',
+            'k1_cold_ms_same_inputs', 'bit_equal_k1_at_full_hot_window')
     print(json.dumps(dict(redesigned=[
         dict(name=r['name'], **{k: r[k] for k in keys if k in r})
         for r in rows if r['name'] in REDESIGNED])), flush=True)
@@ -1841,12 +1941,13 @@ def main(argv) -> int:
     # the static path at its prefill's 1024 rows through q/k/v/o, the
     # shape no other path gives them (its decode shape is the continuous
     # path's M=8)
-    pick = (('flash_decode_paged', ARCH, dict(pool='bfloat16')),
+    pick = (('flash_decode_paged', ARCH, dict(pool='bfloat16', W=20, G=1)),
             ('flash_decode_contig', STATIC_PATH, dict(pool='bfloat16',
                                                       case='lockstep')),
             ('flash_chunk_paged', ARCH, dict(pool='bfloat16', C=8,
                                              offset=96)),
-            ('flash_decode_paged_q8', ARCH, dict(pool='bfloat16')),
+            ('flash_decode_paged_q8', ARCH, dict(pool='bfloat16', W=20,
+                                                 G=1)),
             ('flash_decode_paged_mla', MLA_ARCH, dict(pool='bfloat16')),
             ('flash_chunk_paged_mla', MLA_ARCH, dict(pool='bfloat16', C=8,
                                                      offset=96)),

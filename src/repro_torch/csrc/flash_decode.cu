@@ -26,10 +26,9 @@
 //       at ((b * S + kpos) * Hkv + h) * dh, no block table. The reference
 //       pads k/v to a tile multiple on every call (a copy of each layer's
 //       cache a step); here keys at or past S are never read, the same
-//       function without the copy. K7 has its own kernel, the key split
-//       described below; the streamed flag (the reference's legacy
-//       baseline, impl='streamed') walks every tile of [0, S) and masks,
-//       with output bit-equal to the prefetch walk.
+//       function without the copy. The streamed flag (the reference's
+//       legacy baseline, impl='streamed') walks every tile of [0, S) and
+//       masks, with output bit-equal to the prefetch walk.
 //   K8  flash_decode_mla_paged, chunk=1 (via flash_decode_paged_mla):
 //       absorbed MLA decode. q (B, 1, H, DK) f32 (DK = r + d_rope = 576
 //       for deepseek-v3: the query absorbed through W_uk, then the rope
@@ -48,54 +47,75 @@
 // the f32 latent output (B, 1, rows, DV), never cast to the pool dtype (the
 // caller applies W_uv).
 //
-// As in the reference, one online-softmax body serves the paged layouts;
-// what differs is a key loader (FpPages, TieredPages for K/V pools;
-// LatentPages, TieredLatentPages for the one latent pool) and the row
-// positions (one position for decode, offset + r / group for a chunk).
+// Which kernel serves which entry point:
+//   key_split_kernel + split_combine_kernel (the key split, below), one
+//   kernel body over three row loaders: K7 (flash_decode_contig, ContigKV),
+//   K1 (flash_decode_paged, PagedKV) and K6 (flash_decode_paged_q8,
+//   TieredPagedKV).
+//   paged_attend_kernel (the shared paged body, below), one body over page
+//   loaders: K5 (flash_chunk_paged, FpPages), K8 and K9
+//   (flash_decode_paged_mla, flash_chunk_paged_mla, LatentPages) and K10
+//   (flash_decode_paged_mla_q8, TieredLatentPages).
+// Both copy the reference's online softmax; what differs between entry
+// points of one body is the loader and the row positions (one position
+// for decode, offset + r / group for a chunk).
 //
 // Bound on the H100: bytes for K1/K6/K7 (each live key is read once and
 // used for 2*G*dh multiply-adds, far below the card's operations-per-byte
 // balance); K5 reuses each key for C*G rows, still bytes-bound at the
 // serving chunk sizes.
 //
-// The shared body (K1, K5, K6, K8-K10): one block per (request, KV head)
+// The key split: one block per (request, KV head, key split, group of at
+// most 2 query rows), so a batch of 8 x 32 heads gives 768 blocks at 160
+// keys where one block per head gave 256 blocks of 5 serial passes. The
+// wrapper plans the split from the shapes only
+// (kernels/flash_decode.py::contig_split_plan, paged_split_plan): absolute
+// tiles of at least 64 keys (whole pages when paged), whole tiles a split;
+// a split whose tiles hold none of the live keys [max(pos - win + 1, 0),
+// min(pos, S - 1)] (S = W * page_size when paged) writes m = -inf and
+// exits, and a live split visits only its live tiles (every tile when
+// streamed, K7's legacy baseline). Inside a split, lpk lanes read one key
+// row with 16-byte loads (8 bf16 or 4 f32 a lane) and reduce its dot
+// products by shuffles, so no two lanes of a warp read one shared-memory
+// bank; each lane group keeps its own online softmax over the keys it owns
+// (no block barrier in the key loop), the groups merge by shuffles and the
+// warps through shared memory in a fixed order, and the query rows of the
+// block share every key row read. The splits' partials (m, l,
+// unnormalised acc, in the wrapper's scratch) are merged by the combine
+// kernel in split order with `_softmax_tile`'s guards (a split whose m is
+// -inf weighs 0) and normalised once. Masked keys are not read and weigh
+// exactly 0, and the tiles are absolute, so K7's streamed walk, which only
+// adds masked tiles and splits, gives bit-equal output.
+// The row loaders map (b, kpos, h) to the lane's piece of a key and value
+// row. ContigKV: ((b * S + kpos) * Hkv + h) * dh. PagedKV: the same row
+// through the block table, ((bt[b][kpos / ps] * ps + kpos % ps) * Hkv + h)
+// * dh, so a key row of one head is dh contiguous elements, strided by
+// Hkv * dh from the next key, as in the contiguous cache; a live split
+// stages its pages' ids in shared memory once, before the key loop.
+// TieredPagedKV: PagedKV's rows for a hot page, for a cold one (block <
+// max(pos, 0) / ps - hw + 1) only the lane's int8 codes (8 bytes against
+// bf16 pools, 4 against f32) times the page's (page, h) scales, staged
+// once a page, each product rounded through the pool dtype
+// (round_to_pool), so each page is read from one tier only. Its hot keys
+// take PagedKV's loads and the same arithmetic, so K6 equals K1 bit for
+// bit when the hot window covers the table.
+//
+// The shared paged body (K5, K8-K10): one block per (request, KV head)
 // and, for K5, per group of at most kChunkRows query rows (grid.y), so
 // shared memory stays bounded whatever C is. The block reads its own
 // pos, window, offset, hot window and block-table row from device memory
 // (this replaces scalar prefetch: no host sync) and loops only over the
 // live pages [first, last], so dead keys are never read. One pass covers
 // 32 keys, i.e. several pages at the serving page size of 8: K/V rows are
-// gathered page by page into shared memory as f32; the query rows, the running max and sum and the unnormalised
-// accumulator stay in shared memory for the whole loop. The online softmax
-// copies `_softmax_tile`'s guards: alpha = 0 while the running max is
-// still -inf, masked keys contribute p = 0, and the output is normalised
-// once, acc / max(l, 1e-30), after the last pass. Idle slots (pos 0
-// against garbage page 0, always hot) read one page and stay finite.
-// Splitting the page axis across blocks (K7's design below), vector loads
-// and wgmma for K5's C*G rows are later work.
-//
-// K7's key split (contig_split_kernel, contig_combine_kernel): one block
-// per (request, KV head, key split, group of at most 2 query rows), so a
-// batch of 8 x 32 heads gives 768 blocks at S = 160 where one block per
-// head gave 256 blocks of 5 serial passes. The wrapper plans the split
-// from the shapes only (kernels/flash_decode.py::contig_split_plan):
-// absolute tiles of at least 64 keys, whole tiles a split; a split whose
-// tiles hold none of the live keys [max(pos - win + 1, 0), min(pos, S -
-// 1)] writes m = -inf and exits, and a live split visits only its live
-// tiles (every tile when streamed). Inside a split, lpk lanes read one key
-// row with 16-byte loads (8 bf16 or 4 f32 a lane) and reduce its dot
-// products by shuffles, so no two lanes of a warp read one shared-memory
-// bank; each lane group keeps its own online softmax over the keys it
-// owns (no block barrier in the key loop), the groups merge by shuffles
-// and the warps through shared memory in a fixed order, and the query
-// rows of the block share every key row read. The splits' partials (m, l,
-// unnormalised acc, in the wrapper's scratch) are merged by the combine
-// kernel in split order with `_softmax_tile`'s guards (a split whose m is
-// -inf weighs 0) and normalised once. Masked keys are not read and weigh
-// exactly 0, and the tiles are absolute, so the streamed walk, which only
-// adds masked tiles and splits, gives bit-equal output. The ContigKV
-// loader maps (b, kpos, h) to a row; a paged loader on the same kernel is
-// the later K1/K6 redesign.
+// gathered page by page into shared memory as f32; the query rows, the
+// running max and sum and the unnormalised accumulator stay in shared
+// memory for the whole loop. The online softmax copies `_softmax_tile`'s
+// guards: alpha = 0 while the running max is still -inf, masked keys
+// contribute p = 0, and the output is normalised once, acc / max(l,
+// 1e-30), after the last pass. Idle slots (pos 0 against garbage page 0,
+// always hot) read one page and stay finite. K5's fp tiles keep a row
+// stride of dh, so its QK loop has the 32-way bank conflict the key split
+// avoids; moving K5 to the split is later work.
 //
 // MLA at full width (H = 128, DK = 576, DV = 512) is no longer clearly
 // bytes-bound: each latent value feeds 2*H*(DK + DV)/DK ~ 480 flops (in
@@ -132,7 +152,7 @@ __device__ __forceinline__ float round_to_pool<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Page loader of the fp pools (K1, K5).
+// Page loader of the fp pools (K5).
 template <typename KV>
 struct FpPages {
   static constexpr bool kLatent = false;
@@ -145,37 +165,6 @@ struct FpPages {
                                        float& vv) const {
     kk = to_f32(k[off]);
     vv = to_f32(v[off]);
-  }
-};
-
-// Page loader of the hybrid tier (K6): one tier per page.
-template <typename KV>
-struct TieredPages {
-  static constexpr bool kLatent = false;
-  const KV* __restrict__ k;
-  const KV* __restrict__ v;
-  const int8_t* __restrict__ kq;
-  const int8_t* __restrict__ vq;
-  const float* __restrict__ ks;
-  const float* __restrict__ vs;
-  const int* __restrict__ hw;
-  int hkv;
-  int first_hot;   // blocks >= first_hot are hot
-
-  __device__ __forceinline__ void setup(int pos, int page_size) {
-    // hot iff blk > max(pos, 0) / page_size - hw
-    first_hot = max(pos, 0) / page_size - hw[0] + 1;
-  }
-  __device__ __forceinline__ void load(int64_t off, int page, int blk, int h,
-                                       float& kk, float& vv) const {
-    if (blk >= first_hot) {
-      kk = to_f32(k[off]);
-      vv = to_f32(v[off]);
-    } else {
-      const int64_t sc = static_cast<int64_t>(page) * hkv + h;
-      kk = round_to_pool<KV>(static_cast<float>(kq[off]) * ks[sc]);
-      vv = round_to_pool<KV>(static_cast<float>(vq[off]) * vs[sc]);
-    }
   }
 };
 
@@ -193,7 +182,8 @@ struct LatentPages {
 };
 
 // Page loader of the int8 latent tier (K10): one tier per page, one scale
-// per page, the hotness rule and the rounding of TieredPages.
+// per page; block s is hot iff s > max(pos, 0) / page_size - hw, and a cold
+// value is rounded through the pool dtype (round_to_pool).
 template <typename KV>
 struct TieredLatentPages {
   static constexpr bool kLatent = true;
@@ -399,19 +389,6 @@ FpPages<KV> fp_pages(const void* kp, const void* vp) {
 }
 
 template <typename KV>
-TieredPages<KV> tiered_pages(const void* kp, const void* vp, const void* kq,
-                             const void* vq, const void* ks, const void* vs,
-                             const void* hw, int hkv) {
-  return TieredPages<KV>{static_cast<const KV*>(kp),
-                         static_cast<const KV*>(vp),
-                         static_cast<const int8_t*>(kq),
-                         static_cast<const int8_t*>(vq),
-                         static_cast<const float*>(ks),
-                         static_cast<const float*>(vs),
-                         static_cast<const int*>(hw), hkv, 0};
-}
-
-template <typename KV>
 LatentPages<KV> latent_pages(const void* c) {
   return LatentPages<KV>{static_cast<const KV*>(c)};
 }
@@ -426,23 +403,8 @@ TieredLatentPages<KV> tiered_latent_pages(const void* c, const void* cq,
 }
 
 // ---------------------------------------------------------------------------
-// K7: the key axis split over blocks
+// The key split (K1, K6, K7): the key axis split over blocks
 // ---------------------------------------------------------------------------
-// Row loader of the contiguous cache: k/v (B, S, Hkv, dh), the key and
-// value rows of (b, kpos, h) at element ((b * S + kpos) * Hkv + h) * dh. A
-// paged loader would map kpos through a block table here instead.
-template <typename KV>
-struct ContigKV {
-  const KV* __restrict__ k;
-  const KV* __restrict__ v;
-  int s, hkv;
-
-  __device__ __forceinline__ int64_t row(int b, int kpos, int h,
-                                         int dh) const {
-    return ((static_cast<int64_t>(b) * s + kpos) * hkv + h) * dh;
-  }
-};
-
 constexpr int kSplitWarps = 4;
 constexpr int kSplitThreads = kSplitWarps * 32;
 constexpr int kStepKeys = 4;     // keys a lane group takes per update
@@ -475,6 +437,229 @@ __device__ __forceinline__ uint4 load_raw(const KV* p, int n_valid) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// the int8 codes of a row that sit beside the Vec<KV>::n elements of a
+// 16-byte piece (8 bytes against bf16 pools, 4 against f32), from p, in
+// the low bytes of a uint2: `n_valid` codes (<= 0: none, zeros); the
+// aligned form needs p aligned to that size and n_valid <= 0 or >= it
+template <typename KV, bool kAligned>
+__device__ __forceinline__ uint2 load_codes(const int8_t* p, int n_valid) {
+  constexpr int V = Vec<KV>::n;
+  if (n_valid <= 0) return make_uint2(0, 0);
+  if (kAligned) {
+    if constexpr (V == 8) return __ldg(reinterpret_cast<const uint2*>(p));
+    return make_uint2(__ldg(reinterpret_cast<const unsigned int*>(p)), 0);
+  }
+  uint32_t w[2] = {0, 0};
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    if (e < n_valid)
+      w[e / 4] |= static_cast<uint32_t>(__ldg(
+                      reinterpret_cast<const unsigned char*>(p) + e))
+                  << (8 * (e % 4));
+  return make_uint2(w[0], w[1]);
+}
+
+// codes c (as load_codes gives them) times scale, each product rounded
+// through the pool dtype (round_to_pool), packed as the pool dtype's bits:
+// the piece an fp row would give. Codes at or past n_valid give 0.
+template <typename KV>
+__device__ __forceinline__ uint4 dequant(uint2 c, float scale, int n_valid) {
+  constexpr int V = Vec<KV>::n;
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    if (e >= n_valid) continue;
+    const uint32_t word = e < 4 ? c.x : c.y;
+    const int code = static_cast<int8_t>((word >> (8 * (e % 4))) & 0xffu);
+    const float x = __fmul_rn(static_cast<float>(code), scale);
+    if constexpr (sizeof(KV) == 4)
+      w[e] = __float_as_uint(x);
+    else
+      w[e / 2] |= static_cast<uint32_t>(
+                      __bfloat16_as_ushort(__float2bfloat16_rn(x)))
+                  << (16 * (e % 2));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Row loaders of the key split. fetch() gives the 16-byte pieces at d0 of
+// the key and value rows of key kpos of request b, head h, in the pool
+// dtype's bits (zeros where !ok: a masked key is not read), or, where it
+// returns true, a cold key's int8 codes and their scales, for dequant()
+// once the step's loads are in flight. A loader with kStaged > 0 stages
+// kStaged ints a page of the split's live pages in shared memory (stage(),
+// before the key loop), at most n_stage pages.
+
+// K7: a contiguous (B, S, Hkv, dh) cache.
+template <typename KV_>
+struct ContigKV {
+  using KV = KV_;
+  static constexpr int kStaged = 0;
+  static constexpr bool kTiered = false;
+  const KV* __restrict__ k;
+  const KV* __restrict__ v;
+  int s, hkv;                      // keys a request, KV heads
+
+  __device__ __forceinline__ int stage(int*, int, int, int, int, int) {
+    return 0;
+  }
+  template <bool kAligned>
+  __device__ __forceinline__ bool fetch(int b, int kpos, int h, int dh,
+                                        int d0, bool ok, uint4& kr,
+                                        uint4& vr, float&, float&) const {
+    const int n_el = ok ? dh - d0 : 0;
+    const int64_t off =
+        ((static_cast<int64_t>(b) * s + (ok ? kpos : 0)) * hkv + h) * dh +
+        d0;
+    kr = load_raw<KV, kAligned>(k + off, n_el);
+    vr = load_raw<KV, kAligned>(v + off, n_el);
+    return false;
+  }
+};
+
+// K1: pools (P, ps, Hkv, dh) through block tables (B, W); a split's live
+// pages' ids are staged once.
+template <typename KV_>
+struct PagedKV {
+  using KV = KV_;
+  static constexpr int kStaged = 1;
+  static constexpr bool kTiered = false;
+  const KV* __restrict__ k;
+  const KV* __restrict__ v;
+  const int* __restrict__ bt;
+  int s, hkv, w, ps, n_stage;      // s = w * ps keys a request
+  const int* pages;                // staged ids of blocks blk0, blk0 + 1, ..
+  int blk0;
+
+  // stage the ids of blocks [k_lo / ps, k_hi / ps] (none if k_hi < k_lo);
+  // returns their count
+  __device__ __forceinline__ int stage(int* s_stage, int b, int, int,
+                                       int k_lo, int k_hi) {
+    blk0 = k_lo / ps;
+    const int n = k_hi < k_lo ? 0 : k_hi / ps - blk0 + 1;
+    const int* row = bt + static_cast<int64_t>(b) * w + blk0;
+    for (int i = threadIdx.x; i < n; i += kSplitThreads) s_stage[i] = row[i];
+    pages = s_stage;
+    return n;
+  }
+  // element offset of (kpos, h) in a pool, kpos in block blk
+  __device__ __forceinline__ int64_t offset(int kpos, int blk, int h,
+                                            int dh) const {
+    return ((static_cast<int64_t>(pages[blk - blk0]) * ps + kpos - blk * ps) *
+                hkv + h) * dh;
+  }
+  template <bool kAligned>
+  __device__ __forceinline__ bool fetch(int, int kpos, int h, int dh, int d0,
+                                        bool ok, uint4& kr, uint4& vr, float&,
+                                        float&) const {
+    const int n_el = ok ? dh - d0 : 0;
+    const int64_t off = ok ? offset(kpos, kpos / ps, h, dh) + d0 : 0;
+    kr = load_raw<KV, kAligned>(k + off, n_el);
+    vr = load_raw<KV, kAligned>(v + off, n_el);
+    return false;
+  }
+};
+
+// K6: PagedKV over the fp/int8 tier pair, (P, Hkv) f32 scales and a (1,)
+// hot window in device memory. Block blk is hot iff blk >= first_hot =
+// max(pos, 0) / ps - hw + 1; a hot key takes PagedKV's fetch, a cold one
+// only its codes, the staged scales of its page (read for cold pages only)
+// beside them.
+template <typename KV_>
+struct TieredPagedKV : PagedKV<KV_> {
+  using KV = KV_;
+  using Fp = PagedKV<KV_>;
+  static constexpr int kStaged = 3;   // page id, k scale, v scale
+  static constexpr bool kTiered = true;
+  const int8_t* __restrict__ kq;
+  const int8_t* __restrict__ vq;
+  const float* __restrict__ ks;
+  const float* __restrict__ vs;
+  const int* __restrict__ hw;
+  const float* sk;                 // staged scales, as pages
+  const float* sv;
+  int first_hot;
+
+  // PagedKV's stage, then the scales of the cold pages among them
+  __device__ __forceinline__ int stage(int* s_stage, int b, int h, int pos,
+                                       int k_lo, int k_hi) {
+    const int n = Fp::stage(s_stage, b, h, pos, k_lo, k_hi);
+    first_hot = max(pos, 0) / this->ps - hw[0] + 1;
+    float* fk = reinterpret_cast<float*>(s_stage + this->n_stage);
+    float* fv = fk + this->n_stage;
+    // each thread reads back only the ids it staged itself: no barrier
+    for (int i = threadIdx.x; i < n && this->blk0 + i < first_hot;
+         i += kSplitThreads) {
+      const int64_t sc = static_cast<int64_t>(s_stage[i]) * this->hkv + h;
+      fk[i] = ks[sc];
+      fv[i] = vs[sc];
+    }
+    sk = fk;
+    sv = fv;
+    return n;
+  }
+  template <bool kAligned>
+  __device__ __forceinline__ bool fetch(int b, int kpos, int h, int dh,
+                                        int d0, bool ok, uint4& kr,
+                                        uint4& vr, float& kc,
+                                        float& vc) const {
+    const int blk = kpos / this->ps;
+    if (ok && blk < first_hot) {
+      const int64_t off = this->offset(kpos, blk, h, dh) + d0;
+      const uint2 ck = load_codes<KV, kAligned>(kq + off, dh - d0);
+      const uint2 cv = load_codes<KV, kAligned>(vq + off, dh - d0);
+      kr = make_uint4(ck.x, ck.y, 0, 0);
+      vr = make_uint4(cv.x, cv.y, 0, 0);
+      kc = sk[blk - this->blk0];
+      vc = sv[blk - this->blk0];
+      return true;
+    }
+    return Fp::template fetch<kAligned>(b, kpos, h, dh, d0, ok, kr, vr, kc,
+                                        vc);
+  }
+};
+
+// The pieces at d0 of the key and value rows of keys k0 + u * pass,
+// u < kStepKeys; a masked key (outside [lo, hi]) is not read: its p is 0
+// and its value row stays 0. A cold key's codes wait in kr/vr for
+// dequant_step.
+template <typename Rows, bool kAligned>
+__device__ __forceinline__ void fetch_step(
+    const Rows& kv, int b, int h, int dh, int d0, int lo, int hi, int k0,
+    int pass, uint4 (&kr)[kStepKeys], uint4 (&vr)[kStepKeys],
+    bool (&ok)[kStepKeys], bool (&cold)[kStepKeys], float (&kc)[kStepKeys],
+    float (&vc)[kStepKeys]) {
+#pragma unroll
+  for (int u = 0; u < kStepKeys; ++u) {
+    const int kpos = k0 + u * pass;
+    ok[u] = kpos >= lo && kpos <= hi;
+    cold[u] = kv.template fetch<kAligned>(b, kpos, h, dh, d0, ok[u], kr[u],
+                                          vr[u], kc[u], vc[u]);
+  }
+}
+
+// A step's cold codes to the pool dtype's bits (tiered loaders only), once
+// all its loads are in flight: the step's compute then reads every key as
+// K1 reads it, in one branch-free block, so the compiler makes the same
+// arithmetic of both and K6 over hot pages equals K1 bit for bit.
+template <typename Rows>
+__device__ __forceinline__ void dequant_step(uint4 (&kr)[kStepKeys],
+                                             uint4 (&vr)[kStepKeys],
+                                             const bool (&cold)[kStepKeys],
+                                             const float (&kc)[kStepKeys],
+                                             const float (&vc)[kStepKeys],
+                                             int n_valid) {
+  if constexpr (Rows::kTiered) {
+    using KV = typename Rows::KV;
+#pragma unroll
+    for (int u = 0; u < kStepKeys; ++u)
+      if (cold[u]) {
+        kr[u] = dequant<KV>(make_uint2(kr[u].x, kr[u].y), kc[u], n_valid);
+        vr[u] = dequant<KV>(make_uint2(vr[u].x, vr[u].y), vc[u], n_valid);
+      }
+  }
+}
+
 __device__ __forceinline__ void unpack(const uint4 u, float (&f)[4]) {
   f[0] = __uint_as_float(u.x);
   f[1] = __uint_as_float(u.y);
@@ -491,27 +676,6 @@ __device__ __forceinline__ void unpack(const uint4 u, float (&f)[8]) {
   }
 }
 
-// The 16-byte pieces at d0 of the key and value rows of keys k0 + u * pass,
-// u < kStepKeys; a masked key (outside [lo, hi]) is not read: its p is 0
-// and its value row stays 0.
-template <typename KV, bool kAligned>
-__device__ __forceinline__ void fetch_step(const ContigKV<KV>& kv, int b,
-                                           int h, int dh, int d0, int lo,
-                                           int hi, int k0, int pass,
-                                           uint4 (&kr)[kStepKeys],
-                                           uint4 (&vr)[kStepKeys],
-                                           bool (&ok)[kStepKeys]) {
-#pragma unroll
-  for (int u = 0; u < kStepKeys; ++u) {
-    const int kpos = k0 + u * pass;
-    ok[u] = kpos >= lo && kpos <= hi;
-    const int n_el = ok[u] ? dh - d0 : 0;
-    const int64_t off = kv.row(b, ok[u] ? kpos : 0, h, dh) + d0;
-    kr[u] = load_raw<KV, kAligned>(kv.k + off, n_el);
-    vr[u] = load_raw<KV, kAligned>(kv.v + off, n_el);
-  }
-}
-
 // The weight of an online-softmax state whose max is m in a merge whose
 // max is m_new, with _softmax_tile's guard: a state whose max is -inf
 // weighs 0 (and its sum and accumulator are not read).
@@ -522,28 +686,30 @@ __device__ __forceinline__ float merge_weight(float m, float m_new) {
 // One block: (b, h) = blockIdx.x, key split blockIdx.y, query rows
 // [blockIdx.z * kRows, +kRows) of g. Keys are cut into absolute tiles of
 // `tile` keys, `tiles_per_split` of them a split. The live keys are
-// [lo, hi] = [max(pos - win + 1, 0), min(pos, S - 1)]; unless `streamed`,
-// only the tiles holding them are visited, and a split holding none writes
-// m = -inf and exits. Lane group `grp` (lpk lanes, 16 bytes of a row
+// [lo, hi] = [max(pos - win + 1, 0), min(pos, S - 1)] (S = kv.s); unless
+// `streamed`, only the tiles holding them are visited, and a split holding
+// none writes m = -inf and exits. A staging loader then stages the split's
+// live pages (one barrier). Lane group `grp` (lpk lanes, 16 bytes of a row
 // each) owns key kb + u * (kSplitWarps * 32 / lpk) + warp * (32 / lpk) +
 // grp of each step kb and keeps its own online-softmax state over them
 // (no block barrier in the key loop); the groups merge by shuffles, then
 // the warps through shared memory, in a fixed order. The split's partial
 // (m, l, unnormalised acc) goes to part_*.
-template <typename KV, int kRows, bool kAligned>
+template <typename Rows, int kRows, bool kAligned>
 __global__ void __launch_bounds__(kSplitThreads)
-contig_split_kernel(ContigKV<KV> kv, const float* __restrict__ q,
-                    const int* __restrict__ pos_v,
-                    const int* __restrict__ win_v, float* __restrict__ part_m,
-                    float* __restrict__ part_l, float* __restrict__ part_acc,
-                    int g, int dh, int lpk, int tile, int tiles_per_split,
-                    int n_splits, int streamed, float scale) {
-  constexpr int V = Vec<KV>::n;
-  extern __shared__ float s_red[];   // m, l: kSplitWarps * kRows; acc
+key_split_kernel(Rows loader, const float* __restrict__ q,
+                 const int* __restrict__ pos_v, const int* __restrict__ win_v,
+                 float* __restrict__ part_m, float* __restrict__ part_l,
+                 float* __restrict__ part_acc, int g, int dh, int lpk,
+                 int tile, int tiles_per_split, int n_splits, int streamed,
+                 float scale) {
+  constexpr int V = Vec<typename Rows::KV>::n;
+  extern __shared__ float s_red[];   // m, l: kSplitWarps * kRows; acc; stage
   float* s_m = s_red;
   float* s_l = s_m + kSplitWarps * kRows;
   float* s_acc = s_l + kSplitWarps * kRows;   // kSplitWarps * kRows * dh
 
+  Rows kv = loader;   // stage() fills in the split's staged pages
   const int bh = blockIdx.x, split = blockIdx.y;
   const int b = bh / kv.hkv, h = bh % kv.hkv;
   const int r0 = blockIdx.z * kRows, nr = min(kRows, g - r0);
@@ -570,12 +736,18 @@ contig_split_kernel(ContigKV<KV> kv, const float* __restrict__ q,
   const int span = pass * kStepKeys;            // keys a step
   const int key0 = warp * kpw + grp;
   const int k_first = t_begin * tile, k_last = t_end * tile;
+  if constexpr (Rows::kStaged > 0) {
+    kv.stage(reinterpret_cast<int*>(s_acc + kSplitWarps * kRows * dh), b, h,
+             pos, max(k_first, lo), min(k_last - 1, hi));
+    __syncthreads();
+  }
   uint4 kr[kStepKeys], vr[kStepKeys];
-  bool ok[kStepKeys];
+  bool ok[kStepKeys], cold[kStepKeys];
+  float kc[kStepKeys], vc[kStepKeys];
   // in flight while the query is read; later steps' loads overlap other
   // blocks' work
-  fetch_step<KV, kAligned>(kv, b, h, dh, d0, lo, hi, k_first + key0, pass,
-                           kr, vr, ok);
+  fetch_step<Rows, kAligned>(kv, b, h, dh, d0, lo, hi, k_first + key0, pass,
+                             kr, vr, ok, cold, kc, vc);
 
   float qv[kRows][V], acc[kRows][V], m_run[kRows], l_run[kRows];
 #pragma unroll
@@ -592,8 +764,9 @@ contig_split_kernel(ContigKV<KV> kv, const float* __restrict__ q,
 
   for (int kb = k_first; kb < k_last; kb += span) {
     if (kb != k_first)
-      fetch_step<KV, kAligned>(kv, b, h, dh, d0, lo, hi, kb + key0, pass, kr,
-                               vr, ok);
+      fetch_step<Rows, kAligned>(kv, b, h, dh, d0, lo, hi, kb + key0, pass,
+                                 kr, vr, ok, cold, kc, vc);
+    dequant_step<Rows>(kr, vr, cold, kc, vc, dh - d0);
     float logit[kRows][kStepKeys];
 #pragma unroll
     for (int u = 0; u < kStepKeys; ++u) {
@@ -701,10 +874,10 @@ contig_split_kernel(ContigKV<KV> kv, const float* __restrict__ q,
 // once, acc / max(l, 1e-30). Block (bh, y) writes outputs [128 y, +128) of
 // the (g, dh) rows of bh, one a thread.
 __global__ void __launch_bounds__(kSplitThreads)
-contig_combine_kernel(const float* __restrict__ part_m,
-                      const float* __restrict__ part_l,
-                      const float* __restrict__ part_acc,
-                      float* __restrict__ out, int g, int dh, int n_splits) {
+split_combine_kernel(const float* __restrict__ part_m,
+                     const float* __restrict__ part_l,
+                     const float* __restrict__ part_acc,
+                     float* __restrict__ out, int g, int dh, int n_splits) {
   extern __shared__ float s_ml[];   // the (b, h)'s m, then l: n_splits * g
   const int n = n_splits * g;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * n;
@@ -744,16 +917,25 @@ contig_combine_kernel(const float* __restrict__ part_m,
   }
 }
 
-template <typename KV, int kRows>
-int launch_split(const ContigKV<KV>& kv, bool aligned, const void* q,
-                 const void* pos, const void* win, float* pm, float* pl,
-                 float* pa, int bhkv, int g, int dh, int lpk, int tile,
-                 int tps, int n_splits, int streamed, float scale,
-                 cudaStream_t stream) {
-  const auto kernel = aligned ? contig_split_kernel<KV, kRows, true>
-                              : contig_split_kernel<KV, kRows, false>;
+// Dynamic shared memory of a key_split_kernel block: the warps' partials
+// and the loader's staged pages.
+template <typename Rows, int kRows>
+size_t split_smem(const Rows& kv, int dh) {
+  size_t bytes = sizeof(float) * kSplitWarps * kRows * (dh + 2);
+  if constexpr (Rows::kStaged > 0)
+    bytes += sizeof(int) * Rows::kStaged * kv.n_stage;
+  return bytes;
+}
+
+template <typename Rows, int kRows>
+int launch_split(const Rows& kv, bool aligned, const void* q, const void* pos,
+                 const void* win, float* pm, float* pl, float* pa, int bhkv,
+                 int g, int dh, int lpk, int tile, int tps, int n_splits,
+                 int streamed, float scale, cudaStream_t stream) {
+  const auto kernel = aligned ? key_split_kernel<Rows, kRows, true>
+                              : key_split_kernel<Rows, kRows, false>;
   const dim3 grid(bhkv, n_splits, (g + kRows - 1) / kRows);
-  const size_t smem = sizeof(float) * kSplitWarps * kRows * (dh + 2);
+  const size_t smem = split_smem<Rows, kRows>(kv, dh);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -767,46 +949,99 @@ int launch_split(const ContigKV<KV>& kv, bool aligned, const void* q,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The key splits of a plan (kernels/flash_decode.py::contig_split_plan,
+// paged_split_plan: `rows` query rows a block, lpk lanes a key row, `tile`
+// keys a tile, tps tiles a split, n_splits splits), then their combine.
+// Refuses a plan that does not cover the kv.s keys with whole steps, every
+// lane group owning one 16-byte piece of a row.
+template <typename Rows>
+int launch_keys(const Rows& kv, bool aligned, const void* q, const void* pos,
+                const void* win, float* pm, float* pl, float* pa, float* out,
+                int b, int g, int dh, int rows, int lpk, int tile, int tps,
+                int n_splits, int streamed, float scale,
+                cudaStream_t stream) {
+  constexpr int V = Vec<typename Rows::KV>::n;
+  const int span = kSplitWarps * (lpk > 0 ? 32 / lpk : 0) * kStepKeys;
+  if ((rows != 1 && rows != 2) || lpk < 1 || lpk > 32 ||
+      (lpk & (lpk - 1)) != 0 || lpk * V < dh ||
+      tile <= 0 || tile % span != 0 || tps < 1 || n_splits < 1 ||
+      static_cast<int64_t>(n_splits) * tps * tile < kv.s)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bhkv = b * kv.hkv;
+  const int err =
+      rows == 1 ? launch_split<Rows, 1>(kv, aligned, q, pos, win, pm, pl, pa,
+                                        bhkv, g, dh, lpk, tile, tps, n_splits,
+                                        streamed, scale, stream)
+                : launch_split<Rows, 2>(kv, aligned, q, pos, win, pm, pl, pa,
+                                        bhkv, g, dh, lpk, tile, tps, n_splits,
+                                        streamed, scale, stream);
+  if (err != 0) return err;
+  const size_t smem = sizeof(float) * 2 * n_splits * g;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        split_combine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(bhkv, (g * dh + kSplitThreads - 1) / kSplitThreads);
+  split_combine_kernel<<<grid, kSplitThreads, smem, stream>>>(
+      pm, pl, pa, out, g, dh, n_splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 16-byte pieces can be loaded whole: rows of whole vectors, aligned pools
+template <typename KV>
+bool rows_aligned(int dh, const void* k, const void* v) {
+  return (dh * sizeof(KV)) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(v) % 16 == 0;
+}
+
 template <typename KV>
 int launch_contig(const void* k, const void* v, const void* q,
                   const void* pos, const void* win, float* pm, float* pl,
                   float* pa, float* out, int b, int s, int hkv, int g, int dh,
                   int rows, int lpk, int tile, int tps, int n_splits,
                   int streamed, float scale, cudaStream_t stream) {
-  constexpr int V = Vec<KV>::n;
-  const int span = kSplitWarps * (lpk > 0 ? 32 / lpk : 0) * kStepKeys;
-  // the plan (kernels/flash_decode.py::contig_split_plan) must cover
-  // [0, S) with whole steps, every lane group owning one 16-byte piece
-  if ((rows != 1 && rows != 2) || lpk < 1 || lpk > 32 ||
-      (lpk & (lpk - 1)) != 0 || lpk * V < dh ||
-      tile <= 0 || tile % span != 0 || tps < 1 || n_splits < 1 ||
-      static_cast<int64_t>(n_splits) * tps * tile < s)
-    return static_cast<int>(cudaErrorInvalidValue);
   const ContigKV<KV> kv{static_cast<const KV*>(k), static_cast<const KV*>(v),
                         s, hkv};
-  const bool aligned = (dh * sizeof(KV)) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  const int bhkv = b * hkv;
-  const int err =
-      rows == 1 ? launch_split<KV, 1>(kv, aligned, q, pos, win, pm, pl, pa,
-                                      bhkv, g, dh, lpk, tile, tps, n_splits,
-                                      streamed, scale, stream)
-                : launch_split<KV, 2>(kv, aligned, q, pos, win, pm, pl, pa,
-                                      bhkv, g, dh, lpk, tile, tps, n_splits,
-                                      streamed, scale, stream);
-  if (err != 0) return err;
-  const size_t smem = sizeof(float) * 2 * n_splits * g;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        contig_combine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(bhkv, (g * dh + kSplitThreads - 1) / kSplitThreads);
-  contig_combine_kernel<<<grid, kSplitThreads, smem, stream>>>(
-      pm, pl, pa, out, g, dh, n_splits);
-  return static_cast<int>(cudaGetLastError());
+  return launch_keys(kv, rows_aligned<KV>(dh, k, v), q, pos, win, pm, pl, pa,
+                     out, b, g, dh, rows, lpk, tile, tps, n_splits, streamed,
+                     scale, stream);
+}
+
+// K1 (kq == nullptr) or K6: the paged loaders, whose tiles must hold whole
+// pages; each split stages at most tps * tile / page_size pages.
+template <typename KV>
+int launch_paged(const void* kp, const void* vp, const void* kq,
+                 const void* vq, const void* ks, const void* vs,
+                 const void* hw, const void* bt, const void* q,
+                 const void* pos, const void* win, float* pm, float* pl,
+                 float* pa, float* out, int b, int hkv, int g, int dh,
+                 int page_size, int w, int rows, int lpk, int tile, int tps,
+                 int n_splits, float scale, cudaStream_t stream) {
+  if (page_size < 1 || w < 1 || tile <= 0 || tile % page_size != 0 ||
+      tps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PagedKV<KV> fp{static_cast<const KV*>(kp), static_cast<const KV*>(vp),
+                       static_cast<const int*>(bt), w * page_size, hkv, w,
+                       page_size, tps * (tile / page_size), nullptr, 0};
+  const bool aligned = rows_aligned<KV>(dh, kp, vp);
+  if (kq == nullptr)
+    return launch_keys(fp, aligned, q, pos, win, pm, pl, pa, out, b, g, dh,
+                       rows, lpk, tile, tps, n_splits, 0, scale, stream);
+  // the codes beside a 16-byte piece: 8 bytes against bf16, 4 against f32
+  constexpr uintptr_t code_bytes = Vec<KV>::n;
+  const TieredPagedKV<KV> tiered{
+      fp, static_cast<const int8_t*>(kq), static_cast<const int8_t*>(vq),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<const int*>(hw), nullptr, nullptr, 0};
+  const bool codes_aligned =
+      reinterpret_cast<uintptr_t>(kq) % code_bytes == 0 &&
+      reinterpret_cast<uintptr_t>(vq) % code_bytes == 0;
+  return launch_keys(tiered, aligned && codes_aligned, q, pos, win, pm, pl,
+                     pa, out, b, g, dh, rows, lpk, tile, tps, n_splits, 0,
+                     scale, stream);
 }
 
 template <typename Pages>
@@ -824,20 +1059,49 @@ int occupancy(int rows, int dk, int dv, int* blocks_per_sm,
 
 }  // namespace
 
-// K1: g query heads per KV head at one position each.
+// K6: K1 over the fp/int8 tier pair with (P, Hkv) scales and a (1,) hot
+// window in device memory; with kq == nullptr (int8 pools, scales and hot
+// window unused), K1.
+REPRO_EXPORT int flash_decode_paged_q8(
+    const void* q, const void* kp, const void* vp, const void* kq,
+    const void* vq, const void* ks, const void* vs, const void* hw,
+    const void* pos, const void* win, const void* bt, void* part_m,
+    void* part_l, void* part_acc, void* out, int b, int hkv, int g, int dh,
+    int page_size, int w, int rows, int lpk, int tile, int tps, int n_splits,
+    float scale, int is_bf16, void* stream) {
+  if (b == 0 || hkv == 0 || g == 0) return 0;
+  float* pm = static_cast<float*>(part_m);
+  float* pl = static_cast<float*>(part_l);
+  float* pa = static_cast<float*>(part_acc);
+  float* o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_paged<__nv_bfloat16>(
+        kp, vp, kq, vq, ks, vs, hw, bt, q, pos, win, pm, pl, pa, o, b, hkv, g,
+        dh, page_size, w, rows, lpk, tile, tps, n_splits, scale, st);
+  return launch_paged<float>(kp, vp, kq, vq, ks, vs, hw, bt, q, pos, win, pm,
+                             pl, pa, o, b, hkv, g, dh, page_size, w, rows,
+                             lpk, tile, tps, n_splits, scale, st);
+}
+
+// K1: g query heads per KV head at one position each, through block
+// tables (B, W), split over the W * page_size keys of a request's table as
+// planned by the wrapper (kernels/flash_decode.py::paged_split_plan; the
+// plan's arguments and scratch as flash_decode_contig's).
 REPRO_EXPORT int flash_decode_paged(const void* q, const void* kp,
                                     const void* vp, const void* pos,
                                     const void* win, const void* bt,
-                                    void* out, int b, int hkv, int g, int dh,
-                                    int page_size, int w, float scale,
-                                    int is_bf16, void* stream) {
-  if (b == 0 || hkv == 0 || g == 0) return 0;
-  if (is_bf16)
-    return launch_gqa(fp_pages<__nv_bfloat16>(kp, vp), q, pos, win, nullptr,
-                      bt, out, b, hkv, g, g, dh, page_size, w, 1, scale,
-                      stream);
-  return launch_gqa(fp_pages<float>(kp, vp), q, pos, win, nullptr, bt, out,
-                    b, hkv, g, g, dh, page_size, w, 1, scale, stream);
+                                    void* part_m, void* part_l,
+                                    void* part_acc, void* out, int b, int hkv,
+                                    int g, int dh, int page_size, int w,
+                                    int rows, int lpk, int tile, int tps,
+                                    int n_splits, float scale, int is_bf16,
+                                    void* stream) {
+  return flash_decode_paged_q8(q, kp, vp, nullptr, nullptr, nullptr, nullptr,
+                               nullptr, pos, win, bt, part_m, part_l,
+                               part_acc, out, b, hkv, g, dh, page_size, w,
+                               rows, lpk, tile, tps, n_splits, scale, is_bf16,
+                               stream);
 }
 
 // K5: rows = chunk * G query rows per KV head, row r at offset + r / G.
@@ -860,31 +1124,12 @@ REPRO_EXPORT int flash_chunk_paged(const void* q, const void* kp,
                     hkv, rows, rpb, dh, page_size, w, chunk, scale, stream);
 }
 
-// K6: K1 over the fp/int8 tier pair with (P, Hkv) scales and a (1,) hot
-// window in device memory.
-REPRO_EXPORT int flash_decode_paged_q8(
-    const void* q, const void* kp, const void* vp, const void* kq,
-    const void* vq, const void* ks, const void* vs, const void* hw,
-    const void* pos, const void* win, const void* bt, void* out, int b,
-    int hkv, int g, int dh, int page_size, int w, float scale, int is_bf16,
-    void* stream) {
-  if (b == 0 || hkv == 0 || g == 0) return 0;
-  if (is_bf16)
-    return launch_gqa(
-        tiered_pages<__nv_bfloat16>(kp, vp, kq, vq, ks, vs, hw, hkv), q, pos,
-        win, nullptr, bt, out, b, hkv, g, g, dh, page_size, w, 1, scale,
-        stream);
-  return launch_gqa(tiered_pages<float>(kp, vp, kq, vq, ks, vs, hw, hkv), q,
-                    pos, win, nullptr, bt, out, b, hkv, g, g, dh, page_size,
-                    w, 1, scale, stream);
-}
-
 // K7: g query heads per KV head at one position each, over a contiguous
 // (B, S, Hkv, dh) cache, split over the key axis as planned by the wrapper
 // (`rows` query rows a block, lpk lanes a key row, `tile` keys a tile, tps
-// tiles a split, n_splits splits); the partials part_m, part_l (B * Hkv, n_splits, g) and part_acc
-// (B * Hkv, n_splits, g, dh) are the wrapper's scratch. streamed = 1 walks
-// every tile of [0, S).
+// tiles a split, n_splits splits); the partials part_m, part_l (B * Hkv,
+// n_splits, g) and part_acc (B * Hkv, n_splits, g, dh) are the wrapper's
+// scratch. streamed = 1 walks every tile of [0, S).
 REPRO_EXPORT int flash_decode_contig(const void* q, const void* k,
                                      const void* v, const void* pos,
                                      const void* win, void* part_m,

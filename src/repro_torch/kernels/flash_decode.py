@@ -5,14 +5,19 @@ MLA over a latent pool).
 Ports of the entry points of ``repro/kernels/flash_decode.py``.
 The reference runs every entry point through one online-softmax body
 (``_softmax_tile``) and one grid harness (``_flash_core``) and differs per
-layout only in a tile loader and a row mask; the port does the same, in
-``csrc/flash_decode.cu`` and in the plain version here
-(:func:`_paged_softmax_plain`):
+layout only in a tile loader and a row mask; the plain versions here do
+the same (:func:`_softmax_plain`). On the card two bodies in
+``csrc/flash_decode.cu`` serve them: the key split (K1, K6, K7: the key
+axis cut over blocks by a plan that depends on the shapes only, the
+splits merged by a second kernel, so one launch runs two device kernels)
+over a row loader per layout, and the older one-block-per-head paged body
+(K5, K8, K9, K10) over a page loader per layout:
 
 * **K1** ``flash_decode_gqa_paged`` with ``chunk=1`` (through
   ``flash_decode_paged``): one query token per request attends its paged
   KV cache with per-request ``pos`` and sliding ``window`` and a
-  per-request block table.
+  per-request block table. The key split reads each key row through the
+  block table (:func:`paged_split_plan`: tiles of whole pages).
 * **K5** the same function with ``chunk > 1`` (through
   ``flash_chunk_paged``): C query rows per request at positions
   ``offset .. offset + C - 1`` with a per-row causal/window mask, over
@@ -20,12 +25,13 @@ layout only in a tile loader and a row mask; the port does the same, in
 * **K6** ``flash_decode_gqa_paged_q8`` (through ``flash_decode_paged_q8``):
   K1 over the hybrid int8 tier; each page is read from one tier only, hot
   pages from the fp pools, cold pages from the int8 pools times a per-page,
-  per-head scale, rounded through the pool dtype.
+  per-head scale, rounded through the pool dtype. It runs K1's key split
+  and plan, so with a hot window covering the table it equals K1 bit for
+  bit.
 * **K7** ``flash_decode_gqa`` (through ``flash_decode``): K1's function
   over a contiguous (B, S_max, Hkv, dh) cache, the static ``serve()``
   path's. Unlike the reference it pads nothing: keys at or past S_max are
-  masked. The kernel splits the key axis over blocks
-  (:func:`contig_split_plan`) and merges the splits in a second kernel.
+  masked. The key split's plan is :func:`contig_split_plan`.
   ``impl='streamed'`` (the reference's legacy baseline) walks every key
   tile instead of the live ones, with bit-equal output.
 * **K8** ``flash_decode_mla_paged`` with ``chunk=1`` (through
@@ -50,6 +56,8 @@ raise.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -237,13 +245,41 @@ def flash_decode_mla_paged_q8_plain(q, c_pages, cq_pages, c_scales, pos,
 #: keys per step of K7's plain version
 CONTIG_TILE = 32
 
-#: K7's key split (``csrc/flash_decode.cu``, ``contig_split_kernel``): warps
-#: a block, keys a lane group takes per online-softmax update, the least
-#: tile, and the blocks a launch aims at (16 resident on each of 132 SMs)
+#: the key split (``csrc/flash_decode.cu``, ``key_split_kernel``) of K7,
+#: K1 and K6: warps a block, keys a lane group takes per online-softmax
+#: update, the least tile, and the blocks a launch aims at (16 resident on
+#: each of 132 SMs)
 CONTIG_WARPS = 4
 CONTIG_STEP_KEYS = 4
 CONTIG_MIN_TILE = 64
 CONTIG_TARGET_BLOCKS = 16 * 132
+#: the most pages a split of K1 or K6 stages in shared memory (their ids
+#: and, for K6, their scales)
+PAGED_SPLIT_PAGES = 256
+
+
+def _split_plan(name: str, b: int, s: int, hkv: int, g: int, dh: int,
+                itemsize: int, page_size: int = 1,
+                max_pages: int = 0) -> dict:
+    """The key split of ``s`` keys a request, tiles a multiple of
+    ``page_size`` keys and, if ``max_pages``, at most that many pages a
+    split."""
+    vec = 16 // itemsize
+    lpk = 1 << (-(-dh // vec) - 1).bit_length()
+    if lpk > 32:
+        raise ValueError(f'{name}: dh={dh} exceeds the kernel limit of '
+                         f'{32 * vec} for {itemsize}-byte cache elements')
+    span = CONTIG_WARPS * (32 // lpk) * CONTIG_STEP_KEYS
+    tile = math.lcm(max(CONTIG_MIN_TILE, span), page_size)
+    n_tiles = -(-s // tile)
+    rows = 1 if g == 1 else 2
+    blocks = b * hkv * -(-g // rows)
+    want = max(1, -(-CONTIG_TARGET_BLOCKS // max(blocks, 1)))
+    per = -(-n_tiles // want)
+    if max_pages:
+        per = min(per, max(1, max_pages * page_size // tile))
+    return dict(lpk=lpk, tile=tile, tiles_per_split=per,
+                n_splits=-(-n_tiles // per), rows=rows)
 
 
 def contig_split_plan(b: int, s: int, hkv: int, g: int, dh: int,
@@ -254,21 +290,18 @@ def contig_split_plan(b: int, s: int, hkv: int, g: int, dh: int,
     ``n_splits`` blocks a (request, KV head) and row group of ``rows`` query
     rows. It depends on the shapes only, never on positions, so the
     prefetch and streamed walks cut the keys identically."""
-    vec = 16 // itemsize
-    lpk = 1 << (-(-dh // vec) - 1).bit_length()
-    if lpk > 32:
-        raise ValueError(f'flash_decode_gqa: dh={dh} exceeds the kernel '
-                         f'limit of {32 * vec} for {itemsize}-byte cache '
-                         f'elements')
-    span = CONTIG_WARPS * (32 // lpk) * CONTIG_STEP_KEYS
-    tile = max(CONTIG_MIN_TILE, span)
-    n_tiles = -(-s // tile)
-    rows = 1 if g == 1 else 2
-    blocks = b * hkv * -(-g // rows)
-    want = max(1, -(-CONTIG_TARGET_BLOCKS // max(blocks, 1)))
-    per = -(-n_tiles // want)
-    return dict(lpk=lpk, tile=tile, tiles_per_split=per,
-                n_splits=-(-n_tiles // per), rows=rows)
+    return _split_plan('flash_decode_gqa', b, s, hkv, g, dh, itemsize)
+
+
+def paged_split_plan(b: int, w: int, page_size: int, hkv: int, g: int,
+                     dh: int, itemsize: int) -> dict:
+    """K1's and K6's cut of the W * page_size keys a (B, W) block table
+    reaches in (P, page_size, Hkv, dh) pools: :func:`contig_split_plan`'s,
+    with tiles of whole pages and at most PAGED_SPLIT_PAGES pages a split.
+    It depends on the shapes only (no positions, no table), so a step
+    reads nothing back to the host."""
+    return _split_plan('flash_decode_gqa_paged', b, w * page_size, hkv, g,
+                       dh, itemsize, page_size, PAGED_SPLIT_PAGES)
 
 
 def flash_decode_gqa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -312,14 +345,30 @@ def _check_paged(name, q, k_pages, v_pages, pos, window, block_tables):
     return b, hkv, rows, dh, page_size, w
 
 
-_K1_ARGS = [build.P] * 7 + [build.I] * 6 + [build.F, build.I, build.P]
+_K1_ARGS = [build.P] * 10 + [build.I] * 11 + [build.F, build.I, build.P]
 _K5_ARGS = [build.P] * 8 + [build.I] * 7 + [build.F, build.I, build.P]
-_K6_ARGS = [build.P] * 12 + [build.I] * 6 + [build.F, build.I, build.P]
+_K6_ARGS = [build.P] * 15 + [build.I] * 11 + [build.F, build.I, build.P]
 _K7_ARGS = [build.P] * 9 + [build.I] * 10 + [build.F, build.I, build.I,
                                               build.P]
 _K8_ARGS = [build.P] * 6 + [build.I] * 6 + [build.F, build.I, build.P]
 _K9_ARGS = [build.P] * 7 + [build.I] * 7 + [build.F, build.I, build.P]
 _K10_ARGS = [build.P] * 9 + [build.I] * 6 + [build.F, build.I, build.P]
+
+
+def _split_scratch(b: int, hkv: int, g: int, dh: int, plan: dict, device):
+    """The key splits' partials (running max, sum, unnormalised
+    accumulator) and the f32 (B, Hkv, G, dh) output of a split launch."""
+    part_m = torch.empty((b * hkv, plan['n_splits'], g), dtype=torch.float32,
+                         device=device)
+    part_acc = torch.empty((b * hkv, plan['n_splits'], g, dh),
+                           dtype=torch.float32, device=device)
+    out = torch.empty((b, hkv, g, dh), dtype=torch.float32, device=device)
+    return (part_m, torch.empty_like(part_m), part_acc), out
+
+
+def _plan_args(plan: dict):
+    return (plan['rows'], plan['lpk'], plan['tile'], plan['tiles_per_split'],
+            plan['n_splits'])
 
 
 def flash_decode_gqa_paged(q: torch.Tensor, k_pages: torch.Tensor,
@@ -347,18 +396,22 @@ def flash_decode_gqa_paged(q: torch.Tensor, k_pages: torch.Tensor,
     build.require_cuda(name, *tensors,
                        dtypes=[(torch.float32,), _FP, _FP, _I32, _I32, _I32,
                                _I32])
-    out = torch.empty((b, hkv, rows, dh), dtype=torch.float32,
-                      device=q.device)
     is_bf16 = int(k_pages.dtype == torch.bfloat16)
     if chunk == 1:
+        plan = paged_split_plan(b, w, page_size, hkv, rows, dh,
+                                k_pages.element_size())
+        part, out = _split_scratch(b, hkv, rows, dh, plan, q.device)
         fn = build.function('flash_decode', 'flash_decode_paged', _K1_ARGS)
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  pos.data_ptr(), window.data_ptr(), block_tables.data_ptr(),
-                 out.data_ptr(), b, hkv, rows, dh, page_size, w, float(scale),
-                 is_bf16, build.stream_of(q))
+                 *(t.data_ptr() for t in part), out.data_ptr(), b, hkv, rows,
+                 dh, page_size, w, *_plan_args(plan), float(scale), is_bf16,
+                 build.stream_of(q))
         build.check(err, 'flash_decode', name)
         build.count('flash_decode_paged')
     else:
+        out = torch.empty((b, hkv, rows, dh), dtype=torch.float32,
+                          device=q.device)
         fn = build.function('flash_decode', 'flash_chunk_paged', _K5_ARGS)
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  pos.data_ptr(), window.data_ptr(), offset.data_ptr(),
@@ -400,13 +453,16 @@ def flash_decode_gqa_paged_q8(q, k_pages, v_pages, kq_pages, vq_pages,
     build.require_cuda(name, *tensors,
                        dtypes=[f32, _FP, _FP, i8, i8, f32, f32, _I32, _I32,
                                _I32, _I32])
-    out = torch.empty((b, hkv, g, dh), dtype=torch.float32, device=q.device)
+    plan = paged_split_plan(b, w, page_size, hkv, g, dh,
+                            k_pages.element_size())
+    part, out = _split_scratch(b, hkv, g, dh, plan, q.device)
     fn = build.function('flash_decode', 'flash_decode_paged_q8', _K6_ARGS)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              kq_pages.data_ptr(), vq_pages.data_ptr(), k_scales.data_ptr(),
              v_scales.data_ptr(), hot_window.data_ptr(), pos.data_ptr(),
-             window.data_ptr(), block_tables.data_ptr(), out.data_ptr(), b,
-             hkv, g, dh, page_size, w, float(scale),
+             window.data_ptr(), block_tables.data_ptr(),
+             *(t.data_ptr() for t in part), out.data_ptr(), b, hkv, g, dh,
+             page_size, w, *_plan_args(plan), float(scale),
              int(k_pages.dtype == torch.bfloat16), build.stream_of(q))
     build.check(err, 'flash_decode', name)
     build.count('flash_decode_paged_q8')
@@ -438,21 +494,11 @@ def flash_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.require_cuda(name, *tensors,
                        dtypes=[(torch.float32,), _FP, _FP, _I32, _I32])
     plan = contig_split_plan(b, s_max, hkv, g, dh, k.element_size())
-    n_splits = plan['n_splits']
-    dev = q.device
-    # the splits' partials: running max, sum, unnormalised accumulator
-    part_m = torch.empty((b * hkv, n_splits, g), dtype=torch.float32,
-                         device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b * hkv, n_splits, g, dh), dtype=torch.float32,
-                           device=dev)
-    out = torch.empty((b, hkv, g, dh), dtype=torch.float32, device=dev)
+    part, out = _split_scratch(b, hkv, g, dh, plan, q.device)
     fn = build.function('flash_decode', 'flash_decode_contig', _K7_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-             window.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-             part_acc.data_ptr(), out.data_ptr(), b, s_max, hkv, g, dh,
-             plan['rows'], plan['lpk'], plan['tile'],
-             plan['tiles_per_split'], n_splits,
+             window.data_ptr(), *(t.data_ptr() for t in part),
+             out.data_ptr(), b, s_max, hkv, g, dh, *_plan_args(plan),
              float(scale), int(k.dtype == torch.bfloat16),
              int(not prefetch), build.stream_of(q))
     build.check(err, 'flash_decode', name)
