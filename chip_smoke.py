@@ -30,7 +30,10 @@ Phases, in order; any failure exits non-zero and prints no result:
              dh=128 and at a 4,096-token context (W=512), each with an
              L2-cold reading; MLA attention 2e-5, the
              reference's tolerance, at H=128, DK=576, r=512, with the
-             kernels' resident blocks per SM) and time kernel, plain
+             kernels' resident blocks per SM; K8 and K10 (the latent key
+             split, two device kernels a launch) also at a 4,096-token
+             context (W=512), bf16 and f32 pools, each with an L2-cold
+             reading) and time kernel, plain
              version and, where one exists, the one PyTorch call computing
              the same function (device time of each call's kernels, from
              torch.profiler; CUDA events where the profiler records no
@@ -62,7 +65,7 @@ Phases, in order; any failure exits non-zero and prints no result:
              full-width serve under torch.profiler: stablelm in bf16, w8a8
              --prequantize and dynamic w8a8, the dense prefix in bf16 and
              dynamic w8a8 (None where the profiler records no device
-             kernel).
+             kernel), with the attention kernels' device time and calls.
 5. serve   — continuous paged serving at the published width (random
              weights from a seed). stablelm-1.6b in bf16, w8a8
              --prequantize and dynamic w8a8, plus one bf16 run whose pool
@@ -98,7 +101,7 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
 runs on, with that path's launches), a ``{"redesigned": [...]}`` line
-(every K1, K2, K4, K6 and K7 row), a ``{"serve": [...]}`` and a
+(every K1, K2, K4, K6, K7, K8 and K10 row), a ``{"serve": [...]}`` and a
 ``{"static_serve": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
@@ -311,19 +314,21 @@ def cold_device_ms(torch, fn, iters=10):
 
 # the redesigned kernels' entry functions whose compiler report chip_smoke
 # prints (every template instance: K2's and K4's epilogue of each K2/K4
-# mainloop, the key split's row loader of K7, K1 and K6), and the wrappers
-# whose every row it prints
+# mainloop, the key split's row loader of K7, K1 and K6, the latent split's
+# pool dtype of K8 and K10), and the wrappers whose every row it prints
 PTXAS_KERNELS = ('int8_gemm_wgmma', 'int8_gemv_splitk', 'key_split_kernel',
-                 'split_combine_kernel')
+                 'latent_split_kernel', 'split_combine_kernel')
 SPLIT_LOADERS = ('TieredPagedKV', 'PagedKV', 'ContigKV')
 REDESIGNED = ('int8_matmul', 'yoco_vmm_int8', 'flash_decode_contig',
-              'flash_decode_paged', 'flash_decode_paged_q8')
+              'flash_decode_paged', 'flash_decode_paged_q8',
+              'flash_decode_paged_mla', 'flash_decode_paged_mla_q8')
 
 
 def ptxas_summary(logs) -> list:
     """Registers, shared memory and spills of each PTXAS_KERNELS entry
     function, from ``nvcc -Xptxas -v`` reports ({source: text}); a key
-    split instance also names its row loader."""
+    split instance also names its row loader, a latent split instance its
+    pool dtype."""
     import re
     out, cur = [], None
     for src, log in logs.items():
@@ -339,6 +344,9 @@ def ptxas_summary(logs) -> list:
                     loader = [k for k in SPLIT_LOADERS if k in name]
                     if loader:
                         cur['loader'] = loader[0]
+                    if short[0] == 'latent_split_kernel':
+                        cur['pool'] = ('bfloat16' if '__nv_bfloat16' in name
+                                       else 'float32')
                     out.append(cur)
                 continue
             if cur is None:
@@ -924,19 +932,130 @@ def _median(xs):
     return xs[len(xs) // 2] if xs else None
 
 
+def mla_decode_rows(torch, fd, rows, gen, q, pos, win, bt, hw, case,
+                    plain_iters=20):
+    """Hold K8 (the latent split over a latent pool) and K10 (K8 over the
+    int8 latent tier at hot window ``hw``) to their plain versions, 2e-5,
+    every row finite, on a bf16 and an f32 pool drawn from ``gen``; record
+    both rows (two device kernels a launch: splits, combine) with L2-cold
+    readings and K8's time on K10's fp pool; then poison the int8 tier
+    (127 / -127 codes, NaN / 1e6 scales): with a hot window covering the
+    table K10 must equal K8 bit for bit."""
+    from repro_torch.runtime import kv_quant as kvq
+
+    src = 'src/repro_torch/csrc/flash_decode.cu'
+    b, _, h, dk = q.shape
+    r, tol = MLA_R, 2e-5
+    n_pages, w, ps = 1 + b * bt.shape[1], bt.shape[1], MLA_PAGE
+    scale = MLA_SCALE
+    pos_h = pos.cpu().tolist()
+    live_keys = sum(p + 1 for p in pos_h)
+    q_out_bytes = b * h * (dk + r) * 4
+    flops_per_key = 2.0 * h * (dk + r)
+    hwt = torch.tensor([hw], dtype=torch.int32, device=q.device)
+    cold = kvq.cold_page_list(bt.cpu(), pos_h, ps, hw)
+    for dt in (torch.bfloat16, torch.float32):
+        cl = torch.randn((n_pages, ps, dk), generator=gen,
+                         device=q.device).to(dt)
+        elt = cl.element_size()
+        args = (q, cl, pos, win, bt)
+
+        def k8(args=args):
+            return fd.flash_decode_mla_paged(*args, scale=scale, r=r)
+        got = k8()
+        want = fd.flash_decode_mla_paged_plain(*args, scale=scale, r=r)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f'K8 {case} output not finite')
+        err = float((got - want).abs().max())
+        shape = dict(case=case, B=b, H=h, DK=dk, r=r, page_size=ps, W=w,
+                     pool=str(dt).replace('torch.', ''),
+                     live_keys=live_keys, idle_slots=pos_h.count(0))
+        record_row(torch, rows, 'flash_decode_paged_mla', shape, err, tol,
+                   k8, lambda args=args: fd.flash_decode_mla_paged_plain(
+                       *args, scale=scale, r=r),
+                   None, live_keys * dk * elt + q_out_bytes,
+                   flops_per_key * live_keys, BF16_OPS_PER_S, source=src,
+                   replaces='src/repro/kernels/flash_decode.py:365',
+                   kernels_per_launch=2, plain_iters=plain_iters)
+        rows[-1]['cold_ms'] = cold_device_ms(torch, k8)
+
+        c = dict(cl=cl, clq=torch.zeros((n_pages, ps, dk), dtype=torch.int8,
+                                        device=q.device),
+                 cs=torch.zeros((n_pages, 1), device=q.device))
+        kvq.quantize_latent_pages_layer(c, torch.tensor(cold,
+                                                        device=q.device))
+        qargs = (q, cl, c['clq'], c['cs'], pos, win, bt, hwt)
+
+        def k10(qargs=qargs):
+            return fd.flash_decode_mla_paged_q8(*qargs, scale=scale, r=r)
+        got = k10()
+        want = fd.flash_decode_mla_paged_q8_plain(*qargs, scale=scale, r=r)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              f'K10 {case} output not finite')
+        err = float((got - want).abs().max())
+        nbytes = q_out_bytes
+        for p_ in pos_h:
+            first_hot = p_ // ps - hw + 1
+            for blk in range(p_ // ps + 1):
+                n = min(ps, p_ + 1 - blk * ps)     # live rows of the page
+                nbytes += n * dk * (elt if blk >= first_hot else 1)
+                nbytes += 0 if blk >= first_hot else 4
+        record_row(torch, rows, 'flash_decode_paged_mla_q8',
+                   dict(shape, hot_window=hw, cold_pages=len(cold)), err, tol,
+                   k10, lambda qargs=qargs: fd.flash_decode_mla_paged_q8_plain(
+                       *qargs, scale=scale, r=r),
+                   None, nbytes, flops_per_key * live_keys, BF16_OPS_PER_S,
+                   source=src,
+                   replaces='src/repro/kernels/flash_decode.py:556',
+                   kernels_per_launch=2, plain_iters=plain_iters)
+        rows[-1]['cold_ms'] = cold_device_ms(torch, k10)
+        # what the tier costs on the device: K8 over the same fp pool
+        rows[-1]['k8_ms_same_inputs'], *_ = device_ms(torch, k8, expect=2)
+        rows[-1]['k8_cold_ms_same_inputs'] = cold_device_ms(torch, k8)
+        # a hot window covering the table never reads the int8 tier: K10
+        # is then bit-equal to K8, even over poisoned int8 pools
+        c['clq'][::2] = 127
+        c['clq'][1::2] = -127
+        c['cs'][::2] = float('nan')
+        c['cs'][1::2] = 1e6
+        full = torch.tensor([w], dtype=torch.int32, device=q.device)
+        q8 = fd.flash_decode_mla_paged_q8(q, cl, c['clq'], c['cs'], pos, win,
+                                          bt, full, scale=scale, r=r)
+        fp = k8()
+        torch.cuda.synchronize()
+        check(bool(torch.equal(q8, fp)),
+              f'K10 {case} with hw >= W differs from K8 ({dt}): max '
+              f'{float((q8 - fp).abs().max())}')
+        rows[-1]['bit_equal_k8_at_full_hot_window'] = True
+        del c, q8, fp, cl
+
+
+# deepseek-v3's absorbed attention at full width: 128 heads, latent rank
+# 512 plus a 64-wide rope part, scale 1/sqrt(nope + rope), page size 8
+MLA_H, MLA_R, MLA_DR, MLA_PAGE = 128, 512, 64, 8
+MLA_SCALE = 1.0 / (128 + 64) ** 0.5
+
+
 def mla_kernel_phase(torch, kmods):
-    """K8 (absorbed MLA paged decode), K9 (its chunked prefill) and K10
-    (K8 over the int8 latent tier) against their plain versions at
-    deepseek-v3's full width: H=128, DK = r + d_rope = 576, r=512, page
-    size 8, W=20 (128 + 32 tokens). Tolerance 2e-5, the reference's own
-    for its MLA kernel against the absorbed oracle on f32 latents (kernel
-    and plain version both compute in f32, bf16 pools included); K9 on
-    the rows below its limit, every row finite; K10 with a hot window
-    covering the table bit-equal to K8 over poisoned int8 pools. Bounds:
-    the larger of the latent rows each slot's live pages hold (from their
-    tier, plus a scale per cold page), q in and the f32 latent out over
-    3.35 TB/s, and 2*H*(DK + r) flops a visible key and row over the bf16
-    tensor rate."""
+    """K8 (absorbed MLA paged decode on the latent key split), K9 (its
+    chunked prefill on the older paged body) and K10 (K8 over the int8
+    latent tier) against their plain versions at deepseek-v3's full width:
+    H=128, DK = r + d_rope = 576, r=512, page size 8, W=20 (128 + 32
+    tokens), and K8/K10 also at W=512 (a 4,096-token context: 8 slots
+    within 16 keys of full; the plain versions walk 512 pages, so they are
+    timed over 2 calls). Tolerance 2e-5, the reference's own for its MLA
+    kernel against the absorbed oracle on f32 latents (kernel and plain
+    version both compute to f32 accuracy, bf16 pools included: K8 and K10
+    split every f32 operand into three bf16 parts on the tensor cores);
+    K9 on the rows below its limit, every row finite; K10 with a hot
+    window covering the table bit-equal to K8 over poisoned int8 pools.
+    Bounds: the larger of the latent rows each slot's live pages hold
+    (from their tier, plus a scale per cold page), q in and the f32 latent
+    out over 3.35 TB/s, and 2*H*(DK + r) flops a visible key and row over
+    the bf16 tensor rate."""
+    import ctypes
+
     from repro_torch.runtime import kv_quant as kvq
 
     fd, build = kmods[0], kmods[3]
@@ -944,22 +1063,25 @@ def mla_kernel_phase(torch, kmods):
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = []
     src = 'src/repro_torch/csrc/flash_decode.cu'
-    h, r, dr, ps, w = 128, 512, 64, 8, 20
+    h, r, dr, ps, w = MLA_H, MLA_R, MLA_DR, MLA_PAGE, 20
     dk = r + dr
-    scale = 1.0 / (128 + 64) ** 0.5            # 1/sqrt(nope + rope)
+    scale = MLA_SCALE
     tol = 2e-5
     flops_per_key = 2.0 * h * (dk + r)
+    # resident blocks per SM: the latent split (one kernel serves K8 and
+    # K10) at the serving plan's staged pages, K9's paged body at C=8
     occupancy = {}
-    import ctypes
     fn = build.function('flash_decode', 'flash_mla_occupancy',
-                        [build.I] * 5 + [build.P, build.P])
-    for tiered in (0, 1):
+                        [build.I] * 6 + [build.P, build.P])
+    for kernel, rows_arg in ((8, fd.LATENT_ROWS), (9, 8 * h)):
         for bf16 in (1, 0):
+            plan = fd.latent_split_plan(8, w, ps, h, dk, r, 2 if bf16 else 4)
+            n_stage = plan['tiles_per_split'] * plan['tile'] // ps
             blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-            build.check(fn(h, dk, r, bf16, tiered, ctypes.byref(blocks),
-                           ctypes.byref(smem)), 'flash_decode',
-                        'flash_mla_occupancy')
-            occupancy[f'{"K10" if tiered else "K8/K9"} '
+            build.check(fn(kernel, rows_arg, dk, r, bf16, n_stage,
+                           ctypes.byref(blocks), ctypes.byref(smem)),
+                        'flash_decode', 'flash_mla_occupancy')
+            occupancy[f'{"K8/K10" if kernel == 8 else "K9"} '
                       f'{"bf16" if bf16 else "f32"}'] = dict(
                 blocks_per_sm=blocks.value, smem_bytes=smem.value)
     print(f'MLA kernels, resident blocks per SM: {json.dumps(occupancy)}',
@@ -979,80 +1101,9 @@ def mla_kernel_phase(torch, kmods):
     pos[2] = w * ps - 1
     win = torch.full((b,), w * ps + 1, dtype=torch.int32, device=dev)
     q = torch.randn((b, 1, h, dk), generator=gen, device=dev)
-    pos_h = pos.cpu().tolist()
-    live_keys = sum(p + 1 for p in pos_h)
-    q_out_bytes = b * h * (dk + r) * 4
-    hw = 2
-    hwt = torch.tensor([hw], dtype=torch.int32, device=dev)
-    cold = kvq.cold_page_list(bt.cpu(), pos_h, ps, hw)
-    check(len(cold) >= 60, f'K10 case has only {len(cold)} cold pages')
-    for dt in (torch.bfloat16, torch.float32):
-        cl = torch.randn((n_pages, ps, dk), generator=gen, device=dev).to(dt)
-        elt = cl.element_size()
-        args = (q, cl, pos, win, bt)
-        got = fd.flash_decode_mla_paged(*args, scale=scale, r=r)
-        want = fd.flash_decode_mla_paged_plain(*args, scale=scale, r=r)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), 'K8 output not finite')
-        err = float((got - want).abs().max())
-        shape = dict(B=b, H=h, DK=dk, r=r, page_size=ps, W=w,
-                     pool=str(dt).replace('torch.', ''),
-                     live_keys=live_keys, idle_slots=1)
-        record_row(torch, rows, 'flash_decode_paged_mla', shape, err, tol,
-                   lambda: fd.flash_decode_mla_paged(*args, scale=scale,
-                                                     r=r),
-                   lambda: fd.flash_decode_mla_paged_plain(*args,
-                                                           scale=scale, r=r),
-                   None, live_keys * dk * elt + q_out_bytes,
-                   flops_per_key * live_keys, BF16_OPS_PER_S, source=src,
-                   replaces='src/repro/kernels/flash_decode.py:365')
-
-        c = dict(cl=cl, clq=torch.zeros((n_pages, ps, dk), dtype=torch.int8,
-                                        device=dev),
-                 cs=torch.zeros((n_pages, 1), device=dev))
-        kvq.quantize_latent_pages_layer(c, torch.tensor(cold, device=dev))
-        qargs = (q, cl, c['clq'], c['cs'], pos, win, bt, hwt)
-        got = fd.flash_decode_mla_paged_q8(*qargs, scale=scale, r=r)
-        want = fd.flash_decode_mla_paged_q8_plain(*qargs, scale=scale, r=r)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), 'K10 output not finite')
-        err = float((got - want).abs().max())
-        nbytes = q_out_bytes
-        for p_ in pos_h:
-            first_hot = p_ // ps - hw + 1
-            for blk in range(p_ // ps + 1):
-                n = min(ps, p_ + 1 - blk * ps)     # live rows of the page
-                nbytes += n * dk * (elt if blk >= first_hot else 1)
-                nbytes += 0 if blk >= first_hot else 4
-        record_row(torch, rows, 'flash_decode_paged_mla_q8',
-                   dict(shape, hot_window=hw, cold_pages=len(cold)), err, tol,
-                   lambda: fd.flash_decode_mla_paged_q8(*qargs, scale=scale,
-                                                        r=r),
-                   lambda: fd.flash_decode_mla_paged_q8_plain(
-                       *qargs, scale=scale, r=r),
-                   None, nbytes, flops_per_key * live_keys, BF16_OPS_PER_S,
-                   source=src,
-                   replaces='src/repro/kernels/flash_decode.py:556')
-        # what the tier costs on the device: K8 over the same fp pool
-        rows[-1]['k8_ms_same_inputs'], *_ = device_ms(
-            torch, lambda: fd.flash_decode_mla_paged(*args, scale=scale,
-                                                     r=r), expect=1)
-        # a hot window covering the table never reads the int8 tier: K10
-        # is then bit-equal to K8, even over poisoned int8 pools
-        c['clq'][::2] = 127
-        c['clq'][1::2] = -127
-        c['cs'][::2] = float('nan')
-        c['cs'][1::2] = 1e6
-        full = torch.tensor([w], dtype=torch.int32, device=dev)
-        q8 = fd.flash_decode_mla_paged_q8(q, cl, c['clq'], c['cs'], pos, win,
-                                          bt, full, scale=scale, r=r)
-        k8 = fd.flash_decode_mla_paged(*args, scale=scale, r=r)
-        torch.cuda.synchronize()
-        check(bool(torch.equal(q8, k8)),
-              f'K10 with hw >= W differs from K8 ({dt}): max '
-              f'{float((q8 - k8).abs().max())}')
-        rows[-1]['bit_equal_k8_at_full_hot_window'] = True
-        del c, q8, k8
+    check(len(kvq.cold_page_list(bt.cpu(), pos.cpu().tolist(), ps, 2)) >= 60,
+          'K10 serving case has too few cold pages')
+    mla_decode_rows(torch, fd, rows, gen, q, pos, win, bt, 2, 'serving')
 
     # K9: one admission, limit 128: C=8 at offsets 96 and 120 (the first
     # and last page-size chunk of a prefix hit's suffix), C=32 at offset 96
@@ -1098,9 +1149,22 @@ def mla_kernel_phase(torch, kmods):
                        None, nbytes, flops_per_key * row_keys,
                        BF16_OPS_PER_S, source=src,
                        replaces='src/repro/kernels/flash_decode.py:889')
+    # K8 and K10 at a 4,096-token context: W=512, 8 slots within 16 keys of
+    # full (its own generator: the serving rows above keep their inputs)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, w = 8, 512
+    bt = (torch.randperm(b * w, generator=gen, device=dev) + 1) \
+        .reshape(b, w).to(torch.int32).contiguous()
+    pos = w * ps - 1 - torch.randint(0, 16, (b,), generator=gen, device=dev,
+                                     dtype=torch.int32)
+    win = torch.full((b,), w * ps + 1, dtype=torch.int32, device=dev)
+    q = torch.randn((b, 1, h, dk), generator=gen, device=dev)
+    mla_decode_rows(torch, fd, rows, gen, q, pos, win, bt, 2, 'long',
+                    plain_iters=2)
     for row in rows:
         row['occupancy'] = occupancy
     return rows
+
 
 
 # ----------------------------------------------------------------------------
@@ -1745,6 +1809,9 @@ def static_serve_phase(torch, build):
 # phase 4: device busy share of full-width serving
 # ----------------------------------------------------------------------------
 PROFILE_MODES = (('bf16', False), ('w8a8', True), ('w8a8', False))
+# the device kernels of the attention entry points (K1, K5-K10)
+ATTENTION_KERNELS = ('paged_attend_kernel', 'key_split_kernel',
+                     'latent_split_kernel', 'split_combine_kernel')
 MLA_PROFILE_MODES = (('bf16', False), ('w8a8', False))
 
 
@@ -1780,13 +1847,18 @@ def profile_phase(torch, arch=ARCH, modes=PROFILE_MODES):
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
         out.append(dict(arch=arch, mode=mode, prequantize=prequant,
                         forwards=run['steps'] + run['events']['admit'],
+                        decode_steps=run['steps'],
                         wall_ms=wall_ms,
                         device_busy_ms=busy_ms,
                         device_busy_share=(None if busy_ms is None
                                            else busy_ms / wall_ms),
                         kernel_launches=sum(v[1] for v in by_name.values()),
                         top=[dict(kernel=k[:80], device_ms=v[0], calls=v[1])
-                             for k, v in top]))
+                             for k, v in top],
+                        attention=[dict(kernel=k[:80], device_ms=v[0],
+                                        calls=v[1])
+                                   for k, v in by_name.items()
+                                   if any(a in k for a in ATTENTION_KERNELS)]))
         print(f'profile: {json.dumps(out[-1])}', flush=True)
     return out
 
@@ -1830,7 +1902,9 @@ def print_redesigned(rows):
             'kernels_per_call', 'timer', 'max_abs_err', 'streamed_ms',
             'cold_ms', 'library_cold_ms', 'cold_ms_runs',
             'library_cold_ms_runs', 'k1_ms_same_inputs',
-            'k1_cold_ms_same_inputs', 'bit_equal_k1_at_full_hot_window')
+            'k1_cold_ms_same_inputs', 'bit_equal_k1_at_full_hot_window',
+            'k8_ms_same_inputs', 'k8_cold_ms_same_inputs',
+            'bit_equal_k8_at_full_hot_window')
     print(json.dumps(dict(redesigned=[
         dict(name=r['name'], **{k: r[k] for k in keys if k in r})
         for r in rows if r['name'] in REDESIGNED])), flush=True)
@@ -1948,10 +2022,12 @@ def main(argv) -> int:
                                              offset=96)),
             ('flash_decode_paged_q8', ARCH, dict(pool='bfloat16', W=20,
                                                  G=1)),
-            ('flash_decode_paged_mla', MLA_ARCH, dict(pool='bfloat16')),
+            ('flash_decode_paged_mla', MLA_ARCH, dict(pool='bfloat16',
+                                                      case='serving')),
             ('flash_chunk_paged_mla', MLA_ARCH, dict(pool='bfloat16', C=8,
                                                      offset=96)),
-            ('flash_decode_paged_mla_q8', MLA_ARCH, dict(pool='bfloat16')),
+            ('flash_decode_paged_mla_q8', MLA_ARCH, dict(pool='bfloat16',
+                                                         case='serving')),
             ('quantize_rows', ARCH, dict(arch=ARCH, M=8, K=2048,
                                          dtype='bfloat16')),
             ('quantize_rows', MLA_ARCH, dict(arch=MLA_ARCH, M=8, K=7168,

@@ -43,6 +43,7 @@
 //       the int8 latent tier; a cold page reads clq * cs[page] (ONE scale
 //       per page: the latent is shared by every head) rounded through the
 //       pool dtype, a hot page the fp pool, each page from one tier only.
+//       Block s is hot iff s > max(pos, 0) / page_size - hw.
 // K1, K5, K6 and K7 return f32 (B, Hkv, rows, dh); K8, K9 and K10 return
 // the f32 latent output (B, 1, rows, DV), never cast to the pool dtype (the
 // caller applies W_uv).
@@ -52,18 +53,20 @@
 //   kernel body over three row loaders: K7 (flash_decode_contig, ContigKV),
 //   K1 (flash_decode_paged, PagedKV) and K6 (flash_decode_paged_q8,
 //   TieredPagedKV).
+//   latent_split_kernel + split_combine_kernel (the latent key split,
+//   below), one kernel for K8 (flash_decode_paged_mla) and K10
+//   (flash_decode_paged_mla_q8): K10 passes the int8 tier, K8 none.
 //   paged_attend_kernel (the shared paged body, below), one body over page
-//   loaders: K5 (flash_chunk_paged, FpPages), K8 and K9
-//   (flash_decode_paged_mla, flash_chunk_paged_mla, LatentPages) and K10
-//   (flash_decode_paged_mla_q8, TieredLatentPages).
-// Both copy the reference's online softmax; what differs between entry
+//   loaders: K5 (flash_chunk_paged, FpPages) and K9 (flash_chunk_paged_mla,
+//   LatentPages).
+// All copy the reference's online softmax; what differs between entry
 // points of one body is the loader and the row positions (one position
 // for decode, offset + r / group for a chunk).
 //
 // Bound on the H100: bytes for K1/K6/K7 (each live key is read once and
 // used for 2*G*dh multiply-adds, far below the card's operations-per-byte
 // balance); K5 reuses each key for C*G rows, still bytes-bound at the
-// serving chunk sizes.
+// serving chunk sizes. K8/K10: see the latent key split.
 //
 // The key split: one block per (request, KV head, key split, group of at
 // most 2 query rows), so a batch of 8 x 32 heads gives 768 blocks at 160
@@ -95,15 +98,57 @@
 // TieredPagedKV: PagedKV's rows for a hot page, for a cold one (block <
 // max(pos, 0) / ps - hw + 1) only the lane's int8 codes (8 bytes against
 // bf16 pools, 4 against f32) times the page's (page, h) scales, staged
-// once a page, each product rounded through the pool dtype
-// (round_to_pool), so each page is read from one tier only. Its hot keys
-// take PagedKV's loads and the same arithmetic, so K6 equals K1 bit for
-// bit when the hot window covers the table.
+// once a page, each product rounded through the pool dtype, so each page
+// is read from one tier only. Its hot keys take PagedKV's loads and the
+// same arithmetic, so K6 equals K1 bit for bit when the hot window covers
+// the table.
 //
-// The shared paged body (K5, K8-K10): one block per (request, KV head)
-// and, for K5, per group of at most kChunkRows query rows (grid.y), so
-// shared memory stays bounded whatever C is. The block reads its own
-// pos, window, offset, hot window and block-table row from device memory
+// The latent key split (K8, K10). MLA is GQA with one KV head and all
+// H = 128 query rows sharing every latent row, so a key tile's work is two
+// small matrix products, QK^T (H x DK . DK x keys) and PV (H x keys . keys
+// x DV). What bounds them on the H100 at deepseek-v3's width (DK = 576,
+// DV = 512, bf16 pool): at the serving row (8 slots of <= 160 keys) the
+// ~1.1 MB of latent over 3.35 TB/s, 0.0017 ms, far below two launches, so
+// launch and latency; at a long context the products: 2*H*(DK + DV) = 279
+// kflop a key against its 1152 bytes is 242 flop a byte, below the bf16
+// balance of ~295, but each product is done three times (below), 725 a
+// byte, so the MMA work bounds it.
+// The design:
+// - Tensor cores with f32 accuracy. Both products run as mma.sync
+//   m16n8k16 bf16 -> f32. Every f32 operand (the query, the probabilities,
+//   an f32 latent) is split into three bf16 parts, x = x1 + x2 + x3 exactly
+//   (split3_pair: truncation keeps 8 significant bits a part), built in
+//   registers as the fragments are; a bf16 latent is exact, so each product
+//   takes three MMAs (six on an f32 latent). A plain bf16 product of the
+//   f32 query would miss the 2e-5 tolerance by two orders of magnitude.
+// - Blocks of 32 query rows (two m-tiles, 8 warps) and one key split of
+//   whole pages each, planned from the shapes only
+//   (kernels/flash_decode.py::latent_split_plan): the most splits that
+//   fill the SMs in the fewest waves, since each split's partials (H x DV
+//   floats) cost what ~230 bf16 keys of latent do. Each latent row is read
+//   H / 32 = 4 times a slot, the repeats from L2.
+// - The latent staged once a step, used twice: one bulk copy a row (its
+//   DK values in the pool dtype) by warp 0 onto the stage's mbarrier,
+//   4 steps of 32 keys in flight (2 for f32); QK^T reads the tile's rows
+//   (ldmatrix), PV its first DV columns transposed (ldmatrix .trans). The
+//   row stride DK + 8 puts the 8 rows an ldmatrix reads in distinct banks.
+// - Registers: a warp owns one m-tile and one quarter of the DK columns
+//   for QK^T, its query parts held for the whole call (108 registers), and
+//   one quarter of the DV columns for PV (16 value tiles, 64 accumulator
+//   registers; a 16 x 512 accumulator in one warp would need 256). The
+//   quarters' logits are summed in order in shared memory, and the step's
+//   softmax is computed once there by all threads, not by each warp.
+// - K10's cold rows arrive as codes in the last DK bytes of their own row
+//   and become the pool dtype's values there, one warp a row, before the
+//   products: the products are the same code for both tiers, so K10 = K8
+//   bit for bit when no row is cold.
+// - The splits' partials are merged by the key split's combine
+//   (split_combine_kernel) with g = H and dh = DV.
+//
+// The shared paged body (K5, K9): one block per (request, KV head) and per
+// group of at most kChunkRows (K5) or kLatentRows (K9) query rows
+// (grid.y), so shared memory stays bounded whatever C is. The block reads
+// its own pos, window, offset and block-table row from device memory
 // (this replaces scalar prefetch: no host sync) and loops only over the
 // live pages [first, last], so dead keys are never read. One pass covers
 // 32 keys, i.e. several pages at the serving page size of 8: K/V rows are
@@ -112,22 +157,14 @@
 // memory for the whole loop. The online softmax copies `_softmax_tile`'s
 // guards: alpha = 0 while the running max is still -inf, masked keys
 // contribute p = 0, and the output is normalised once, acc / max(l,
-// 1e-30), after the last pass. Idle slots (pos 0 against garbage page 0,
-// always hot) read one page and stay finite. K5's fp tiles keep a row
-// stride of dh, so its QK loop has the 32-way bank conflict the key split
-// avoids; moving K5 to the split is later work.
-//
-// MLA at full width (H = 128, DK = 576, DV = 512) is no longer clearly
-// bytes-bound: each latent value feeds 2*H*(DK + DV)/DK ~ 480 flops (in
-// f32 accumulation), so the bound is the larger of the latent, q and out
-// bytes over 3.35 TB/s and those flops over the card's rate. A row's
-// query, accumulator, max and sum take 4.35 KB of shared memory in f32,
-// so the H rows are split over grid.y in groups of kLatentRows (110 KB a
-// block with the 32-key tile, two blocks an SM); each latent tile is then
-// read by H / kLatentRows blocks per slot and the repeats come from L2.
-// The staged latent tile has a row stride of DK + 1 floats, so the 32
-// keys of a warp's dot products fall in 32 distinct banks.
+// 1e-30), after the last pass. K5's fp tiles keep a row stride of dh, so
+// its QK loop has the 32-way bank conflict the key split avoids; K9's
+// latent tile (the first DV columns its values) has a row stride of DK + 1
+// floats, so the 32 keys of a warp's dot products fall in 32 distinct
+// banks. Moving both to the splits is later work.
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -137,19 +174,20 @@ constexpr int kKeys = 32;       // keys per pass: one per lane in the softmax
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunkRows = 32;  // K5 query rows per block
-constexpr int kLatentRows = 8;  // K8/K9/K10 query rows per block
+constexpr int kLatentRows = 8;  // K9 query rows per block
 
-// a dequantized value rounded through the pool dtype, as the reference's
-// loader casts it (`.astype(k_ref.dtype).astype(f32)`)
+// an f32 value in the pool dtype (round to nearest even for bf16): a
+// dequantized value goes through it as the reference's loader casts it
+// (`.astype(k_ref.dtype)`)
 template <typename KV>
-__device__ __forceinline__ float round_to_pool(float x);
+__device__ __forceinline__ KV from_f32(float x);
 template <>
-__device__ __forceinline__ float round_to_pool<float>(float x) {
+__device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
 template <>
-__device__ __forceinline__ float round_to_pool<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
 // Page loader of the fp pools (K5).
@@ -168,7 +206,7 @@ struct FpPages {
   }
 };
 
-// Page loader of the fp latent pool (K8, K9): one value per (page, row,
+// Page loader of the fp latent pool (K9): one value per (page, row,
 // column), used as a key and, in its first DV columns, as a value.
 template <typename KV>
 struct LatentPages {
@@ -178,28 +216,6 @@ struct LatentPages {
   __device__ __forceinline__ void setup(int, int) {}
   __device__ __forceinline__ float load(int64_t off, int, int) const {
     return to_f32(c[off]);
-  }
-};
-
-// Page loader of the int8 latent tier (K10): one tier per page, one scale
-// per page; block s is hot iff s > max(pos, 0) / page_size - hw, and a cold
-// value is rounded through the pool dtype (round_to_pool).
-template <typename KV>
-struct TieredLatentPages {
-  static constexpr bool kLatent = true;
-  const KV* __restrict__ c;
-  const int8_t* __restrict__ cq;
-  const float* __restrict__ cs;   // (P, 1)
-  const int* __restrict__ hw;
-  int first_hot;
-
-  __device__ __forceinline__ void setup(int pos, int page_size) {
-    first_hot = max(pos, 0) / page_size - hw[0] + 1;
-  }
-  __device__ __forceinline__ float load(int64_t off, int page,
-                                        int blk) const {
-    if (blk >= first_hot) return to_f32(c[off]);
-    return round_to_pool<KV>(static_cast<float>(cq[off]) * cs[page]);
   }
 };
 
@@ -393,15 +409,6 @@ LatentPages<KV> latent_pages(const void* c) {
   return LatentPages<KV>{static_cast<const KV*>(c)};
 }
 
-template <typename KV>
-TieredLatentPages<KV> tiered_latent_pages(const void* c, const void* cq,
-                                          const void* cs, const void* hw) {
-  return TieredLatentPages<KV>{static_cast<const KV*>(c),
-                               static_cast<const int8_t*>(cq),
-                               static_cast<const float*>(cs),
-                               static_cast<const int*>(hw), 0};
-}
-
 // ---------------------------------------------------------------------------
 // The key split (K1, K6, K7): the key axis split over blocks
 // ---------------------------------------------------------------------------
@@ -460,7 +467,7 @@ __device__ __forceinline__ uint2 load_codes(const int8_t* p, int n_valid) {
 }
 
 // codes c (as load_codes gives them) times scale, each product rounded
-// through the pool dtype (round_to_pool), packed as the pool dtype's bits:
+// through the pool dtype (to nearest even), packed as its bits:
 // the piece an fp row would give. Codes at or past n_valid give 0.
 template <typename KV>
 __device__ __forceinline__ uint4 dequant(uint2 c, float scale, int n_valid) {
@@ -870,51 +877,102 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
 }
 
 // Combine: for every (b, h) row, merge the splits' partials in split order
-// (a split whose m is -inf weighs 0 and is not read further) and normalise
-// once, acc / max(l, 1e-30). Block (bh, y) writes outputs [128 y, +128) of
-// the (g, dh) rows of bh, one a thread.
+// (a split whose m is -inf weighs 0) and normalise once, acc / max(l,
+// 1e-30). Block (bh, y) writes outputs [128 kVec y, +128 kVec) of the
+// (g, dh) rows of bh, kVec consecutive ones a thread (kVec = 4 when dh is a
+// multiple of 4), and stages the m and l of only the rows those outputs lie
+// in (one row of K8's 128 at dh = 512). The first kBatch splits'
+// accumulators are in flight while m and l are staged; a dead split's
+// accumulator (never written) is loaded but not used.
+template <int kVec>
 __global__ void __launch_bounds__(kSplitThreads)
 split_combine_kernel(const float* __restrict__ part_m,
                      const float* __restrict__ part_l,
                      const float* __restrict__ part_acc,
                      float* __restrict__ out, int g, int dh, int n_splits) {
-  extern __shared__ float s_ml[];   // the (b, h)'s m, then l: n_splits * g
-  const int n = n_splits * g;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += kSplitThreads) {
-    s_ml[i] = part_m[base + i];
-    s_ml[n + i] = part_l[base + i];
+  extern __shared__ float s_ml[];   // m, then l: n_splits * nr
+  using VecT = typename std::conditional<kVec == 4, float4, float>::type;
+  constexpr int kBatch = 8;         // splits whose accumulators load at once
+  const int i0 = blockIdx.y * kSplitThreads * kVec;
+  const int r_lo = i0 / dh;
+  const int nr = min(g - 1, (i0 + kSplitThreads * kVec - 1) / dh) - r_lo + 1;
+  const int n = n_splits * nr;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * n_splits * g;
+  const int i = i0 + threadIdx.x * kVec;
+  const bool active = i < g * dh;
+  const int r = active ? i / dh : r_lo, d = i - r * dh, rr = r - r_lo;
+  auto load = [&](int s0, VecT (&a)[kBatch]) {
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (active && s0 + j < n_splits)
+        a[j] = *reinterpret_cast<const VecT*>(
+            part_acc + (base + (s0 + j) * g + r) * dh + d);
+  };
+  VecT a[kBatch];
+  load(0, a);
+  for (int k = threadIdx.x; k < n; k += kSplitThreads) {
+    const int s = k / nr, row = r_lo + k - s * nr;
+    s_ml[k] = part_m[base + s * g + row];
+    s_ml[n + k] = part_l[base + s * g + row];
   }
   __syncthreads();
-  constexpr int kBatch = 8;         // splits whose accumulators load at once
-  const int i = blockIdx.y * kSplitThreads + threadIdx.x;
-  if (i < g * dh) {
-    const int r = i / dh, d = i - r * dh;
-    float m_all = -INFINITY;
-    for (int s = 0; s < n_splits; ++s) m_all = fmaxf(m_all, s_ml[s * g + r]);
-    float l_all = 0.f, a_all = 0.f;
-    for (int s0 = 0; s0 < n_splits; s0 += kBatch) {
-      float a[kBatch];
+  if (!active) return;
+  float m_all = -INFINITY;
+  for (int s = 0; s < n_splits; ++s) m_all = fmaxf(m_all, s_ml[s * nr + rr]);
+  float l_all = 0.f, a_all[kVec];
 #pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const int s = s0 + j;
-        a[j] = s < n_splits && s_ml[s * g + r] != -INFINITY
-                   ? part_acc[(base + s * g + r) * dh + d]
-                   : 0.f;
-      }
+  for (int e = 0; e < kVec; ++e) a_all[e] = 0.f;
+  for (int s0 = 0; s0 < n_splits; s0 += kBatch) {
+    if (s0 > 0) load(s0, a);
 #pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const int s = s0 + j;
-        if (s >= n_splits) break;
-        const float ms = s_ml[s * g + r];
-        if (ms == -INFINITY) continue;
-        const float wt = expf(ms - m_all);
-        l_all += s_ml[n + s * g + r] * wt;
-        a_all += a[j] * wt;
-      }
+    for (int j = 0; j < kBatch; ++j) {
+      const int s = s0 + j;
+      if (s >= n_splits) break;
+      const float ms = s_ml[s * nr + rr];
+      if (ms == -INFINITY) continue;
+      const float wt = expf(ms - m_all);
+      l_all += s_ml[n + s * nr + rr] * wt;
+      const float* av = reinterpret_cast<const float*>(&a[j]);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) a_all[e] += av[e] * wt;
     }
-    out[(base / n_splits + r) * dh + d] = a_all / fmaxf(l_all, 1e-30f);
   }
+  VecT o;
+  float* ov = reinterpret_cast<float*>(&o);
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) ov[e] = a_all[e] / fmaxf(l_all, 1e-30f);
+  *reinterpret_cast<VecT*>(out + (base / n_splits + r) * dh + d) = o;
+}
+
+template <int kVec>
+int launch_combine_vec(const float* pm, const float* pl, const float* pa,
+                       float* out, int bhkv, int g, int dh, int n_splits,
+                       cudaStream_t stream) {
+  constexpr int span = kSplitThreads * kVec;       // outputs a block
+  const int rows = min(g, (span - 1) / dh + 2);
+  const size_t smem = sizeof(float) * 2 * n_splits * rows;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        split_combine_kernel<kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(bhkv, (g * dh + span - 1) / span);
+  split_combine_kernel<kVec><<<grid, kSplitThreads, smem, stream>>>(
+      pm, pl, pa, out, g, dh, n_splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The combine of bhkv (request, KV head) rows of g x dh outputs, each split
+// n_splits ways (the partials' layout of key_split_kernel and
+// latent_split_kernel).
+int launch_combine(const float* pm, const float* pl, const float* pa,
+                   float* out, int bhkv, int g, int dh, int n_splits,
+                   cudaStream_t stream) {
+  return dh % 4 == 0 ? launch_combine_vec<4>(pm, pl, pa, out, bhkv, g, dh,
+                                             n_splits, stream)
+                     : launch_combine_vec<1>(pm, pl, pa, out, bhkv, g, dh,
+                                             n_splits, stream);
 }
 
 // Dynamic shared memory of a key_split_kernel block: the warps' partials
@@ -976,17 +1034,7 @@ int launch_keys(const Rows& kv, bool aligned, const void* q, const void* pos,
                                         bhkv, g, dh, lpk, tile, tps, n_splits,
                                         streamed, scale, stream);
   if (err != 0) return err;
-  const size_t smem = sizeof(float) * 2 * n_splits * g;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        split_combine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(bhkv, (g * dh + kSplitThreads - 1) / kSplitThreads);
-  split_combine_kernel<<<grid, kSplitThreads, smem, stream>>>(
-      pm, pl, pa, out, g, dh, n_splits);
-  return static_cast<int>(cudaGetLastError());
+  return launch_combine(pm, pl, pa, out, bhkv, g, dh, n_splits, stream);
 }
 
 // 16-byte pieces can be loaded whole: rows of whole vectors, aligned pools
@@ -1042,6 +1090,630 @@ int launch_paged(const void* kp, const void* vp, const void* kq,
   return launch_keys(tiered, aligned && codes_aligned, q, pos, win, pm, pl,
                      pa, out, b, g, dh, rows, lpk, tile, tps, n_splits, 0,
                      scale, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The latent key split (K8, K10): absorbed-MLA decode on tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kLatStep = 32;                 // keys a pipeline step
+constexpr int kLatQSteps = 9;                // 16-wide k-steps a query quarter
+constexpr int kLatNTiles = 16;               // 8-column value tiles a quarter
+constexpr int kLatMaxDk = 4 * 16 * kLatQSteps;   // 576
+constexpr int kLatMaxDv = 4 * 8 * kLatNTiles;    // 512
+constexpr int kLatSStride = kLatStep + 8;    // floats a logit row in smem
+constexpr int kLatMaxPages = 256;            // pages a split stages
+constexpr int kLatRows = 32;                 // query rows a block: 2 m-tiles
+constexpr int kLatWarps = 8;                 // 4 an m-tile
+constexpr int kLatThreads = 32 * kLatWarps;
+constexpr int kLatBarBytes = 64;             // the stages' mbarriers
+
+// `bytes` (a multiple of 16) global -> shared in one bulk copy, completing
+// as transaction bytes on mbarrier `bar`
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// orders this thread's shared-memory accesses before later bulk copies
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, "
+               "%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a * b, one m16n8k16 bf16 product with f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The three-part bf16 split of an f32 operand: x = x1 + x2 + x3 exactly.
+// Each part keeps the top 8 significant bits of what is left (truncation:
+// the upper 16 bits of the f32 word), so x1 holds bits 1-8 of x, x2 bits
+// 9-16 and x3 the rest, at most 8 bits: every part is a bf16 value and
+// both subtractions are exact.
+__device__ __forceinline__ float bf16_trunc(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffff0000u);
+}
+
+// the three parts of the pair (lo, hi), each packed as a bf16x2 operand
+// register (lo in the low half)
+__device__ __forceinline__ void split3_pair(float lo, float hi, uint32_t& p1,
+                                            uint32_t& p2, uint32_t& p3) {
+  const float lo1 = bf16_trunc(lo), hi1 = bf16_trunc(hi);
+  const float lo_r = lo - lo1, hi_r = hi - hi1;
+  const float lo2 = bf16_trunc(lo_r), hi2 = bf16_trunc(hi_r);
+  const float lo3 = lo_r - lo2, hi3 = hi_r - hi2;
+  p1 = __byte_perm(__float_as_uint(lo1), __float_as_uint(hi1), 0x7632);
+  p2 = __byte_perm(__float_as_uint(lo2), __float_as_uint(hi2), 0x7632);
+  p3 = __byte_perm(__float_as_uint(lo3), __float_as_uint(hi3), 0x7632);
+}
+
+// d[d0 + i] += a * b[i] for G independent tiles, a split in three parts (a[k]:
+// part k + 1). A bf16 b is exact (b[i][0] only): three products a tile. An
+// f32 b is split too: the six products whose parts' ranks sum to at most
+// 4; the three left out are below 2^-24 of the product. Smallest terms
+// first; consecutive products go to different tiles, so none waits on the
+// one before it.
+template <bool kSplitB, int G, int N>
+__device__ __forceinline__ void mma_split(float (&d)[N][4], int d0,
+                                          const uint32_t (&a)[3][4],
+                                          const uint32_t (&b)[G][3][2]) {
+#pragma unroll
+  for (int i = 0; i < G; ++i) mma_bf16(d[d0 + i], a[2], b[i][0][0], b[i][0][1]);
+  if constexpr (kSplitB) {
+#pragma unroll
+    for (int i = 0; i < G; ++i) mma_bf16(d[d0 + i], a[1], b[i][1][0], b[i][1][1]);
+#pragma unroll
+    for (int i = 0; i < G; ++i) mma_bf16(d[d0 + i], a[0], b[i][2][0], b[i][2][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < G; ++i) mma_bf16(d[d0 + i], a[1], b[i][0][0], b[i][0][1]);
+  if constexpr (kSplitB) {
+#pragma unroll
+    for (int i = 0; i < G; ++i) mma_bf16(d[d0 + i], a[0], b[i][1][0], b[i][1][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < G; ++i) mma_bf16(d[d0 + i], a[0], b[i][0][0], b[i][0][1]);
+}
+
+// B operands of QK^T for the 16 keys [kn, kn + 16) (two 8-key n-tiles) at
+// k-step columns [d0, d0 + 16) of a staged latent tile: b = c^T, element
+// (k = column, n = key). bf16: one ldmatrix of the key rows; f32: each
+// lane's elements, split in three.
+template <typename KV, int M>
+__device__ __forceinline__ void qk_b_pair(const KV* tile, int ls, int kn,
+                                          int d0, int lane,
+                                          uint32_t (&b)[M][3][2], int i0) {
+  if constexpr (sizeof(KV) == 2) {
+    const int mi = lane >> 3, r = lane & 7;
+    uint32_t x[4];
+    ldsm_x4(x, tile + (kn + (mi >> 1) * 8 + r) * ls + d0 + (mi & 1) * 8);
+    b[i0][0][0] = x[0];
+    b[i0][0][1] = x[1];
+    b[i0 + 1][0][0] = x[2];
+    b[i0 + 1][0][1] = x[3];
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const float* row =
+          reinterpret_cast<const float*>(tile) + (kn + nt * 8 + g) * ls + d0 +
+          2 * t;
+      const float2 lo = *reinterpret_cast<const float2*>(row);
+      const float2 hi = *reinterpret_cast<const float2*>(row + 8);
+      uint32_t(&bn)[3][2] = b[i0 + nt];
+      split3_pair(lo.x, lo.y, bn[0][0], bn[1][0], bn[2][0]);
+      split3_pair(hi.x, hi.y, bn[0][1], bn[1][1], bn[2][1]);
+    }
+  }
+}
+
+// B operands of PV for the value columns [n0, n0 + 16) (two n-tiles) at
+// keys [k0, k0 + 16) of the same tile: element (k = key, n = column), the
+// tile read transposed (ldmatrix .trans for bf16).
+template <typename KV, int M>
+__device__ __forceinline__ void pv_b_pair(const KV* tile, int ls, int k0,
+                                          int n0, int lane,
+                                          uint32_t (&b)[M][3][2], int i0) {
+  if constexpr (sizeof(KV) == 2) {
+    const int mi = lane >> 3, r = lane & 7;
+    uint32_t x[4];
+    ldsm_x4_trans(x, tile + (k0 + (mi & 1) * 8 + r) * ls + n0 + (mi >> 1) * 8);
+    b[i0][0][0] = x[0];
+    b[i0][0][1] = x[1];
+    b[i0 + 1][0][0] = x[2];
+    b[i0 + 1][0][1] = x[3];
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const float* col = reinterpret_cast<const float*>(tile) +
+                         (k0 + 2 * t) * ls + n0 + nt * 8 + g;
+      uint32_t(&bn)[3][2] = b[i0 + nt];
+      split3_pair(col[0], col[ls], bn[0][0], bn[1][0], bn[2][0]);
+      split3_pair(col[8 * ls], col[9 * ls], bn[0][1], bn[1][1], bn[2][1]);
+    }
+  }
+}
+
+// Row stride (elements) of a staged latent tile: the key width rounded up
+// to whole k-steps (the extra columns zero), plus 8 elements, so the 8 rows
+// an ldmatrix (or an f32 lane group) reads fall in distinct banks. A cold
+// row's int8 codes are staged in the last dk bytes of its own row.
+__host__ __device__ __forceinline__ int latent_row_stride(int dk) {
+  return ((dk + 15) & ~15) + 8;
+}
+
+// steps in flight: four 37 KB bf16 tiles at DK = 576, two f32 ones
+template <typename KV>
+__host__ __device__ constexpr int latent_stages() {
+  return sizeof(KV) == 2 ? 4 : 2;
+}
+
+// One block: request b = blockIdx.x, key split blockIdx.y, query rows
+// [32 blockIdx.z, +32) of h; warps 0-3 own rows 0-15, warps 4-7 rows 16-31.
+// The split's keys are the tiles [split * tps, +tps) of `tile` keys each
+// (whole pages) that hold live keys [lo, hi] = [max(pos - win + 1, 0),
+// min(pos, W * ps - 1)]; a split holding none writes m = -inf and exits.
+// A live split stages its page ids (and, tiered, its cold pages' scales)
+// once, then walks its live keys in steps of kLatStep absolute keys with
+// the next latent_stages() - 1 steps in flight: warp 0 issues one bulk
+// copy a live row (its latent in the pool dtype, or a cold row's codes
+// into the row's last dk bytes), each step's bytes completing on that
+// stage's mbarrier. A step's masked rows are zeroed and its cold rows
+// turned into the pool dtype's values (codes * cs[page], rounded through
+// the pool dtype) by one warp a row, before its products: QK^T by warp
+// (m-tile, query quarter) over its quarter of the DK columns, the query's
+// three parts in its registers for the whole call; the quarters' logits
+// summed in order in shared memory; the step's online softmax by all
+// threads (an 8-lane group a row, _softmax_tile's guards); PV by warp
+// (m-tile, value quarter) into its quarter of the DV columns, the
+// probabilities' three parts built from shared memory. With int8 codes
+// (cq != nullptr: K10) a row of a block before first_hot = max(pos, 0) /
+// ps - hw + 1 is cold; the products are the same code for either tier and
+// either entry point, so K10 = K8 bit for bit when no row is cold.
+template <typename KV>
+__global__ void __launch_bounds__(kLatThreads, 1)
+latent_split_kernel(const float* __restrict__ q, const KV* __restrict__ c,
+                    const int8_t* __restrict__ cq,
+                    const float* __restrict__ cs, const int* __restrict__ hw,
+                    const int* __restrict__ pos_v,
+                    const int* __restrict__ win_v,
+                    const int* __restrict__ block_tables,
+                    float* __restrict__ part_m, float* __restrict__ part_l,
+                    float* __restrict__ part_acc, int h, int dk, int dv,
+                    int ps, int w, int tile, int tps, int n_splits,
+                    float scale) {
+  constexpr int kRows = kLatRows;
+  constexpr int kStages = latent_stages<KV>();
+  constexpr bool kF32 = sizeof(KV) == 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dkp = (dk + 15) & ~15, ls = latent_row_stride(dk);
+  const int code_off = ls * static_cast<int>(sizeof(KV)) - dk;   // bytes
+  // codes arrive by bulk copy when a row of them is whole 16-byte pieces;
+  // otherwise (narrow test widths) the prepare pass reads them itself
+  const bool bulk_codes = dk % 16 == 0;
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(smem_raw);   // [kStages]
+  KV* s_tile = reinterpret_cast<KV*>(smem_raw + kLatBarBytes);
+  float* s_part = reinterpret_cast<float*>(s_tile + kStages * kLatStep * ls);
+  float* s_p = s_part + 4 * kRows * kLatSStride;  // [kRows][kLatSStride]
+  float* s_m = s_p + kRows * kLatSStride;
+  float* s_l = s_m + kRows;
+  float* s_alpha = s_l + kRows;
+  int* s_page = reinterpret_cast<int*>(s_alpha + kRows);
+  float* s_scale = reinterpret_cast<float*>(s_page + tps * (tile / ps));
+
+  const int b = blockIdx.x, split = blockIdx.y, r0 = blockIdx.z * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp >> 2, quarter = warp & 3;
+  const int pos = pos_v[b], win = win_v[b];
+  const int n_keys = w * ps;
+  const int lo = max(pos - win + 1, 0), hi = min(pos, n_keys - 1);
+  const int64_t p0 = (static_cast<int64_t>(b) * n_splits + split) * h;
+
+  const int n_tiles = (n_keys + tile - 1) / tile;
+  const int t_begin = max(split * tps, lo / tile);
+  const int t_end =
+      lo <= hi ? min(min(split * tps + tps, n_tiles), hi / tile + 1) : t_begin;
+  if (t_begin >= t_end) {
+    for (int r = tid; r < kRows && r0 + r < h; r += kLatThreads)
+      part_m[p0 + r0 + r] = -INFINITY;
+    return;
+  }
+  // the split's live steps: absolute kLatStep-key steps holding a live key
+  const int k_first = max(t_begin * tile, lo & ~(kLatStep - 1));
+  const int k_end = min(t_end * tile, hi + 1);
+  const int blk0 = max(k_first, lo) / ps;
+  const int n_pg = (k_end - 1) / ps - blk0 + 1;
+  // keys below cold_end are cold (none with cq == nullptr)
+  const int cold_end =
+      cq != nullptr ? max(max(pos, 0) / ps - hw[0] + 1, 0) * ps : 0;
+  const int* bt = block_tables + static_cast<int64_t>(b) * w;
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(&s_bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = tid; i < n_pg; i += kLatThreads) {
+    const int page = bt[blk0 + i];
+    s_page[i] = page;
+    if ((blk0 + i) * ps < cold_end) s_scale[i] = cs[page];
+  }
+  for (int r = tid; r < kRows; r += kLatThreads) {
+    s_m[r] = -INFINITY;
+    s_l[r] = 0.f;
+  }
+  // the k-step padding columns [dk, dkp) start zero (never copied)
+  if (dkp > dk)
+    for (int i = tid; i < kStages * kLatStep * (dkp - dk); i += kLatThreads) {
+      const int row = i / (dkp - dk);
+      s_tile[row * ls + dk + i % (dkp - dk)] = from_f32<KV>(0.f);
+    }
+  fence_proxy_async();
+  __syncthreads();
+
+  // (warp 0) step kb's live rows into tile buffer `stage`, lane j row j
+  auto issue = [&](int kb, int stage) {
+    const int kpos = kb + lane;
+    const bool live = kpos >= lo && kpos <= hi;
+    const bool cold = live && kpos < cold_end;
+    uint32_t bytes = 0;
+    const void* src = c;
+    KV* dst = s_tile + (stage * kLatStep + lane) * ls;
+    if (live && (!cold || bulk_codes)) {
+      const int blk = kpos / ps;
+      const int64_t row =
+          static_cast<int64_t>(s_page[blk - blk0]) * ps + kpos - blk * ps;
+      if (cold) {
+        src = cq + row * dk;
+        bytes = dk;
+      } else {
+        src = c + row * dk;
+        bytes = dk * sizeof(KV);
+      }
+    }
+    uint32_t total = bytes;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      total += __shfl_xor_sync(0xffffffffu, total, off);
+    if (lane == 0) mbar_expect_tx(&s_bar[stage], total);
+    __syncwarp();
+    if (bytes)
+      bulk_g2s(cold ? reinterpret_cast<void*>(
+                          reinterpret_cast<int8_t*>(dst) + code_off)
+                    : dst,
+               src, bytes, &s_bar[stage]);
+  };
+  if (warp == 0)
+    for (int i = 0; i < kStages - 1; ++i)
+      if (k_first + i * kLatStep < k_end) issue(k_first + i * kLatStep, i);
+
+  // this warp's query rows and quarter: three bf16 parts of each f32 value,
+  // in A-operand order, for the whole call
+  const int ksteps = dkp / 16;
+  const int kq = (ksteps + 3) / 4;
+  const int ks0 = quarter * kq;
+  const int my_ks = max(0, min(kq, ksteps - ks0));
+  uint32_t qa[kLatQSteps][3][4];
+  {
+    const int row_a = r0 + mt * 16 + g, row_b = row_a + 8;
+    const float* qa_row = q + (static_cast<int64_t>(b) * h + row_a) * dk;
+    const float* qb_row = q + (static_cast<int64_t>(b) * h + row_b) * dk;
+#pragma unroll
+    for (int s = 0; s < kLatQSteps; ++s) {
+      float2 v[4] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f),
+                     make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+      if (s < my_ks) {
+        const int d = (ks0 + s) * 16 + 2 * t;
+        if (row_a < h && d < dk)
+          v[0] = *reinterpret_cast<const float2*>(qa_row + d);
+        if (row_b < h && d < dk)
+          v[1] = *reinterpret_cast<const float2*>(qb_row + d);
+        if (row_a < h && d + 8 < dk)
+          v[2] = *reinterpret_cast<const float2*>(qa_row + d + 8);
+        if (row_b < h && d + 8 < dk)
+          v[3] = *reinterpret_cast<const float2*>(qb_row + d + 8);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split3_pair(v[i].x, v[i].y, qa[s][0][i], qa[s][1][i], qa[s][2][i]);
+    }
+  }
+  const int n_vt = dv / 8, vq = (n_vt + 3) / 4;
+  const int vt0 = quarter * vq;
+  const int my_vt = max(0, min(vq, n_vt - vt0));
+  float oacc[kLatNTiles][4];
+#pragma unroll
+  for (int j = 0; j < kLatNTiles; ++j)
+    oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kb = k_first; kb < k_end; kb += kLatStep) {
+    mbar_wait(&s_bar[stage], phase);
+    __syncthreads();     // step kb landed; the step before it fully used
+    if (warp == 0) {
+      const int kn = kb + (kStages - 1) * kLatStep;
+      if (kn < k_end) {
+        fence_proxy_async();
+        issue(kn, (stage + kStages - 1) % kStages);
+      }
+    }
+    KV* tb = s_tile + stage * kLatStep * ls;
+    if (kb < cold_end || kb < lo || kb + kLatStep - 1 > hi) {
+      // one warp a row: a masked row zeroed, a cold row's codes times its
+      // page's scale, rounded through the pool dtype (block-uniform branch)
+      for (int j = warp; j < kLatStep; j += kLatWarps) {
+        const int kpos = kb + j;
+        KV* row = tb + j * ls;
+        if (kpos < lo || kpos > hi) {
+          for (int ch = lane; ch < dkp * static_cast<int>(sizeof(KV)) / 16;
+               ch += 32)
+            reinterpret_cast<uint4*>(row)[ch] = make_uint4(0u, 0u, 0u, 0u);
+          continue;
+        }
+        if (kpos >= cold_end) continue;
+        const float sc = s_scale[kpos / ps - blk0];
+        const int8_t* codes = reinterpret_cast<const int8_t*>(row) + code_off;
+        if (!bulk_codes) {
+          const int blk = kpos / ps;
+          codes = cq + (static_cast<int64_t>(s_page[blk - blk0]) * ps + kpos -
+                        blk * ps) * dk;
+        }
+        constexpr int kCh = (kLatMaxDk / 8 + 31) / 32;
+        uint2 cw[kCh];
+#pragma unroll
+        for (int i = 0; i < kCh; ++i) {
+          const int ch = lane + 32 * i;
+          if (ch < dk / 8)
+            cw[i] = *reinterpret_cast<const uint2*>(codes + ch * 8);
+        }
+        __syncwarp();   // the values overwrite the codes
+#pragma unroll
+        for (int i = 0; i < kCh; ++i) {
+          const int ch = lane + 32 * i;
+          if (ch >= dk / 8) continue;
+          uint4* out = reinterpret_cast<uint4*>(row + ch * 8);
+          if constexpr (kF32) {
+            out[0] = dequant<KV>(make_uint2(cw[i].x, 0u), sc, 4);
+            out[1] = dequant<KV>(make_uint2(cw[i].y, 0u), sc, 4);
+          } else {
+            out[0] = dequant<KV>(cw[i], sc, 8);
+          }
+        }
+        for (int d = dk + lane; d < dkp; d += 32) row[d] = from_f32<KV>(0.f);
+      }
+      fence_proxy_async();   // before later bulk copies into these rows
+      __syncthreads();
+    }
+
+    // QK^T: this warp's m-tile against the step's keys over its quarter
+    {
+      float sacc[kLatStep / 8][4];
+#pragma unroll
+      for (int j = 0; j < kLatStep / 8; ++j)
+        sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
+#pragma unroll
+      for (int s = 0; s < kLatQSteps; ++s) {
+        if (s < my_ks) {
+          const int d0 = (ks0 + s) * 16;
+          uint32_t bb[kLatStep / 8][3][2];
+#pragma unroll
+          for (int np = 0; np < kLatStep / 16; ++np)
+            qk_b_pair<KV>(tb, ls, np * 16, d0, lane, bb, 2 * np);
+          mma_split<kF32>(sacc, 0, qa[s], bb);
+        }
+      }
+      float* sp = s_part + (quarter * kRows + mt * 16 + g) * kLatSStride +
+                  2 * t;
+#pragma unroll
+      for (int j = 0; j < kLatStep / 8; ++j) {
+        *reinterpret_cast<float2*>(sp + j * 8) =
+            make_float2(sacc[j][0], sacc[j][1]);
+        *reinterpret_cast<float2*>(sp + 8 * kLatSStride + j * 8) =
+            make_float2(sacc[j][2], sacc[j][3]);
+      }
+    }
+    __syncthreads();
+
+    // the step's online softmax: row tid / 8, keys 4 (tid % 8) .. + 3
+    {
+      const int row = tid >> 3, k0 = (tid & 7) * 4;
+      float lg[4], mx = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = row * kLatSStride + k0 + e;
+        const float dot = ((s_part[i] + s_part[kRows * kLatSStride + i]) +
+                           s_part[2 * kRows * kLatSStride + i]) +
+                          s_part[3 * kRows * kLatSStride + i];
+        const int kpos = kb + k0 + e;
+        lg[e] = kpos >= lo && kpos <= hi ? dot * scale : -INFINITY;
+        mx = fmaxf(mx, lg[e]);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_prev = s_m[row];
+      const float m_new = fmaxf(m_prev, mx);
+      // all-masked guards: exp(-inf - -inf) must contribute 0, not 1
+      const float alpha = isfinite(m_prev) ? expf(m_prev - m_new) : 0.f;
+      float p_sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = kb + k0 + e;
+        const float p =
+            kpos >= lo && kpos <= hi ? expf(lg[e] - m_new) : 0.f;
+        s_p[row * kLatSStride + k0 + e] = p;
+        p_sum += p;
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        p_sum += __shfl_xor_sync(0xffffffffu, p_sum, off);
+      if ((tid & 7) == 0) {
+        s_l[row] = s_l[row] * alpha + p_sum;
+        s_m[row] = m_new;
+        s_alpha[row] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // PV: rescale, then add the step's values into this warp's columns,
+    // four value tiles at a time
+    {
+      const float al_a = s_alpha[mt * 16 + g], al_b = s_alpha[mt * 16 + g + 8];
+#pragma unroll
+      for (int j = 0; j < kLatNTiles; ++j) {
+        oacc[j][0] *= al_a;
+        oacc[j][1] *= al_a;
+        oacc[j][2] *= al_b;
+        oacc[j][3] *= al_b;
+      }
+#pragma unroll
+      for (int ks = 0; ks < kLatStep / 16; ++ks) {
+        uint32_t pa[3][4];
+        const float* pr = s_p + (mt * 16 + g) * kLatSStride + ks * 16 + 2 * t;
+        const float2 v0 = *reinterpret_cast<const float2*>(pr);
+        const float2 v1 =
+            *reinterpret_cast<const float2*>(pr + 8 * kLatSStride);
+        const float2 v2 = *reinterpret_cast<const float2*>(pr + 8);
+        const float2 v3 =
+            *reinterpret_cast<const float2*>(pr + 8 * kLatSStride + 8);
+        split3_pair(v0.x, v0.y, pa[0][0], pa[1][0], pa[2][0]);
+        split3_pair(v1.x, v1.y, pa[0][1], pa[1][1], pa[2][1]);
+        split3_pair(v2.x, v2.y, pa[0][2], pa[1][2], pa[2][2]);
+        split3_pair(v3.x, v3.y, pa[0][3], pa[1][3], pa[2][3]);
+#pragma unroll
+        for (int j = 0; j < kLatNTiles; j += 4) {
+          if (j < my_vt) {
+            uint32_t bb[4][3][2];
+            pv_b_pair<KV>(tb, ls, ks * 16, (vt0 + j) * 8, lane, bb, 0);
+            pv_b_pair<KV>(tb, ls, ks * 16, (vt0 + j + 2) * 8, lane, bb, 2);
+            mma_split<kF32>(oacc, j, pa, bb);
+          }
+        }
+      }
+    }
+    stage = stage + 1 == kStages ? 0 : stage + 1;
+    phase ^= stage == 0;
+  }
+
+  // the split's partial: m, l and the unnormalised accumulator
+  for (int r = tid; r < kRows && r0 + r < h; r += kLatThreads) {
+    part_m[p0 + r0 + r] = s_m[r];
+    part_l[p0 + r0 + r] = s_l[r];
+  }
+  const int row_a = r0 + mt * 16 + g, row_b = row_a + 8;
+#pragma unroll
+  for (int j = 0; j < kLatNTiles; ++j) {
+    if (j >= my_vt) break;
+    const int col = (vt0 + j) * 8 + 2 * t;
+    if (row_a < h)
+      *reinterpret_cast<float2*>(part_acc + (p0 + row_a) * dv + col) =
+          make_float2(oacc[j][0], oacc[j][1]);
+    if (row_b < h)
+      *reinterpret_cast<float2*>(part_acc + (p0 + row_b) * dv + col) =
+          make_float2(oacc[j][2], oacc[j][3]);
+  }
+}
+
+// Dynamic shared memory of a latent_split_kernel block: the tile ring, the
+// quarters' logits and the probabilities, the row states and the staged
+// pages and scales.
+template <typename KV>
+size_t latent_smem(int dk, int n_stage) {
+  return kLatBarBytes +
+         sizeof(KV) * latent_stages<KV>() * kLatStep * latent_row_stride(dk) +
+         sizeof(float) * (5 * kLatRows * kLatSStride + 3 * kLatRows) +
+         (sizeof(int) + sizeof(float)) * n_stage;
+}
+
+template <typename KV>
+cudaError_t latent_allow_smem(size_t smem) {
+  return cudaFuncSetAttribute(latent_split_kernel<KV>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// The plan (kernels/flash_decode.py::latent_split_plan) the launcher takes:
+// 32 query rows a block, tiles of whole pages and whole steps, splits
+// covering the W * ps keys with no empty trailing split, at most
+// kLatMaxPages pages a split; DK and DV whole 8-element pieces within the
+// register budget, DV < DK.
+bool latent_plan_ok(int h, int dk, int dv, int ps, int w, int rows, int tile,
+                    int tps, int n_splits) {
+  const int64_t keys = static_cast<int64_t>(w) * ps;
+  return h > 0 && dk % 8 == 0 && dk <= kLatMaxDk && dv % 8 == 0 && dv > 0 &&
+         dv < dk && dv <= kLatMaxDv && ps >= 1 && w >= 1 &&
+         rows == kLatRows && tile > 0 && tile % kLatStep == 0 &&
+         tile % ps == 0 && tps >= 1 && n_splits >= 1 &&
+         static_cast<int64_t>(n_splits) * tps * tile >= keys &&
+         static_cast<int64_t>(n_splits - 1) * tps * tile < keys &&
+         tps * (tile / ps) <= kLatMaxPages;
+}
+
+// K8 (cq == nullptr) or K10: the latent splits of a plan, then K7's
+// combine over g = h rows of dh = dv columns. Refuses any other plan, and
+// pools whose rows are not 16-byte (latent) or 8-byte (codes) aligned.
+template <typename KV>
+int launch_latent(const void* q, const void* c, const void* cq,
+                  const void* cs, const void* hw, const void* pos,
+                  const void* win, const void* bt, float* pm, float* pl,
+                  float* pa, float* out, int b, int h, int dk, int dv, int ps,
+                  int w, int rows, int tile, int tps, int n_splits,
+                  float scale, cudaStream_t stream) {
+  if (!latent_plan_ok(h, dk, dv, ps, w, rows, tile, tps, n_splits) ||
+      reinterpret_cast<uintptr_t>(c) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(cq) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(q) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = latent_smem<KV>(dk, tps * (tile / ps));
+  const cudaError_t e = latent_allow_smem<KV>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(b, n_splits, (h + kLatRows - 1) / kLatRows);
+  latent_split_kernel<KV><<<grid, kLatThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const KV*>(c),
+      static_cast<const int8_t*>(cq), static_cast<const float*>(cs),
+      static_cast<const int*>(hw), static_cast<const int*>(pos),
+      static_cast<const int*>(win), static_cast<const int*>(bt), pm, pl, pa,
+      h, dk, dv, ps, w, tile, tps, n_splits, scale);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return launch_combine(pm, pl, pa, out, b, h, dv, n_splits, stream);
+}
+
+template <typename KV>
+int latent_occupancy(int dk, int n_stage, int* blocks_per_sm,
+                     int* smem_per_block) {
+  const size_t smem = latent_smem<KV>(dk, n_stage);
+  cudaError_t e = latent_allow_smem<KV>(smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, latent_split_kernel<KV>, kLatThreads, smem);
+  *smem_per_block = static_cast<int>(smem);
+  return static_cast<int>(e);
 }
 
 template <typename Pages>
@@ -1153,19 +1825,46 @@ REPRO_EXPORT int flash_decode_contig(const void* q, const void* k,
                               scale, st);
 }
 
-// K8: absorbed MLA decode, h query heads over one latent pool.
-REPRO_EXPORT int flash_decode_paged_mla(const void* q, const void* cp,
-                                        const void* pos, const void* win,
-                                        const void* bt, void* out, int b,
-                                        int h, int dk, int dv, int page_size,
-                                        int w, float scale, int is_bf16,
-                                        void* stream) {
+// K10: K8 over the fp/int8 latent tier pair with (P, 1) f32 scales and a
+// (1,) hot window in device memory; with cq == nullptr (codes, scales and
+// hot window unused), K8.
+REPRO_EXPORT int flash_decode_paged_mla_q8(
+    const void* q, const void* cp, const void* cq, const void* cs,
+    const void* hw, const void* pos, const void* win, const void* bt,
+    void* part_m, void* part_l, void* part_acc, void* out, int b, int h,
+    int dk, int dv, int page_size, int w, int rows, int tile, int tps,
+    int n_splits, float scale, int is_bf16, void* stream) {
   if (b == 0 || h == 0) return 0;
+  float* pm = static_cast<float*>(part_m);
+  float* pl = static_cast<float*>(part_l);
+  float* pa = static_cast<float*>(part_acc);
+  float* o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_mla(latent_pages<__nv_bfloat16>(cp), q, pos, win, nullptr,
-                      bt, out, b, h, dk, dv, page_size, w, 1, scale, stream);
-  return launch_mla(latent_pages<float>(cp), q, pos, win, nullptr, bt, out, b,
-                    h, dk, dv, page_size, w, 1, scale, stream);
+    return launch_latent<__nv_bfloat16>(q, cp, cq, cs, hw, pos, win, bt, pm,
+                                        pl, pa, o, b, h, dk, dv, page_size, w,
+                                        rows, tile, tps, n_splits, scale, st);
+  return launch_latent<float>(q, cp, cq, cs, hw, pos, win, bt, pm, pl, pa, o,
+                              b, h, dk, dv, page_size, w, rows, tile, tps,
+                              n_splits, scale, st);
+}
+
+// K8: absorbed MLA decode, h query heads at one position each over one
+// latent pool (P, page_size, dk), dv < dk value columns, split over the
+// W * page_size keys of a request's table as planned by the wrapper
+// (kernels/flash_decode.py::latent_split_plan: `rows` query rows a block,
+// `tile` keys a tile, tps tiles a split, n_splits splits); the partials
+// part_m, part_l (B, n_splits, h) and part_acc (B, n_splits, h, dv) are the
+// wrapper's scratch, out the f32 (B, 1, h, dv) latent output.
+REPRO_EXPORT int flash_decode_paged_mla(
+    const void* q, const void* cp, const void* pos, const void* win,
+    const void* bt, void* part_m, void* part_l, void* part_acc, void* out,
+    int b, int h, int dk, int dv, int page_size, int w, int rows, int tile,
+    int tps, int n_splits, float scale, int is_bf16, void* stream) {
+  return flash_decode_paged_mla_q8(q, cp, nullptr, nullptr, nullptr, pos,
+                                   win, bt, part_m, part_l, part_acc, out, b,
+                                   h, dk, dv, page_size, w, rows, tile, tps,
+                                   n_splits, scale, is_bf16, stream);
 }
 
 // K9: rows = chunk * H latent query rows, row r at offset + r / H.
@@ -1187,36 +1886,24 @@ REPRO_EXPORT int flash_chunk_paged_mla(const void* q, const void* cp,
                     rows, dk, dv, page_size, w, chunk, scale, stream);
 }
 
-// K10: K8 over the fp/int8 latent tier pair with (P, 1) scales and a (1,)
-// hot window in device memory.
-REPRO_EXPORT int flash_decode_paged_mla_q8(
-    const void* q, const void* cp, const void* cq, const void* cs,
-    const void* hw, const void* pos, const void* win, const void* bt,
-    void* out, int b, int h, int dk, int dv, int page_size, int w,
-    float scale, int is_bf16, void* stream) {
-  if (b == 0 || h == 0) return 0;
-  if (is_bf16)
-    return launch_mla(tiered_latent_pages<__nv_bfloat16>(cp, cq, cs, hw), q,
-                      pos, win, nullptr, bt, out, b, h, dk, dv, page_size, w,
-                      1, scale, stream);
-  return launch_mla(tiered_latent_pages<float>(cp, cq, cs, hw), q, pos, win,
-                    nullptr, bt, out, b, h, dk, dv, page_size, w, 1, scale,
-                    stream);
-}
-
-// Resident blocks per SM and dynamic shared memory per block of the K8/K9
-// (tiered = 0) or K10 (tiered = 1) kernel at these widths, for the build
-// report.
-REPRO_EXPORT int flash_mla_occupancy(int rows, int dk, int dv, int is_bf16,
-                                     int tiered, int* blocks_per_sm,
-                                     int* smem_per_block) {
-  if (tiered)
-    return is_bf16 ? occupancy<TieredLatentPages<__nv_bfloat16>>(
+// Resident blocks per SM and dynamic shared memory per block, for the
+// build report: kernel 8 or 10, the latent split of K8 or K10 at `rows`
+// (16 or 32) query rows a block and n_stage staged pages; kernel 9, the
+// shared paged body of K9 over `rows` = C * H query rows.
+REPRO_EXPORT int flash_mla_occupancy(int kernel, int rows, int dk, int dv,
+                                     int is_bf16, int n_stage,
+                                     int* blocks_per_sm, int* smem_per_block) {
+  if (kernel == 9)
+    return is_bf16 ? occupancy<LatentPages<__nv_bfloat16>>(
                          rows, dk, dv, blocks_per_sm, smem_per_block)
-                   : occupancy<TieredLatentPages<float>>(
-                         rows, dk, dv, blocks_per_sm, smem_per_block);
-  return is_bf16 ? occupancy<LatentPages<__nv_bfloat16>>(
-                       rows, dk, dv, blocks_per_sm, smem_per_block)
-                 : occupancy<LatentPages<float>>(rows, dk, dv, blocks_per_sm,
-                                                 smem_per_block);
+                   : occupancy<LatentPages<float>>(rows, dk, dv, blocks_per_sm,
+                                                   smem_per_block);
+  if ((kernel != 8 && kernel != 10) || rows != kLatRows || dk % 8 != 0 ||
+      dk > kLatMaxDk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // one kernel serves both: K10's cold codes are staged in their own rows
+  return is_bf16 ? latent_occupancy<__nv_bfloat16>(dk, n_stage, blocks_per_sm,
+                                                   smem_per_block)
+                 : latent_occupancy<float>(dk, n_stage, blocks_per_sm,
+                                           smem_per_block);
 }

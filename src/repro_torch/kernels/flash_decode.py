@@ -6,12 +6,14 @@ Ports of the entry points of ``repro/kernels/flash_decode.py``.
 The reference runs every entry point through one online-softmax body
 (``_softmax_tile``) and one grid harness (``_flash_core``) and differs per
 layout only in a tile loader and a row mask; the plain versions here do
-the same (:func:`_softmax_plain`). On the card two bodies in
+the same (:func:`_softmax_plain`). On the card three bodies in
 ``csrc/flash_decode.cu`` serve them: the key split (K1, K6, K7: the key
 axis cut over blocks by a plan that depends on the shapes only, the
 splits merged by a second kernel, so one launch runs two device kernels)
-over a row loader per layout, and the older one-block-per-head paged body
-(K5, K8, K9, K10) over a page loader per layout:
+over a row loader per layout; the latent key split (K8, K10: the same cut
+of an absorbed-MLA latent pool, both products on tensor cores, merged by
+the key split's combine); and the older one-block-per-head paged body
+(K5, K9) over a page loader per layout:
 
 * **K1** ``flash_decode_gqa_paged`` with ``chunk=1`` (through
   ``flash_decode_paged``): one query token per request attends its paged
@@ -40,14 +42,17 @@ over a row loader per layout, and the older one-block-per-head paged body
   heads in its group; each latent tile is read once and used twice: all
   r + d_rope columns as the keys (against the absorbed+rope query), the
   first r columns as the values. Returns the f32 latent output; the caller
-  applies ``W_uv``.
+  applies ``W_uv``. The latent key split's plan is
+  :func:`latent_split_plan`; its tensor-core products take every f32
+  operand as three bf16 parts.
 * **K9** the same function with ``chunk > 1`` (through
   ``flash_chunk_paged_mla``): C·H query rows, row i at position
   ``offset + i // H``, with K5's fetch-union scalars.
 * **K10** ``flash_decode_mla_paged_q8`` (through
   ``flash_decode_paged_mla_q8``): K8 over the int8 latent tier, cold pages
   ``int8 * scale[page]`` (one scale per page) rounded through the pool
-  dtype.
+  dtype. It runs K8's kernel and plan, so with a hot window covering the
+  table it equals K8 bit for bit.
 
 The plain versions are tile-by-tile loops (a page, or K7's 32 keys) that
 mirror ``_softmax_tile``, dead-step semantics included. The wrappers take
@@ -57,6 +62,7 @@ raise.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -304,6 +310,86 @@ def paged_split_plan(b: int, w: int, page_size: int, hkv: int, g: int,
                        dh, itemsize, page_size, PAGED_SPLIT_PAGES)
 
 
+#: the latent split (``csrc/flash_decode.cu``, ``latent_split_kernel``) of
+#: K8 and K10: query rows a block, keys a pipeline step, the card's SMs, the
+#: most pages a split stages, and the widths its registers hold (a warp's
+#: quarter of the DK query columns, 9 k-steps of 16; of the DV value
+#: columns, 16 tiles of 8)
+LATENT_ROWS = 32
+LATENT_STEP = 32
+LATENT_SMS = 132
+LATENT_SPLIT_PAGES = 256
+LATENT_MAX_DK = 576
+LATENT_MAX_DV = 512
+
+
+def latent_split_plan(b: int, w: int, page_size: int, h: int, dk: int,
+                      dv: int, itemsize: int) -> dict:
+    """How K8 and K10 cut the W * page_size keys a (B, W) block table
+    reaches in a (P, page_size, dk) latent pool of ``itemsize`` bytes an
+    element, for ``h`` query rows of ``dv`` value columns: ``rows`` query
+    rows a block, absolute tiles of ``tile`` keys (whole pages and whole
+    32-key steps), ``tiles_per_split`` tiles a block and ``n_splits`` blocks
+    a (request, row group). Shapes only: no position and no table is read,
+    so a step reads nothing back to the host (and the cut is cached).
+
+    It trades three costs:
+
+    * **The latent's re-reads from L2.** Every row group stages the same
+      latent rows, H / rows times a slot. A 32-row block (8 warps, ~240
+      registers a thread: one block an SM) reads each row 4 times at
+      H=128; 16-row blocks (two an SM) read it 8 times and were slower on
+      the H100 at every shape tried while the kernel was written, so rows
+      is 32.
+    * **Filling the card.** Splits exist to give the SMs work: the plan
+      uses at most enough of them to put a block on each of the 132 SMs
+      (one block an SM), and among those the count whose launch ends
+      soonest, waves of 132 blocks times the tiles a block walks; of two
+      that end together, the one that gives every SM a block. At the
+      serving row (B=8, H=128, W=20 pages of 8: 5 tiles a slot) 5 splits of
+      1 tile (160 blocks, two waves) and 3 splits of 2 tiles (96 blocks,
+      one wave) both take 2, and the 5 are taken; at W=512 (128 tiles) 4
+      splits of 32 tiles end in one wave of 128 blocks, where 5 would take
+      two waves of 26.
+    * **The partials.** Each split writes, and the combine reads back,
+      B * splits * H * (dv + 2) f32 values: at H=128, dv=512 a split costs
+      256 KB, the latent of ~230 bf16 keys, so among plans otherwise equal
+      the one with fewer splits wins, and a batch that fills the SMs alone
+      is not split at all.
+    """
+    if (dk % 8 or not 0 < dv < dk or dv % 8 or dk > LATENT_MAX_DK
+            or dv > LATENT_MAX_DV or itemsize not in (2, 4) or page_size < 1
+            or w < 1 or b < 1 or h < 1):
+        raise ValueError(
+            f'flash_decode_mla_paged: the latent split takes dk <= '
+            f'{LATENT_MAX_DK} and 0 < dv < dk, both multiples of 8, dv <= '
+            f'{LATENT_MAX_DV}, bf16 or f32 pools (dk={dk}, dv={dv}, '
+            f'itemsize={itemsize}, page_size={page_size}, W={w})')
+    tile, tps, n_splits = _latent_cut(b, w, page_size, h, LATENT_SMS)
+    return dict(rows=LATENT_ROWS, tile=tile, tiles_per_split=tps,
+                n_splits=n_splits)
+
+
+@functools.lru_cache(maxsize=256)
+def _latent_cut(b: int, w: int, page_size: int, h: int, sms: int) -> tuple:
+    """(tile, tiles_per_split, n_splits) of :func:`latent_split_plan`."""
+    tile = math.lcm(LATENT_STEP, page_size)
+    n_tiles = -(-w * page_size // tile)
+    pairs = b * -(-h // LATENT_ROWS)
+    max_tps = max(1, LATENT_SPLIT_PAGES * page_size // tile)
+    best = None
+    for tps in range(min(n_tiles, max_tps), 0, -1):
+        n_splits = -(-n_tiles // tps)
+        if n_splits > max(1, -(-sms // pairs)) and best is not None:
+            break                         # more splits than the SMs need
+        waves = -(-pairs * n_splits // sms)
+        key = (waves * tps, pairs * n_splits < sms, n_splits)
+        if best is None or key < best[0]:
+            best = (key, n_splits, tps)
+    _, n_splits, tps = best
+    return tile, tps, n_splits
+
+
 def flash_decode_gqa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            pos: torch.Tensor, window: torch.Tensor, *,
                            scale: float, prefetch: bool = True
@@ -350,9 +436,10 @@ _K5_ARGS = [build.P] * 8 + [build.I] * 7 + [build.F, build.I, build.P]
 _K6_ARGS = [build.P] * 15 + [build.I] * 11 + [build.F, build.I, build.P]
 _K7_ARGS = [build.P] * 9 + [build.I] * 10 + [build.F, build.I, build.I,
                                               build.P]
-_K8_ARGS = [build.P] * 6 + [build.I] * 6 + [build.F, build.I, build.P]
+_K8_ARGS = [build.P] * 9 + [build.I] * 10 + [build.F, build.I, build.P]
 _K9_ARGS = [build.P] * 7 + [build.I] * 7 + [build.F, build.I, build.P]
-_K10_ARGS = [build.P] * 9 + [build.I] * 6 + [build.F, build.I, build.P]
+_K10_ARGS = [build.P] * 12 + [build.I] * 10 + [build.F, build.I,
+                                               build.P]
 
 
 def _split_scratch(b: int, hkv: int, g: int, dh: int, plan: dict, device):
@@ -368,6 +455,11 @@ def _split_scratch(b: int, hkv: int, g: int, dh: int, plan: dict, device):
 
 def _plan_args(plan: dict):
     return (plan['rows'], plan['lpk'], plan['tile'], plan['tiles_per_split'],
+            plan['n_splits'])
+
+
+def _latent_plan_args(plan: dict):
+    return (plan['rows'], plan['tile'], plan['tiles_per_split'],
             plan['n_splits'])
 
 
@@ -530,7 +622,9 @@ def flash_decode_mla_paged(q: torch.Tensor, c_pages: torch.Tensor,
     """Same contract as :func:`flash_decode_mla_paged_plain`: kernel K8
     (``chunk == 1``) or K9 (``chunk > 1``). On CUDA the query must be f32,
     the latent pool bf16 or f32, and pos, window, offset and block tables
-    int32."""
+    int32. K8 runs two device kernels, the latent splits of
+    :func:`latent_split_plan` and their combine, with the splits' partials
+    in scratch allocated here."""
     tensors = (q, c_pages, pos, window, block_tables) + (
         () if offset is None else (offset,))
     if all(t.device.type == 'cpu' for t in tensors):
@@ -547,18 +641,23 @@ def flash_decode_mla_paged(q: torch.Tensor, c_pages: torch.Tensor,
     build.require_cuda(name, *tensors,
                        dtypes=[(torch.float32,), _FP, _I32, _I32, _I32,
                                _I32])
-    out = torch.empty((b, 1, rows, r), dtype=torch.float32, device=q.device)
     is_bf16 = int(c_pages.dtype == torch.bfloat16)
     if chunk == 1:
+        plan = latent_split_plan(b, w, page_size, rows, dk, r,
+                                 c_pages.element_size())
+        part, out = _split_scratch(b, 1, rows, r, plan, q.device)
         fn = build.function('flash_decode', 'flash_decode_paged_mla',
                             _K8_ARGS)
         err = fn(q.data_ptr(), c_pages.data_ptr(), pos.data_ptr(),
-                 window.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-                 b, rows, dk, r, page_size, w, float(scale), is_bf16,
-                 build.stream_of(q))
+                 window.data_ptr(), block_tables.data_ptr(),
+                 *(t.data_ptr() for t in part), out.data_ptr(), b, rows, dk,
+                 r, page_size, w, *_latent_plan_args(plan), float(scale),
+                 is_bf16, build.stream_of(q))
         build.check(err, 'flash_decode', name)
         build.count('flash_decode_paged_mla')
     else:
+        out = torch.empty((b, 1, rows, r), dtype=torch.float32,
+                          device=q.device)
         fn = build.function('flash_decode', 'flash_chunk_paged_mla',
                             _K9_ARGS)
         err = fn(q.data_ptr(), c_pages.data_ptr(), pos.data_ptr(),
@@ -597,13 +696,16 @@ def flash_decode_mla_paged_q8(q, c_pages, cq_pages, c_scales, pos, window,
     build.require_cuda(name, *tensors,
                        dtypes=[(torch.float32,), _FP, (torch.int8,),
                                (torch.float32,), _I32, _I32, _I32, _I32])
-    out = torch.empty((b, 1, h, r), dtype=torch.float32, device=q.device)
+    plan = latent_split_plan(b, w, page_size, h, dk, r,
+                             c_pages.element_size())
+    part, out = _split_scratch(b, 1, h, r, plan, q.device)
     fn = build.function('flash_decode', 'flash_decode_paged_mla_q8',
                         _K10_ARGS)
     err = fn(q.data_ptr(), c_pages.data_ptr(), cq_pages.data_ptr(),
              c_scales.data_ptr(), hot_window.data_ptr(), pos.data_ptr(),
-             window.data_ptr(), block_tables.data_ptr(), out.data_ptr(), b,
-             h, dk, r, page_size, w, float(scale),
+             window.data_ptr(), block_tables.data_ptr(),
+             *(t.data_ptr() for t in part), out.data_ptr(), b, h, dk, r,
+             page_size, w, *_latent_plan_args(plan), float(scale),
              int(c_pages.dtype == torch.bfloat16), build.stream_of(q))
     build.check(err, 'flash_decode', name)
     build.count('flash_decode_paged_mla_q8')
