@@ -23,7 +23,11 @@ Phases, in order; any failure exits non-zero and prints no result:
              codes bit-exact; GQA attention 1e-5 on f32 and on bf16 pools,
              since kernel and plain version both compute in f32 on the same
              pools, with a sliding window on half the slots; K5 and K9 on
-             the rows below their limit, every row finite; K6 also
+             the rows below their limit, every row finite, K5 (the key
+             split with a chunk's rows) also at a 4,096-token context
+             (W=512); K3 bit-exact also at an unaligned K and base
+             pointer, and timed beside a kernel that does nothing (the
+             launch floor); K6 also
              bit-equal to K1, and K10 to K8, when the hot window covers the
              table, over poisoned int8 pools; K1 and K6 (the key split over
              block tables, two device kernels a launch) also at Hkv=8, G=4,
@@ -79,10 +83,13 @@ Phases, in order; any failure exits non-zero and prints no result:
              lane may produce a non-finite logits row, and each kernel's
              launch counter must equal the path's (K1 24 times per decode
              step, K6 in its place with the tier; K5 24 times per prefill
-             chunk; K3 and K2 169 times per forward with --prequantize;
+             chunk; with --prequantize K2 169 times per forward and K3 97,
+             one quantization per distinct activation (q/k/v and gate/up
+             share theirs); in dynamic w8a8 K4 169 and K3 97 + 169 = 266;
              K8 3 times per decode step, K10 in its place with the tier,
-             K9 3 times per prefill chunk, and in dynamic w8a8 22 linears
-             per decode step or chunk, 25 per monolithic prefill); the tier
+             K9 3 times per prefill chunk, and in dynamic w8a8 K4 22 per
+             decode step or chunk, 25 per monolithic prefill, K3 16 + 22
+             and 19 + 25 (w_dq and w_dkv, gate and up share)); the tier
              must quantize pages, and the prefix cache must hit on at least
              15 of 16 admissions with fewer peak pages than the private
              run. Then the static serve() at the published width (batch 8,
@@ -94,8 +101,8 @@ Phases, in order; any failure exits non-zero and prints no result:
              contiguous latent cache), and stablelm in dynamic w8a8 flash
              --ragged; every logits row finite, shape [8, 32], K7 launched
              24 * 31 = 744 times per flash run and never by einsum, no
-             paged kernel, K3 and K2 169 times per forward with
-             --prequantize, K4 169 and K3 338 in dynamic w8a8; and the
+             paged kernel, K2 169 and K3 97 times per forward with
+             --prequantize, K4 169 and K3 266 in dynamic w8a8; and the
              device busy share of the bf16 flash lock-step run and of the
              dynamic w8a8 flash --ragged run.
 
@@ -135,6 +142,10 @@ BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor rate
 ARCH = 'stablelm-1.6b'
 LAYERS_FULL = 24
 LINEARS_PER_FORWARD = 7 * LAYERS_FULL + 1      # q k v o gate up down + lm_head
+# distinct activations those linears read (K3 launches in w8a8): q/k/v
+# share x, gate/up share the normed x, then o's and down's inputs, and the
+# lm_head's
+ACTIVATIONS_PER_FORWARD = 4 * LAYERS_FULL + 1
 # deepseek-v3's dense prefix: its first 3 layers (MLA + a dense SwiGLU MLP
 # of d_ff 18432) at the published width, the 58 MoE layers dropped;
 # registered at run time by register_dense_prefix()
@@ -145,6 +156,11 @@ MLA_LAYERS = 3
 # absorb it into f32 einsums instead); plus one lm_head per forward
 MLA_LINEARS_DECODE = 7 * MLA_LAYERS + 1
 MLA_LINEARS_PREFILL = 8 * MLA_LAYERS + 1
+# distinct activations of those linears: w_dq and w_dkv share x, gate and
+# up share the normed x; w_uq's, wo's and down's inputs (and w_ukv's in a
+# monolithic prefill); the lm_head's
+MLA_ACTIVATIONS_DECODE = 5 * MLA_LAYERS + 1
+MLA_ACTIVATIONS_PREFILL = 6 * MLA_LAYERS + 1
 # the static serve() runs at full width: batch 8, prompt 128, generation 32
 STATIC_BATCH, STATIC_PROMPT, STATIC_GEN = 8, 128, 32
 # (K, N) of every linear each main path runs through K3/K4 (and K2):
@@ -207,7 +223,10 @@ def profiled_kernels(torch, fn, attempts=2):
     """``{kernel name: [device ms, calls]}`` of every device kernel ``fn()``
     launches, from ``torch.profiler``; empty when the profiler recorded no
     device kernel in any of ``attempts`` sessions (its device tracing does
-    not always start)."""
+    not always start). The session's raw kineto events are read, not
+    ``prof.events()``: the same device durations, without building the
+    event tree, which took seconds a session for a plain version of a
+    few hundred kernels a call."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -225,11 +244,12 @@ def profiled_kernels(torch, fn, attempts=2):
             fn()
             pad()
             torch.cuda.synchronize()
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA \
-                    and 'spin_kernel' not in ev.name:
-                by_name[ev.name][0] += ev.time_range.elapsed_us() / 1e3
-                by_name[ev.name][1] += 1
+        for ev in prof.profiler.kineto_results.events():
+            name = ev.name()
+            if ev.device_type() == DeviceType.CUDA \
+                    and 'spin_kernel' not in name:
+                by_name[name][0] += ev.duration_ns() / 1e6
+                by_name[name][1] += 1
         if by_name:
             break
     return dict(by_name)
@@ -286,6 +306,11 @@ def device_ms(torch, fn, iters=20, warmup=3, expect=None):
 FLUSH_BYTES = 128 << 20
 
 
+# the device kernels of the L2 flush (named once a process: each profiler
+# session costs about a second of the run's time limit)
+FLUSH_NAMES = set()
+
+
 def cold_device_ms(torch, fn, iters=10):
     """Device time of one ``fn()`` with the L2 cache flushed before each
     call (a uint8 fill of FLUSH_BYTES): the summed duration of the kernels
@@ -299,7 +324,9 @@ def cold_device_ms(torch, fn, iters=10):
     flush()
     fn()
     torch.cuda.synchronize()
-    flush_names = set(profiled_kernels(torch, flush))
+    if not FLUSH_NAMES:
+        FLUSH_NAMES.update(profiled_kernels(torch, flush))
+    flush_names = FLUSH_NAMES
 
     def calls():
         for _ in range(iters):
@@ -314,21 +341,27 @@ def cold_device_ms(torch, fn, iters=10):
 
 # the redesigned kernels' entry functions whose compiler report chip_smoke
 # prints (every template instance: K2's and K4's epilogue of each K2/K4
-# mainloop, the key split's row loader of K7, K1 and K6, the latent split's
-# pool dtype of K8 and K10), and the wrappers whose every row it prints
+# mainloop, the key split's row loader, rows a block and chunk flag of K7,
+# K1, K6 and K5, the latent split's pool dtype of K8 and K10, K3's element
+# type and pieces a thread), and the wrappers whose every row it prints
+# (with the launch floor beside K3's)
 PTXAS_KERNELS = ('int8_gemm_wgmma', 'int8_gemv_splitk', 'key_split_kernel',
-                 'latent_split_kernel', 'split_combine_kernel')
+                 'latent_split_kernel', 'split_combine_kernel',
+                 'quantize_rows_kernel')
 SPLIT_LOADERS = ('TieredPagedKV', 'PagedKV', 'ContigKV')
 REDESIGNED = ('int8_matmul', 'yoco_vmm_int8', 'flash_decode_contig',
               'flash_decode_paged', 'flash_decode_paged_q8',
-              'flash_decode_paged_mla', 'flash_decode_paged_mla_q8')
+              'flash_decode_paged_mla', 'flash_decode_paged_mla_q8',
+              'quantize_rows', 'flash_chunk_paged', 'launch_floor')
 
 
 def ptxas_summary(logs) -> list:
     """Registers, shared memory and spills of each PTXAS_KERNELS entry
     function, from ``nvcc -Xptxas -v`` reports ({source: text}); a key
-    split instance also names its row loader, a latent split instance its
-    pool dtype."""
+    split instance also names its row loader, query rows a block, aligned
+    and chunk flags, a latent split instance its pool dtype, a K3 instance
+    its element type, pieces a thread, aligned and cluster flags (from the
+    mangled template arguments)."""
     import re
     out, cur = [], None
     for src, log in logs.items():
@@ -347,10 +380,25 @@ def ptxas_summary(logs) -> list:
                     if short[0] == 'latent_split_kernel':
                         cur['pool'] = ('bfloat16' if '__nv_bfloat16' in name
                                        else 'float32')
+                    if short[0] in ('key_split_kernel',
+                                    'quantize_rows_kernel'):
+                        t = re.search(r'Li(\d+)ELb([01])E(?:Lb([01])E)?',
+                                      name)
+                        if t:
+                            cur['rows' if loader else 'vecs'] = int(t[1])
+                            cur['aligned'] = t[2] == '1'
+                            cur['chunk' if loader else 'cluster'] = \
+                                t[3] == '1'
+                        if not loader:
+                            cur['dtype'] = ('bfloat16' if '__nv_bfloat16'
+                                            in name else 'float32')
                     out.append(cur)
                 continue
             if cur is None:
                 continue
+            m = re.search(r'(\d+) bytes stack frame', line)
+            if m:
+                cur['stack_frame'] = int(m.group(1))
             m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
                           line)
             if m:
@@ -570,6 +618,53 @@ def kernel_phase(torch, kmods):
                          device=dev).to(dt)
         k1_row(torch, fd, rows, q, kp, vp, pos, win, bt)
 
+    # the launch floor: a kernel that does nothing, launched through the
+    # same C interface as K3, timed as every row is (K3's decode rows are
+    # held against it: their byte bound is far below any launch)
+    floor_fn = build.function('quantize', 'launch_floor', [build.P])
+
+    def floor():
+        build.check(floor_fn(torch.cuda.current_stream().cuda_stream),
+                    'quantize', 'launch_floor')
+    floor_ms, floor_timer, floor_n = device_ms(torch, floor, expect=1)
+    rows.append(dict(name='launch_floor', shape=dict(grid=1, threads=32),
+                     ms=floor_ms, kernels_per_call=floor_n,
+                     timer=dict(ms=floor_timer)))
+    # K3 bit-exact beyond the serving rows: a K that is no multiple of a
+    # 16-byte piece, a row base off 16-byte alignment (both the kernel's
+    # element-load branch), one short row, and a row whose absmax sits in
+    # the last cluster slice
+    for m, k, dt, shift in ((8, 7, torch.float32, 0),
+                            (1024, 2049, torch.bfloat16, 0),
+                            (8, 2048, torch.bfloat16, 1),
+                            (8, 7168, torch.bfloat16, 0),
+                            (1, 5632, torch.float32, 3)):
+        x = torch.randn((m * k + shift,), generator=gen, device=dev).to(dt)
+        x = x[shift:].view(m, k)
+        x[-1, -1] = 100.0             # the absmax in the row's last piece
+        xq, sx = kq.quantize_rows(x)
+        xq_p, sx_p = kq.quantize_rows_plain(x)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(xq, xq_p) and torch.equal(sx, sx_p)),
+              f'K3 ({m},{k}) {dt} offset {shift} not bit-exact')
+    # K3 bit-exact on crafted rows that random rows never reach, on one CTA
+    # a row (K=2048), clusters (K=7168, 18432), several rows a block
+    # (M=1024) and the element-load branch (K=2049; a base off 16 bytes)
+    for m, k, shift in ((8, 2048, 0), (8, 7168, 0), (8, 18432, 0),
+                        (1024, 2048, 0), (8, 2049, 0), (8, 7168, 1)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.empty((m * k + shift,), device=dev, dtype=dt)
+            x = x[shift:].view(m, k)
+            x.copy_(k3_crafted_rows(torch, m, k, gen))
+            xq, sx = kq.quantize_rows(x)
+            xq_p, sx_p = kq.quantize_rows_plain(x)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(xq, xq_p) and torch.equal(sx, sx_p)),
+                  f'K3 crafted rows ({m},{k}) {dt} offset {shift} not '
+                  f'bit-exact')
+            check(xq[0, :8].tolist() == [127, 2, -4, 0, 0, 126, 2, -2],
+                  f'K3 crafted rows ({m},{k}) {dt}: ties not half to even')
+
     # K3 / K2 / K4 at each main path's linear shapes, M in {8 slots,
     # 128-token prompt} and, for stablelm's layer linears, the static
     # prefill's 1024 rows: K3 on the bf16 activation and on the f32
@@ -695,17 +790,50 @@ def kernel_phase(torch, kmods):
     return rows
 
 
+def k3_crafted_rows(torch, m, k, gen):
+    """(m, k) f32 rows of eight kinds, row i of kind i % 8: exact .5
+    quotients (absmax 127 gives scale 1.0; absmax 508 scale 4.0), denormals
+    beside a normal absmax and alone, an absmax near the largest finite
+    value, one below 1e-8, tiny normals, and a row holding +inf and -inf
+    (its scale inf, inf / inf a NaN code)."""
+    ties = torch.tensor([2.5, -3.5, 0.5, -0.5, 126.5, 1.5, -1.5, 125.5],
+                        device=gen.device)
+    noise = torch.randn((m, k), generator=gen, device=gen.device)
+    x = torch.empty((m, k), device=gen.device)
+    tiled = ties.repeat(-(-k // 8))[:k - 1]
+    for kind in range(8):
+        r = x[kind::8]
+        if kind in (0, 7):
+            r[:, 0] = 127.0 if kind == 0 else 508.0
+            r[:, 1:] = tiled * (1 if kind == 0 else 4)
+        elif kind in (1, 2):
+            r.copy_(noise[kind::8] * 1e-39)
+            if kind == 1:
+                r[:, -1] = 1.0
+        elif kind == 3:
+            r.copy_(noise[kind::8] * 1e37)
+            r[:, k // 2] = 3.0e38
+        elif kind == 4:
+            r.copy_(noise[kind::8] * 1e-9)
+        elif kind == 5:
+            r.copy_(noise[kind::8])
+            r[:, k // 3] = float('inf')
+            r[:, -1] = float('-inf')
+        else:
+            r.copy_(noise[kind::8] * 1e-30)
+    return x
+
+
 def tier_chunk_kernel_phase(torch, kmods):
     """K6 (paged decode over the int8 tier) and K5 (chunked-prefill
-    attention) against their plain versions at full-width shapes."""
+    attention) against their plain versions at full-width shapes, K5 also
+    at a 4,096-token context."""
     from repro_torch.runtime import kv_quant as kvq
 
     fd = kmods[0]
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    src = 'src/repro_torch/csrc/flash_decode.cu'
-    scale = 1.0 / 64 ** 0.5
 
     # K6: B=8, Hkv=32, G=1, dh=64, page size 8, W=20, hot window 2; one
     # idle slot, a 9-key window on every odd slot, three slots deep enough
@@ -729,13 +857,30 @@ def tier_chunk_kernel_phase(torch, kmods):
         k6_row(torch, fd, rows, q, c, pos, win, bt, hw)
         del c
 
-    # K5: one request, Hkv=32, G=1, dh=64, page size 8, W=20, limit 128:
-    # C=32 at offsets 0 and 96 (a miss's first chunk, a prefix hit's
-    # suffix at --chunk-prefill 32), C=8 at offsets 96 and 120 (the first
-    # and last page-size chunk of a prefix hit's suffix, the chunk size
-    # the prefix cache uses without --chunk-prefill) and an unaligned C=7
-    # whose last 3 rows are padding
-    b, w, limit = 1, 20, 128
+    # K5 (on the key split: two device kernels a launch): one request,
+    # Hkv=32, G=1, dh=64, page size 8. W=20, limit 128: C=32 at offsets 0
+    # and 96 (a miss's first chunk, a prefix hit's suffix at
+    # --chunk-prefill 32), C=8 at offsets 96 and 120 (the first and last
+    # page-size chunk of a prefix hit's suffix, the chunk size the prefix
+    # cache uses without --chunk-prefill) and an unaligned C=7 whose last 3
+    # rows are padding. W=512, limit 4096 (a 4,096-token context): C=32 at
+    # offset 4064 and C=8 at 4088, the plain version timed over 2 calls
+    for w, limit, cases in (
+            (20, 128, ((32, 0), (32, 96), (8, 96), (8, 120), (7, 124))),
+            (512, 4096, ((32, 4064), (8, 4088)))):
+        k5_rows(torch, fd, rows, gen, w, limit, cases)
+    return rows
+
+
+def k5_rows(torch, fd, rows, gen, w, limit, cases):
+    """Hold K5 to its plain version (1e-5 on the rows below ``limit``, every
+    row finite) for one request of Hkv=32, G=1, dh=64 over a W-page table,
+    bf16 and f32 pools, at each (C, offset) of ``cases``; record the rows
+    (the plain version over 2 calls at W > 20)."""
+    dev = torch.device('cuda')
+    src = 'src/repro_torch/csrc/flash_decode.cu'
+    b, hkv, g, dh, ps = 1, 32, 1, 64, 8
+    scale = 1.0 / dh ** 0.5
     n_pages = 1 + w
     bt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1) \
         .reshape(b, w).to(torch.int32).contiguous()
@@ -744,7 +889,7 @@ def tier_chunk_kernel_phase(torch, kmods):
                          device=dev).to(dt)
         vp = torch.randn((n_pages, ps, hkv, dh), generator=gen,
                          device=dev).to(dt)
-        for c, off in ((32, 0), (32, 96), (8, 96), (8, 120), (7, 124)):
+        for c, off in cases:
             qc = torch.randn((b, c, hkv * g, dh), generator=gen, device=dev)
             qg = qc.reshape(b, c, hkv, g, dh).permute(0, 2, 1, 3, 4) \
                 .reshape(b, hkv, c * g, dh).contiguous()
@@ -780,8 +925,11 @@ def tier_chunk_kernel_phase(torch, kmods):
                        lambda: fd.flash_decode_gqa_paged_plain(
                            *args, scale=scale, chunk=c),
                        None, nbytes, ops, BF16_OPS_PER_S, source=src,
-                       replaces='src/repro/kernels/flash_decode.py:304')
-    return rows
+                       replaces='src/repro/kernels/flash_decode.py:304',
+                       kernels_per_launch=2,
+                       plain_iters=20 if w <= 20 else 2)
+            rows[-1]['plan'] = fd.chunk_split_plan(b, w, ps, hkv, c, g, dh,
+                                                   kp.element_size())
 
 
 def paged_split_kernel_phase(torch, kmods):
@@ -1569,26 +1717,32 @@ def _prefill_chunks(out, stream, opts):
 
 def _gqa_launches(out, mode, prequant, chunks, chunked_admits):
     """Launches the stablelm path must make: K1 24 a decode step (K6 in
-    its place with the tier), K5 24 a prefill chunk, and per forward 169
-    linears (K3 + K2 with --prequantize, 2 K3 + K4 dynamic)."""
+    its place with the tier), K5 24 a prefill chunk (each launch two device
+    kernels, its splits and their combine), and per forward 169 linears
+    over 97 distinct activations: K3 97 + K2 169 with --prequantize, K3
+    97 + 169 (the weights) + K4 169 dynamic."""
     del chunked_admits
     decode = LAYERS_FULL * out['steps']
     want = dict(flash_decode_paged=0 if out['kv_quant'] else decode,
                 flash_decode_paged_q8=decode if out['kv_quant'] else 0,
                 flash_chunk_paged=LAYERS_FULL * chunks)
-    linears = LINEARS_PER_FORWARD * (out['steps'] + out['events']['admit'])
+    forwards = out['steps'] + out['events']['admit']
+    linears = LINEARS_PER_FORWARD * forwards
+    activations = ACTIVATIONS_PER_FORWARD * forwards
     if mode == 'w8a8' and prequant:
-        want.update(quantize_rows=linears, int8_matmul=linears)
+        want.update(quantize_rows=activations, int8_matmul=linears)
     elif mode == 'w8a8':
-        want.update(quantize_rows=2 * linears, yoco_vmm_int8=linears)
+        want.update(quantize_rows=activations + linears,
+                    yoco_vmm_int8=linears)
     return want
 
 
 def _mla_launches(out, mode, prequant, chunks, chunked_admits):
     """Launches the dense-prefix MLA path must make: K8 3 a decode step
     (K10 in its place with the tier), K9 3 a prefill chunk; in dynamic
-    w8a8, 22 linears a decode step or chunk and 25 a monolithic prefill
-    (w_ukv expands the prompt's k/v), each 2 K3 + 1 K4."""
+    w8a8, 22 linears over 16 distinct activations a decode step or chunk
+    and 25 over 19 a monolithic prefill (w_ukv expands the prompt's k/v):
+    K4 a linear, K3 an activation and a linear."""
     check(not prequant, 'the port serves no --prequantize on MLA')
     decode = MLA_LAYERS * out['steps']
     want = dict(flash_decode_paged_mla=0 if out['kv_quant'] else decode,
@@ -1598,7 +1752,10 @@ def _mla_launches(out, mode, prequant, chunks, chunked_admits):
         monolithic = out['events']['admit'] - chunked_admits
         linears = (MLA_LINEARS_DECODE * (out['steps'] + chunks)
                    + MLA_LINEARS_PREFILL * monolithic)
-        want.update(quantize_rows=2 * linears, yoco_vmm_int8=linears)
+        activations = (MLA_ACTIVATIONS_DECODE * (out['steps'] + chunks)
+                       + MLA_ACTIVATIONS_PREFILL * monolithic)
+        want.update(quantize_rows=activations + linears,
+                    yoco_vmm_int8=linears)
     return want
 
 
@@ -1704,8 +1861,9 @@ def static_serve_phase(torch, build):
     from a seed), each of STATIC_RUNS once after a warm-up per model. Gates:
     every logits row finite, ``generated_shape == [8, 32]``, K7 launched
     exactly 24 * 31 = 744 times per flash run and never by einsum, no paged
-    kernel launched, K3 and K2 169 times per forward with --prequantize,
-    K4 169 and K3 338 times per forward in dynamic w8a8, and the
+    kernel launched, K2 169 and K3 97 times per forward with
+    --prequantize, K4 169 and K3 266 times per forward in dynamic w8a8,
+    and the
     temperature-0 run's tokens equal to the greedy flash run's.
     Then the device busy share of the bf16 flash lock-step run and of the
     dynamic w8a8 flash --ragged run. Returns (rows, launch totals)."""
@@ -1750,10 +1908,12 @@ def static_serve_phase(torch, build):
         if impl == 'flash':
             want['flash_decode_contig'] = layers * (STATIC_GEN - 1)
         linears = LINEARS_PER_FORWARD * STATIC_GEN
+        activations = ACTIVATIONS_PER_FORWARD * STATIC_GEN
         if mode == 'w8a8' and prequant:
-            want['quantize_rows'] = want['int8_matmul'] = linears
+            want.update(quantize_rows=activations, int8_matmul=linears)
         elif mode == 'w8a8':
-            want.update(quantize_rows=2 * linears, yoco_vmm_int8=linears)
+            want.update(quantize_rows=activations + linears,
+                        yoco_vmm_int8=linears)
         for name, n in want.items():
             check(launches[name] == n, f'{tag}: {name} launched '
                                        f'{launches[name]} times, expected {n}')
@@ -1899,7 +2059,7 @@ PHASES = dict(kernels=all_kernel_phases, profile=all_profiles,
 def print_redesigned(rows):
     """Every row of the redesigned kernels, on one line."""
     keys = ('shape', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
-            'kernels_per_call', 'timer', 'max_abs_err', 'streamed_ms',
+            'kernels_per_call', 'timer', 'max_abs_err', 'plan', 'streamed_ms',
             'cold_ms', 'library_cold_ms', 'cold_ms_runs',
             'library_cold_ms_runs', 'k1_ms_same_inputs',
             'k1_cold_ms_same_inputs', 'bit_equal_k1_at_full_hot_window',
@@ -1923,20 +2083,35 @@ def run_phases(torch, report, kmods):
           and mla.vocab_size == 129280 and mla.moe is None
           and mla.mla.kv_lora_rank == 512 and mla.mla.rope_head_dim == 64,
           'deepseek-v3 dense prefix is not at the published width')
+    # each phase's wall time (the run must end within its time limit)
+    phase_s = report['phase_s'] = {}
+    t0 = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t0[0]
+        t0[0] = now
+        print(f'phase {name}: {phase_s[name]:.1f} s', flush=True)
+
     report['kernel_sweep'] = all_kernel_phases(torch, kmods)
+    lap('kernels')
     report['smoke'] = (smoke_phase(torch) + smoke_tier_prefix_phase(torch)
                        + smoke_phase(torch, MLA_ARCH, (('bf16', False),
                                                        ('w8a8', False)))
                        + smoke_tier_prefix_phase(torch, MLA_ARCH)
                        + smoke_static_phase(torch))
     print(f'smoke parity: {json.dumps(report["smoke"])}', flush=True)
+    lap('smoke')
     report['profile'] = all_profiles(torch, kmods)
+    lap('profile')
     report['serve'], gqa_totals = serve_phase(torch, kmods[3])
     mla_serve, mla_totals = serve_phase(torch, kmods[3], MLA_ARCH,
                                         MLA_SERVE_RUNS, _mla_launches)
     report['serve'] += mla_serve
+    lap('serve')
     report['static_serve'], static_totals = static_serve_phase(torch,
                                                                kmods[3])
+    lap('static')
     for k in gqa_totals:
         check(gqa_totals[k] + mla_totals[k] + static_totals[k] > 0,
               f'kernel {k} was never launched on the main paths')

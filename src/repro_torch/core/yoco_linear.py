@@ -4,7 +4,9 @@
 Modes ported so far:
 
   bf16   digital baseline: ``x @ w`` in the compute dtype;
-  w8a8   YOCO inference: activations quantized ONCE per row (kernel K3),
+  w8a8   YOCO inference: activations quantized ONCE per row (kernel K3;
+         :func:`linears` shares that quantization between the weights
+         that read one activation),
          int8 x int8 -> int32 with no mid-reduction rounding, ONE dequant.
          With a float weight (dynamic quantization) the weight's output
          channels go through K3 as well and the product is K4 with its
@@ -81,35 +83,53 @@ def _check_mode(cfg: YocoConfig) -> None:
         raise NotImplementedError('the int8 kernels take bits=8 only')
 
 
-def _w8a8_prequant(x: torch.Tensor, w: QuantizedWeight,
-                   cfg: YocoConfig) -> torch.Tensor:
-    """Serving path: weights already int8 in memory. K3 on the activation,
-    K2 for the product, then the reference's ``acc * sx * w.scale``."""
-    xq, sx = ops.quantize_rows(x)
-    acc = ops.int8_matmul(xq, w.wq)
-    y = acc.to(torch.float32) * sx * w.scale
+def _w8a8_product(xq: torch.Tensor, sx: torch.Tensor, w,
+                  cfg: YocoConfig) -> torch.Tensor:
+    """One w8a8 product from the activation's codes and scales (K3's). A
+    ``QuantizedWeight`` (weights already int8 in memory): K2, then the
+    reference's ``acc * sx * w.scale``. A float weight (dynamic
+    quantization): K3 on its output channels, then K4."""
+    if isinstance(w, QuantizedWeight):
+        acc = ops.int8_matmul(xq, w.wq)
+        y = acc.to(torch.float32) * sx * w.scale
+    else:
+        y = ops.yoco_vmm_codes(xq, sx, w)
     return y.to(cfg.compute_dtype)
+
+
+def linears(x: torch.Tensor, ws, bs=None,
+            cfg: YocoConfig = DEFAULT_YOCO) -> list:
+    """``[x @ w + b for w, b in zip(ws, bs)]`` under the configured mode, in
+    the compute dtype (``bs`` None, or a list with None entries: no bias).
+    w8a8 quantizes x ONCE (K3) for all the weights, as the reference's
+    compiled step computes one quantization of an activation that several
+    linears read (XLA merges the duplicates); bf16 runs one matmul a
+    weight. Anything that runs several linears on one x uses this form:
+    the q/k/v projections, an MLP's gate and up, MLA's w_dq and w_dkv."""
+    _check_mode(cfg)
+    if cfg.mode == 'w8a8':
+        xq, sx = ops.quantize_rows(x)
+        ys = [_w8a8_product(xq, sx, w, cfg) for w in ws]
+    else:
+        cd = cfg.compute_dtype
+        ys = [torch.matmul(x.to(cd), (quant.dequantize(w.wq, w.scale,
+                                                       torch.float32)
+                                      if isinstance(w, QuantizedWeight)
+                                      else w).to(cd))
+              for w in ws]
+    bs = [None] * len(ws) if bs is None else bs
+    return [y if b is None else y + b.to(y.dtype) for y, b in zip(ys, bs)]
 
 
 def yoco_matmul(x: torch.Tensor, w: Union[torch.Tensor, QuantizedWeight],
                 cfg: YocoConfig = DEFAULT_YOCO) -> torch.Tensor:
     """(..., K) @ (K, N) under the configured mode; returns compute dtype."""
-    _check_mode(cfg)
-    if isinstance(w, QuantizedWeight):
-        if cfg.mode == 'w8a8':
-            return _w8a8_prequant(x, w, cfg)
-        w = quant.dequantize(w.wq, w.scale, torch.float32)
-    if cfg.mode == 'bf16':
-        return torch.matmul(x.to(cfg.compute_dtype), w.to(cfg.compute_dtype))
-    return ops.yoco_vmm(x, w).to(cfg.compute_dtype)
+    return linears(x, [w], cfg=cfg)[0]
 
 
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
            cfg: YocoConfig = DEFAULT_YOCO) -> torch.Tensor:
-    y = yoco_matmul(x, w, cfg)
-    if b is not None:
-        y = y + b.to(y.dtype)
-    return y
+    return linears(x, [w], [b], cfg)[0]
 
 
 _WEIGHT_NAMES = ('wq', 'wk', 'wv', 'wo', 'w_gate', 'w_up', 'w_down', 'w_in',

@@ -32,6 +32,52 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// 16-byte row pieces (the key split's rows, K3's rows).
+// elements of KV in one 16-byte load
+template <typename KV>
+struct Vec {
+  static constexpr int n = 16 / sizeof(KV);
+};
+
+// up to 16 bytes of a row from p: `n_valid` elements (<= 0: none, zeros);
+// the aligned form needs a 16-byte aligned p and n_valid <= 0 or >= a vector
+template <typename KV, bool kAligned>
+__device__ __forceinline__ uint4 load_raw(const KV* p, int n_valid) {
+  if (n_valid <= 0) return make_uint4(0, 0, 0, 0);
+  if (kAligned) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint32_t w[4] = {0, 0, 0, 0};
+  if constexpr (sizeof(KV) == 4) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n_valid) w[e] = __ldg(reinterpret_cast<const unsigned int*>(p) + e);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < n_valid)
+        w[e / 2] |= static_cast<uint32_t>(__ldg(
+                        reinterpret_cast<const unsigned short*>(p) + e))
+                    << (16 * (e % 2));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// a piece's elements as f32: 4 f32, or 8 bf16 (bf16 -> f32 is exact)
+__device__ __forceinline__ void unpack(const uint4 u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ void unpack(const uint4 u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);          // bf16 -> f32, exact
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 // Shared-memory addresses and mbarriers (the TMA and bulk-copy pipelines).
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

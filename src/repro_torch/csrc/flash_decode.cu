@@ -14,7 +14,7 @@
 //       offset + r / G, each with its own causal/window mask; pos/window
 //       are the fetch-union scalars (the chunk's last valid position, and
 //       the window widened by C - 1), so the live-page range covers every
-//       row and each row re-derives its own validity inside the tile.
+//       row and each row re-derives its own validity inside the split.
 //   K6  flash_decode_gqa_paged_q8 (via flash_decode_paged_q8): K1 over the
 //       hybrid tier. Block s is hot iff s > max(pos, 0) / page_size - hw;
 //       a hot page is read from the fp pools, a cold one from the int8
@@ -51,22 +51,23 @@
 // Which kernel serves which entry point:
 //   key_split_kernel + split_combine_kernel (the key split, below), one
 //   kernel body over three row loaders: K7 (flash_decode_contig, ContigKV),
-//   K1 (flash_decode_paged, PagedKV) and K6 (flash_decode_paged_q8,
-//   TieredPagedKV).
+//   K1 (flash_decode_paged, PagedKV), K6 (flash_decode_paged_q8,
+//   TieredPagedKV) and, with its chunk rows, K5 (flash_chunk_paged,
+//   PagedKV).
 //   latent_split_kernel + split_combine_kernel (the latent key split,
 //   below), one kernel for K8 (flash_decode_paged_mla) and K10
 //   (flash_decode_paged_mla_q8): K10 passes the int8 tier, K8 none.
-//   paged_attend_kernel (the shared paged body, below), one body over page
-//   loaders: K5 (flash_chunk_paged, FpPages) and K9 (flash_chunk_paged_mla,
-//   LatentPages).
+//   paged_attend_kernel (the older paged body, below): K9
+//   (flash_chunk_paged_mla) alone, until its redesign.
 // All copy the reference's online softmax; what differs between entry
 // points of one body is the loader and the row positions (one position
 // for decode, offset + r / group for a chunk).
 //
-// Bound on the H100: bytes for K1/K6/K7 (each live key is read once and
-// used for 2*G*dh multiply-adds, far below the card's operations-per-byte
-// balance); K5 reuses each key for C*G rows, still bytes-bound at the
-// serving chunk sizes. K8/K10: see the latent key split.
+// Bound on the H100: bytes for K1/K5/K6/K7 (each live key is read once,
+// from device memory, and used for 2*G*dh multiply-adds a row, far below
+// the card's operations-per-byte balance; K5's C*G rows a key still leave
+// it bytes-bound at the serving chunk sizes). K8/K10: see the latent key
+// split.
 //
 // The key split: one block per (request, KV head, key split, group of at
 // most 2 query rows), so a batch of 8 x 32 heads gives 768 blocks at 160
@@ -102,6 +103,15 @@
 // is read from one tier only. Its hot keys take PagedKV's loads and the
 // same arithmetic, so K6 equals K1 bit for bit when the hot window covers
 // the table.
+// K5 is K1's kernel with chunk rows (kChunk, planned by chunk_split_plan):
+// a block's C*G query rows sit at offset + r / G, each row with the window
+// win - (C - 1) of the fetch-union scalars; the block narrows the live
+// keys to what its own rows can see, and each row masks its own keys in
+// the lane group's online softmax, so one key row read serves the block's
+// 2 query rows (chunk_split_plan: of 2, 4 and 8 timed on the H100, 2 won
+// at bf16, where 8 rows take 255 registers and a quarter of the
+// occupancy; only the 2-row instance is built). K1 keeps its own instance
+// (kChunk = false) bit for bit.
 //
 // The latent key split (K8, K10). MLA is GQA with one KV head and all
 // H = 128 query rows sharing every latent row, so a key tile's work is two
@@ -145,9 +155,9 @@
 // - The splits' partials are merged by the key split's combine
 //   (split_combine_kernel) with g = H and dh = DV.
 //
-// The shared paged body (K5, K9): one block per (request, KV head) and per
-// group of at most kChunkRows (K5) or kLatentRows (K9) query rows
-// (grid.y), so shared memory stays bounded whatever C is. The block reads
+// The older paged body (K9): one block per request and per group of at
+// most kLatentRows query rows (grid.y), so shared memory stays bounded
+// whatever C is. The block reads
 // its own pos, window, offset and block-table row from device memory
 // (this replaces scalar prefetch: no host sync) and loops only over the
 // live pages [first, last], so dead keys are never read. One pass covers
@@ -157,11 +167,10 @@
 // memory for the whole loop. The online softmax copies `_softmax_tile`'s
 // guards: alpha = 0 while the running max is still -inf, masked keys
 // contribute p = 0, and the output is normalised once, acc / max(l,
-// 1e-30), after the last pass. K5's fp tiles keep a row stride of dh, so
-// its QK loop has the 32-way bank conflict the key split avoids; K9's
-// latent tile (the first DV columns its values) has a row stride of DK + 1
-// floats, so the 32 keys of a warp's dot products fall in 32 distinct
-// banks. Moving both to the splits is later work.
+// 1e-30), after the last pass. The latent tile (the first DV columns its
+// values) has a row stride of DK + 1 floats, so the 32 keys of a warp's
+// dot products fall in 32 distinct banks. Moving K9 to the latent split is
+// later work.
 #include <math.h>
 
 #include <type_traits>
@@ -173,7 +182,6 @@ namespace {
 constexpr int kKeys = 32;       // keys per pass: one per lane in the softmax
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunkRows = 32;  // K5 query rows per block
 constexpr int kLatentRows = 8;  // K9 query rows per block
 
 // an f32 value in the pool dtype (round to nearest even for bf16): a
@@ -190,27 +198,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// Page loader of the fp pools (K5).
-template <typename KV>
-struct FpPages {
-  static constexpr bool kLatent = false;
-  const KV* __restrict__ k;
-  const KV* __restrict__ v;
-
-  __device__ __forceinline__ void setup(int, int) {}
-  // `off` is the element offset of (page, row, head, d) in a pool
-  __device__ __forceinline__ void load(int64_t off, int, int, int, float& kk,
-                                       float& vv) const {
-    kk = to_f32(k[off]);
-    vv = to_f32(v[off]);
-  }
-};
-
 // Page loader of the fp latent pool (K9): one value per (page, row,
 // column), used as a key and, in its first DV columns, as a value.
 template <typename KV>
 struct LatentPages {
-  static constexpr bool kLatent = true;
   const KV* __restrict__ c;
 
   __device__ __forceinline__ void setup(int, int) {}
@@ -222,7 +213,8 @@ struct LatentPages {
 // One block: request b = blockIdx.x / hkv, KV head h = blockIdx.x % hkv,
 // query rows [blockIdx.y * rpb, +rpb) of `rows`. Row r sits at position
 // base + r / group, base = offset[b] (chunk) or pos[b] (decode, group =
-// rows), and attends kpos in (qp - (win - (chunk - 1)), qp].
+// rows), and attends kpos in (qp - (win - (chunk - 1)), qp]. K9 runs it
+// with hkv = 1.
 template <typename Pages>
 __global__ void __launch_bounds__(kThreads)
 paged_attend_kernel(Pages pages, const float* __restrict__ q,
@@ -234,15 +226,13 @@ paged_attend_kernel(Pages pages, const float* __restrict__ q,
                     int dk, int dv, int ks, int page_size, int w, int chunk,
                     int group, float scale) {
   // dk: key (and query) width; dv: value width; ks: row stride of the
-  // staged key tile. Fp pools: dk = dv = ks = dh, separate K and V tiles.
-  // Latent pools: the value tile is the first dv columns of the key tile.
+  // staged key tile, whose first dv columns are the value tile.
   extern __shared__ float smem[];
   float* s_q = smem;                   // rpb * dk
   float* s_acc = s_q + rpb * dk;       // rpb * dv
   float* s_k = s_acc + rpb * dv;       // kKeys * ks
-  float* s_v = Pages::kLatent ? s_k : s_k + kKeys * ks;   // kKeys * dv
-  const int vs = Pages::kLatent ? ks : dv;                // its row stride
-  float* s_p = s_k + kKeys * ks + (Pages::kLatent ? 0 : kKeys * dv);
+  const float* s_v = s_k;              // the values: same rows, stride ks
+  float* s_p = s_k + kKeys * ks;
   float* s_m = s_p + rpb * kKeys;      // rpb
   float* s_l = s_m + rpb;              // rpb
   float* s_alpha = s_l + rpb;          // rpb
@@ -279,20 +269,16 @@ paged_attend_kernel(Pages pages, const float* __restrict__ q,
     for (int i = tid; i < kKeys * dk; i += kThreads) {
       const int j = i / dk, d = i - j * dk;
       const int kpos = t0 + j;
-      float kk = 0.f, vv = 0.f;
+      float kk = 0.f;
       if (kpos < k_end) {
         const int blk = kpos / page_size;
         const int page = bt[blk];
         const int64_t off =
             ((static_cast<int64_t>(page) * page_size + kpos % page_size) *
                  hkv + h) * dk + d;
-        if constexpr (Pages::kLatent)
-          kk = pg.load(off, page, blk);
-        else
-          pg.load(off, page, blk, h, kk, vv);
+        kk = pg.load(off, page, blk);
       }
       s_k[j * ks + d] = kk;
-      if constexpr (!Pages::kLatent) s_v[i] = vv;
     }
     __syncthreads();
     for (int i = tid; i < nr * kKeys; i += kThreads) {
@@ -330,7 +316,7 @@ paged_attend_kernel(Pages pages, const float* __restrict__ q,
       const int gi = i / dv, d = i - gi * dv;
       float pv = 0.f;
       for (int j = 0; j < kKeys; ++j)
-        pv += s_p[gi * kKeys + j] * s_v[j * vs + d];
+        pv += s_p[gi * kKeys + j] * s_v[j * ks + d];
       s_acc[i] = s_acc[i] * s_alpha[gi] + pv;
     }
     __syncthreads();
@@ -344,8 +330,7 @@ paged_attend_kernel(Pages pages, const float* __restrict__ q,
 // Dynamic shared memory of one block (see the kernel's carve-up).
 template <typename Pages>
 size_t smem_bytes(int rpb, int dk, int dv, int ks) {
-  return sizeof(float) * (rpb * dk + rpb * dv + kKeys * ks +
-                          (Pages::kLatent ? 0 : kKeys * dv) + rpb * kKeys +
+  return sizeof(float) * (rpb * dk + rpb * dv + kKeys * ks + rpb * kKeys +
                           3 * rpb);
 }
 
@@ -376,16 +361,6 @@ int launch(const Pages& pages, const void* q, const void* pos,
   return static_cast<int>(cudaGetLastError());
 }
 
-// GQA pools: key, value and stride widths are all dh.
-template <typename Pages>
-int launch_gqa(const Pages& pages, const void* q, const void* pos,
-               const void* win, const void* off, const void* bt, void* out,
-               int b, int hkv, int rows, int rpb, int dh, int page_size,
-               int w, int chunk, float scale, void* stream) {
-  return launch(pages, q, pos, win, off, bt, out, b, hkv, rows, rpb, dh, dh,
-                dh, page_size, w, chunk, scale, stream);
-}
-
 // Latent pools: one KV head, dk-wide keys, dv-wide values, the staged
 // tile padded to a dk + 1 stride.
 template <typename Pages>
@@ -400,11 +375,6 @@ int launch_mla(const Pages& pages, const void* q, const void* pos,
 }
 
 template <typename KV>
-FpPages<KV> fp_pages(const void* kp, const void* vp) {
-  return FpPages<KV>{static_cast<const KV*>(kp), static_cast<const KV*>(vp)};
-}
-
-template <typename KV>
 LatentPages<KV> latent_pages(const void* c) {
   return LatentPages<KV>{static_cast<const KV*>(c)};
 }
@@ -415,34 +385,6 @@ LatentPages<KV> latent_pages(const void* c) {
 constexpr int kSplitWarps = 4;
 constexpr int kSplitThreads = kSplitWarps * 32;
 constexpr int kStepKeys = 4;     // keys a lane group takes per update
-
-// elements of KV in one 16-byte load
-template <typename KV>
-struct Vec {
-  static constexpr int n = 16 / sizeof(KV);
-};
-
-// up to 16 bytes of a row from p: `n_valid` elements (<= 0: none, zeros);
-// the aligned form needs a 16-byte aligned p and n_valid <= 0 or >= a vector
-template <typename KV, bool kAligned>
-__device__ __forceinline__ uint4 load_raw(const KV* p, int n_valid) {
-  if (n_valid <= 0) return make_uint4(0, 0, 0, 0);
-  if (kAligned) return __ldg(reinterpret_cast<const uint4*>(p));
-  uint32_t w[4] = {0, 0, 0, 0};
-  if constexpr (sizeof(KV) == 4) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (e < n_valid) w[e] = __ldg(reinterpret_cast<const unsigned int*>(p) + e);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (e < n_valid)
-        w[e / 2] |= static_cast<uint32_t>(__ldg(
-                        reinterpret_cast<const unsigned short*>(p) + e))
-                    << (16 * (e % 2));
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
 
 // the int8 codes of a row that sit beside the Vec<KV>::n elements of a
 // 16-byte piece (8 bytes against bf16 pools, 4 against f32), from p, in
@@ -667,28 +609,20 @@ __device__ __forceinline__ void dequant_step(uint4 (&kr)[kStepKeys],
   }
 }
 
-__device__ __forceinline__ void unpack(const uint4 u, float (&f)[4]) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-
-__device__ __forceinline__ void unpack(const uint4 u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);          // bf16 -> f32, exact
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
 // The weight of an online-softmax state whose max is m in a merge whose
 // max is m_new, with _softmax_tile's guard: a state whose max is -inf
 // weighs 0 (and its sum and accumulator are not read).
 __device__ __forceinline__ float merge_weight(float m, float m_new) {
   return m == -INFINITY ? 0.f : expf(m - m_new);
 }
+
+// The query rows of a chunk (K5): row r of a (request b, KV head) sits at
+// off[b] + r / group and attends (qp - (win - (chunk - 1)), qp]; for
+// decode (K1, K6, K7) off is null and every row sits at pos.
+struct ChunkRows {
+  const int* __restrict__ off;
+  int chunk, group;
+};
 
 // One block: (b, h) = blockIdx.x, key split blockIdx.y, query rows
 // [blockIdx.z * kRows, +kRows) of g. Keys are cut into absolute tiles of
@@ -701,15 +635,19 @@ __device__ __forceinline__ float merge_weight(float m, float m_new) {
 // grp of each step kb and keeps its own online-softmax state over them
 // (no block barrier in the key loop); the groups merge by shuffles, then
 // the warps through shared memory, in a fixed order. The split's partial
-// (m, l, unnormalised acc) goes to part_*.
-template <typename Rows, int kRows, bool kAligned>
+// (m, l, unnormalised acc) goes to part_*. With kChunk (K5) pos and win
+// are the chunk's fetch-union scalars; the block narrows [lo, hi] to the
+// keys its own rows can see, and each row masks its own keys inside the
+// lane group's online softmax (logit -inf, p = 0), so a row with no
+// valid key in a split leaves that split's m at -inf.
+template <typename Rows, int kRows, bool kAligned, bool kChunk>
 __global__ void __launch_bounds__(kSplitThreads)
 key_split_kernel(Rows loader, const float* __restrict__ q,
                  const int* __restrict__ pos_v, const int* __restrict__ win_v,
-                 float* __restrict__ part_m, float* __restrict__ part_l,
-                 float* __restrict__ part_acc, int g, int dh, int lpk,
-                 int tile, int tiles_per_split, int n_splits, int streamed,
-                 float scale) {
+                 ChunkRows chunk, float* __restrict__ part_m,
+                 float* __restrict__ part_l, float* __restrict__ part_acc,
+                 int g, int dh, int lpk, int tile, int tiles_per_split,
+                 int n_splits, int streamed, float scale) {
   constexpr int V = Vec<typename Rows::KV>::n;
   extern __shared__ float s_red[];   // m, l: kSplitWarps * kRows; acc; stage
   float* s_m = s_red;
@@ -724,7 +662,24 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
   const int kpw = 32 / lpk, grp = lane / lpk, li = lane % lpk;
   const int d0 = li * V;                        // this lane's 16 bytes
   const int pos = pos_v[b], win = win_v[b];
-  const int lo = max(pos - win + 1, 0), hi = min(pos, kv.s - 1);
+  int lo = max(pos - win + 1, 0), hi = min(pos, kv.s - 1);
+  // a chunk row's position and window
+  int qp[kRows];
+  int row_win = 0;
+  if constexpr (kChunk) {
+    const int base = chunk.off[b];
+    row_win = win - (chunk.chunk - 1);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) qp[r] = base + (r0 + r) / chunk.group;
+    lo = max(lo, qp[0] - row_win + 1);
+    hi = min(hi, base + (r0 + nr - 1) / chunk.group);
+  }
+  // whether row r sees key kpos of the block's range (ok: in [lo, hi])
+  auto sees = [&](int r, int kpos, bool ok) {
+    if constexpr (kChunk)
+      return ok && kpos <= qp[r] && kpos > qp[r] - row_win;
+    return ok;
+  };
   const int64_t p0 = (static_cast<int64_t>(bh) * n_splits + split) * g + r0;
 
   const int n_tiles = (kv.s + tile - 1) / tile;
@@ -786,7 +741,8 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
         for (int e = 0; e < V; ++e) dot += qv[r][e] * kf[e];
         for (int off = 1; off < lpk; off <<= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        logit[r][u] = ok[u] ? dot * scale : -INFINITY;
+        logit[r][u] = sees(r, kb + key0 + u * pass, ok[u]) ? dot * scale
+                                                          : -INFINITY;
       }
     }
     // the online update: logit[r][u] becomes p, acc is rescaled, then the
@@ -802,7 +758,9 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
       float p_sum = 0.f;
 #pragma unroll
       for (int u = 0; u < kStepKeys; ++u) {
-        logit[r][u] = ok[u] ? expf(logit[r][u] - m_new) : 0.f;
+        logit[r][u] = sees(r, kb + key0 + u * pass, ok[u])
+                          ? expf(logit[r][u] - m_new)
+                          : 0.f;
         p_sum += logit[r][u];
       }
       l_run[r] = l_run[r] * alpha + p_sum;
@@ -985,13 +943,14 @@ size_t split_smem(const Rows& kv, int dh) {
   return bytes;
 }
 
-template <typename Rows, int kRows>
+template <typename Rows, int kRows, bool kChunk>
 int launch_split(const Rows& kv, bool aligned, const void* q, const void* pos,
-                 const void* win, float* pm, float* pl, float* pa, int bhkv,
-                 int g, int dh, int lpk, int tile, int tps, int n_splits,
-                 int streamed, float scale, cudaStream_t stream) {
-  const auto kernel = aligned ? key_split_kernel<Rows, kRows, true>
-                              : key_split_kernel<Rows, kRows, false>;
+                 const void* win, ChunkRows chunk, float* pm, float* pl,
+                 float* pa, int bhkv, int g, int dh, int lpk, int tile,
+                 int tps, int n_splits, int streamed, float scale,
+                 cudaStream_t stream) {
+  const auto kernel = aligned ? key_split_kernel<Rows, kRows, true, kChunk>
+                              : key_split_kernel<Rows, kRows, false, kChunk>;
   const dim3 grid(bhkv, n_splits, (g + kRows - 1) / kRows);
   const size_t smem = split_smem<Rows, kRows>(kv, dh);
   if (smem > 48 * 1024) {
@@ -1002,37 +961,42 @@ int launch_split(const Rows& kv, bool aligned, const void* q, const void* pos,
   }
   kernel<<<grid, kSplitThreads, smem, stream>>>(
       kv, static_cast<const float*>(q), static_cast<const int*>(pos),
-      static_cast<const int*>(win), pm, pl, pa, g, dh, lpk, tile, tps,
+      static_cast<const int*>(win), chunk, pm, pl, pa, g, dh, lpk, tile, tps,
       n_splits, streamed, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The key splits of a plan (kernels/flash_decode.py::contig_split_plan,
-// paged_split_plan: `rows` query rows a block, lpk lanes a key row, `tile`
-// keys a tile, tps tiles a split, n_splits splits), then their combine.
-// Refuses a plan that does not cover the kv.s keys with whole steps, every
-// lane group owning one 16-byte piece of a row.
-template <typename Rows>
+// paged_split_plan: `rows` query rows a block, 1 or 2; chunk_split_plan
+// (kChunk): 2; lpk lanes a key row, `tile` keys a tile, tps tiles a split,
+// n_splits splits), then their combine. Refuses a plan that does
+// not cover the kv.s keys with whole steps, every lane group owning one
+// 16-byte piece of a row.
+template <typename Rows, bool kChunk>
 int launch_keys(const Rows& kv, bool aligned, const void* q, const void* pos,
-                const void* win, float* pm, float* pl, float* pa, float* out,
-                int b, int g, int dh, int rows, int lpk, int tile, int tps,
-                int n_splits, int streamed, float scale,
-                cudaStream_t stream) {
+                const void* win, ChunkRows chunk, float* pm, float* pl,
+                float* pa, float* out, int b, int g, int dh, int rows,
+                int lpk, int tile, int tps, int n_splits, int streamed,
+                float scale, cudaStream_t stream) {
   constexpr int V = Vec<typename Rows::KV>::n;
   const int span = kSplitWarps * (lpk > 0 ? 32 / lpk : 0) * kStepKeys;
-  if ((rows != 1 && rows != 2) || lpk < 1 || lpk > 32 ||
-      (lpk & (lpk - 1)) != 0 || lpk * V < dh ||
-      tile <= 0 || tile % span != 0 || tps < 1 || n_splits < 1 ||
-      static_cast<int64_t>(n_splits) * tps * tile < kv.s)
+  const bool rows_ok = kChunk ? rows == 2 : rows == 1 || rows == 2;
+  if (!rows_ok || lpk < 1 || lpk > 32 || (lpk & (lpk - 1)) != 0 ||
+      lpk * V < dh || tile <= 0 || tile % span != 0 || tps < 1 ||
+      n_splits < 1 || static_cast<int64_t>(n_splits) * tps * tile < kv.s)
     return static_cast<int>(cudaErrorInvalidValue);
   const int bhkv = b * kv.hkv;
-  const int err =
-      rows == 1 ? launch_split<Rows, 1>(kv, aligned, q, pos, win, pm, pl, pa,
-                                        bhkv, g, dh, lpk, tile, tps, n_splits,
-                                        streamed, scale, stream)
-                : launch_split<Rows, 2>(kv, aligned, q, pos, win, pm, pl, pa,
-                                        bhkv, g, dh, lpk, tile, tps, n_splits,
-                                        streamed, scale, stream);
+  const auto split = [&](auto rows_c) {
+    return launch_split<Rows, decltype(rows_c)::value, kChunk>(
+        kv, aligned, q, pos, win, chunk, pm, pl, pa, bhkv, g, dh, lpk, tile,
+        tps, n_splits, streamed, scale, stream);
+  };
+  int err;
+  if constexpr (kChunk)
+    err = split(std::integral_constant<int, 2>());
+  else
+    err = rows == 1 ? split(std::integral_constant<int, 1>())
+                    : split(std::integral_constant<int, 2>());
   if (err != 0) return err;
   return launch_combine(pm, pl, pa, out, bhkv, g, dh, n_splits, stream);
 }
@@ -1053,9 +1017,10 @@ int launch_contig(const void* k, const void* v, const void* q,
                   int streamed, float scale, cudaStream_t stream) {
   const ContigKV<KV> kv{static_cast<const KV*>(k), static_cast<const KV*>(v),
                         s, hkv};
-  return launch_keys(kv, rows_aligned<KV>(dh, k, v), q, pos, win, pm, pl, pa,
-                     out, b, g, dh, rows, lpk, tile, tps, n_splits, streamed,
-                     scale, stream);
+  return launch_keys<ContigKV<KV>, false>(
+      kv, rows_aligned<KV>(dh, k, v), q, pos, win, ChunkRows{nullptr, 1, g},
+      pm, pl, pa, out, b, g, dh, rows, lpk, tile, tps, n_splits, streamed,
+      scale, stream);
 }
 
 // K1 (kq == nullptr) or K6: the paged loaders, whose tiles must hold whole
@@ -1075,9 +1040,12 @@ int launch_paged(const void* kp, const void* vp, const void* kq,
                        static_cast<const int*>(bt), w * page_size, hkv, w,
                        page_size, tps * (tile / page_size), nullptr, 0};
   const bool aligned = rows_aligned<KV>(dh, kp, vp);
+  const ChunkRows decode{nullptr, 1, g};
   if (kq == nullptr)
-    return launch_keys(fp, aligned, q, pos, win, pm, pl, pa, out, b, g, dh,
-                       rows, lpk, tile, tps, n_splits, 0, scale, stream);
+    return launch_keys<PagedKV<KV>, false>(fp, aligned, q, pos, win, decode,
+                                           pm, pl, pa, out, b, g, dh, rows,
+                                           lpk, tile, tps, n_splits, 0, scale,
+                                           stream);
   // the codes beside a 16-byte piece: 8 bytes against bf16, 4 against f32
   constexpr uintptr_t code_bytes = Vec<KV>::n;
   const TieredPagedKV<KV> tiered{
@@ -1087,9 +1055,32 @@ int launch_paged(const void* kp, const void* vp, const void* kq,
   const bool codes_aligned =
       reinterpret_cast<uintptr_t>(kq) % code_bytes == 0 &&
       reinterpret_cast<uintptr_t>(vq) % code_bytes == 0;
-  return launch_keys(tiered, aligned && codes_aligned, q, pos, win, pm, pl,
-                     pa, out, b, g, dh, rows, lpk, tile, tps, n_splits, 0,
-                     scale, stream);
+  return launch_keys<TieredPagedKV<KV>, false>(
+      tiered, aligned && codes_aligned, q, pos, win, decode, pm, pl, pa, out,
+      b, g, dh, rows, lpk, tile, tps, n_splits, 0, scale, stream);
+}
+
+// K5: PagedKV's rows for chunk * group query rows a (request, KV head), row
+// r at off[b] + r / group, over the fetch-union pos/win; tiles of whole
+// pages as K1's.
+template <typename KV>
+int launch_paged_chunk(const void* kp, const void* vp, const void* bt,
+                       const void* q, const void* pos, const void* win,
+                       const void* off, float* pm, float* pl, float* pa,
+                       float* out, int b, int hkv, int rows, int dh,
+                       int page_size, int w, int chunk, int krows, int lpk,
+                       int tile, int tps, int n_splits, float scale,
+                       cudaStream_t stream) {
+  if (page_size < 1 || w < 1 || tile <= 0 || tile % page_size != 0 ||
+      tps < 1 || chunk < 2 || rows % chunk != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PagedKV<KV> fp{static_cast<const KV*>(kp), static_cast<const KV*>(vp),
+                       static_cast<const int*>(bt), w * page_size, hkv, w,
+                       page_size, tps * (tile / page_size), nullptr, 0};
+  const ChunkRows rows_of{static_cast<const int*>(off), chunk, rows / chunk};
+  return launch_keys<PagedKV<KV>, true>(
+      fp, rows_aligned<KV>(dh, kp, vp), q, pos, win, rows_of, pm, pl, pa,
+      out, b, rows, dh, krows, lpk, tile, tps, n_splits, 0, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1776,24 +1767,36 @@ REPRO_EXPORT int flash_decode_paged(const void* q, const void* kp,
                                stream);
 }
 
-// K5: rows = chunk * G query rows per KV head, row r at offset + r / G.
+// K5: rows = chunk * G query rows per KV head, row r at offset + r / G,
+// through block tables (B, W), on K1's key split as planned by the wrapper
+// (kernels/flash_decode.py::chunk_split_plan: krows query rows a block,
+// lpk lanes a key row, `tile` keys a tile, tps tiles a split, n_splits
+// splits); the partials part_m, part_l (B * Hkv, n_splits, rows) and
+// part_acc (B * Hkv, n_splits, rows, dh) are the wrapper's scratch; pos and
+// win are the chunk's fetch-union scalars.
 REPRO_EXPORT int flash_chunk_paged(const void* q, const void* kp,
                                    const void* vp, const void* pos,
                                    const void* win, const void* off,
-                                   const void* bt, void* out, int b, int hkv,
+                                   const void* bt, void* part_m, void* part_l,
+                                   void* part_acc, void* out, int b, int hkv,
                                    int rows, int dh, int page_size, int w,
-                                   int chunk, float scale, int is_bf16,
-                                   void* stream) {
+                                   int chunk, int krows, int lpk, int tile,
+                                   int tps, int n_splits, float scale,
+                                   int is_bf16, void* stream) {
   if (b == 0 || hkv == 0 || rows == 0) return 0;
-  if (chunk < 1 || rows % chunk != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int rpb = rows < kChunkRows ? rows : kChunkRows;
+  float* pm = static_cast<float*>(part_m);
+  float* pl = static_cast<float*>(part_l);
+  float* pa = static_cast<float*>(part_acc);
+  float* o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_gqa(fp_pages<__nv_bfloat16>(kp, vp), q, pos, win, off, bt,
-                      out, b, hkv, rows, rpb, dh, page_size, w, chunk, scale,
-                      stream);
-  return launch_gqa(fp_pages<float>(kp, vp), q, pos, win, off, bt, out, b,
-                    hkv, rows, rpb, dh, page_size, w, chunk, scale, stream);
+    return launch_paged_chunk<__nv_bfloat16>(
+        kp, vp, bt, q, pos, win, off, pm, pl, pa, o, b, hkv, rows, dh,
+        page_size, w, chunk, krows, lpk, tile, tps, n_splits, scale, st);
+  return launch_paged_chunk<float>(kp, vp, bt, q, pos, win, off, pm, pl, pa,
+                                   o, b, hkv, rows, dh, page_size, w, chunk,
+                                   krows, lpk, tile, tps, n_splits, scale,
+                                   st);
 }
 
 // K7: g query heads per KV head at one position each, over a contiguous

@@ -7,13 +7,13 @@ The reference runs every entry point through one online-softmax body
 (``_softmax_tile``) and one grid harness (``_flash_core``) and differs per
 layout only in a tile loader and a row mask; the plain versions here do
 the same (:func:`_softmax_plain`). On the card three bodies in
-``csrc/flash_decode.cu`` serve them: the key split (K1, K6, K7: the key
-axis cut over blocks by a plan that depends on the shapes only, the
+``csrc/flash_decode.cu`` serve them: the key split (K1, K5, K6, K7: the
+key axis cut over blocks by a plan that depends on the shapes only, the
 splits merged by a second kernel, so one launch runs two device kernels)
-over a row loader per layout; the latent key split (K8, K10: the same cut
-of an absorbed-MLA latent pool, both products on tensor cores, merged by
-the key split's combine); and the older one-block-per-head paged body
-(K5, K9) over a page loader per layout:
+over a row loader per layout, K5 with a chunk's per-row positions; the
+latent key split (K8, K10: the same cut of an absorbed-MLA latent pool,
+both products on tensor cores, merged by the key split's combine); and
+the older one-block-per-request paged body (K9):
 
 * **K1** ``flash_decode_gqa_paged`` with ``chunk=1`` (through
   ``flash_decode_paged``): one query token per request attends its paged
@@ -23,7 +23,9 @@ the key split's combine); and the older one-block-per-head paged body
 * **K5** the same function with ``chunk > 1`` (through
   ``flash_chunk_paged``): C query rows per request at positions
   ``offset .. offset + C - 1`` with a per-row causal/window mask, over
-  fetch-union ``pos``/``window`` scalars (:func:`_chunk_scalars`).
+  fetch-union ``pos``/``window`` scalars (:func:`_chunk_scalars`). It runs
+  K1's key split with 2 query rows a block (:func:`chunk_split_plan`),
+  each row masking its own keys.
 * **K6** ``flash_decode_gqa_paged_q8`` (through ``flash_decode_paged_q8``):
   K1 over the hybrid int8 tier; each page is read from one tier only, hot
   pages from the fp pools, cold pages from the int8 pools times a per-page,
@@ -265,11 +267,12 @@ PAGED_SPLIT_PAGES = 256
 
 
 def _split_plan(name: str, b: int, s: int, hkv: int, g: int, dh: int,
-                itemsize: int, page_size: int = 1,
-                max_pages: int = 0) -> dict:
-    """The key split of ``s`` keys a request, tiles a multiple of
-    ``page_size`` keys and, if ``max_pages``, at most that many pages a
-    split."""
+                itemsize: int, page_size: int = 1, max_pages: int = 0,
+                rows: int = 0) -> dict:
+    """The key split of ``s`` keys a request for ``g`` query rows a KV
+    head, ``rows`` of them a block (0: 1 if g == 1 else 2), tiles a
+    multiple of ``page_size`` keys and, if ``max_pages``, at most that
+    many pages a split."""
     vec = 16 // itemsize
     lpk = 1 << (-(-dh // vec) - 1).bit_length()
     if lpk > 32:
@@ -278,7 +281,7 @@ def _split_plan(name: str, b: int, s: int, hkv: int, g: int, dh: int,
     span = CONTIG_WARPS * (32 // lpk) * CONTIG_STEP_KEYS
     tile = math.lcm(max(CONTIG_MIN_TILE, span), page_size)
     n_tiles = -(-s // tile)
-    rows = 1 if g == 1 else 2
+    rows = rows or (1 if g == 1 else 2)
     blocks = b * hkv * -(-g // rows)
     want = max(1, -(-CONTIG_TARGET_BLOCKS // max(blocks, 1)))
     per = -(-n_tiles // want)
@@ -308,6 +311,28 @@ def paged_split_plan(b: int, w: int, page_size: int, hkv: int, g: int,
     reads nothing back to the host."""
     return _split_plan('flash_decode_gqa_paged', b, w * page_size, hkv, g,
                        dh, itemsize, page_size, PAGED_SPLIT_PAGES)
+
+
+#: K5's query rows a block (``key_split_kernel``'s one chunk instance): of
+#: 2, 4 and 8 timed on the H100 (PERF.md §6), 2 was fastest at every bf16
+#: row, where 8 rows take all 255 registers and a quarter of the
+#: occupancy, and kept f32 pools within 1.25x of bf16 at the serving
+#: chunks
+CHUNK_ROWS = 2
+
+
+def chunk_split_plan(b: int, w: int, page_size: int, hkv: int, c: int,
+                     g: int, dh: int, itemsize: int) -> dict:
+    """K5's cut: :func:`paged_split_plan`'s over the W * page_size keys,
+    for a chunk's C * G query rows a KV head (row r at offset + r // G),
+    CHUNK_ROWS of them a block, so one read of a key row serves that many
+    query rows. Shapes only, never positions."""
+    if c < 2 or g < 1 or itemsize not in (2, 4):
+        raise ValueError(f'flash_chunk_paged: a chunk plan takes C >= 2 '
+                         f'query positions, G >= 1 and bf16 or f32 pools '
+                         f'(C={c}, G={g}, itemsize={itemsize})')
+    return _split_plan('flash_chunk_paged', b, w * page_size, hkv, c * g,
+                       dh, itemsize, page_size, PAGED_SPLIT_PAGES, CHUNK_ROWS)
 
 
 #: the latent split (``csrc/flash_decode.cu``, ``latent_split_kernel``) of
@@ -432,7 +457,7 @@ def _check_paged(name, q, k_pages, v_pages, pos, window, block_tables):
 
 
 _K1_ARGS = [build.P] * 10 + [build.I] * 11 + [build.F, build.I, build.P]
-_K5_ARGS = [build.P] * 8 + [build.I] * 7 + [build.F, build.I, build.P]
+_K5_ARGS = [build.P] * 11 + [build.I] * 12 + [build.F, build.I, build.P]
 _K6_ARGS = [build.P] * 15 + [build.I] * 11 + [build.F, build.I, build.P]
 _K7_ARGS = [build.P] * 9 + [build.I] * 10 + [build.F, build.I, build.I,
                                               build.P]
@@ -471,7 +496,12 @@ def flash_decode_gqa_paged(q: torch.Tensor, k_pages: torch.Tensor,
     """Same contract as :func:`flash_decode_gqa_paged_plain`: kernel K1
     (``chunk == 1``) or K5 (``chunk > 1``). On CUDA the query must be f32,
     the pools bf16 or f32 (one dtype), and pos, window, offset and block
-    tables int32."""
+    tables int32. Both run two device kernels, the key splits of
+    :func:`paged_split_plan` or :func:`chunk_split_plan` and their
+    combine, with the splits' partials in scratch allocated here. Rows of
+    a chunk past its limit (padding) stay finite but may differ from the
+    plain version's: the kernel reads no key past the fetch-union
+    position."""
     tensors = (q, k_pages, v_pages, pos, window, block_tables) + (
         () if offset is None else (offset,))
     if all(t.device.type == 'cpu' for t in tensors):
@@ -502,13 +532,15 @@ def flash_decode_gqa_paged(q: torch.Tensor, k_pages: torch.Tensor,
         build.check(err, 'flash_decode', name)
         build.count('flash_decode_paged')
     else:
-        out = torch.empty((b, hkv, rows, dh), dtype=torch.float32,
-                          device=q.device)
+        plan = chunk_split_plan(b, w, page_size, hkv, chunk, rows // chunk,
+                                dh, k_pages.element_size())
+        part, out = _split_scratch(b, hkv, rows, dh, plan, q.device)
         fn = build.function('flash_decode', 'flash_chunk_paged', _K5_ARGS)
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  pos.data_ptr(), window.data_ptr(), offset.data_ptr(),
-                 block_tables.data_ptr(), out.data_ptr(), b, hkv, rows, dh,
-                 page_size, w, chunk, float(scale), is_bf16,
+                 block_tables.data_ptr(), *(t.data_ptr() for t in part),
+                 out.data_ptr(), b, hkv, rows, dh, page_size, w, chunk,
+                 *_plan_args(plan), float(scale), is_bf16,
                  build.stream_of(q))
         build.check(err, 'flash_decode', name)
         build.count('flash_chunk_paged')

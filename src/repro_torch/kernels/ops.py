@@ -28,6 +28,29 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, wq.shape[-1])
 
 
+def _check_k_major(w: torch.Tensor) -> None:
+    if w.device.type == 'cuda' and not w.t().is_contiguous():
+        raise ValueError(
+            f'yoco_vmm: the weight must be K-major, a (K, N) view of an '
+            f'(N, K)-contiguous tensor (k_major_linear_weights stores it '
+            f'so); got strides {w.stride()} for shape {tuple(w.shape)}')
+
+
+def yoco_vmm_codes(xq: torch.Tensor, sx: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """:func:`yoco_vmm` from the activation's codes ``xq`` (..., K) and
+    scales ``sx`` (..., 1) (:func:`quantize_rows`), so that several weights
+    share one quantization of x: K3 on the rows of w.T (per-out-channel
+    scales), then K4. On the card ``w`` must be K-major."""
+    _check_k_major(w)
+    lead, k = xq.shape[:-1], xq.shape[-1]
+    n = w.shape[-1]
+    wq_t, sw_t = quantize_rows(w.t())           # per-out-channel scales
+    out = _yoco.yoco_vmm_int8(xq.reshape(-1, k), wq_t.t(), sx.reshape(-1, 1),
+                              sw_t.reshape(1, n))
+    return out.reshape(*lead, n)
+
+
 def yoco_vmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """End-to-end YOCO matmul: dynamic per-token quantization of x and
     per-out-channel quantization of w (K3 on the rows of w.T), the int8
@@ -37,14 +60,6 @@ def yoco_vmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w8a8's weights at load): K3 then reads w.T in place and its (N, K)
     codes reach K4 as the K-major view, so no call copies the weight. The
     CPU takes any layout."""
-    lead, k = x.shape[:-1], x.shape[-1]
-    n = w.shape[-1]
-    if w.device.type == 'cuda' and not w.t().is_contiguous():
-        raise ValueError(
-            f'yoco_vmm: the weight must be K-major, a (K, N) view of an '
-            f'(N, K)-contiguous tensor (k_major_linear_weights stores it '
-            f'so); got strides {w.stride()} for shape {tuple(w.shape)}')
-    xq, sx = quantize_rows(x.reshape(-1, k))
-    wq_t, sw_t = quantize_rows(w.t())           # per-out-channel scales
-    out = _yoco.yoco_vmm_int8(xq, wq_t.t(), sx, sw_t.reshape(1, n))
-    return out.reshape(*lead, n)
+    _check_k_major(w)
+    xq, sx = quantize_rows(x)
+    return yoco_vmm_codes(xq, sx, w)

@@ -238,9 +238,10 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
                  positions: torch.Tensor, theta: float):
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
-    q = yoco_linear.linear(x, p['wq'], p.get('bq'), cfg=yoco)
-    k = yoco_linear.linear(x, p['wk'], p.get('bk'), cfg=yoco)
-    v = yoco_linear.linear(x, p['wv'], p.get('bv'), cfg=yoco)
+    # one quantization of x for the three projections (w8a8)
+    q, k, v = yoco_linear.linears(
+        x, [p['wq'], p['wk'], p['wv']],
+        [p.get('bq'), p.get('bk'), p.get('bv')], cfg=yoco)
     q = q.reshape(b, s, -1, dh)
     k = k.reshape(b, s, -1, dh)
     v = v.reshape(b, s, -1, dh)
@@ -350,28 +351,23 @@ def _mla_scale(m) -> float:
     return 1.0 / float(m.nope_head_dim + m.rope_head_dim) ** 0.5
 
 
-def _mla_q(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
-           positions: torch.Tensor):
-    """(q_nope, roped q_rope), both (B, S, H, .), from the low-rank query."""
+def _mla_project(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
+                 positions: torch.Tensor):
+    """(q_nope, roped q_rope) (B, S, H, .) from the low-rank query, and
+    (ckv (B, S, r), roped krope (B, S, d_rope)), what the cache holds;
+    ``w_dq`` and ``w_dkv`` share one quantization of x (w8a8)."""
     m = cfg.mla
     b, s, _ = x.shape
-    cq = rmsnorm(yoco_linear.linear(x, p['w_dq'], cfg=yoco), p['q_ln'])
-    q = yoco_linear.linear(cq, p['w_uq'], cfg=yoco)
+    dq, dkv = yoco_linear.linears(x, [p['w_dq'], p['w_dkv']], cfg=yoco)
+    q = yoco_linear.linear(rmsnorm(dq, p['q_ln']), p['w_uq'], cfg=yoco)
     q = q.reshape(b, s, -1, m.nope_head_dim + m.rope_head_dim)
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
-    return q_nope, rope_mod.apply_rope(q_rope, positions, cfg.rope_theta)
-
-
-def _mla_latent(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
-                positions: torch.Tensor):
-    """(ckv (B, S, r), roped krope (B, S, d_rope)): what the cache holds."""
-    m = cfg.mla
-    dkv = yoco_linear.linear(x, p['w_dkv'], cfg=yoco)
     ckv = rmsnorm(dkv[..., :m.kv_lora_rank], p['kv_ln'])
     krope = dkv[..., m.kv_lora_rank:]
     krope = rope_mod.apply_rope(krope[:, :, None, :], positions,
                                 cfg.rope_theta)[:, :, 0, :]
-    return ckv, krope
+    return (q_nope, rope_mod.apply_rope(q_rope, positions, cfg.rope_theta),
+            ckv, krope)
 
 
 def _mla_qkv_full(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
@@ -380,8 +376,7 @@ def _mla_qkv_full(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
     expanded from the latent through ``w_ukv``."""
     m = cfg.mla
     b, s, _ = x.shape
-    q_nope, q_rope = _mla_q(p, x, cfg, yoco, positions)
-    ckv, krope = _mla_latent(p, x, cfg, yoco, positions)
+    q_nope, q_rope, ckv, krope = _mla_project(p, x, cfg, yoco, positions)
     kv = yoco_linear.linear(ckv, p['w_ukv'], cfg=yoco)
     kv = kv.reshape(b, s, -1, m.nope_head_dim + m.v_head_dim)
     k_nope, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
@@ -461,8 +456,8 @@ def mla_attention_decode(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     positions = pos.reshape(-1, 1).expand(b, 1)
-    q_nope, q_rope = _mla_q(p, x, cfg, yoco, positions)
-    ckv_t, krope_t = _mla_latent(p, x, cfg, yoco, positions)
+    q_nope, q_rope, ckv_t, krope_t = _mla_project(p, x, cfg, yoco,
+                                                  positions)
     w_uk, w_uv = _absorb_weights(p, m)
     q_lat = torch.einsum('bqhd,rhd->bqhr', q_nope.to(torch.float32), w_uk)
     scale = _mla_scale(m)
@@ -501,8 +496,8 @@ def mla_attention_chunk(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
                              device=x.device).reshape(-1)
     positions = offset[:, None] + torch.arange(c, dtype=torch.int32,
                                                device=x.device)[None, :]
-    q_nope, q_rope = _mla_q(p, x, cfg, yoco, positions)
-    ckv_t, krope_t = _mla_latent(p, x, cfg, yoco, positions)
+    q_nope, q_rope, ckv_t, krope_t = _mla_project(p, x, cfg, yoco,
+                                                  positions)
     w_uk, w_uv = _absorb_weights(p, m)
     f32 = torch.float32
     q_lat = torch.einsum('bqhd,rhd->bqhr', q_nope.to(f32), w_uk)

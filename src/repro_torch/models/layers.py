@@ -85,8 +85,9 @@ def _gelu_tanh(t: torch.Tensor) -> torch.Tensor:
 def apply_mlp(params: dict, x: torch.Tensor, mlp_type: str,
               yoco: YocoConfig) -> torch.Tensor:
     if mlp_type in ('swiglu', 'geglu'):
-        g = yoco_linear.linear(x, params['w_gate'], cfg=yoco)
-        u = yoco_linear.linear(x, params['w_up'], cfg=yoco)
+        # one quantization of x for gate and up (w8a8)
+        g, u = yoco_linear.linears(x, [params['w_gate'], params['w_up']],
+                                   cfg=yoco)
         act = F.silu if mlp_type == 'swiglu' else _gelu_tanh
         return yoco_linear.linear(act(g) * u, params['w_down'], cfg=yoco)
     h = yoco_linear.linear(x, params['w_in'], cfg=yoco)

@@ -232,14 +232,15 @@ def _f32_reference(monkeypatch, cache_fn):
 
 def _spy_weights(monkeypatch):
     """Records, for every dynamic w8a8 linear, whether its weight arrived
-    K-major."""
+    K-major (every product goes through ``ops.yoco_vmm_codes``, the ones
+    that share an activation's quantization too)."""
     seen = []
-    yoco_vmm = tops.yoco_vmm
+    yoco_vmm_codes = tops.yoco_vmm_codes
 
-    def spy(x, w):
+    def spy(xq, sx, w):
         seen.append(_is_k_major(w))
-        return yoco_vmm(x, w)
-    monkeypatch.setattr(tops, 'yoco_vmm', spy)
+        return yoco_vmm_codes(xq, sx, w)
+    monkeypatch.setattr(tops, 'yoco_vmm_codes', spy)
     return seen
 
 

@@ -12,7 +12,12 @@ here, equals ``flash_decode_gqa_paged_plain`` and
 the sums differs) and the JAX reference kernels in interpret mode within
 ``test_torch_kernels.py``'s tolerances (1e-5 on f32 pools, 2e-2 on bf16,
 the reference's own); its K6 equals its K1 bit for bit when the hot window
-covers the table, over a poisoned int8 tier."""
+covers the table, over a poisoned int8 tier. K5 (a chunk's C * G query rows
+at offset + r // G, ``chunk_split_plan``) runs the same split with
+CHUNK_ROWS rows a block, each row masking its own keys: its mirror equals
+``flash_decode_gqa_paged_plain`` (chunk > 1) within 1e-5 and the
+interpreted reference ``flash_chunk_paged`` within the same tolerances on
+every row below the chunk's limit, and stays finite on padding rows."""
 
 import inspect
 
@@ -326,3 +331,207 @@ def test_plan_refuses_a_head_wider_than_a_warp_reads():
         tfd.paged_split_plan(1, 4, 8, 1, 1, 136, 4)
     with pytest.raises(ValueError, match='dh=264'):
         tfd.paged_split_plan(1, 4, 8, 1, 1, 264, 2)
+
+
+# ----------------------------------------------------------------------------
+# K5: a chunk's query rows on the key split (chunk_split_plan)
+# ----------------------------------------------------------------------------
+def chunk_split_mirror(q, pools, pos, win, off, bt, *, chunk, scale):
+    """K5's split-and-combine arithmetic in plain PyTorch at
+    ``chunk_split_plan``'s cut. q (B, Hkv, R, dh) f32 with R = chunk * G,
+    row r at ``off + r // G``; pos/win the fetch-union scalars (B,). A block
+    of ``rows`` query rows narrows the live keys [max(pos - win + 1, 0),
+    min(pos, S - 1)] to what its own rows can see, and each row masks its
+    own keys (window win - (chunk - 1)); a row with no valid key in a split
+    leaves m = -inf there and weighs 0 in the combine. Returns f32
+    (B, Hkv, R, dh) and the number of (row group, split) blocks that held
+    live keys."""
+    b, hkv, n_rows, dh = q.shape
+    g = n_rows // chunk
+    ps, w = pools['k'].shape[1], bt.shape[1]
+    s = w * ps
+    plan = tfd.chunk_split_plan(b, w, ps, hkv, chunk, g, dh,
+                                pools['k'].element_size())
+    tile, tps, kr = plan['tile'], plan['tiles_per_split'], plan['rows']
+    n_tiles = -(-s // tile)
+    assert tile % ps == 0 and n_rows > 0
+    assert plan['n_splits'] * tps >= n_tiles > (plan['n_splits'] - 1) * tps
+    out, live_blocks = torch.empty_like(q), 0
+    for bi in range(b):
+        p_, w_, o_ = int(pos[bi]), int(win[bi]), int(off[bi])
+        load = _row_loader(bi, pools, bt, ps, None)
+        row_win = w_ - (chunk - 1)
+        for r0 in range(0, n_rows, kr):
+            rr = torch.arange(r0, min(r0 + kr, n_rows))
+            qp = o_ + rr // g                                   # (nr,)
+            lo = max(p_ - w_ + 1, 0, int(qp[0]) - row_win + 1)
+            hi = min(p_, s - 1, int(qp[-1]))
+            parts = []
+            for split in range(plan['n_splits']):
+                t0 = max(split * tps, lo // tile)
+                t1 = min(split * tps + tps, n_tiles, hi // tile + 1) \
+                    if lo <= hi else t0
+                if t0 >= t1:
+                    continue                    # a dead split: m = -inf
+                m = torch.full((hkv, len(rr), 1), NEG_INF)
+                l = torch.zeros((hkv, len(rr), 1))
+                acc = torch.zeros((hkv, len(rr), dh))
+                for t in range(t0, t1):
+                    keys = torch.arange(max(t * tile, lo),
+                                        min((t + 1) * tile, hi + 1))
+                    if not len(keys):
+                        continue
+                    k, v = load(keys)
+                    valid = ((keys[None, :] <= qp[:, None])
+                             & (keys[None, :] > qp[:, None] - row_win))
+                    logits = torch.einsum('hgd,shd->hgs', q[bi, :, rr],
+                                          k) * scale
+                    logits = torch.where(valid[None], logits, NEG_INF)
+                    m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+                    alpha = torch.where(torch.isfinite(m),
+                                        torch.exp(m - m_new), 0.0)
+                    p = torch.where(valid[None], torch.exp(logits - m_new),
+                                    0.0)
+                    l = l * alpha + p.sum(-1, keepdim=True)
+                    acc = acc * alpha + torch.einsum('hgs,shd->hgd', p, v)
+                    m = m_new
+                parts.append((m, l, acc))
+            live_blocks += len(parts)
+            m_all = torch.full((hkv, len(rr), 1), NEG_INF)
+            for m, _, _ in parts:
+                m_all = torch.maximum(m_all, m)
+            l_all = torch.zeros((hkv, len(rr), 1))
+            a_all = torch.zeros((hkv, len(rr), dh))
+            for m, l, acc in parts:             # split order
+                fin = torch.isfinite(m)
+                wt = torch.where(fin, torch.exp(m - m_all), 0.0)
+                l_all = l_all + torch.where(fin, l * wt, 0.0)
+                a_all = a_all + torch.where(fin, acc * wt, 0.0)
+            out[bi, :, rr] = a_all / torch.clamp_min(l_all, 1e-30)
+    return out, live_blocks
+
+
+# two requests of Hkv=2, dh=16 over W=20 pages of 8 (160 keys), limit 128;
+# request 1 is idle (limit 0, its table row the garbage page 0)
+CHUNK_W, CHUNK_LIMIT = 20, 128
+
+
+def _chunk_inputs(c, g, off, window, dtype=torch.float32):
+    b, hkv, dh, ps, w = 2, 2, 16, 8, CHUNK_W
+    rng = np.random.RandomState(c * 7 + g + off)
+    n_pages = 1 + b * w
+    q = torch.from_numpy(rng.randn(b, hkv, c * g, dh).astype(np.float32))
+    shape = (n_pages, ps, hkv, dh)
+    pools = dict(
+        k=torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dtype),
+        v=torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dtype))
+    bt = rng.permutation(np.arange(1, n_pages)).reshape(b, w).astype(np.int32)
+    bt[1] = 0
+    offv, posv, winv = tfd._chunk_scalars(
+        torch.tensor([off, 0]), torch.tensor([CHUNK_LIMIT, 0]), window, b, c,
+        w * ps, torch.device('cpu'))
+    return q, pools, posv, winv, offv, torch.from_numpy(bt)
+
+
+def _valid_rows(c, g, off):
+    return (off + torch.arange(c * g) // g) < CHUNK_LIMIT
+
+
+@pytest.mark.parametrize('window', [None, 24], ids=['causal', 'window24'])
+@pytest.mark.parametrize('g', [1, 4])
+@pytest.mark.parametrize('c,off', [(c, o) for c in (7, 8, 32)
+                                   for o in (0, 96, 120, 124)])
+def test_chunk_mirror_matches_plain(c, off, g, window):
+    q, pools, posv, winv, offv, bt = _chunk_inputs(c, g, off, window)
+    got, live = chunk_split_mirror(q, pools, posv, winv, offv, bt, chunk=c,
+                                   scale=0.25)
+    want = tfd.flash_decode_gqa_paged_plain(
+        q, pools['k'], pools['v'], posv, winv, bt, offv, scale=0.25,
+        chunk=c)
+    # padding rows and the idle slot (its row at position 0 against the
+    # garbage page) stay finite
+    assert live > 0 and bool(torch.isfinite(got).all())
+    valid = _valid_rows(c, g, off)
+    np.testing.assert_allclose(got[0][:, valid].numpy(),
+                               want[0][:, valid].numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize('target', [1, 16, tfd.CONTIG_TARGET_BLOCKS],
+                         ids=['one_split', 'target16', 'serving_plan'])
+@pytest.mark.parametrize('c,off,g', [(8, 96, 1), (32, 120, 4), (7, 124, 4)])
+def test_chunk_mirror_at_every_cut(monkeypatch, target, c, off, g):
+    """One split (the whole table a block), a small block target, and the
+    serving plan's (a split a tile), with a 24-key window: the same
+    output."""
+    serving = target == tfd.CONTIG_TARGET_BLOCKS
+    monkeypatch.setattr(tfd, 'CONTIG_TARGET_BLOCKS', target)
+    plan = tfd.chunk_split_plan(2, CHUNK_W, 8, 2, c, g, 16, 4)
+    n_tiles = -(-CHUNK_W * 8 // plan['tile'])
+    if target == 1:
+        assert plan['n_splits'] == 1
+    if serving:
+        assert plan['n_splits'] == n_tiles > 1
+    q, pools, posv, winv, offv, bt = _chunk_inputs(c, g, off, 24)
+    got, _ = chunk_split_mirror(q, pools, posv, winv, offv, bt, chunk=c,
+                                scale=0.3)
+    want = tfd.flash_decode_gqa_paged_plain(
+        q, pools['k'], pools['v'], posv, winv, bt, offv, scale=0.3, chunk=c)
+    valid = _valid_rows(c, g, off)
+    np.testing.assert_allclose(got[0][:, valid].numpy(),
+                               want[0][:, valid].numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize('dtype,tol', [('float32', 1e-5), ('bfloat16', 2e-2)])
+@pytest.mark.parametrize('c,off,g,window', [(7, 124, 4, None),
+                                            (8, 96, 1, 24),
+                                            (32, 96, 4, None)])
+def test_k5_mirror_matches_reference_kernel(c, off, g, window, dtype, tol):
+    tdt = torch.float32 if dtype == 'float32' else torch.bfloat16
+    q, pools, posv, winv, offv, bt = _chunk_inputs(c, g, off, window, tdt)
+    got, _ = chunk_split_mirror(q, pools, posv, winv, offv, bt, chunk=c,
+                                scale=0.25)
+    b, hkv, _, dh = q.shape
+    jdt = jnp.float32 if dtype == 'float32' else jnp.bfloat16
+    # the reference's (B, C, H, dh) query: row r of head h is position
+    # r // G, query head h * G + r % G
+    qc = q.reshape(b, hkv, c, g, dh).permute(0, 2, 1, 3, 4) \
+        .reshape(b, c, hkv * g, dh)
+    want = rfd.flash_chunk_paged(
+        jnp.asarray(qc.numpy()), jnp.asarray(pools['k'].float().numpy(), jdt),
+        jnp.asarray(pools['v'].float().numpy(), jdt),
+        jnp.asarray([off, 0]), jnp.asarray([CHUNK_LIMIT, 0]),
+        jnp.asarray(bt.numpy()), scale=0.25, window=window, interpret=True)
+    want = torch.from_numpy(np.array(want, np.float32)) \
+        .reshape(b, c, hkv, g, dh).permute(0, 2, 1, 3, 4) \
+        .reshape(b, hkv, c * g, dh)
+    valid = _valid_rows(c, g, off)
+    np.testing.assert_allclose(got[0][:, valid].numpy(),
+                               want[0][:, valid].numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize('itemsize', [2, 4])
+def test_chunk_plan_rows_and_cover(itemsize):
+    """K5's plan: K1's tiles of whole pages and lanes a key row,
+    CHUNK_ROWS query rows a block, splits covering the table once; shapes
+    only."""
+    params = set(inspect.signature(tfd.chunk_split_plan).parameters)
+    assert params == {'b', 'w', 'page_size', 'hkv', 'c', 'g', 'dh',
+                      'itemsize'}
+    for b, w, c, g in ((1, 20, 8, 1), (1, 20, 32, 1), (1, 512, 32, 1),
+                       (2, 20, 7, 4), (4, 512, 8, 4)):
+        plan = tfd.chunk_split_plan(b, w, 8, 32 // g, c, g, 64, itemsize)
+        k1 = tfd.paged_split_plan(b, w, 8, 32 // g, g, 64, itemsize)
+        assert plan['rows'] == tfd.CHUNK_ROWS == 2
+        assert (plan['lpk'], plan['tile']) == (k1['lpk'], k1['tile'])
+        n_tiles = -(-w * 8 // plan['tile'])
+        assert (plan['n_splits'] - 1) * plan['tiles_per_split'] < n_tiles \
+            <= plan['n_splits'] * plan['tiles_per_split']
+
+
+@pytest.mark.parametrize('c,g,dh,itemsize', [(1, 1, 64, 2), (8, 0, 64, 2),
+                                             (8, 1, 64, 1), (8, 1, 136, 4)])
+def test_chunk_plan_refuses(c, g, dh, itemsize):
+    with pytest.raises(ValueError, match='flash_chunk_paged'):
+        tfd.chunk_split_plan(1, 20, 8, 32, c, g, dh, itemsize)
