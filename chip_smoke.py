@@ -34,10 +34,11 @@ Phases, in order; any failure exits non-zero and prints no result:
              dh=128 and at a 4,096-token context (W=512), each with an
              L2-cold reading; MLA attention 2e-5, the
              reference's tolerance, at H=128, DK=576, r=512, with the
-             kernels' resident blocks per SM; K8 and K10 (the latent key
-             split, two device kernels a launch) also at a 4,096-token
-             context (W=512), bf16 and f32 pools, each with an L2-cold
-             reading) and time kernel, plain
+             kernels' resident blocks per SM; K8, K9 and K10 (the latent
+             key split, K9 with a chunk's rows, two device kernels a
+             launch) also at a 4,096-token context (W=512), bf16 and f32
+             pools, K8 and K10 each with an L2-cold reading, K9 beside
+             K8's time a query row and visible key) and time kernel, plain
              version and, where one exists, the one PyTorch call computing
              the same function (device time of each call's kernels, from
              torch.profiler; CUDA events where the profiler records no
@@ -107,9 +108,9 @@ Phases, in order; any failure exits non-zero and prints no result:
              dynamic w8a8 flash --ragged run.
 
 Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
-runs on, with that path's launches), a ``{"redesigned": [...]}`` line
-(every K1, K2, K4, K6, K7, K8 and K10 row), a ``{"serve": [...]}`` and a
-``{"static_serve": [...]}`` line, the
+runs on, with that path's launches; K9 on both pool dtypes), a
+``{"redesigned": [...]}`` line (every row of the redesigned kernels, all
+ten), a ``{"serve": [...]}`` and a ``{"static_serve": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
 reports) go to ``build/chip_smoke.json``.
@@ -342,9 +343,9 @@ def cold_device_ms(torch, fn, iters=10):
 # the redesigned kernels' entry functions whose compiler report chip_smoke
 # prints (every template instance: K2's and K4's epilogue of each K2/K4
 # mainloop, the key split's row loader, rows a block and chunk flag of K7,
-# K1, K6 and K5, the latent split's pool dtype of K8 and K10, K3's element
-# type and pieces a thread), and the wrappers whose every row it prints
-# (with the launch floor beside K3's)
+# K1, K6 and K5, the latent split's pool dtype and chunk flag of K8, K10
+# and K9, K3's element type and pieces a thread), and the wrappers whose
+# every row it prints (with the launch floor beside K3's)
 PTXAS_KERNELS = ('int8_gemm_wgmma', 'int8_gemv_splitk', 'key_split_kernel',
                  'latent_split_kernel', 'split_combine_kernel',
                  'quantize_rows_kernel')
@@ -352,16 +353,17 @@ SPLIT_LOADERS = ('TieredPagedKV', 'PagedKV', 'ContigKV')
 REDESIGNED = ('int8_matmul', 'yoco_vmm_int8', 'flash_decode_contig',
               'flash_decode_paged', 'flash_decode_paged_q8',
               'flash_decode_paged_mla', 'flash_decode_paged_mla_q8',
-              'quantize_rows', 'flash_chunk_paged', 'launch_floor')
+              'quantize_rows', 'flash_chunk_paged', 'flash_chunk_paged_mla',
+              'launch_floor')
 
 
 def ptxas_summary(logs) -> list:
     """Registers, shared memory and spills of each PTXAS_KERNELS entry
     function, from ``nvcc -Xptxas -v`` reports ({source: text}); a key
     split instance also names its row loader, query rows a block, aligned
-    and chunk flags, a latent split instance its pool dtype, a K3 instance
-    its element type, pieces a thread, aligned and cluster flags (from the
-    mangled template arguments)."""
+    and chunk flags, a latent split instance its pool dtype and chunk
+    flag, a K3 instance its element type, pieces a thread, aligned and
+    cluster flags (from the mangled template arguments)."""
     import re
     out, cur = [], None
     for src, log in logs.items():
@@ -380,6 +382,7 @@ def ptxas_summary(logs) -> list:
                     if short[0] == 'latent_split_kernel':
                         cur['pool'] = ('bfloat16' if '__nv_bfloat16' in name
                                        else 'float32')
+                        cur['chunk'] = 'Lb1E' in name
                     if short[0] in ('key_split_kernel',
                                     'quantize_rows_kernel'):
                         t = re.search(r'Li(\d+)ELb([01])E(?:Lb([01])E)?',
@@ -1179,6 +1182,72 @@ def mla_decode_rows(torch, fd, rows, gen, q, pos, win, bt, hw, case,
         del c, q8, fp, cl
 
 
+def k9_rows(torch, fd, rows, gen, w, limit, cases):
+    """Hold K9 (the latent split with a chunk's rows) to its plain version
+    (2e-5 on the rows below ``limit``, every row finite) for one admission
+    of deepseek-v3's H=128, DK=576, r=512 over a W-page table, bf16 and f32
+    pools, at each (C, offset) of ``cases``; record the rows (two device
+    kernels a launch; the plain version over 2 calls at W > 20). At W > 20
+    each row also gets K8's time a (query row x visible key) from its
+    W=512 row on the same pool dtype, and its own."""
+    dev = torch.device('cuda')
+    src = 'src/repro_torch/csrc/flash_decode.cu'
+    b, h, r, ps = 1, MLA_H, MLA_R, MLA_PAGE
+    dk = r + MLA_DR
+    flops_per_key = 2.0 * h * (dk + r)
+    n_pages = 1 + w
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1) \
+        .reshape(b, w).to(torch.int32).contiguous()
+    for dt in (torch.bfloat16, torch.float32):
+        cl = torch.randn((n_pages, ps, dk), generator=gen, device=dev).to(dt)
+        pool = str(dt).replace('torch.', '')
+        for cc, off in cases:
+            qc = torch.randn((b, 1, cc * h, dk), generator=gen, device=dev)
+            offv, posv, winv = fd._chunk_scalars(off, limit, None, b, cc,
+                                                 w * ps, dev)
+            args = (qc, cl, posv, winv, bt, offv)
+            got = fd.flash_decode_mla_paged(*args, scale=MLA_SCALE, r=r,
+                                            chunk=cc)
+            want = fd.flash_decode_mla_paged_plain(*args, scale=MLA_SCALE,
+                                                   r=r, chunk=cc)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f'K9 C={cc} offset={off} W={w} {pool}: output not finite')
+            n_valid = min(cc, limit - off)
+            valid = off + torch.arange(cc * h, device=dev) // h < limit
+            err = float((got - want)[:, :, valid].abs().max())
+            keys = int(posv[0]) + 1             # keys [0, pos]
+            nbytes = (keys * dk * cl.element_size()
+                      + n_valid * h * (dk + r) * 4)
+            row_keys = sum(off + i + 1 for i in range(n_valid))
+            record_row(torch, rows, 'flash_chunk_paged_mla',
+                       dict(B=b, H=h, DK=dk, r=r, page_size=ps, W=w, C=cc,
+                            offset=off, limit=limit, pool=pool,
+                            rows=cc * h, padding_rows=(cc - n_valid) * h,
+                            all_rows_max_abs_err=float(
+                                (got - want).abs().max())),
+                       err, 2e-5,
+                       lambda: fd.flash_decode_mla_paged(
+                           *args, scale=MLA_SCALE, r=r, chunk=cc),
+                       lambda: fd.flash_decode_mla_paged_plain(
+                           *args, scale=MLA_SCALE, r=r, chunk=cc),
+                       None, nbytes, flops_per_key * row_keys,
+                       BF16_OPS_PER_S, source=src,
+                       replaces='src/repro/kernels/flash_decode.py:889',
+                       kernels_per_launch=2,
+                       plain_iters=20 if w <= 20 else 2)
+            rows[-1]['plan'] = fd.latent_split_plan(
+                b, w, ps, cc * h, dk, r, cl.element_size())
+            if w > 20:
+                k8 = [x for x in rows if x['name'] == 'flash_decode_paged_mla'
+                      and x['shape']['case'] == 'long'
+                      and x['shape']['pool'] == pool][0]
+                rows[-1]['ms_per_row_key'] = rows[-1]['ms'] / (h * row_keys)
+                rows[-1]['k8_ms_per_row_key'] = k8['ms'] / (
+                    h * k8['shape']['live_keys'])
+        del cl
+
+
 # deepseek-v3's absorbed attention at full width: 128 heads, latent rank
 # 512 plus a 64-wide rope part, scale 1/sqrt(nope + rope), page size 8
 MLA_H, MLA_R, MLA_DR, MLA_PAGE = 128, 512, 64, 8
@@ -1187,15 +1256,16 @@ MLA_SCALE = 1.0 / (128 + 64) ** 0.5
 
 def mla_kernel_phase(torch, kmods):
     """K8 (absorbed MLA paged decode on the latent key split), K9 (its
-    chunked prefill on the older paged body) and K10 (K8 over the int8
-    latent tier) against their plain versions at deepseek-v3's full width:
-    H=128, DK = r + d_rope = 576, r=512, page size 8, W=20 (128 + 32
-    tokens), and K8/K10 also at W=512 (a 4,096-token context: 8 slots
-    within 16 keys of full; the plain versions walk 512 pages, so they are
-    timed over 2 calls). Tolerance 2e-5, the reference's own for its MLA
-    kernel against the absorbed oracle on f32 latents (kernel and plain
-    version both compute to f32 accuracy, bf16 pools included: K8 and K10
-    split every f32 operand into three bf16 parts on the tensor cores);
+    chunked prefill, the latent split with a chunk's rows) and K10 (K8 over
+    the int8 latent tier) against their plain versions at deepseek-v3's
+    full width: H=128, DK = r + d_rope = 576, r=512, page size 8, W=20
+    (128 + 32 tokens), and each also at W=512 (a 4,096-token context: K8
+    and K10 8 slots within 16 keys of full, K9 one admission's last chunk;
+    the plain versions walk 512 pages, so they are timed over 2 calls).
+    Tolerance 2e-5, the reference's own for its MLA kernel against the
+    absorbed oracle on f32 latents (kernel and plain version both compute
+    to f32 accuracy, bf16 pools included: the latent split splits every
+    f32 operand into three bf16 parts on the tensor cores);
     K9 on the rows below its limit, every row finite; K10 with a hot
     window covering the table bit-equal to K8 over poisoned int8 pools.
     Bounds: the larger of the latent rows each slot's live pages hold
@@ -1210,23 +1280,21 @@ def mla_kernel_phase(torch, kmods):
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = []
-    src = 'src/repro_torch/csrc/flash_decode.cu'
     h, r, dr, ps, w = MLA_H, MLA_R, MLA_DR, MLA_PAGE, 20
     dk = r + dr
-    scale = MLA_SCALE
-    tol = 2e-5
-    flops_per_key = 2.0 * h * (dk + r)
     # resident blocks per SM: the latent split (one kernel serves K8 and
-    # K10) at the serving plan's staged pages, K9's paged body at C=8
+    # K10) at the serving plan's staged pages, its chunk instance (K9) at
+    # C=8's
     occupancy = {}
     fn = build.function('flash_decode', 'flash_mla_occupancy',
                         [build.I] * 6 + [build.P, build.P])
-    for kernel, rows_arg in ((8, fd.LATENT_ROWS), (9, 8 * h)):
+    for kernel, b, rows_arg in ((8, 8, h), (9, 1, 8 * h)):
         for bf16 in (1, 0):
-            plan = fd.latent_split_plan(8, w, ps, h, dk, r, 2 if bf16 else 4)
+            plan = fd.latent_split_plan(b, w, ps, rows_arg, dk, r,
+                                        2 if bf16 else 4)
             n_stage = plan['tiles_per_split'] * plan['tile'] // ps
             blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-            build.check(fn(kernel, rows_arg, dk, r, bf16, n_stage,
+            build.check(fn(kernel, fd.LATENT_ROWS, dk, r, bf16, n_stage,
                            ctypes.byref(blocks), ctypes.byref(smem)),
                         'flash_decode', 'flash_mla_occupancy')
             occupancy[f'{"K8/K10" if kernel == 8 else "K9"} '
@@ -1253,50 +1321,13 @@ def mla_kernel_phase(torch, kmods):
           'K10 serving case has too few cold pages')
     mla_decode_rows(torch, fd, rows, gen, q, pos, win, bt, 2, 'serving')
 
-    # K9: one admission, limit 128: C=8 at offsets 96 and 120 (the first
-    # and last page-size chunk of a prefix hit's suffix), C=32 at offset 96
-    # (the suffix at --chunk-prefill 32; C*H = 1024 and 4096 rows) and an
+    # K9 (on the latent split: two device kernels a launch): one
+    # admission, limit 128: C=8 at offsets 96 and 120 (the first and last
+    # page-size chunk of a prefix hit's suffix), C=32 at offset 96 (the
+    # suffix at --chunk-prefill 32; C*H = 1024 and 4096 rows) and an
     # unaligned C=7 whose last 3 positions (384 rows) are padding
-    b, limit = 1, 128
-    n_pages = 1 + w
-    bt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1) \
-        .reshape(b, w).to(torch.int32).contiguous()
-    for dt in (torch.bfloat16, torch.float32):
-        cl = torch.randn((n_pages, ps, dk), generator=gen, device=dev).to(dt)
-        for cc, off in ((8, 96), (8, 120), (32, 96), (7, 124)):
-            qc = torch.randn((b, 1, cc * h, dk), generator=gen, device=dev)
-            offv, posv, winv = fd._chunk_scalars(off, limit, None, b, cc,
-                                                 w * ps, dev)
-            args = (qc, cl, posv, winv, bt, offv)
-            got = fd.flash_decode_mla_paged(*args, scale=scale, r=r,
-                                            chunk=cc)
-            want = fd.flash_decode_mla_paged_plain(*args, scale=scale, r=r,
-                                                   chunk=cc)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()),
-                  f'K9 C={cc} offset={off}: output not finite')
-            n_valid = min(cc, limit - off)
-            valid = off + torch.arange(cc * h, device=dev) // h < limit
-            err = float((got - want)[:, :, valid].abs().max())
-            keys = int(posv[0]) + 1             # keys [0, pos]
-            nbytes = (keys * dk * cl.element_size()
-                      + n_valid * h * (dk + r) * 4)
-            row_keys = sum(off + i + 1 for i in range(n_valid))
-            record_row(torch, rows, 'flash_chunk_paged_mla',
-                       dict(B=b, H=h, DK=dk, r=r, page_size=ps, W=w, C=cc,
-                            offset=off, limit=limit,
-                            pool=str(dt).replace('torch.', ''),
-                            rows=cc * h, padding_rows=(cc - n_valid) * h,
-                            all_rows_max_abs_err=float(
-                                (got - want).abs().max())),
-                       err, tol,
-                       lambda: fd.flash_decode_mla_paged(
-                           *args, scale=scale, r=r, chunk=cc),
-                       lambda: fd.flash_decode_mla_paged_plain(
-                           *args, scale=scale, r=r, chunk=cc),
-                       None, nbytes, flops_per_key * row_keys,
-                       BF16_OPS_PER_S, source=src,
-                       replaces='src/repro/kernels/flash_decode.py:889')
+    k9_rows(torch, fd, rows, gen, w, 128,
+            ((8, 96), (8, 120), (32, 96), (7, 124)))
     # K8 and K10 at a 4,096-token context: W=512, 8 slots within 16 keys of
     # full (its own generator: the serving rows above keep their inputs)
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1309,6 +1340,11 @@ def mla_kernel_phase(torch, kmods):
     q = torch.randn((b, 1, h, dk), generator=gen, device=dev)
     mla_decode_rows(torch, fd, rows, gen, q, pos, win, bt, 2, 'long',
                     plain_iters=2)
+    # K9 at a 4,096-token context: W=512, limit 4096, C=32 at offset 4064
+    # and C=8 at 4088 (the plain version over 2 calls), beside K8's time a
+    # (query row x visible key) at W=512 on the same pool dtype
+    k9_rows(torch, fd, rows, torch.Generator(device=dev).manual_seed(7),
+            512, 4096, ((32, 4064), (8, 4088)))
     for row in rows:
         row['occupancy'] = occupancy
     return rows
@@ -1970,8 +2006,8 @@ def static_serve_phase(torch, build):
 # ----------------------------------------------------------------------------
 PROFILE_MODES = (('bf16', False), ('w8a8', True), ('w8a8', False))
 # the device kernels of the attention entry points (K1, K5-K10)
-ATTENTION_KERNELS = ('paged_attend_kernel', 'key_split_kernel',
-                     'latent_split_kernel', 'split_combine_kernel')
+ATTENTION_KERNELS = ('key_split_kernel', 'latent_split_kernel',
+                     'split_combine_kernel')
 MLA_PROFILE_MODES = (('bf16', False), ('w8a8', False))
 
 
@@ -2064,7 +2100,8 @@ def print_redesigned(rows):
             'library_cold_ms_runs', 'k1_ms_same_inputs',
             'k1_cold_ms_same_inputs', 'bit_equal_k1_at_full_hot_window',
             'k8_ms_same_inputs', 'k8_cold_ms_same_inputs',
-            'bit_equal_k8_at_full_hot_window')
+            'bit_equal_k8_at_full_hot_window', 'ms_per_row_key',
+            'k8_ms_per_row_key')
     print(json.dumps(dict(redesigned=[
         dict(name=r['name'], **{k: r[k] for k in keys if k in r})
         for r in rows if r['name'] in REDESIGNED])), flush=True)
@@ -2186,10 +2223,10 @@ def main(argv) -> int:
     rows = report['kernel_sweep']
     # one line per kernel and main path it runs on, at that path's decode
     # shape, with that path's launches; K5 and K9 at the page-size chunk
-    # of a prefix hit, which carries most of their launches; K2/K3/K4 on
-    # the static path at its prefill's 1024 rows through q/k/v/o, the
-    # shape no other path gives them (its decode shape is the continuous
-    # path's M=8)
+    # of a prefix hit, which carries most of their launches (K9 on both
+    # pool dtypes); K2/K3/K4 on the static path at its prefill's 1024 rows
+    # through q/k/v/o, the shape no other path gives them (its decode
+    # shape is the continuous path's M=8)
     pick = (('flash_decode_paged', ARCH, dict(pool='bfloat16', W=20, G=1)),
             ('flash_decode_contig', STATIC_PATH, dict(pool='bfloat16',
                                                       case='lockstep')),
@@ -2200,6 +2237,8 @@ def main(argv) -> int:
             ('flash_decode_paged_mla', MLA_ARCH, dict(pool='bfloat16',
                                                       case='serving')),
             ('flash_chunk_paged_mla', MLA_ARCH, dict(pool='bfloat16', C=8,
+                                                     offset=96)),
+            ('flash_chunk_paged_mla', MLA_ARCH, dict(pool='float32', C=8,
                                                      offset=96)),
             ('flash_decode_paged_mla_q8', MLA_ARCH, dict(pool='bfloat16',
                                                          case='serving')),

@@ -38,7 +38,8 @@
 //       DK columns as the keys, its first DV = r columns as the values.
 //   K9  flash_decode_mla_paged, chunk=C>1 (via flash_chunk_paged_mla): K8
 //       over C*H rows, row i at offset + i / H, K5's row policy with
-//       group = H and its fetch-union scalars.
+//       group = H and its fetch-union scalars (rows at or past the
+//       chunk's limit are padding: finite, never read back).
 //   K10 flash_decode_mla_paged_q8 (via flash_decode_paged_mla_q8): K8 over
 //       the int8 latent tier; a cold page reads clq * cs[page] (ONE scale
 //       per page: the latent is shared by every head) rounded through the
@@ -55,10 +56,9 @@
 //   TieredPagedKV) and, with its chunk rows, K5 (flash_chunk_paged,
 //   PagedKV).
 //   latent_split_kernel + split_combine_kernel (the latent key split,
-//   below), one kernel for K8 (flash_decode_paged_mla) and K10
-//   (flash_decode_paged_mla_q8): K10 passes the int8 tier, K8 none.
-//   paged_attend_kernel (the older paged body, below): K9
-//   (flash_chunk_paged_mla) alone, until its redesign.
+//   below), one kernel body for K8 (flash_decode_paged_mla) and K10
+//   (flash_decode_paged_mla_q8), K10 passing the int8 tier and K8 none,
+//   and, with its chunk rows, K9 (flash_chunk_paged_mla).
 // All copy the reference's online softmax; what differs between entry
 // points of one body is the loader and the row positions (one position
 // for decode, offset + r / group for a chunk).
@@ -66,8 +66,8 @@
 // Bound on the H100: bytes for K1/K5/K6/K7 (each live key is read once,
 // from device memory, and used for 2*G*dh multiply-adds a row, far below
 // the card's operations-per-byte balance; K5's C*G rows a key still leave
-// it bytes-bound at the serving chunk sizes). K8/K10: see the latent key
-// split.
+// it bytes-bound at the serving chunk sizes). K8/K9/K10: see the latent
+// key split.
 //
 // The key split: one block per (request, KV head, key split, group of at
 // most 2 query rows), so a batch of 8 x 32 heads gives 768 blocks at 160
@@ -113,7 +113,7 @@
 // occupancy; only the 2-row instance is built). K1 keeps its own instance
 // (kChunk = false) bit for bit.
 //
-// The latent key split (K8, K10). MLA is GQA with one KV head and all
+// The latent key split (K8, K9, K10). MLA is GQA with one KV head and all
 // H = 128 query rows sharing every latent row, so a key tile's work is two
 // small matrix products, QK^T (H x DK . DK x keys) and PV (H x keys . keys
 // x DV). What bounds them on the H100 at deepseek-v3's width (DK = 576,
@@ -155,22 +155,19 @@
 // - The splits' partials are merged by the key split's combine
 //   (split_combine_kernel) with g = H and dh = DV.
 //
-// The older paged body (K9): one block per request and per group of at
-// most kLatentRows query rows (grid.y), so shared memory stays bounded
-// whatever C is. The block reads
-// its own pos, window, offset and block-table row from device memory
-// (this replaces scalar prefetch: no host sync) and loops only over the
-// live pages [first, last], so dead keys are never read. One pass covers
-// 32 keys, i.e. several pages at the serving page size of 8: K/V rows are
-// gathered page by page into shared memory as f32; the query rows, the
-// running max and sum and the unnormalised accumulator stay in shared
-// memory for the whole loop. The online softmax copies `_softmax_tile`'s
-// guards: alpha = 0 while the running max is still -inf, masked keys
-// contribute p = 0, and the output is normalised once, acc / max(l,
-// 1e-30), after the last pass. The latent tile (the first DV columns its
-// values) has a row stride of DK + 1 floats, so the 32 keys of a warp's
-// dot products fall in 32 distinct banks. Moving K9 to the latent split is
-// later work.
+// K9 is the same kernel with chunk rows (kChunk, planned by
+// latent_split_plan for the C*H rows as K8's plan is for H): a block's 32
+// query rows sit at offset + i / H, each with the window win - (C - 1) of
+// the fetch-union scalars. The block narrows the live keys to the union of
+// its rows' ranges, [qp_first - row_win + 1, qp_last] within [lo, hi], so
+// the dead-split test, the step walk and the zeroing of masked rows take
+// that range, and each row masks its own keys in the step's softmax (its
+// clipped range staged in shared memory once). At deepseek-v3's H = 128 a
+// block holds one position and the mask is the block's; a narrower H puts
+// several positions in a block. The bound is the f32 query and output at a
+// prefix hit's suffix (C = 8 at ~100 keys: 4.5 MB against 0.2 Gflop), the
+// MMA work at a long context. K8 and K10 keep their own instance
+// (kChunk = false).
 #include <math.h>
 
 #include <type_traits>
@@ -178,11 +175,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int kKeys = 32;       // keys per pass: one per lane in the softmax
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kLatentRows = 8;  // K9 query rows per block
 
 // an f32 value in the pool dtype (round to nearest even for bf16): a
 // dequantized value goes through it as the reference's loader casts it
@@ -196,187 +188,6 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-// Page loader of the fp latent pool (K9): one value per (page, row,
-// column), used as a key and, in its first DV columns, as a value.
-template <typename KV>
-struct LatentPages {
-  const KV* __restrict__ c;
-
-  __device__ __forceinline__ void setup(int, int) {}
-  __device__ __forceinline__ float load(int64_t off, int, int) const {
-    return to_f32(c[off]);
-  }
-};
-
-// One block: request b = blockIdx.x / hkv, KV head h = blockIdx.x % hkv,
-// query rows [blockIdx.y * rpb, +rpb) of `rows`. Row r sits at position
-// base + r / group, base = offset[b] (chunk) or pos[b] (decode, group =
-// rows), and attends kpos in (qp - (win - (chunk - 1)), qp]. K9 runs it
-// with hkv = 1.
-template <typename Pages>
-__global__ void __launch_bounds__(kThreads)
-paged_attend_kernel(Pages pages, const float* __restrict__ q,
-                    const int* __restrict__ pos_v,
-                    const int* __restrict__ win_v,
-                    const int* __restrict__ off_v,
-                    const int* __restrict__ block_tables,
-                    float* __restrict__ out, int hkv, int rows, int rpb,
-                    int dk, int dv, int ks, int page_size, int w, int chunk,
-                    int group, float scale) {
-  // dk: key (and query) width; dv: value width; ks: row stride of the
-  // staged key tile, whose first dv columns are the value tile.
-  extern __shared__ float smem[];
-  float* s_q = smem;                   // rpb * dk
-  float* s_acc = s_q + rpb * dk;       // rpb * dv
-  float* s_k = s_acc + rpb * dv;       // kKeys * ks
-  const float* s_v = s_k;              // the values: same rows, stride ks
-  float* s_p = s_k + kKeys * ks;
-  float* s_m = s_p + rpb * kKeys;      // rpb
-  float* s_l = s_m + rpb;              // rpb
-  float* s_alpha = s_l + rpb;          // rpb
-
-  const int b = blockIdx.x / hkv, h = blockIdx.x % hkv;
-  const int r0 = blockIdx.y * rpb;
-  const int nr = min(rpb, rows - r0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int pos = pos_v[b], win = win_v[b];
-  const int base = off_v != nullptr ? off_v[b] : pos;
-  const int row_win = win - (chunk - 1);
-  const int* bt = block_tables + static_cast<int64_t>(b) * w;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows + r0;
-  const int64_t qo = row0 * dk, oo = row0 * dv;
-  Pages pg = pages;
-  pg.setup(pos, page_size);
-
-  for (int i = tid; i < nr * dk; i += kThreads) s_q[i] = q[qo + i];
-  for (int i = tid; i < nr * dv; i += kThreads) s_acc[i] = 0.f;
-  for (int i = tid; i < nr; i += kThreads) {
-    s_m[i] = -INFINITY;
-    s_l[i] = 0.f;
-  }
-  __syncthreads();
-
-  // _live_block_range of the (fetch-union) scalars: [first, last] blocks
-  // holding any valid key
-  const int first = max(pos - win + 1, 0) / page_size;
-  const int last = min(max(pos, 0) / page_size, w - 1);
-  const int k_begin = first * page_size;
-  const int k_end = (last + 1) * page_size;
-
-  for (int t0 = k_begin; t0 < k_end; t0 += kKeys) {
-    for (int i = tid; i < kKeys * dk; i += kThreads) {
-      const int j = i / dk, d = i - j * dk;
-      const int kpos = t0 + j;
-      float kk = 0.f;
-      if (kpos < k_end) {
-        const int blk = kpos / page_size;
-        const int page = bt[blk];
-        const int64_t off =
-            ((static_cast<int64_t>(page) * page_size + kpos % page_size) *
-                 hkv + h) * dk + d;
-        kk = pg.load(off, page, blk);
-      }
-      s_k[j * ks + d] = kk;
-    }
-    __syncthreads();
-    for (int i = tid; i < nr * kKeys; i += kThreads) {
-      const int gi = i / kKeys, j = i - gi * kKeys;
-      const int kpos = t0 + j;
-      const int qp = base + (r0 + gi) / group;
-      const bool valid = kpos < k_end && kpos <= qp && kpos > qp - row_win;
-      float dot = 0.f;
-      if (valid)
-        for (int d = 0; d < dk; ++d) dot += s_q[gi * dk + d] * s_k[j * ks + d];
-      s_p[i] = valid ? dot * scale : -INFINITY;
-    }
-    __syncthreads();
-    for (int gi = warp; gi < nr; gi += kWarps) {
-      const int kpos = t0 + lane;
-      const int qp = base + (r0 + gi) / group;
-      const bool valid = kpos < k_end && kpos <= qp && kpos > qp - row_win;
-      const float logit = s_p[gi * kKeys + lane];
-      const float m_prev = s_m[gi];
-      const float m_new = fmaxf(m_prev, warp_max(logit));
-      // all-masked guards: exp(-inf - -inf) must contribute 0, not 1
-      const float alpha = isfinite(m_prev) ? expf(m_prev - m_new) : 0.f;
-      const float p = valid ? expf(logit - m_new) : 0.f;
-      const float p_sum = warp_sum(p);
-      s_p[gi * kKeys + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        s_l[gi] = s_l[gi] * alpha + p_sum;
-        s_m[gi] = m_new;
-        s_alpha[gi] = alpha;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < nr * dv; i += kThreads) {
-      const int gi = i / dv, d = i - gi * dv;
-      float pv = 0.f;
-      for (int j = 0; j < kKeys; ++j)
-        pv += s_p[gi * kKeys + j] * s_v[j * ks + d];
-      s_acc[i] = s_acc[i] * s_alpha[gi] + pv;
-    }
-    __syncthreads();
-  }
-
-  // the one output conversion: normalise once, after the full reduction
-  for (int i = tid; i < nr * dv; i += kThreads)
-    out[oo + i] = s_acc[i] / fmaxf(s_l[i / dv], 1e-30f);
-}
-
-// Dynamic shared memory of one block (see the kernel's carve-up).
-template <typename Pages>
-size_t smem_bytes(int rpb, int dk, int dv, int ks) {
-  return sizeof(float) * (rpb * dk + rpb * dv + kKeys * ks + rpb * kKeys +
-                          3 * rpb);
-}
-
-// Opt in to more than 48 KB of dynamic shared memory where needed.
-template <typename Pages>
-cudaError_t allow_smem(size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(paged_attend_kernel<Pages>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-template <typename Pages>
-int launch(const Pages& pages, const void* q, const void* pos,
-           const void* win, const void* off, const void* bt, void* out,
-           int b, int hkv, int rows, int rpb, int dk, int dv, int ks,
-           int page_size, int w, int chunk, float scale, void* stream) {
-  const size_t smem = smem_bytes<Pages>(rpb, dk, dv, ks);
-  const cudaError_t e = allow_smem<Pages>(smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(b * hkv, (rows + rpb - 1) / rpb);
-  paged_attend_kernel<Pages><<<grid, kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      pages, static_cast<const float*>(q), static_cast<const int*>(pos),
-      static_cast<const int*>(win), static_cast<const int*>(off),
-      static_cast<const int*>(bt), static_cast<float*>(out), hkv, rows, rpb,
-      dk, dv, ks, page_size, w, chunk, rows / chunk, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Latent pools: one KV head, dk-wide keys, dv-wide values, the staged
-// tile padded to a dk + 1 stride.
-template <typename Pages>
-int launch_mla(const Pages& pages, const void* q, const void* pos,
-               const void* win, const void* off, const void* bt, void* out,
-               int b, int rows, int dk, int dv, int page_size, int w,
-               int chunk, float scale, void* stream) {
-  if (dv <= 0 || dv >= dk) return static_cast<int>(cudaErrorInvalidValue);
-  const int rpb = rows < kLatentRows ? rows : kLatentRows;
-  return launch(pages, q, pos, win, off, bt, out, b, 1, rows, rpb, dk, dv,
-                dk + 1, page_size, w, chunk, scale, stream);
-}
-
-template <typename KV>
-LatentPages<KV> latent_pages(const void* c) {
-  return LatentPages<KV>{static_cast<const KV*>(c)};
 }
 
 // ---------------------------------------------------------------------------
@@ -616,9 +427,9 @@ __device__ __forceinline__ float merge_weight(float m, float m_new) {
   return m == -INFINITY ? 0.f : expf(m - m_new);
 }
 
-// The query rows of a chunk (K5): row r of a (request b, KV head) sits at
-// off[b] + r / group and attends (qp - (win - (chunk - 1)), qp]; for
-// decode (K1, K6, K7) off is null and every row sits at pos.
+// The query rows of a chunk (K5, K9): row r of a (request b, KV head) sits
+// at off[b] + r / group and attends (qp - (win - (chunk - 1)), qp]; for
+// decode (K1, K6, K7, K8, K10) off is null and every row sits at pos.
 struct ChunkRows {
   const int* __restrict__ off;
   int chunk, group;
@@ -1084,7 +895,8 @@ int launch_paged_chunk(const void* kp, const void* vp, const void* bt,
 }
 
 // ---------------------------------------------------------------------------
-// The latent key split (K8, K10): absorbed-MLA decode on tensor cores
+// The latent key split (K8, K9, K10): absorbed-MLA attention on tensor
+// cores
 // ---------------------------------------------------------------------------
 constexpr int kLatStep = 32;                 // keys a pipeline step
 constexpr int kLatQSteps = 9;                // 16-wide k-steps a query quarter
@@ -1285,8 +1097,12 @@ __host__ __device__ constexpr int latent_stages() {
 // probabilities' three parts built from shared memory. With int8 codes
 // (cq != nullptr: K10) a row of a block before first_hot = max(pos, 0) /
 // ps - hw + 1 is cold; the products are the same code for either tier and
-// either entry point, so K10 = K8 bit for bit when no row is cold.
-template <typename KV>
+// either entry point, so K10 = K8 bit for bit when no row is cold. With
+// kChunk (K9) the h rows are a chunk's C * H, pos and win its fetch-union
+// scalars: [lo, hi] narrows to the keys the block's rows can see, and each
+// row's softmax masks its own keys (logit -inf, p = 0), so a row with no
+// valid key in a split leaves that split's m at -inf.
+template <typename KV, bool kChunk>
 __global__ void __launch_bounds__(kLatThreads, 1)
 latent_split_kernel(const float* __restrict__ q, const KV* __restrict__ c,
                     const int8_t* __restrict__ cq,
@@ -1297,7 +1113,7 @@ latent_split_kernel(const float* __restrict__ q, const KV* __restrict__ c,
                     float* __restrict__ part_m, float* __restrict__ part_l,
                     float* __restrict__ part_acc, int h, int dk, int dv,
                     int ps, int w, int tile, int tps, int n_splits,
-                    float scale) {
+                    float scale, ChunkRows chunk) {
   constexpr int kRows = kLatRows;
   constexpr int kStages = latent_stages<KV>();
   constexpr bool kF32 = sizeof(KV) == 4;
@@ -1314,7 +1130,9 @@ latent_split_kernel(const float* __restrict__ q, const KV* __restrict__ c,
   float* s_m = s_p + kRows * kLatSStride;
   float* s_l = s_m + kRows;
   float* s_alpha = s_l + kRows;
-  int* s_page = reinterpret_cast<int*>(s_alpha + kRows);
+  // a chunk row's keys [s_rng[r], s_rng[kRows + r]] (kChunk only)
+  int* s_rng = reinterpret_cast<int*>(s_alpha + kRows);
+  int* s_page = s_rng + (kChunk ? 2 * kRows : 0);
   float* s_scale = reinterpret_cast<float*>(s_page + tps * (tile / ps));
 
   const int b = blockIdx.x, split = blockIdx.y, r0 = blockIdx.z * kRows;
@@ -1323,7 +1141,17 @@ latent_split_kernel(const float* __restrict__ q, const KV* __restrict__ c,
   const int mt = warp >> 2, quarter = warp & 3;
   const int pos = pos_v[b], win = win_v[b];
   const int n_keys = w * ps;
-  const int lo = max(pos - win + 1, 0), hi = min(pos, n_keys - 1);
+  int lo = max(pos - win + 1, 0), hi = min(pos, n_keys - 1);
+  // a chunk row i sits at off[b] + i / group with the window
+  // win - (chunk - 1): the block's rows see [qp_first - row_win + 1,
+  // qp_last] of [lo, hi]
+  int base = 0, row_win = 0;
+  if constexpr (kChunk) {
+    base = chunk.off[b];
+    row_win = win - (chunk.chunk - 1);
+    lo = max(lo, base + r0 / chunk.group - row_win + 1);
+    hi = min(hi, base + (min(r0 + kRows, h) - 1) / chunk.group);
+  }
   const int64_t p0 = (static_cast<int64_t>(b) * n_splits + split) * h;
 
   const int n_tiles = (n_keys + tile - 1) / tile;
@@ -1356,6 +1184,11 @@ latent_split_kernel(const float* __restrict__ q, const KV* __restrict__ c,
   for (int r = tid; r < kRows; r += kLatThreads) {
     s_m[r] = -INFINITY;
     s_l[r] = 0.f;
+    if constexpr (kChunk) {
+      const int qp = base + (r0 + r) / chunk.group;
+      s_rng[r] = max(lo, qp - row_win + 1);
+      s_rng[kRows + r] = min(hi, qp);
+    }
   }
   // the k-step padding columns [dk, dkp) start zero (never copied)
   if (dkp > dk)
@@ -1533,6 +1366,9 @@ latent_split_kernel(const float* __restrict__ q, const KV* __restrict__ c,
     // the step's online softmax: row tid / 8, keys 4 (tid % 8) .. + 3
     {
       const int row = tid >> 3, k0 = (tid & 7) * 4;
+      // the keys this row sees: the block's, or a chunk row's own
+      const int row_lo = kChunk ? s_rng[row] : lo;
+      const int row_hi = kChunk ? s_rng[kRows + row] : hi;
       float lg[4], mx = -INFINITY;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -1541,7 +1377,7 @@ latent_split_kernel(const float* __restrict__ q, const KV* __restrict__ c,
                            s_part[2 * kRows * kLatSStride + i]) +
                           s_part[3 * kRows * kLatSStride + i];
         const int kpos = kb + k0 + e;
-        lg[e] = kpos >= lo && kpos <= hi ? dot * scale : -INFINITY;
+        lg[e] = kpos >= row_lo && kpos <= row_hi ? dot * scale : -INFINITY;
         mx = fmaxf(mx, lg[e]);
       }
 #pragma unroll
@@ -1556,7 +1392,7 @@ latent_split_kernel(const float* __restrict__ q, const KV* __restrict__ c,
       for (int e = 0; e < 4; ++e) {
         const int kpos = kb + k0 + e;
         const float p =
-            kpos >= lo && kpos <= hi ? expf(lg[e] - m_new) : 0.f;
+            kpos >= row_lo && kpos <= row_hi ? expf(lg[e] - m_new) : 0.f;
         s_p[row * kLatSStride + k0 + e] = p;
         p_sum += p;
       }
@@ -1631,19 +1467,20 @@ latent_split_kernel(const float* __restrict__ q, const KV* __restrict__ c,
 }
 
 // Dynamic shared memory of a latent_split_kernel block: the tile ring, the
-// quarters' logits and the probabilities, the row states and the staged
-// pages and scales.
-template <typename KV>
+// quarters' logits and the probabilities, the row states (and a chunk's
+// row ranges) and the staged pages and scales.
+template <typename KV, bool kChunk>
 size_t latent_smem(int dk, int n_stage) {
   return kLatBarBytes +
          sizeof(KV) * latent_stages<KV>() * kLatStep * latent_row_stride(dk) +
          sizeof(float) * (5 * kLatRows * kLatSStride + 3 * kLatRows) +
+         (kChunk ? sizeof(int) * 2 * kLatRows : 0) +
          (sizeof(int) + sizeof(float)) * n_stage;
 }
 
-template <typename KV>
+template <typename KV, bool kChunk>
 cudaError_t latent_allow_smem(size_t smem) {
-  return cudaFuncSetAttribute(latent_split_kernel<KV>,
+  return cudaFuncSetAttribute(latent_split_kernel<KV, kChunk>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -1665,57 +1502,45 @@ bool latent_plan_ok(int h, int dk, int dv, int ps, int w, int rows, int tile,
          tps * (tile / ps) <= kLatMaxPages;
 }
 
-// K8 (cq == nullptr) or K10: the latent splits of a plan, then K7's
-// combine over g = h rows of dh = dv columns. Refuses any other plan, and
-// pools whose rows are not 16-byte (latent) or 8-byte (codes) aligned.
-template <typename KV>
+// K8 (cq == nullptr), K10, or with kChunk K9 (h = C * H rows, chunk's
+// rows): the latent splits of a plan, then K7's combine over g = h rows of
+// dh = dv columns. Refuses any other plan, and pools whose rows are not
+// 16-byte (latent) or 8-byte (codes) aligned.
+template <typename KV, bool kChunk>
 int launch_latent(const void* q, const void* c, const void* cq,
                   const void* cs, const void* hw, const void* pos,
-                  const void* win, const void* bt, float* pm, float* pl,
-                  float* pa, float* out, int b, int h, int dk, int dv, int ps,
-                  int w, int rows, int tile, int tps, int n_splits,
-                  float scale, cudaStream_t stream) {
+                  const void* win, ChunkRows chunk, const void* bt,
+                  float* pm, float* pl, float* pa, float* out, int b, int h,
+                  int dk, int dv, int ps, int w, int rows, int tile, int tps,
+                  int n_splits, float scale, cudaStream_t stream) {
   if (!latent_plan_ok(h, dk, dv, ps, w, rows, tile, tps, n_splits) ||
       reinterpret_cast<uintptr_t>(c) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(cq) % 8 != 0 ||
       reinterpret_cast<uintptr_t>(q) % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = latent_smem<KV>(dk, tps * (tile / ps));
-  const cudaError_t e = latent_allow_smem<KV>(smem);
+  const size_t smem = latent_smem<KV, kChunk>(dk, tps * (tile / ps));
+  const cudaError_t e = latent_allow_smem<KV, kChunk>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(b, n_splits, (h + kLatRows - 1) / kLatRows);
-  latent_split_kernel<KV><<<grid, kLatThreads, smem, stream>>>(
+  latent_split_kernel<KV, kChunk><<<grid, kLatThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const KV*>(c),
       static_cast<const int8_t*>(cq), static_cast<const float*>(cs),
       static_cast<const int*>(hw), static_cast<const int*>(pos),
       static_cast<const int*>(win), static_cast<const int*>(bt), pm, pl, pa,
-      h, dk, dv, ps, w, tile, tps, n_splits, scale);
+      h, dk, dv, ps, w, tile, tps, n_splits, scale, chunk);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   return launch_combine(pm, pl, pa, out, b, h, dv, n_splits, stream);
 }
 
-template <typename KV>
+template <typename KV, bool kChunk>
 int latent_occupancy(int dk, int n_stage, int* blocks_per_sm,
                      int* smem_per_block) {
-  const size_t smem = latent_smem<KV>(dk, n_stage);
-  cudaError_t e = latent_allow_smem<KV>(smem);
+  const size_t smem = latent_smem<KV, kChunk>(dk, n_stage);
+  cudaError_t e = latent_allow_smem<KV, kChunk>(smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, latent_split_kernel<KV>, kLatThreads, smem);
-  *smem_per_block = static_cast<int>(smem);
-  return static_cast<int>(e);
-}
-
-template <typename Pages>
-int occupancy(int rows, int dk, int dv, int* blocks_per_sm,
-              int* smem_per_block) {
-  const int rpb = rows < kLatentRows ? rows : kLatentRows;
-  const size_t smem = smem_bytes<Pages>(rpb, dk, dv, dk + 1);
-  cudaError_t e = allow_smem<Pages>(smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, paged_attend_kernel<Pages>, kThreads, smem);
+        blocks_per_sm, latent_split_kernel<KV, kChunk>, kLatThreads, smem);
   *smem_per_block = static_cast<int>(smem);
   return static_cast<int>(e);
 }
@@ -1843,13 +1668,14 @@ REPRO_EXPORT int flash_decode_paged_mla_q8(
   float* pa = static_cast<float*>(part_acc);
   float* o = static_cast<float*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
+  const ChunkRows decode{nullptr, 1, h};
   if (is_bf16)
-    return launch_latent<__nv_bfloat16>(q, cp, cq, cs, hw, pos, win, bt, pm,
-                                        pl, pa, o, b, h, dk, dv, page_size, w,
-                                        rows, tile, tps, n_splits, scale, st);
-  return launch_latent<float>(q, cp, cq, cs, hw, pos, win, bt, pm, pl, pa, o,
-                              b, h, dk, dv, page_size, w, rows, tile, tps,
-                              n_splits, scale, st);
+    return launch_latent<__nv_bfloat16, false>(
+        q, cp, cq, cs, hw, pos, win, decode, bt, pm, pl, pa, o, b, h, dk, dv,
+        page_size, w, rows, tile, tps, n_splits, scale, st);
+  return launch_latent<float, false>(q, cp, cq, cs, hw, pos, win, decode, bt,
+                                     pm, pl, pa, o, b, h, dk, dv, page_size,
+                                     w, rows, tile, tps, n_splits, scale, st);
 }
 
 // K8: absorbed MLA decode, h query heads at one position each over one
@@ -1870,43 +1696,59 @@ REPRO_EXPORT int flash_decode_paged_mla(
                                    n_splits, scale, is_bf16, stream);
 }
 
-// K9: rows = chunk * H latent query rows, row r at offset + r / H.
-REPRO_EXPORT int flash_chunk_paged_mla(const void* q, const void* cp,
-                                       const void* pos, const void* win,
-                                       const void* off, const void* bt,
-                                       void* out, int b, int rows, int dk,
-                                       int dv, int page_size, int w,
-                                       int chunk, float scale, int is_bf16,
-                                       void* stream) {
+// K9: rows = chunk * H latent query rows, row r at offset + r / H, over
+// one latent pool through block tables (B, W), on K8's latent split as
+// planned by the wrapper (kernels/flash_decode.py::latent_split_plan for
+// the C * H rows: krows query rows a block, `tile` keys a tile, tps tiles a
+// split, n_splits splits); the partials part_m, part_l (B, n_splits, rows)
+// and part_acc (B, n_splits, rows, dv) are the wrapper's scratch, out the
+// f32 (B, 1, rows, dv) latent output; pos and win are the chunk's
+// fetch-union scalars.
+REPRO_EXPORT int flash_chunk_paged_mla(
+    const void* q, const void* cp, const void* pos, const void* win,
+    const void* off, const void* bt, void* part_m, void* part_l,
+    void* part_acc, void* out, int b, int rows, int dk, int dv,
+    int page_size, int w, int chunk, int krows, int tile, int tps,
+    int n_splits, float scale, int is_bf16, void* stream) {
   if (b == 0 || rows == 0) return 0;
-  if (chunk < 1 || rows % chunk != 0)
+  if (chunk < 2 || rows % chunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  float* pm = static_cast<float*>(part_m);
+  float* pl = static_cast<float*>(part_l);
+  float* pa = static_cast<float*>(part_acc);
+  float* o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const ChunkRows rows_of{static_cast<const int*>(off), chunk, rows / chunk};
   if (is_bf16)
-    return launch_mla(latent_pages<__nv_bfloat16>(cp), q, pos, win, off, bt,
-                      out, b, rows, dk, dv, page_size, w, chunk, scale,
-                      stream);
-  return launch_mla(latent_pages<float>(cp), q, pos, win, off, bt, out, b,
-                    rows, dk, dv, page_size, w, chunk, scale, stream);
+    return launch_latent<__nv_bfloat16, true>(
+        q, cp, nullptr, nullptr, nullptr, pos, win, rows_of, bt, pm, pl, pa,
+        o, b, rows, dk, dv, page_size, w, krows, tile, tps, n_splits, scale,
+        st);
+  return launch_latent<float, true>(q, cp, nullptr, nullptr, nullptr, pos,
+                                    win, rows_of, bt, pm, pl, pa, o, b, rows,
+                                    dk, dv, page_size, w, krows, tile, tps,
+                                    n_splits, scale, st);
 }
 
 // Resident blocks per SM and dynamic shared memory per block, for the
-// build report: kernel 8 or 10, the latent split of K8 or K10 at `rows`
-// (16 or 32) query rows a block and n_stage staged pages; kernel 9, the
-// shared paged body of K9 over `rows` = C * H query rows.
+// build report: kernel 8 or 10, the latent split of K8 or K10, or kernel
+// 9, its chunk instance (K9), at `rows` = 32 query rows a block and
+// n_stage staged pages.
 REPRO_EXPORT int flash_mla_occupancy(int kernel, int rows, int dk, int dv,
                                      int is_bf16, int n_stage,
                                      int* blocks_per_sm, int* smem_per_block) {
-  if (kernel == 9)
-    return is_bf16 ? occupancy<LatentPages<__nv_bfloat16>>(
-                         rows, dk, dv, blocks_per_sm, smem_per_block)
-                   : occupancy<LatentPages<float>>(rows, dk, dv, blocks_per_sm,
-                                                   smem_per_block);
-  if ((kernel != 8 && kernel != 10) || rows != kLatRows || dk % 8 != 0 ||
-      dk > kLatMaxDk)
+  if ((kernel != 8 && kernel != 9 && kernel != 10) || rows != kLatRows ||
+      dk % 8 != 0 || dk > kLatMaxDk)
     return static_cast<int>(cudaErrorInvalidValue);
-  // one kernel serves both: K10's cold codes are staged in their own rows
-  return is_bf16 ? latent_occupancy<__nv_bfloat16>(dk, n_stage, blocks_per_sm,
-                                                   smem_per_block)
-                 : latent_occupancy<float>(dk, n_stage, blocks_per_sm,
-                                           smem_per_block);
+  // one kernel serves K8 and K10: K10's cold codes are staged in their own
+  // rows
+  if (kernel == 9)
+    return is_bf16 ? latent_occupancy<__nv_bfloat16, true>(
+                         dk, n_stage, blocks_per_sm, smem_per_block)
+                   : latent_occupancy<float, true>(dk, n_stage, blocks_per_sm,
+                                                   smem_per_block);
+  return is_bf16 ? latent_occupancy<__nv_bfloat16, false>(
+                       dk, n_stage, blocks_per_sm, smem_per_block)
+                 : latent_occupancy<float, false>(dk, n_stage, blocks_per_sm,
+                                                  smem_per_block);
 }

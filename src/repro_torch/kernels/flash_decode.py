@@ -6,14 +6,14 @@ Ports of the entry points of ``repro/kernels/flash_decode.py``.
 The reference runs every entry point through one online-softmax body
 (``_softmax_tile``) and one grid harness (``_flash_core``) and differs per
 layout only in a tile loader and a row mask; the plain versions here do
-the same (:func:`_softmax_plain`). On the card three bodies in
-``csrc/flash_decode.cu`` serve them: the key split (K1, K5, K6, K7: the
-key axis cut over blocks by a plan that depends on the shapes only, the
-splits merged by a second kernel, so one launch runs two device kernels)
-over a row loader per layout, K5 with a chunk's per-row positions; the
-latent key split (K8, K10: the same cut of an absorbed-MLA latent pool,
-both products on tensor cores, merged by the key split's combine); and
-the older one-block-per-request paged body (K9):
+the same (:func:`_softmax_plain`). On the card two bodies in
+``csrc/flash_decode.cu`` serve them, each launch running two device
+kernels: the key split (K1, K5, K6, K7: the key axis cut over blocks by a
+plan that depends on the shapes only, the splits merged by a second
+kernel) over a row loader per layout, K5 with a chunk's per-row
+positions; and the latent key split (K8, K9, K10: the same cut of an
+absorbed-MLA latent pool, both products on tensor cores, merged by the key
+split's combine), K9 with a chunk's per-row positions:
 
 * **K1** ``flash_decode_gqa_paged`` with ``chunk=1`` (through
   ``flash_decode_paged``): one query token per request attends its paged
@@ -49,7 +49,10 @@ the older one-block-per-request paged body (K9):
   operand as three bf16 parts.
 * **K9** the same function with ``chunk > 1`` (through
   ``flash_chunk_paged_mla``): C·H query rows, row i at position
-  ``offset + i // H``, with K5's fetch-union scalars.
+  ``offset + i // H``, with K5's fetch-union scalars. It runs K8's kernel
+  with a chunk's rows, planned by :func:`latent_split_plan` for the C·H
+  rows (32 a block, so one position a block at H=128), each row masking
+  its own keys.
 * **K10** ``flash_decode_mla_paged_q8`` (through
   ``flash_decode_paged_mla_q8``): K8 over the int8 latent tier, cold pages
   ``int8 * scale[page]`` (one scale per page) rounded through the pool
@@ -336,10 +339,10 @@ def chunk_split_plan(b: int, w: int, page_size: int, hkv: int, c: int,
 
 
 #: the latent split (``csrc/flash_decode.cu``, ``latent_split_kernel``) of
-#: K8 and K10: query rows a block, keys a pipeline step, the card's SMs, the
-#: most pages a split stages, and the widths its registers hold (a warp's
-#: quarter of the DK query columns, 9 k-steps of 16; of the DV value
-#: columns, 16 tiles of 8)
+#: K8, K9 and K10: query rows a block, keys a pipeline step, the card's
+#: SMs, the most pages a split stages, and the widths its registers hold (a
+#: warp's quarter of the DK query columns, 9 k-steps of 16; of the DV
+#: value columns, 16 tiles of 8)
 LATENT_ROWS = 32
 LATENT_STEP = 32
 LATENT_SMS = 132
@@ -356,7 +359,10 @@ def latent_split_plan(b: int, w: int, page_size: int, h: int, dk: int,
     rows a block, absolute tiles of ``tile`` keys (whole pages and whole
     32-key steps), ``tiles_per_split`` tiles a block and ``n_splits`` blocks
     a (request, row group). Shapes only: no position and no table is read,
-    so a step reads nothing back to the host (and the cut is cached).
+    so a step reads nothing back to the host (and the cut is cached). K9
+    takes the same cut with ``h`` = a chunk's C·H rows: at H=128, W=20
+    pages of 8, C=8 gives 32 row groups of 5 splits of one tile (160
+    blocks), C=32 128 row groups of one split (one wave of 128 blocks).
 
     It trades three costs:
 
@@ -462,7 +468,7 @@ _K6_ARGS = [build.P] * 15 + [build.I] * 11 + [build.F, build.I, build.P]
 _K7_ARGS = [build.P] * 9 + [build.I] * 10 + [build.F, build.I, build.I,
                                               build.P]
 _K8_ARGS = [build.P] * 9 + [build.I] * 10 + [build.F, build.I, build.P]
-_K9_ARGS = [build.P] * 7 + [build.I] * 7 + [build.F, build.I, build.P]
+_K9_ARGS = [build.P] * 10 + [build.I] * 11 + [build.F, build.I, build.P]
 _K10_ARGS = [build.P] * 12 + [build.I] * 10 + [build.F, build.I,
                                                build.P]
 
@@ -654,9 +660,12 @@ def flash_decode_mla_paged(q: torch.Tensor, c_pages: torch.Tensor,
     """Same contract as :func:`flash_decode_mla_paged_plain`: kernel K8
     (``chunk == 1``) or K9 (``chunk > 1``). On CUDA the query must be f32,
     the latent pool bf16 or f32, and pos, window, offset and block tables
-    int32. K8 runs two device kernels, the latent splits of
-    :func:`latent_split_plan` and their combine, with the splits' partials
-    in scratch allocated here."""
+    int32. Both run two device kernels, the latent splits of
+    :func:`latent_split_plan` (over the R query rows, C·H for a chunk) and
+    their combine, with the splits' partials in scratch allocated here.
+    Rows of a chunk past its limit (padding) stay finite but may differ
+    from the plain version's: the kernel reads no key past the fetch-union
+    position."""
     tensors = (q, c_pages, pos, window, block_tables) + (
         () if offset is None else (offset,))
     if all(t.device.type == 'cpu' for t in tensors):
@@ -673,32 +682,23 @@ def flash_decode_mla_paged(q: torch.Tensor, c_pages: torch.Tensor,
     build.require_cuda(name, *tensors,
                        dtypes=[(torch.float32,), _FP, _I32, _I32, _I32,
                                _I32])
-    is_bf16 = int(c_pages.dtype == torch.bfloat16)
+    plan = latent_split_plan(b, w, page_size, rows, dk, r,
+                             c_pages.element_size())
+    part, out = _split_scratch(b, 1, rows, r, plan, q.device)
+    # K9's entry point also takes the chunk's offsets and its length
     if chunk == 1:
-        plan = latent_split_plan(b, w, page_size, rows, dk, r,
-                                 c_pages.element_size())
-        part, out = _split_scratch(b, 1, rows, r, plan, q.device)
-        fn = build.function('flash_decode', 'flash_decode_paged_mla',
-                            _K8_ARGS)
-        err = fn(q.data_ptr(), c_pages.data_ptr(), pos.data_ptr(),
-                 window.data_ptr(), block_tables.data_ptr(),
-                 *(t.data_ptr() for t in part), out.data_ptr(), b, rows, dk,
-                 r, page_size, w, *_latent_plan_args(plan), float(scale),
-                 is_bf16, build.stream_of(q))
-        build.check(err, 'flash_decode', name)
-        build.count('flash_decode_paged_mla')
+        kernel, argtypes, off, c = 'flash_decode_paged_mla', _K8_ARGS, (), ()
     else:
-        out = torch.empty((b, 1, rows, r), dtype=torch.float32,
-                          device=q.device)
-        fn = build.function('flash_decode', 'flash_chunk_paged_mla',
-                            _K9_ARGS)
-        err = fn(q.data_ptr(), c_pages.data_ptr(), pos.data_ptr(),
-                 window.data_ptr(), offset.data_ptr(),
-                 block_tables.data_ptr(), out.data_ptr(), b, rows, dk, r,
-                 page_size, w, chunk, float(scale), is_bf16,
-                 build.stream_of(q))
-        build.check(err, 'flash_decode', name)
-        build.count('flash_chunk_paged_mla')
+        kernel, argtypes = 'flash_chunk_paged_mla', _K9_ARGS
+        off, c = (offset.data_ptr(),), (chunk,)
+    fn = build.function('flash_decode', kernel, argtypes)
+    err = fn(q.data_ptr(), c_pages.data_ptr(), pos.data_ptr(),
+             window.data_ptr(), *off, block_tables.data_ptr(),
+             *(t.data_ptr() for t in part), out.data_ptr(), b, rows, dk, r,
+             page_size, w, *c, *_latent_plan_args(plan), float(scale),
+             int(c_pages.dtype == torch.bfloat16), build.stream_of(q))
+    build.check(err, 'flash_decode', name)
+    build.count(kernel)
     return out
 
 

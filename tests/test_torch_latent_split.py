@@ -87,75 +87,108 @@ def _row_loader(bi, pools, bt, ps, cold_end):
 
 
 def latent_split_mirror(q, pools, pos, win, bt, *, scale, r,
-                        hot_window=None, split_products=False):
+                        hot_window=None, split_products=False, offset=None,
+                        chunk=1):
     """K8's (``hot_window`` None) or K10's split-and-combine arithmetic in
     plain PyTorch at ``latent_split_plan``'s cut; q (B, 1, H, dk) f32,
     pools cl (P, ps, dk) (and clq int8, cs (P, 1) for K10), pos/win (B,),
     bt (B, W). ``split_products``: the products from three-part operands.
-    Returns f32 (B, 1, H, r) and the number of live splits."""
-    b, _, h, dk = q.shape
+    With ``chunk`` > 1 it is K9's (``test_torch_latent_chunk.py``): the R =
+    chunk * H rows of q (B, 1, R, dk), row i at ``offset + i // H`` with
+    the window win - (chunk - 1), pos/win the fetch-union scalars; each
+    block of the plan's 32 rows narrows [lo, hi] to the keys its rows can
+    see, and each row masks its own keys (a row with no valid key in a
+    split leaves m = -inf there, weighing 0 in the combine). Returns f32
+    (B, 1, R, r) and the number of live blocks (a row group's splits that
+    hold one of its keys)."""
+    b, _, n_rows, dk = q.shape
     ps, w = pools['cl'].shape[1], bt.shape[1]
     n_keys = w * ps
-    plan = tfd.latent_split_plan(b, w, ps, h, dk, r,
+    plan = tfd.latent_split_plan(b, w, ps, n_rows, dk, r,
                                  pools['cl'].element_size())
     tile, tps, step = plan['tile'], plan['tiles_per_split'], tfd.LATENT_STEP
     n_tiles = -(-n_keys // tile)
     assert tile % ps == 0 and tile % step == 0
     assert plan['n_splits'] * tps >= n_tiles > (plan['n_splits'] - 1) * tps
-    out, live_splits = torch.empty((b, 1, h, r)), 0
+    # decode rows share one key range, so one group holds them all; a
+    # chunk's rows go in the kernel's blocks of plan['rows']
+    group = n_rows // chunk
+    kr = n_rows if chunk == 1 else plan['rows']
+    out, live_splits = torch.empty((b, 1, n_rows, r)), 0
     for bi in range(b):
         p_, w_ = int(pos[bi]), int(win[bi])
-        lo, hi = max(p_ - w_ + 1, 0), min(p_, n_keys - 1)
         cold_end = (0 if hot_window is None
                     else max(max(p_, 0) // ps - hot_window + 1, 0) * ps)
         load = _row_loader(bi, pools, bt, ps, cold_end)
-        parts = []
-        for split in range(plan['n_splits']):
-            t0 = max(split * tps, lo // tile)
-            t1 = min(split * tps + tps, n_tiles, hi // tile + 1) \
-                if lo <= hi else t0
-            if t0 >= t1:
-                parts.append(None)          # a dead split writes m = -inf
-                continue
-            m = torch.full((h, 1), NEG_INF)
-            l = torch.zeros((h, 1))
-            acc = torch.zeros((h, r))
-            for kb in range(max(t0 * tile, lo - lo % step),
-                            min(t1 * tile, hi + 1), step):
-                keys = torch.arange(max(kb, lo), min(kb + step, hi + 1))
-                lat = load(keys)
-                state = {}
+        for r0 in range(0, n_rows, kr):
+            rr = torch.arange(r0, min(r0 + kr, n_rows))
+            nr = len(rr)
+            lo, hi = max(p_ - w_ + 1, 0), min(p_, n_keys - 1)
+            if chunk > 1:
+                qp = int(offset[bi]) + rr // group
+                row_win = w_ - (chunk - 1)
+                lo = max(lo, int(qp[0]) - row_win + 1)
+                hi = min(hi, int(qp[-1]))
+                row_lo = torch.clamp_min(qp - row_win + 1, lo)[:, None]
+                row_hi = torch.clamp_max(qp, hi)[:, None]
+            else:
+                row_lo = torch.full((nr, 1), lo)
+                row_hi = torch.full((nr, 1), hi)
+            parts = []
+            for split in range(plan['n_splits']):
+                t0 = max(split * tps, lo // tile)
+                t1 = min(split * tps + tps, n_tiles, hi // tile + 1) \
+                    if lo <= hi else t0
+                if t0 >= t1:
+                    parts.append(None)      # a dead split writes m = -inf
+                    continue
+                m = torch.full((nr, 1), NEG_INF)
+                l = torch.zeros((nr, 1))
+                acc = torch.zeros((nr, r))
+                for kb in range(max(t0 * tile, lo - lo % step),
+                                min(t1 * tile, hi + 1), step):
+                    keys = torch.arange(max(kb, lo), min(kb + step, hi + 1))
+                    lat = load(keys)
+                    valid = (keys[None] >= row_lo) & (keys[None] <= row_hi)
+                    state = {}
 
-                def probs(logits, m=m, state=state):
-                    m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
-                    state['m'] = m_new
-                    return torch.exp(logits - m_new)
-                if split_products:
-                    p, pv = _split_products(q[bi, 0], lat, r, scale, probs)
-                else:
-                    p = probs((q[bi, 0] @ lat.T) * scale)
-                    pv = p @ lat[:, :r]
-                m_new = state['m']
-                # all-masked guards: exp(-inf - -inf) must contribute 0
-                alpha = torch.where(torch.isfinite(m), torch.exp(m - m_new),
-                                    0.0)
-                l = l * alpha + p.sum(-1, keepdim=True)
-                acc = acc * alpha + pv
-                m = m_new
-            parts.append((m, l, acc))
-        live_splits += sum(pt is not None for pt in parts)
-        m_all = torch.full((h, 1), NEG_INF)
-        for pt in parts:
-            if pt is not None:
-                m_all = torch.maximum(m_all, pt[0])
-        l_all, a_all = torch.zeros((h, 1)), torch.zeros((h, r))
-        for pt in parts:                    # split order
-            if pt is None:
-                continue
-            wt = torch.exp(pt[0] - m_all)
-            l_all = l_all + pt[1] * wt
-            a_all = a_all + pt[2] * wt
-        out[bi, 0] = a_all / torch.clamp_min(l_all, 1e-30)
+                    def probs(logits, m=m, state=state, valid=valid):
+                        logits = torch.where(valid, logits, NEG_INF)
+                        m_new = torch.maximum(m,
+                                              logits.amax(-1, keepdim=True))
+                        state['m'] = m_new
+                        # masked keys weigh 0 (exp(-inf - -inf) is NaN)
+                        return torch.where(valid, torch.exp(logits - m_new),
+                                           0.0)
+                    if split_products:
+                        p, pv = _split_products(q[bi, 0, rr], lat, r, scale,
+                                                probs)
+                    else:
+                        p = probs((q[bi, 0, rr] @ lat.T) * scale)
+                        pv = p @ lat[:, :r]
+                    m_new = state['m']
+                    # all-masked guards: exp(-inf - -inf) must contribute 0
+                    alpha = torch.where(torch.isfinite(m),
+                                        torch.exp(m - m_new), 0.0)
+                    l = l * alpha + p.sum(-1, keepdim=True)
+                    acc = acc * alpha + pv
+                    m = m_new
+                parts.append((m, l, acc))
+            live_splits += sum(pt is not None for pt in parts)
+            m_all = torch.full((nr, 1), NEG_INF)
+            for pt in parts:
+                if pt is not None:
+                    m_all = torch.maximum(m_all, pt[0])
+            l_all, a_all = torch.zeros((nr, 1)), torch.zeros((nr, r))
+            for pt in parts:                # split order
+                if pt is None:
+                    continue
+                # a split whose m is -inf weighs 0
+                fin = torch.isfinite(pt[0])
+                wt = torch.where(fin, torch.exp(pt[0] - m_all), 0.0)
+                l_all = l_all + torch.where(fin, pt[1] * wt, 0.0)
+                a_all = a_all + torch.where(fin, pt[2] * wt, 0.0)
+            out[bi, 0, rr] = a_all / torch.clamp_min(l_all, 1e-30)
     return out, live_splits
 
 

@@ -68,8 +68,8 @@ def instrumented_source() -> str:
         .read()
     src = src.replace('#include "common.cuh"', '#include "' + os.path.join(
         ROOT, 'src/repro_torch/csrc/common.cuh') + '"')
-    head = 'template <typename KV>\n__global__ void __launch_bounds__(' \
-        'kLatThreads, 1)\nlatent_split_kernel('
+    head = 'template <typename KV, bool kChunk>\n__global__ void ' \
+        '__launch_bounds__(kLatThreads, 1)\nlatent_split_kernel('
     start = src.index(head)
     end = src.index('\n}\n', start)
     body = src[start:end]
