@@ -56,6 +56,11 @@ Phases, in order; any failure exits non-zero and prints no result:
              prefetch path, beside scaled_dot_product_attention on the
              same cache, each warm and with L2 flushed between calls
              (three cold readings each, in turns, at lock-step).
+             Last, NaN inputs (nan_kernel_phase): a NaN page alone in its
+             key split and among finite keys through K1, K5, K6, K8, K9
+             and K10 on bf16 and f32 pools, and K3 on a crafted NaN row;
+             the kernels leave non-finite exactly the plain versions'
+             non-finite rows (a ``{"nan": [...]}`` line).
 3. smoke   — the port's GPU path against its own CPU plain path on each
              smoke config in f32: prefill plus decode in every served mode,
              decode over the int8 tier (hot window 1), and a prefix hit
@@ -106,18 +111,32 @@ Phases, in order; any failure exits non-zero and prints no result:
              --prequantize, K4 169 and K3 266 in dynamic w8a8; and the
              device busy share of the bf16 flash lock-step run and of the
              dynamic w8a8 flash --ragged run.
+6. chaos   — continuous serving under the fault injector at the published
+             width, each serve beside a clean run of the same stream and
+             weights (chaos_phase): stablelm bf16 with the int8 tier and
+             the prefix cache, stablelm w8a8 --prequantize (kernels K1,
+             K2, K3, K5, K6 under poisoned pages and logits rows, dropped
+             quantize chunks, pool squeezes, preemption storms,
+             cancellations, mangled prompts), the dense prefix in dynamic
+             w8a8 (K3, K4, K8 under poisoned pages and logits rows). Every
+             lane that read a poisoned row quarantined, every request the
+             injector did not touch with the clean run's tokens, the
+             metrics equal to the event log, the trace a Chrome trace, no
+             telemetry hook synchronising the device; then the host ms a
+             step with metrics on and off (not gated).
 
 Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
 runs on, with that path's launches; K9 on both pool dtypes), a
 ``{"redesigned": [...]}`` line (every row of the redesigned kernels, all
-ten), a ``{"serve": [...]}`` and a ``{"static_serve": [...]}`` line, the
+ten), a ``{"nan": [...]}``, a ``{"serve": [...]}``, a ``{"static_serve":
+[...]}`` and a ``{"chaos": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
 reports) go to ``build/chip_smoke.json``.
 
 Usage: python3 chip_smoke.py (every phase runs, always).
-       python3 chip_smoke.py --phase kernels|profile|static: the build
-       and that phase alone (its report in
+       python3 chip_smoke.py --phase kernels|profile|static|nan|chaos:
+       the build and that phase alone (its report in
        ``build/chip_smoke_<phase>.json``, no result line), to rehearse a
        kernel or to measure another tree with this script copied into its
        root.
@@ -130,6 +149,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -589,7 +609,9 @@ def tiered_pools(torch, gen, q, bt, pos, n_pages, ps, hw, dt):
     return c
 
 
-def kernel_phase(torch, kmods):
+def kernel_phase(torch, kmods, nan=None):
+    """Every kernel at its main paths' shapes; the rows. K3's crafted rows
+    (their ninth kind holds a NaN) add one NaN report a cut to ``nan``."""
     fd, kq, ky, build = kmods
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -652,9 +674,11 @@ def kernel_phase(torch, kmods):
               f'K3 ({m},{k}) {dt} offset {shift} not bit-exact')
     # K3 bit-exact on crafted rows that random rows never reach, on one CTA
     # a row (K=2048), clusters (K=7168, 18432), several rows a block
-    # (M=1024) and the element-load branch (K=2049; a base off 16 bytes)
-    for m, k, shift in ((8, 2048, 0), (8, 7168, 0), (8, 18432, 0),
-                        (1024, 2048, 0), (8, 2049, 0), (8, 7168, 1)):
+    # (M=1024) and the element-load branch (K=2049; a base off 16 bytes);
+    # 9 decode rows take the 8 rows' cut and hold every kind, the NaN
+    # row's scale NaN in both
+    for m, k, shift in ((9, 2048, 0), (9, 7168, 0), (9, 18432, 0),
+                        (1024, 2048, 0), (9, 2049, 0), (9, 7168, 1)):
         for dt in (torch.bfloat16, torch.float32):
             x = torch.empty((m * k + shift,), device=dev, dtype=dt)
             x = x[shift:].view(m, k)
@@ -662,11 +686,24 @@ def kernel_phase(torch, kmods):
             xq, sx = kq.quantize_rows(x)
             xq_p, sx_p = kq.quantize_rows_plain(x)
             torch.cuda.synchronize()
-            check(bool(torch.equal(xq, xq_p) and torch.equal(sx, sx_p)),
+            check(bool(torch.equal(xq, xq_p))
+                  and _same_floats(torch, sx, sx_p),
                   f'K3 crafted rows ({m},{k}) {dt} offset {shift} not '
                   f'bit-exact')
             check(xq[0, :8].tolist() == [127, 2, -4, 0, 0, 126, 2, -2],
                   f'K3 crafted rows ({m},{k}) {dt}: ties not half to even')
+            nan_rows = torch.isnan(sx_p[:, 0]).cpu()
+            check(torch.equal(nan_rows, torch.arange(m) % K3_ROW_KINDS == 8),
+                  f'K3 crafted rows ({m},{k}) {dt}: NaN scales off the NaN '
+                  f'kind\'s rows')
+            if nan is not None:
+                nan.append(dict(
+                    kernel='K3', case=f'crafted rows ({m},{k}) offset '
+                    f'{shift}', pool=str(dt).replace('torch.', ''), rows=m,
+                    plain_nonfinite_rows=int(nan_rows.sum()),
+                    kernel_nonfinite_rows=int(torch.isnan(sx[:, 0]).sum()),
+                    same_rows=True, codes_bit_equal=True,
+                    max_abs_err_finite_rows=0.0, tol=0.0))
 
     # K3 / K2 / K4 at each main path's linear shapes, M in {8 slots,
     # 128-token prompt} and, for stablelm's layer linears, the static
@@ -793,37 +830,45 @@ def kernel_phase(torch, kmods):
     return rows
 
 
+#: the kinds of crafted K3 rows
+K3_ROW_KINDS = 9
+
+
 def k3_crafted_rows(torch, m, k, gen):
-    """(m, k) f32 rows of eight kinds, row i of kind i % 8: exact .5
+    """(m, k) f32 rows of nine kinds, row i of kind i % 9: exact .5
     quotients (absmax 127 gives scale 1.0; absmax 508 scale 4.0), denormals
     beside a normal absmax and alone, an absmax near the largest finite
-    value, one below 1e-8, tiny normals, and a row holding +inf and -inf
-    (its scale inf, inf / inf a NaN code)."""
+    value, one below 1e-8, tiny normals, a row holding +inf and -inf (its
+    scale inf, inf / inf a NaN code), and a row holding a NaN (the
+    poisoned lane's activation: its scale NaN, every code a NaN's)."""
     ties = torch.tensor([2.5, -3.5, 0.5, -0.5, 126.5, 1.5, -1.5, 125.5],
                         device=gen.device)
     noise = torch.randn((m, k), generator=gen, device=gen.device)
     x = torch.empty((m, k), device=gen.device)
     tiled = ties.repeat(-(-k // 8))[:k - 1]
-    for kind in range(8):
-        r = x[kind::8]
+    for kind in range(K3_ROW_KINDS):
+        r = x[kind::K3_ROW_KINDS]
         if kind in (0, 7):
             r[:, 0] = 127.0 if kind == 0 else 508.0
             r[:, 1:] = tiled * (1 if kind == 0 else 4)
         elif kind in (1, 2):
-            r.copy_(noise[kind::8] * 1e-39)
+            r.copy_(noise[kind::K3_ROW_KINDS] * 1e-39)
             if kind == 1:
                 r[:, -1] = 1.0
         elif kind == 3:
-            r.copy_(noise[kind::8] * 1e37)
+            r.copy_(noise[kind::K3_ROW_KINDS] * 1e37)
             r[:, k // 2] = 3.0e38
         elif kind == 4:
-            r.copy_(noise[kind::8] * 1e-9)
+            r.copy_(noise[kind::K3_ROW_KINDS] * 1e-9)
         elif kind == 5:
-            r.copy_(noise[kind::8])
+            r.copy_(noise[kind::K3_ROW_KINDS])
             r[:, k // 3] = float('inf')
             r[:, -1] = float('-inf')
+        elif kind == 6:
+            r.copy_(noise[kind::K3_ROW_KINDS] * 1e-30)
         else:
-            r.copy_(noise[kind::8] * 1e-30)
+            r.copy_(noise[kind::K3_ROW_KINDS])
+            r[:, k // 5] = float('nan')
     return x
 
 
@@ -1350,6 +1395,252 @@ def mla_kernel_phase(torch, kmods):
     return rows
 
 
+
+
+# ----------------------------------------------------------------------------
+# phase 2, last: a poisoned page and a NaN row against the plain versions
+# ----------------------------------------------------------------------------
+def _nan_case(torch, out, name, case, pool, got, want, tol):
+    """One NaN case: the query rows (every axis but the last) that the
+    kernel and its plain version leave non-finite, and the kernel's largest
+    error on the rows the plain version keeps finite."""
+    bad = (~torch.isfinite(got)).any(dim=-1)
+    bad_p = (~torch.isfinite(want)).any(dim=-1)
+    fin = ~bad_p
+    err = float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
+    out.append(dict(kernel=name, case=case, pool=pool, rows=bad.numel(),
+                    plain_nonfinite_rows=int(bad_p.sum()),
+                    kernel_nonfinite_rows=int(bad.sum()),
+                    same_rows=bool(torch.equal(bad, bad_p)),
+                    max_abs_err_finite_rows=err, tol=tol))
+
+
+def _same_floats(torch, a, b) -> bool:
+    """Bit-equal floats, where a NaN equals a NaN (of any payload)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb) and torch.equal(a[~na], b[~nb]))
+
+
+def _nan_case_ok(c) -> bool:
+    """The gate of one NaN case. A NaN in visible keys: non-finite on
+    exactly the plain version's rows (some, not all), the usual tolerance
+    on the others. A NaN in masked rows only: the kernel never reads them
+    and stays finite where the plain version (and the reference, whose
+    p @ v multiplies them by 0) goes NaN, and it equals the plain version
+    run with those rows zeroed."""
+    if c.get('masked_only'):
+        return (c['kernel_nonfinite_rows'] == 0
+                and c['plain_nonfinite_rows'] > 0
+                and c['max_abs_err_masked_zeroed'] <= c['tol'])
+    return (c['same_rows'] and 0 < c['plain_nonfinite_rows'] < c['rows']
+            and c['max_abs_err_finite_rows'] <= c['tol'])
+
+
+def _masked_nan_case(torch, out, name, pool, kernel, plain, pools, tol):
+    """A NaN in masked rows only: ``pools`` hold it, ``kernel()`` and
+    ``plain()`` read them; then the plain version again on the pools with
+    the NaN rows zeroed, the row the kernel should give."""
+    got, want = kernel(), plain()
+    for t in pools:
+        t.nan_to_num_(nan=0.0)
+    ref = plain()
+    out.append(dict(kernel=name, case='NaN in masked rows only', pool=pool,
+                    rows=got[..., 0].numel(), masked_only=True,
+                    plain_nonfinite_rows=int(
+                        (~torch.isfinite(want)).any(dim=-1).sum()),
+                    kernel_nonfinite_rows=int(
+                        (~torch.isfinite(got)).any(dim=-1).sum()),
+                    max_abs_err_masked_zeroed=float(
+                        (got - ref).abs().max()), tol=tol))
+
+
+def nan_kernel_phase(torch, kmods, dev='cuda', k3=()):
+    """Every paged attention kernel on NaN inputs, against its plain
+    version: a NaN page (the chaos layer's poisoned page, NaN in every row
+    of both fp pools) placed twice, alone in its key split (the split's
+    only live keys) and among finite keys of a split, on bf16 and f32
+    pools: K1 and K6 at the serving shape (hot window 2, both NaN pages
+    hot), K5 with C=8 at the split's start and after a NaN page of the
+    prefix, K8 and K10 at deepseek-v3's serving shape, K9 as K5. The gate:
+    the kernel leaves non-finite exactly the rows the plain version does
+    (the NaN pages' requests), and holds the others to the kernel's usual
+    tolerance (1e-5 GQA, 2e-5 MLA). Then K1 and K8 with a NaN only in the
+    rows past one request's position, which no query sees: there the
+    kernels stay finite and the plain versions go NaN, as the reference
+    does (:func:`_nan_case_ok`); the chaos serves' quarantines follow the
+    kernels (:func:`_poison_reads`). Positions come from each kernel's own
+    split plan; no window, so a row sees every live key of its pages.
+    ``k3``: K3's NaN-row reports from :func:`kernel_phase` (its crafted
+    rows, gated there), reported here beside the rest. Every case is run
+    and reported before the gate fails."""
+    from repro_torch.runtime import kv_quant as kvq
+
+    fd = kmods[0]
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = list(k3)
+    nan = float('nan')
+    masked_pos = 100               # slot 3: rows 5..7 of its page past it
+
+    def split_keys(plan):
+        return plan['tile'] * plan['tiles_per_split']
+
+    # K1 and K6: B=8, Hkv=32, G=1, dh=64, page size 8, W=20; slot 1 sits 2
+    # keys into the last split, its page there NaN (alone in the split);
+    # slot 2 is 3 keys short of the table's end, the page before its last
+    # NaN (among finite keys of its split); slot 0 idle
+    b, hkv, g, dh, ps, w, hw = 8, 32, 1, 64, 8, 20, 2
+    n_pages = 1 + b * w
+    scale = 1.0 / dh ** 0.5
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1) \
+        .reshape(b, w).to(torch.int32).contiguous()
+    pos = torch.randint(96, w * ps, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos[0] = 0
+    bt[0] = 0
+    win = torch.full((b,), w * ps + 1, dtype=torch.int32, device=dev)
+    q = torch.randn((b, hkv, g, dh), generator=gen, device=dev)
+    hwt = torch.tensor([hw], dtype=torch.int32, device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        sk = split_keys(fd.paged_split_plan(b, w, ps, hkv, g, dh,
+                                            torch.finfo(dt).bits // 8))
+        last = (w * ps - 1) // sk * sk
+        pos[1], pos[2] = last + 2, w * ps - 3
+        nan_pages = [int(bt[1, last // ps]), int(bt[2, (w * ps - 3) // ps
+                                                      - 1])]
+        c = tiered_pools(torch, gen, q, bt, pos, n_pages, ps, hw, dt)
+        for page in nan_pages:
+            c['k'][page] = nan
+            c['v'][page] = nan
+        pool = str(dt).replace('torch.', '')
+        args = (q, c['k'], c['v'], pos, win, bt)
+        _nan_case(torch, out, 'K1', 'pages alone and among finite keys',
+                  pool, fd.flash_decode_gqa_paged(*args, scale=scale),
+                  fd.flash_decode_gqa_paged_plain(*args, scale=scale), 1e-5)
+        qargs = (q, c['k'], c['v'], c['kq'], c['vq'], c['ks'], c['vs'], pos,
+                 win, bt, hwt)
+        _nan_case(torch, out, 'K6', 'pages alone and among finite keys, '
+                  'hot', pool, fd.flash_decode_gqa_paged_q8(*qargs,
+                                                            scale=scale),
+                  fd.flash_decode_gqa_paged_q8_plain(*qargs, scale=scale),
+                  1e-5)
+        del c
+        kp = torch.randn((n_pages, ps, hkv, dh), generator=gen,
+                         device=dev).to(dt)
+        vp = torch.randn((n_pages, ps, hkv, dh), generator=gen,
+                         device=dev).to(dt)
+        pos[3] = masked_pos
+        page = int(bt[3, masked_pos // ps])
+        kp[page, masked_pos % ps + 1:] = nan
+        vp[page, masked_pos % ps + 1:] = nan
+        args = (q, kp, vp, pos, win, bt)
+        _masked_nan_case(
+            torch, out, 'K1', pool,
+            lambda: fd.flash_decode_gqa_paged(*args, scale=scale),
+            lambda: fd.flash_decode_gqa_paged_plain(*args, scale=scale),
+            (kp, vp), 1e-5)
+        del kp, vp
+
+    # K5: two requests, C=8 at the start of the split holding position 96
+    # (the first request's page there NaN: the split's only live keys),
+    # and C=8 at offset 96 after a NaN page of its prefix (block 3); the
+    # second request's pages finite
+    for dt in (torch.bfloat16, torch.float32):
+        bt1 = (torch.randperm(2 * w, generator=gen, device=dev) + 1) \
+            .reshape(2, w).to(torch.int32).contiguous()
+        sk = split_keys(fd.chunk_split_plan(2, w, ps, hkv, 8, g, dh,
+                                            torch.finfo(dt).bits // 8))
+        pool = str(dt).replace('torch.', '')
+        for case, off, blk in (('page alone in its split', 96 // sk * sk,
+                                96 // sk * sk // ps),
+                               ('prefix page among finite keys', 96, 3)):
+            kp = torch.randn((1 + 2 * w, ps, hkv, dh), generator=gen,
+                             device=dev).to(dt)
+            vp = torch.randn((1 + 2 * w, ps, hkv, dh), generator=gen,
+                             device=dev).to(dt)
+            kp[int(bt1[0, blk])] = nan
+            vp[int(bt1[0, blk])] = nan
+            qc = torch.randn((2, hkv, 8 * g, dh), generator=gen, device=dev)
+            offv, posv, winv = fd._chunk_scalars(off, 128, None, 2, 8,
+                                                 w * ps, dev)
+            args = (qc, kp, vp, posv, winv, bt1, offv)
+            _nan_case(torch, out, 'K5', case, pool,
+                      fd.flash_decode_gqa_paged(*args, scale=scale, chunk=8),
+                      fd.flash_decode_gqa_paged_plain(*args, scale=scale,
+                                                      chunk=8), 1e-5)
+
+    # K8 and K10 at deepseek-v3's serving shape (H=128, DK=576, r=512),
+    # the NaN pages placed as K1's by the latent split's plan; K9 as K5
+    h, r = MLA_H, MLA_R
+    dk = r + MLA_DR
+    ql = torch.randn((b, 1, h, dk), generator=gen, device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        elt = torch.finfo(dt).bits // 8
+        sk = split_keys(fd.latent_split_plan(b, w, ps, h, dk, r, elt))
+        last = (w * ps - 1) // sk * sk
+        pos[1], pos[2] = last + 2, w * ps - 3
+        cl = torch.randn((n_pages, ps, dk), generator=gen,
+                         device=dev).to(dt)
+        c = dict(cl=cl, clq=torch.zeros((n_pages, ps, dk), dtype=torch.int8,
+                                        device=dev),
+                 cs=torch.zeros((n_pages, 1), device=dev))
+        cold = kvq.cold_page_list(bt.cpu(), pos.cpu().tolist(), ps, hw)
+        kvq.quantize_latent_pages_layer(c, torch.tensor(cold, device=dev))
+        cl[int(bt[1, last // ps])] = nan
+        cl[int(bt[2, (w * ps - 3) // ps - 1])] = nan
+        pool = str(dt).replace('torch.', '')
+        args = (ql, cl, pos, win, bt)
+        _nan_case(torch, out, 'K8', 'pages alone and among finite keys',
+                  pool, fd.flash_decode_mla_paged(*args, scale=MLA_SCALE,
+                                                  r=r),
+                  fd.flash_decode_mla_paged_plain(*args, scale=MLA_SCALE,
+                                                  r=r), 2e-5)
+        qargs = (ql, cl, c['clq'], c['cs'], pos, win, bt, hwt)
+        _nan_case(torch, out, 'K10', 'pages alone and among finite keys, '
+                  'hot', pool,
+                  fd.flash_decode_mla_paged_q8(*qargs, scale=MLA_SCALE, r=r),
+                  fd.flash_decode_mla_paged_q8_plain(*qargs,
+                                                     scale=MLA_SCALE, r=r),
+                  2e-5)
+        del c, cl
+        cl = torch.randn((n_pages, ps, dk), generator=gen,
+                         device=dev).to(dt)
+        pos[3] = masked_pos
+        cl[int(bt[3, masked_pos // ps]), masked_pos % ps + 1:] = nan
+        args = (ql, cl, pos, win, bt)
+        _masked_nan_case(
+            torch, out, 'K8', pool,
+            lambda: fd.flash_decode_mla_paged(*args, scale=MLA_SCALE, r=r),
+            lambda: fd.flash_decode_mla_paged_plain(*args, scale=MLA_SCALE,
+                                                    r=r),
+            (cl,), 2e-5)
+        del cl
+        bt1 = (torch.randperm(2 * w, generator=gen, device=dev) + 1) \
+            .reshape(2, w).to(torch.int32).contiguous()
+        sk = split_keys(fd.latent_split_plan(2, w, ps, 8 * h, dk, r, elt))
+        for case, off, blk in (('page alone in its split', 96 // sk * sk,
+                                96 // sk * sk // ps),
+                               ('prefix page among finite keys', 96, 3)):
+            cl1 = torch.randn((1 + 2 * w, ps, dk), generator=gen,
+                              device=dev).to(dt)
+            cl1[int(bt1[0, blk])] = nan
+            qc = torch.randn((2, 1, 8 * h, dk), generator=gen, device=dev)
+            offv, posv, winv = fd._chunk_scalars(off, 128, None, 2, 8,
+                                                 w * ps, dev)
+            args = (qc, cl1, posv, winv, bt1, offv)
+            _nan_case(torch, out, 'K9', case, pool,
+                      fd.flash_decode_mla_paged(*args, scale=MLA_SCALE, r=r,
+                                                chunk=8),
+                      fd.flash_decode_mla_paged_plain(*args, scale=MLA_SCALE,
+                                                      r=r, chunk=8), 2e-5)
+
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    print(json.dumps(dict(nan=out)), flush=True)
+    bad = [c for c in out if not _nan_case_ok(c)]
+    check(not bad, f'NaN inputs: {len(bad)} of {len(out)} cases differ from '
+                   f'the plain versions: {json.dumps(bad)}')
+    return out
 
 # ----------------------------------------------------------------------------
 # phase 3: GPU path vs the CPU plain path, smoke config, f32
@@ -2059,9 +2350,286 @@ def profile_phase(torch, arch=ARCH, modes=PROFILE_MODES):
     return out
 
 
-def all_kernel_phases(torch, kmods):
-    """Phase 2: every kernel against its plain version; the rows."""
-    rows = kernel_phase(torch, kmods)
+# ----------------------------------------------------------------------------
+# phase 6: chaos and telemetry at full width
+# ----------------------------------------------------------------------------
+# one fault of each kind at steps where it can land (scheduled on top of
+# chaos_profile()'s rates): mangled prompts at submission, poisoned pages
+# and logits rows while lanes decode, dropped quantize chunks (with the
+# int8 tier only), a pool squeeze with a preemption storm, a cancellation
+CHAOS_SEED = 0
+CHAOS_SCHEDULE = (
+    (0, 'mangle_prompt', (3, 'oversize')), (0, 'mangle_prompt',
+                                            (5, 'garbage')),
+    (2, 'poison_page', None), (3, 'drop_quant', None),
+    (4, 'poison_logits', None), (6, 'pool_squeeze', 24),
+    (6, 'preempt_storm', 2), (9, 'cancel', None), (11, 'poison_page', None),
+    (15, 'poison_logits', None),
+    (17, 'poison_page', None), (23, 'poison_page', None),
+    (29, 'poison_page', None))
+# the dense prefix: poisoned pages and logits rows only, no rates
+MLA_CHAOS_SCHEDULE = ((2, 'poison_page', None), (4, 'poison_logits', None),
+                      (7, 'poison_page', None), (10, 'poison_page', None),
+                      (13, 'poison_logits', None), (16, 'poison_page', None))
+# (arch, mode, prequantize, requests, stream, options, schedule, the
+# kernels the serve must launch)
+CHAOS_RUNS = (
+    (ARCH, 'bf16', False, 16, 'shared',
+     dict(kv_quant=True, hot_window=8, prefix_cache=True), CHAOS_SCHEDULE,
+     ('flash_decode_paged_q8', 'flash_chunk_paged')),
+    (ARCH, 'w8a8', True, 16, 'ragged', {}, CHAOS_SCHEDULE,
+     ('flash_decode_paged', 'quantize_rows', 'int8_matmul')),
+    (MLA_ARCH, 'w8a8', False, 8, 'ragged', {}, MLA_CHAOS_SCHEDULE,
+     ('flash_decode_paged_mla', 'quantize_rows', 'yoco_vmm_int8')),
+)
+# the telemetry hooks the serve loop calls each step (checked to make no
+# device synchronisation)
+TELEMETRY_HOOKS = ('begin_step', 'prefill', 'phase', 'sample', 'decode',
+                   'logits_gauge', 'step_done', '_on_event')
+
+
+def _poison_reads(out, picks, page_size, hot_window):
+    """For each poisoned page, the rids that read a NaN row of it as a
+    visible key in that step's decode (each must be quarantined), and the
+    owners that did not: the page was in the int8 tier for the lane, or
+    at or past its write position (the decode writes row pos before it
+    reads keys <= pos; the kernels never read masked rows, where the plain
+    versions' p @ v multiplies them by 0). A lane's position at step s is
+    its prompt length plus the steps since its last admission."""
+    ev = out['event_log']
+    plen = {e['rid']: e['plen'] for e in ev if e['kind'] == 'submit'}
+    reads, spared = [], []
+    for e in (e for e in ev if e['kind'] == 'fault'
+              and e['fault'] == 'poison_page'):
+        step, blk = e['step'], picks[(e['step'], e['slot'], e['page'])]
+        for owner in e['owners']:
+            admit = [a for a in ev if a['kind'] == 'admit'
+                     and a['slot'] == owner and a['step'] <= step][-1]
+            pos = plen[admit['rid']] + step - admit['step']
+            cold = hot_window is not None and \
+                blk < max(pos // page_size - hot_window + 1, 0)
+            hit = not cold and blk * page_size < pos
+            (reads if hit else spared).append((step, admit['rid']))
+    return reads, spared
+
+
+def chaos_phase(torch, build):
+    """Continuous serving under injected faults at the published width,
+    each serve after a warm-up and beside a clean run of the same stream
+    and weights (page size 8, prompts 128, generation 32): stablelm-1.6b in
+    bf16 with the int8 tier and the prefix cache (a shared-prefix stream),
+    and in w8a8 --prequantize, each under chaos_profile() seeded
+    CHAOS_SEED plus CHAOS_SCHEDULE; the dense prefix in dynamic w8a8 under
+    MLA_CHAOS_SCHEDULE. Every run writes its metrics (Prometheus text) and
+    a Chrome trace, and every telemetry hook runs under
+    torch.cuda.set_sync_debug_mode('error'). Gates: terminal accounting
+    (the serve audits it); every lane that read a poisoned page's NaN row,
+    and every poisoned logits row, quarantined at that step, and no lane
+    that only held one in masked rows or the int8 tier (it finishes on the
+    clean run's tokens); every finished request outside ``touched`` with
+    the clean run's tokens;
+    ``serve_events_total{kind}`` and ``serve_requests_total{terminal}``
+    equal to the event log; every scheduled fault landed (a dropped
+    quantize chunk only with the tier), the fault events counting them;
+    the trace a Chrome trace; each serve's kernels launched. Then, not
+    gated: the host ms a decode step with metrics on and off, three
+    interleaved pairs of stablelm bf16 serves, medians. Returns the rows."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as M
+    from repro_torch.runtime import faults as F
+    from repro_torch.runtime import telemetry as T
+
+    class PickRecorder(F.FaultInjector):
+        """An injector that remembers the block index of each poisoned
+        page it picks (its draws are the injector's own)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.picks = {}
+
+        def pick(self, seq):
+            seq = list(seq)
+            got = super().pick(seq)
+            if seq and isinstance(seq[0], tuple):
+                slot, page = got
+                blocks = [p for s, p in seq if s == slot]
+                self.picks[(self._step, slot, page)] = blocks.index(page)
+            return got
+
+    hook_calls = dict.fromkeys(TELEMETRY_HOOKS, 0)
+    originals = {h: getattr(T.ServeTelemetry, h) for h in TELEMETRY_HOOKS}
+
+    def guarded(name, fn):
+        def hook(*a, **kw):
+            hook_calls[name] += 1
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        return hook
+
+    t_phase = time.perf_counter()
+    rows, weights = [], {}
+    for i, (arch, mode, prequant, n_req, kind, opts, schedule,
+            kernels) in enumerate(CHAOS_RUNS):
+        cfg = configs.get(arch, smoke=False)
+        if arch not in weights:
+            weights[arch] = M.init_params(torch.Generator(device='cuda')
+                                          .manual_seed(0), cfg, device='cuda')
+        params = weights[arch]
+        kw = dict(smoke=False, slots=8, prompt_len=128, gen_len=32,
+                  page_size=8, mode=mode, prequantize=prequant,
+                  attn_impl='flash', params=params, quiet=True, **opts)
+        SV.serve_continuous(arch, **dict(kw, n_requests=1, gen_len=2))
+        torch.cuda.synchronize()
+        clean = SV.serve_continuous(
+            arch, n_requests=n_req,
+            request_stream=_stream(SV, cfg, kind, n_req), **kw)
+        profile = F.chaos_profile() if arch == ARCH else F.FaultProfile()
+        inj = PickRecorder(CHAOS_SEED, profile, schedule=schedule)
+        trace = os.path.join(OUT_DIR, f'chaos_trace_{i}.json')
+        prom = os.path.join(OUT_DIR, f'chaos_metrics_{i}.prom')
+        os.makedirs(OUT_DIR, exist_ok=True)
+        for h in TELEMETRY_HOOKS:
+            setattr(T.ServeTelemetry, h, guarded(h, originals[h]))
+        build.reset_counts()
+        try:
+            out = SV.serve_continuous(
+                arch, n_requests=n_req, faults=inj, trace=trace,
+                metrics_out=prom,
+                request_stream=_stream(SV, cfg, kind, n_req), **kw)
+            torch.cuda.synchronize()
+        finally:
+            for h in TELEMETRY_HOOKS:
+                setattr(T.ServeTelemetry, h, originals[h])
+        launches = dict(build.LAUNCHES)
+        tag = f'chaos {arch} {mode} prequant={prequant} {opts}'
+        ev = out['event_log']
+        check(set(out['terminal']) == {e['rid'] for e in ev
+                                       if e['kind'] == 'submit'},
+              f'{tag}: a submitted request has no terminal state')
+        # poisoned lanes
+        quarantined = {(e['step'], e['rid']) for e in ev
+                       if e['kind'] == 'quarantine'}
+        reads, spared = _poison_reads(
+            out, inj.picks, 8, opts.get('hot_window') if opts.get('kv_quant')
+            else None)
+        logit_rows = [(e['step'], e['rid']) for e in ev if e['kind'] == 'fault'
+                      and e['fault'] == 'poison_logits']
+        missed = [x for x in reads + logit_rows if x not in quarantined]
+        check(not missed, f'{tag}: poisoned lanes not quarantined: {missed}')
+        check(reads and logit_rows, f'{tag}: no lane read a poisoned page '
+                                    f'({spared} spared) or logits row')
+        # a lane whose poisoned rows were all masked or in the tier stays
+        # finite on the card (the plain versions would quarantine it)
+        hit = set(reads) | set(logit_rows)
+        wrongly = [x for x in spared if x in quarantined and x not in hit]
+        check(not wrongly, f'{tag}: spared lanes quarantined: {wrongly}')
+        # clean tokens outside touched
+        finished = [r for r, t in out['terminal'].items() if t == 'finish']
+        differ = [r for r in finished if r not in inj.touched
+                  and out['outputs'][r] != clean['outputs'][r]]
+        check(not differ, f'{tag}: requests {differ} differ from the clean '
+                          f'run')
+        read_rids = {rid for _, rid in hit}
+        spared_clean = sorted({rid for _, rid in spared
+                               if rid in finished and rid not in read_rids
+                               and rid not in inj.touched})
+        differ = [r for r in spared_clean
+                  if out['outputs'][r] != clean['outputs'][r]]
+        check(not differ, f'{tag}: spared requests {differ} differ from the '
+                          f'clean run')
+        # metrics against the log
+        m = out['telemetry']['metrics']
+        check(m['serve_events_total']['values']
+              == {k: float(v) for k, v in out['events'].items()},
+              f'{tag}: serve_events_total differs from the event log')
+        terms = Counter(out['terminal'].values())
+        check(m['serve_requests_total']['values']
+              == {k: float(v) for k, v in terms.items()},
+              f'{tag}: serve_requests_total differs from the terminal map')
+        # the schedule landed
+        want = Counter(k for _, k, _ in schedule
+                       if k != 'drop_quant' or opts.get('kv_quant'))
+        counts = out['faults']
+        check(all(counts.get(k, 0) >= n for k, n in want.items()),
+              f'{tag}: fault counts {counts} below the schedule\'s {want}')
+        fault_events = Counter(e['fault'] for e in ev if e['kind'] == 'fault')
+        for k in ('poison_page', 'poison_logits', 'drop_quant',
+                  'mangle_prompt'):
+            check(fault_events.get(k, 0) == counts.get(k, 0),
+                  f'{tag}: {k} applied {counts.get(k, 0)} times, '
+                  f'{fault_events.get(k, 0)} fault events')
+        check(out['events'].get('cancel', 0) >= want.get('cancel', 0),
+              f'{tag}: no cancellation')
+        check(out['events'].get('reject', 0) >= want.get('mangle_prompt', 0),
+              f'{tag}: a mangled prompt was not rejected')
+        if opts.get('kv_quant'):
+            check(out['pages_quant_dropped'] > 0 and inj.touched,
+                  f'{tag}: no quantize chunk dropped')
+        # the trace and the Prometheus text
+        with open(trace) as f:
+            tr = json.load(f)['traceEvents']
+        check(tr and all(e['ph'] in ('M', 'X', 'i') and 'name' in e
+                         and (e['ph'] == 'M' or isinstance(e['ts'], float))
+                         and (e['ph'] != 'X' or e['dur'] >= 0) for e in tr),
+              f'{tag}: the trace is not a Chrome trace of complete spans and '
+              f'instants')
+        with open(prom) as f:
+            check('serve_energy_pj_total{path="achieved"}' in f.read(),
+                  f'{tag}: no modelled energy in the metrics')
+        for k in kernels:
+            check(launches[k] > 0, f'{tag}: {k} never launched')
+        check(all(hook_calls[h] > 0 for h in ('begin_step', 'sample',
+                                              'decode', 'logits_gauge',
+                                              '_on_event')),
+              f'{tag}: a telemetry hook never ran: {hook_calls}')
+        rows.append(dict(
+            arch=arch, mode=mode, prequantize=prequant, requests=n_req,
+            stream=kind, options=opts, steps=out['steps'],
+            wall_s=out['wall_s'], clean_wall_s=clean['wall_s'],
+            events=out['events'], faults=counts,
+            fault_steps=[(e['step'], e['fault']) for e in ev
+                         if e['kind'] == 'fault'],
+            terminal=dict(terms),
+            poisoned_reads=len(reads), poisoned_pages_spared=spared,
+            spared_clean_token_requests=spared_clean,
+            poisoned_logits_rows=len(logit_rows),
+            quarantined=out['quarantined'], touched=sorted(inj.touched),
+            clean_token_requests=len([r for r in finished
+                                      if r not in inj.touched]),
+            pages_quant_dropped=out['pages_quant_dropped'],
+            telemetry_summary=out['telemetry_summary'],
+            hook_calls_no_sync=dict(hook_calls),
+            launches={k: v for k, v in launches.items() if v}))
+        print(f'chaos run: {json.dumps(rows[-1])}', flush=True)
+    # host ms a decode step, metrics on and off, interleaved
+    kw = dict(smoke=False, slots=8, n_requests=8, prompt_len=128,
+              gen_len=32, page_size=8, params=weights[ARCH], quiet=True)
+    SV.serve_continuous(ARCH, **kw)
+    step_ms = dict(on=[], off=[])
+    for _ in range(3):
+        for key in ('on', 'off'):
+            torch.cuda.synchronize()
+            o = SV.serve_continuous(ARCH, metrics=key == 'on', **kw)
+            step_ms[key].append((o['wall_s'] - o['prefill_s'])
+                                / max(o['steps'], 1) * 1e3)
+    rows.append(dict(metrics_host_ms_per_step=step_ms,
+                     median_on=_median(step_ms['on']),
+                     median_off=_median(step_ms['off']),
+                     ratio=_median(step_ms['on']) / _median(step_ms['off'])))
+    rows.append(dict(phase_s=time.perf_counter() - t_phase))
+    print(f'chaos metrics on/off: {json.dumps(rows[-2])}; phase '
+          f'{rows[-1]["phase_s"]:.1f} s', flush=True)
+    return rows
+
+def all_kernel_phases(torch, kmods, nan=None):
+    """Phase 2: every kernel against its plain version; the rows (K3's
+    NaN-row reports go to ``nan``)."""
+    rows = kernel_phase(torch, kmods, nan)
     print(f'kernel checks passed: {len(rows)} shapes', flush=True)
     rows += tier_chunk_kernel_phase(torch, kmods)
     print('K5/K6 checks passed', flush=True)
@@ -2088,8 +2656,13 @@ def static_rows(torch, kmods):
 
 # ``--phase NAME``: the build and that phase alone, to compare two trees
 # (copy this script into the other tree's root) or to rehearse a kernel
+def chaos_rows(torch, kmods):
+    """Phase 6 alone."""
+    return chaos_phase(torch, kmods[3])
+
+
 PHASES = dict(kernels=all_kernel_phases, profile=all_profiles,
-              static=static_rows)
+              static=static_rows, nan=nan_kernel_phase, chaos=chaos_rows)
 
 
 def print_redesigned(rows):
@@ -2130,7 +2703,9 @@ def run_phases(torch, report, kmods):
         t0[0] = now
         print(f'phase {name}: {phase_s[name]:.1f} s', flush=True)
 
-    report['kernel_sweep'] = all_kernel_phases(torch, kmods)
+    k3_nan = []
+    report['kernel_sweep'] = all_kernel_phases(torch, kmods, k3_nan)
+    report['nan'] = nan_kernel_phase(torch, kmods, k3=k3_nan)
     lap('kernels')
     report['smoke'] = (smoke_phase(torch) + smoke_tier_prefix_phase(torch)
                        + smoke_phase(torch, MLA_ARCH, (('bf16', False),
@@ -2149,6 +2724,8 @@ def run_phases(torch, report, kmods):
     report['static_serve'], static_totals = static_serve_phase(torch,
                                                                kmods[3])
     lap('static')
+    report['chaos'] = chaos_phase(torch, kmods[3])
+    lap('chaos')
     for k in gqa_totals:
         check(gqa_totals[k] + mla_totals[k] + static_totals[k] > 0,
               f'kernel {k} was never launched on the main paths')
@@ -2285,6 +2862,7 @@ def main(argv) -> int:
     print(json.dumps(dict(profiler_misses=PROFILER_MISSES)), flush=True)
     print(json.dumps(dict(serve=report['serve'])), flush=True)
     print(json.dumps(dict(static_serve=report['static_serve'])), flush=True)
+    print(json.dumps(dict(chaos=report['chaos'])), flush=True)
     print(smi, flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform='gpu', kind=torch.cuda.get_device_name(0),

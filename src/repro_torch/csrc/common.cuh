@@ -13,10 +13,20 @@ REPRO_EXPORT const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// max(a, b) that propagates NaN, as jnp.max and torch.amax do (PTX
+// max.NaN, sm_80 and later): fmaxf returns the other operand of a NaN, so a
+// running max taken with it hides a NaN input. On non-NaN operands the two
+// are the same instruction and give the same bits.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = fmax_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 

@@ -422,7 +422,12 @@ __device__ __forceinline__ void dequant_step(uint4 (&kr)[kStepKeys],
 
 // The weight of an online-softmax state whose max is m in a merge whose
 // max is m_new, with _softmax_tile's guard: a state whose max is -inf
-// weighs 0 (and its sum and accumulator are not read).
+// weighs 0. Every running max here is taken with fmax_nan, so a state that
+// saw a NaN logit has m = NaN, not -inf: its weight, and so the merge, is
+// NaN, as jnp.max makes the reference's row NaN. A -inf max therefore
+// means the state saw no key, and the dead-state tests below (`== -inf`:
+// skip) never drop a NaN. A NaN value row behind a finite logit reaches the
+// accumulator through p * v.
 __device__ __forceinline__ float merge_weight(float m, float m_new) {
   return m == -INFINITY ? 0.f : expf(m - m_new);
 }
@@ -562,8 +567,8 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
     for (int r = 0; r < kRows; ++r) {
       float mx = logit[r][0];
 #pragma unroll
-      for (int u = 1; u < kStepKeys; ++u) mx = fmaxf(mx, logit[r][u]);
-      const float m_new = fmaxf(m_run[r], mx);
+      for (int u = 1; u < kStepKeys; ++u) mx = fmax_nan(mx, logit[r][u]);
+      const float m_new = fmax_nan(m_run[r], mx);
       // all-masked guards: exp(-inf - -inf) must contribute 0, not 1
       const float alpha = isfinite(m_run[r]) ? expf(m_run[r] - m_new) : 0.f;
       float p_sum = 0.f;
@@ -598,7 +603,7 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
     for (int r = 0; r < kRows; ++r) {
       const float mo = __shfl_xor_sync(0xffffffffu, m_run[r], off);
       const float lo_ = __shfl_xor_sync(0xffffffffu, l_run[r], off);
-      const float m_new = fmaxf(m_run[r], mo);
+      const float m_new = fmax_nan(m_run[r], mo);
       const float wa = merge_weight(m_run[r], m_new);
       const float wb = merge_weight(mo, m_new);
       l_run[r] = l_run[r] * wa + lo_ * wb;
@@ -628,7 +633,7 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
     const int r = i / dh, d = i - r * dh;
     float m_all = -INFINITY;
     for (int w = 0; w < kSplitWarps; ++w)
-      m_all = fmaxf(m_all, s_m[w * kRows + r]);
+      m_all = fmax_nan(m_all, s_m[w * kRows + r]);
     float l_all = 0.f, a_all = 0.f;
     for (int w = 0; w < kSplitWarps; ++w) {
       const float mw = s_m[w * kRows + r];
@@ -646,8 +651,8 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
 }
 
 // Combine: for every (b, h) row, merge the splits' partials in split order
-// (a split whose m is -inf weighs 0) and normalise once, acc / max(l,
-// 1e-30). Block (bh, y) writes outputs [128 kVec y, +128 kVec) of the
+// (a split whose m is -inf saw no key and weighs 0; one whose m is NaN saw a
+// NaN and makes the row NaN) and normalise once, acc / max(l, 1e-30). Block (bh, y) writes outputs [128 kVec y, +128 kVec) of the
 // (g, dh) rows of bh, kVec consecutive ones a thread (kVec = 4 when dh is a
 // multiple of 4), and stages the m and l of only the rows those outputs lie
 // in (one row of K8's 128 at dh = 512). The first kBatch splits'
@@ -687,7 +692,8 @@ split_combine_kernel(const float* __restrict__ part_m,
   __syncthreads();
   if (!active) return;
   float m_all = -INFINITY;
-  for (int s = 0; s < n_splits; ++s) m_all = fmaxf(m_all, s_ml[s * nr + rr]);
+  for (int s = 0; s < n_splits; ++s)
+    m_all = fmax_nan(m_all, s_ml[s * nr + rr]);
   float l_all = 0.f, a_all[kVec];
 #pragma unroll
   for (int e = 0; e < kVec; ++e) a_all[e] = 0.f;
@@ -1378,13 +1384,13 @@ latent_split_kernel(const float* __restrict__ q, const KV* __restrict__ c,
                           s_part[3 * kRows * kLatSStride + i];
         const int kpos = kb + k0 + e;
         lg[e] = kpos >= row_lo && kpos <= row_hi ? dot * scale : -INFINITY;
-        mx = fmaxf(mx, lg[e]);
+        mx = fmax_nan(mx, lg[e]);
       }
 #pragma unroll
       for (int off = 1; off < 8; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        mx = fmax_nan(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_prev = s_m[row];
-      const float m_new = fmaxf(m_prev, mx);
+      const float m_new = fmax_nan(m_prev, mx);
       // all-masked guards: exp(-inf - -inf) must contribute 0, not 1
       const float alpha = isfinite(m_prev) ? expf(m_prev - m_new) : 0.f;
       float p_sum = 0.f;

@@ -36,8 +36,15 @@ on MLA in ``serve()``. ``--mode w8a8`` routes every linear through the
 int8 kernels (K3 + K2 with ``--prequantize``, K3 + K4 without).
 ``--sample`` (with ``--temperature`` / ``--top-k``) replaces the greedy
 argmax with temperature / top-k sampling on both paths.
-Unlike the reference there is no flash->einsum degrade: a kernel that fails
-to build or launch raises.
+``--chaos`` (``--chaos-seed``) serves the stream under
+``runtime/faults.py``'s deterministic fault injector; every step a NaN/Inf
+sentinel on the logits quarantines poisoned lanes (pages scrubbed, request
+requeued). ``--metrics`` (on by default) adds ``runtime/telemetry.py``'s
+spans, gauges and the YOCO hardware model's energy and traffic (modelled
+figures, not the card's), ``--metrics-out`` writes them and ``--trace`` a
+Chrome trace. Unlike the reference there is no flash->einsum degrade: a
+kernel that fails to build or launch raises, and a simulated kernel fault
+is refused.
 
 Usage (the card is the default device; ``--device cpu`` runs the plain
 versions of the kernels):
@@ -47,7 +54,8 @@ versions of the kernels):
   python -m repro_torch.launch.serve --arch stablelm-1.6b --continuous \
       --no-smoke --slots 8 --requests 16 --prompt-len 128 --gen-len 32 \
       --mode w8a8 --prequantize [--kv-quant --hot-window 2] \
-      [--prefix-cache] [--chunk-prefill 32] [--shared-prefix 96]
+      [--prefix-cache] [--chunk-prefill 32] [--shared-prefix 96] \
+      [--chaos --chaos-seed 0] [--metrics-out m.prom] [--trace t.json]
 """
 
 from __future__ import annotations
@@ -74,6 +82,7 @@ from repro_torch.runtime import kv_cache as kvc
 from repro_torch.runtime import kv_quant as kvq
 from repro_torch.runtime import layouts as layouts_mod
 from repro_torch.runtime import serve_step as SS
+from repro_torch.runtime import telemetry as telemetry_mod
 
 
 def _ragged_lens(batch: int, prompt_len: int) -> torch.Tensor:
@@ -113,6 +122,23 @@ def _serving_params(cfg, params, dev, *, seed: int, mode: str,
     if mode == 'bf16':
         return model_mod.cast_linear_weights(params, compute_dtype)
     return model_mod.k_major_linear_weights(params)
+
+
+def _refuse_kernel_fault(faults) -> None:
+    """The reference degrades a failed flash decode to the layout's einsum
+    oracle (src/repro/launch/serve.py:1088-1111); the port keeps the
+    decision not to port that as a silent fallback (ROADMAP Queue 1 item
+    10): a kernel that fails raises. An injector that would simulate a
+    kernel failure is refused before serving."""
+    if faults is None:
+        return
+    if faults.profile.kernel_fault_step is not None or any(
+            kind == 'kernel_fault' for _, kind, _ in faults.schedule):
+        raise ValueError(
+            'kernel_fault is not served: the port does not degrade from the '
+            'flash kernels to the einsum oracle (kept decision, ROADMAP '
+            'Queue 1 item 10: a kernel that fails raises; a degrade, if '
+            'ever ported, is an explicit, logged mode, off by default)')
 
 
 def _check_attn_impl(attn_impl: str) -> None:
@@ -271,6 +297,8 @@ class ContinuousScheduler:
       exactly one terminal event of :attr:`events`.
     * **quarantine**: a lane with non-finite logits is released and
       requeued, and its pages are handed back for scrubbing first.
+    * **chaos hooks**: :meth:`cancel` ends a pending or active request
+      mid-stream, :meth:`force_preempt` preempts the youngest lane.
     * **tier** (``hot_window``): :meth:`aged_out` lists the pages that left
       each lane's hot window; a released lane's tracker resets.
     """
@@ -375,6 +403,22 @@ class ContinuousScheduler:
         self.pending.append(req)
         return True
 
+    def cancel(self, rid: int) -> bool:
+        """Mid-stream cancellation: drop the request wherever it is
+        (pending queue or an active lane). False for an unknown or
+        already-terminal rid."""
+        for req in self.pending:
+            if req.rid == rid:
+                self.pending.remove(req)
+                self._terminal(req, 'cancel', where='pending')
+                return True
+        for slot, st in list(self.active.items()):
+            if st.req.rid == rid:
+                self._release_slot(slot, reason='cancel')
+                self._terminal(st.req, 'cancel', where='active', pos=st.pos)
+                return True
+        return False
+
     @property
     def done(self) -> bool:
         return not self.pending and not self.active
@@ -436,6 +480,14 @@ class ContinuousScheduler:
         victim = (max(others, key=lambda s: self.active[s].admit_seq)
                   if others else exclude)
         self._requeue(victim, kind='preempt')
+
+    def force_preempt(self) -> bool:
+        """Chaos hook (preemption storm): preempt the youngest active lane
+        unconditionally. False when nothing is active."""
+        if not self.active:
+            return False
+        self._preempt_youngest()
+        return True
 
     def quarantine(self, slot: int) -> List[int]:
         """Poisoned lane: release-and-requeue it and return the pages safe
@@ -540,7 +592,14 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
                      deadline: Optional[int] = None,
                      retry_budget: Optional[int] = 8,
                      max_queue: Optional[int] = None,
-                     step_hook=None, quiet: bool = False,
+                     faults: Optional[faults_mod.FaultInjector] = None,
+                     step_hook=None,
+                     metrics: bool = True,
+                     metrics_out: Optional[str] = None,
+                     trace: Optional[str] = None,
+                     registry=None,
+                     max_steps: Optional[int] = None,
+                     quiet: bool = False,
                      device=None, compute_dtype=torch.bfloat16,
                      params: Optional[dict] = None) -> dict:
     """Serve a stream of requests end to end (admit, decode, evict,
@@ -557,10 +616,34 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     ``shared_prefix`` N makes every synthetic prompt open with the same N
     tokens. ``params`` (the port's f32 param tree on ``device``, e.g.
     from ``model.params_from_numpy``) replaces the seeded random init.
-    ``step_hook(sched, kv, cache)`` runs after every absorbed step.
+    ``step_hook(sched, kv, cache)`` runs after every absorbed step;
+    ``max_steps`` caps the scheduler steps (the run then raises as
+    stalled).
+
+    Robustness: ``faults`` (a ``runtime.faults.FaultInjector``) applies its
+    faults at the scheduler's edges in the reference's order: mangled
+    prompts at submission, a pool squeeze and a cancellation as each step
+    opens, a preemption storm after admission, dropped quantize chunks
+    (the pages stay zero in the int8 tier; their requests are marked
+    ``touched``), a NaN pool page before the decode and a NaN logits row
+    after it. Every step the ``logits_health`` sentinel quarantines lanes
+    with non-finite logits (pages scrubbed, request requeued). A
+    ``kernel_fault`` is refused (:func:`_refuse_kernel_fault`).
+
+    Observability: ``metrics=True`` threads ``runtime.telemetry.
+    ServeTelemetry`` through the loop (span histograms from the event log,
+    scheduler/pool/tier gauges, the hardware model's per-step energy and
+    traffic; the report gains ``telemetry`` and ``telemetry_summary``, and
+    ``metrics_out`` writes the snapshot, Prometheus text for a ``.prom``
+    name, JSON otherwise); ``trace`` writes a Chrome trace of the run;
+    ``registry`` takes a ``MetricsRegistry`` to fill. ``metrics=False``
+    and no ``trace`` skip every hook. No hook reads the device: the max
+    |logit| gauge keeps the sentinel's device scalar until the end.
+
     Pools are updated in place. Returns the reference's report keys."""
     cfg = configs.get(arch, smoke=smoke)
     _refuse_mla_prequantize(arch, cfg, prequantize)
+    _refuse_kernel_fault(faults)
     dev = device_mod.resolve(device)
     _check_attn_impl(attn_impl)
     yoco = YocoConfig(mode=mode, compute_dtype=compute_dtype)
@@ -576,6 +659,14 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     kv = kvc.PagedKVCache(num_pages, page_size, max_blocks, slots,
                           prefix_cache=prefix_cache)
     events = faults_mod.EventLog()
+    telem = None
+    if metrics or trace:
+        telem = telemetry_mod.ServeTelemetry(
+            cfg, slots=slots, page_size=page_size, kv_quant=kv_quant,
+            hot_window=hot_window, metrics=metrics, trace_path=trace,
+            registry=registry)
+        telem.attach(events)
+    injector = faults
     sched = ContinuousScheduler(kv, prompt_pad=prompt_len, eos_id=eos_id,
                                 hot_window=hot_window if kv_quant else None,
                                 retry_budget=retry_budget,
@@ -599,6 +690,14 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         n_requests = len(request_stream)
     for req in stream:
         req.ttl_steps = deadline
+        if injector is not None:
+            mangled = injector.mangle(req, prompt_pad=prompt_len,
+                                      vocab=cfg.vocab_size)
+            if mangled is not req:
+                events.emit('fault', step=0, rid=req.rid,
+                            fault='mangle_prompt',
+                            plen=len(mangled.prompt))
+                req = mangled
         sched.submit(req)
 
     cache = model_mod.init_paged_cache_tree(
@@ -607,6 +706,7 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         kv_dtype='int8' if kv_quant else None, hot_window=hot_window,
         device=dev)
     n_pages_quantized = 0
+    n_pages_quant_dropped = 0
 
     def in_page_chunks(fn, cache, pages):
         """Apply ``fn(cache, (max_blocks,) pages)`` over an arbitrary-length
@@ -619,8 +719,9 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         return cache
 
     def quantize_aged_out(cache):
-        nonlocal n_pages_quantized
-        pages = sched.aged_out_pages()
+        nonlocal n_pages_quantized, n_pages_quant_dropped
+        by_slot = sched.aged_out()
+        pages = [p for ps_ in by_slot.values() for p in ps_]
         if prefix_cache:
             # a sealed page ages out of every owner's hot window, but its
             # int8 twin is content-addressed like the page: quantize it the
@@ -628,8 +729,18 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
             # dict dedupes same-step age-outs of a burst-admitted prefix
             pages = [p for p in dict.fromkeys(pages)
                      if p not in kv.quantized_pages]
-            kv.quantized_pages.update(pages)
+        if pages and injector is not None and injector.drop_quant_now():
+            # the tracker already advanced: these pages stay zero in the
+            # int8 tier, so their requests' outputs may legitimately change
+            rids = sorted(sched.active[s].req.rid for s in by_slot)
+            injector.touched.update(rids)
+            events.emit('fault', step=sched.step_no, fault='drop_quant',
+                        pages=len(pages), rids=rids)
+            n_pages_quant_dropped += len(pages)
+            return cache
         n_pages_quantized += len(pages)
+        if prefix_cache:
+            kv.quantized_pages.update(pages)
         return in_page_chunks(kvq.quantize_tree_pages, cache, pages)
 
     prefill_fn = SS.make_prefill_step(cfg, yoco, rt)
@@ -701,12 +812,38 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         tp_end = time.perf_counter()
         t_prefill += tp_end - tp
         events.annotate_last('admit', req.rid, prefill_s=tp_end - tp)
+        if telem is not None:
+            telem.prefill(rid=req.rid, slot=slot, t_start=tp, t_end=tp_end)
         sched.seed(req, slot, first)
 
     t0 = time.time()
-    limit = n_requests * (prompt_len + gen_len) * 4 + 64
+    limit = max_steps if max_steps is not None else \
+        n_requests * (prompt_len + gen_len) * 4 + 64
     while not sched.done and steps < limit:
+        t_step0 = time.perf_counter()
         sched.begin_step(steps)
+        if telem is not None:
+            telem.begin_step(steps, t_step0)
+        if injector is not None:
+            injector.begin_step(steps)
+            # pool squeeze: the injector holds free pages hostage; the
+            # scheduler sees a smaller pool and must queue or preempt
+            delta = injector.squeeze_pages() - len(kv.reserved)
+            if delta > 0:
+                if kv.reserve_pages(delta):
+                    events.emit('fault', step=steps, fault='pool_squeeze',
+                                held=len(kv.reserved))
+            elif delta < 0:
+                kv.unreserve_pages(-delta)
+            # mid-stream cancellation of a live (pending or active) rid
+            want_cancel = injector.cancel_now()
+            if want_cancel:
+                live = sorted({st.req.rid for st in sched.active.values()}
+                              | {r.rid for r in sched.pending})
+                rid = want_cancel if not isinstance(want_cancel, bool) \
+                    else (injector.pick(live) if live else None)
+                if rid is not None:
+                    sched.cancel(rid)
         deferred = kv.drain_scrub_queue()
         if deferred:
             cache = layouts_mod.scrub_tree_pages(cache, deferred)
@@ -721,28 +858,78 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
                 break
         if sched.done:
             break
+        if injector is not None:
+            # preemption storm: force-preempt lanes (fresh admissions too)
+            for _ in range(injector.storm_count()):
+                if sched.force_preempt():
+                    events.emit('fault', step=steps, fault='preempt_storm')
         sched.grow_for_decode()
         if kv_quant:
             # pages that just left the hot window become int8 before the
             # step reads them as cold (fresh admissions included)
+            tq = time.perf_counter()
+            quantized_before = n_pages_quantized
             cache = quantize_aged_out(cache)
+            if telem is not None and n_pages_quantized > quantized_before:
+                telem.phase('quantize', tq, time.perf_counter(),
+                            pages=n_pages_quantized - quantized_before)
+        if (injector is not None and sched.active
+                and injector.poison_page_now()):
+            # NaN an owned fp pool page (a corrupted in-memory read): the
+            # sentinel below must catch every lane that reads it; a shared
+            # page poisons every owner
+            cand = [(s, int(p)) for s in sorted(sched.active)
+                    for p in kv.tables[s, :int(kv.counts[s])]]
+            if cand:
+                slot, page = injector.pick(cand)
+                cache = layouts_mod.poison_tree_pages(cache, [page])
+                owners = kv.owners_of(page) if prefix_cache else [slot]
+                events.emit('fault', step=steps, fault='poison_page',
+                            slot=slot, page=page,
+                            rid=sched.active[slot].req.rid, owners=owners)
+        poison_slot = None
+        if (injector is not None and sched.active
+                and injector.poison_logits_now()):
+            poison_slot = injector.pick(sorted(sched.active))
+            events.emit('fault', step=steps, fault='poison_logits',
+                        slot=poison_slot,
+                        rid=sched.active[poison_slot].req.rid)
         peak_pages = max(peak_pages, kv.used_pages)
+        if telem is not None:
+            # gauges and the energy meter over the step's actual batch
+            telem.sample(sched, kv)
         toks, pos = sched.step_vectors()
         cache = kvc.with_block_tables(cache, kv.tables)
         busy_slot_steps += len(sched.active)
+        active_now = sorted(sched.active)
+        td0 = time.perf_counter()
         step_args = (params, torch.from_numpy(toks).to(dev),
                      torch.from_numpy(pos).to(dev), cache)
         tok, logits, cache = decode_fn(*step_args) if greedy else \
             decode_fn(*step_args, sample_gen)
-        ok, _ = SS.logits_health(logits)
+        if telem is not None:
+            telem.decode(td0, time.perf_counter(), active_now)
+        if poison_slot is not None:
+            # the poisoned row, NaN'd on the device before the sentinel
+            logits[poison_slot] = float('nan')
+        ok, logit_max = SS.logits_health(logits)
+        if telem is not None:
+            telem.logits_gauge(logit_max)       # a device scalar, kept
         ok = ok.cpu().numpy()
         for slot in [s for s in sorted(sched.active) if not ok[s]]:
             # quarantine BEFORE absorb, scrub before the pages are reused
-            cache = layouts_mod.scrub_tree_pages(cache, sched.quarantine(slot))
+            tsb = time.perf_counter()
+            pages = sched.quarantine(slot)
+            cache = layouts_mod.scrub_tree_pages(cache, pages)
+            if telem is not None:
+                telem.phase('scrub', tsb, time.perf_counter(), slot=slot,
+                            pages=len(pages))
         sched.absorb(tok.cpu().numpy())
         steps += 1
         if step_hook is not None:
             step_hook(sched, kv, cache)
+        if telem is not None:
+            telem.step_done(time.perf_counter())
     if dev.type == 'cuda':
         torch.cuda.synchronize(dev)
     wall = time.time() - t0
@@ -779,7 +966,7 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         kv_quant=bool(kv_quant),
         hot_window=hot_window if kv_quant else None,
         pages_quantized=n_pages_quantized,
-        pages_quant_dropped=0,
+        pages_quant_dropped=n_pages_quant_dropped,
         prefix=(dict(hits=kv.prefix_hits, misses=kv.prefix_misses,
                      evictions=kv.prefix_evictions,
                      cow_copies=kv.cow_copies,
@@ -789,28 +976,34 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         chunk_prefill=(chunk_c if prefix_cache or chunk_prefill is not None
                        else None),
         events=evc,
-        faults=None,
+        faults=(dict(injector.counts) if injector is not None else None),
         decode_compilations=None,
         out_lens={r: len(t) for r, t in outputs.items()},
         sample={r: t[:4] for r, t in list(outputs.items())[:4]},
         device=str(dev),
     )
+    snap = telem.finish(events) if telem is not None else None
+    if snap is not None:
+        out['telemetry_summary'] = telemetry_mod.summarize(snap)
     if not quiet:
         print(json.dumps(out))
     out['outputs'] = outputs
     out['event_log'] = events.records()
     out['terminal'] = term
+    if snap is not None:
+        out['telemetry'] = snap
+        if metrics_out:
+            with open(metrics_out, 'w') as f:
+                if metrics_out.endswith('.prom'):
+                    f.write(telem.reg.render_prometheus())
+                else:
+                    json.dump(snap, f, indent=1)
+            out['metrics_out'] = metrics_out
+    if telem is not None:
+        trace_path = telem.close_trace()
+        if trace_path is not None:
+            out['trace'] = trace_path
     return out
-
-
-# flags of the reference CLI that belong to later slices of the port
-_LATER = {
-    'chaos': ('--chaos', 'fault injection (Queue 1 item 10)'),
-    'chaos_seed': ('--chaos-seed', 'fault injection (Queue 1 item 10)'),
-    'metrics': ('--metrics', 'telemetry (Queue 1 item 10)'),
-    'metrics_out': ('--metrics-out', 'telemetry (Queue 1 item 10)'),
-    'trace': ('--trace', 'telemetry (Queue 1 item 10)'),
-}
 
 
 def main(argv=None):
@@ -866,17 +1059,21 @@ def main(argv=None):
                          'for prefix-cache hits)')
     ap.add_argument('--shared-prefix', type=int, default=None, metavar='N',
                     help='synthetic prompts share their first N tokens')
-    ap.add_argument('--chaos', action='store_true')
-    ap.add_argument('--chaos-seed', type=int, default=None)
+    ap.add_argument('--chaos', action='store_true',
+                    help='continuous mode: serve under the default fault-'
+                         'injection profile (runtime.faults.chaos_profile)')
+    ap.add_argument('--chaos-seed', type=int, default=0)
     ap.add_argument('--metrics', action=argparse.BooleanOptionalAction,
-                    default=False)
-    ap.add_argument('--metrics-out', default=None)
-    ap.add_argument('--trace', default=None)
+                    default=True,
+                    help='continuous mode: lifecycle, tier and modelled '
+                         'energy metrics (--no-metrics strips every hook)')
+    ap.add_argument('--metrics-out', default=None, metavar='FILE',
+                    help='write the final metrics snapshot (.prom: '
+                         'Prometheus text exposition, else JSON)')
+    ap.add_argument('--trace', default=None, metavar='FILE',
+                    help='write a Chrome-trace JSON of the run (load it at '
+                         'ui.perfetto.dev)')
     args = ap.parse_args(argv)
-    for key, (flag, what) in _LATER.items():
-        if getattr(args, key) not in (None, False):
-            raise NotImplementedError(
-                f'{flag} belongs to {what}, a later slice of the port')
     if args.tp != 1:
         raise NotImplementedError('--tp (tensor-parallel serving, Queue 1 '
                                   'item 13) is a later slice of the port')
@@ -900,7 +1097,12 @@ def main(argv=None):
         prefix_cache=args.prefix_cache, chunk_prefill=args.chunk_prefill,
         shared_prefix=args.shared_prefix, deadline=args.deadline,
         retry_budget=None if args.retry_budget < 0 else args.retry_budget,
-        max_queue=args.max_queue, device=args.device)
+        max_queue=args.max_queue,
+        faults=(faults_mod.FaultInjector(seed=args.chaos_seed,
+                                         profile=faults_mod.chaos_profile())
+                if args.chaos else None),
+        metrics=args.metrics, metrics_out=args.metrics_out, trace=args.trace,
+        device=args.device)
 
 
 if __name__ == '__main__':

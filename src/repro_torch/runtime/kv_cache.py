@@ -117,9 +117,26 @@ class PagedKVCache:
         return (self.num_pages - 1) - self.free_capacity
 
     @property
+    def owned_pages(self) -> int:
+        """Distinct pages backing slot tables (used minus squeezed); a
+        page shared by four slots counts once."""
+        return self.used_pages - len(self.reserved)
+
+    @property
     def shared_pages(self) -> int:
         """Pages referenced by more than one slot table."""
         return int(np.sum(self.refs >= 2))
+
+    def occupancy(self) -> dict:
+        """Pool occupancy for the telemetry gauges: every allocatable page
+        is free, reserved (held by a pool squeeze), cached (sealed,
+        refcount 0, evictable) or owned by a slot, the partition
+        :meth:`check_invariants` audits; ``shared`` is the multi-owner
+        subset of ``owned``."""
+        return dict(free=len(self._free), reserved=len(self.reserved),
+                    cached=len(self._evictable),
+                    owned=self.owned_pages, shared=self.shared_pages,
+                    allocatable=self.num_pages - 1)
 
     def blocks_for(self, n_positions: int) -> int:
         return -(-n_positions // self.page_size)

@@ -203,3 +203,13 @@ class KVTierTracker:
 
     def reset(self, slot: int) -> None:
         self._upto.pop(slot, None)
+
+    def cold_blocks(self, slot: int) -> int:
+        """Blocks of ``slot`` already in the int8 tier: the measured
+        residency the energy meter prices (it lags the rule's steady state
+        after an admission, and a dropped quantize chunk still counts)."""
+        return self._upto.get(slot, 0)
+
+    def residency(self) -> dict:
+        """``slot -> cold block count`` for every tracked slot."""
+        return dict(self._upto)

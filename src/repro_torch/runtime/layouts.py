@@ -94,7 +94,7 @@ class CacheLayout:
     table_leaves: Tuple[str, ...] = ()  # refreshed by with_block_tables
     shared_leaves: Tuple[str, ...] = () # one copy broadcast over layers
     scrub_leaves: Tuple[str, ...] = ()  # zeroed by scrub_tree_pages
-    poison_leaves: Tuple[str, ...] = () # fp pools (zero_tree_tail targets)
+    poison_leaves: Tuple[str, ...] = () # fp pools (poison, zero_tree_tail)
 
     @classmethod
     def write_token(cls, cache: dict, updates: dict, pos) -> dict:
@@ -512,6 +512,31 @@ def scrub_tree_pages(cache_tree, pages) -> dict:
                         node[key][:, idx] = 0
                     else:
                         node[key][idx] = 0
+                return node
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    return walk(cache_tree)
+
+
+def poison_tree_pages(cache_tree, pages, value=float('nan')) -> dict:
+    """Write ``value`` (NaN by default) into the given physical pages of
+    every paged node's fp pools (``poison_leaves``): the chaos layer's
+    model of a corrupted in-memory read. An int8 tier cannot hold NaN, so
+    it is never touched (:func:`scrub_tree_pages` zeroes it too). In
+    place."""
+    def walk(node):
+        if isinstance(node, dict):
+            lay = match_layout(node)
+            if lay is not None and lay.poison_leaves:
+                idx = torch.as_tensor(pages, dtype=torch.int64,
+                                      device=node[lay.poison_leaves[0]].device)
+                stacked = node[lay.table_leaves[0]].ndim == 3
+                for key in lay.poison_leaves:
+                    if stacked:
+                        node[key][:, idx] = value
+                    else:
+                        node[key][idx] = value
                 return node
             return {k: walk(v) for k, v in node.items()}
         return node

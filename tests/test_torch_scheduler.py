@@ -31,8 +31,10 @@ def _token(rid, n):
 
 def _drive(serve_mod, kvc_mod, *, num_pages, slots, stream, ps=4,
            prompt_pad=16, gen_max=10, eos_id=None, deadline=None,
-           retry_budget=8, max_queue=None):
-    """The serve loop's host half, with tokens scripted from (rid, index)."""
+           retry_budget=8, max_queue=None, cancels=None, storms=()):
+    """The serve loop's host half, with tokens scripted from (rid, index);
+    ``cancels`` (step -> rid) cancels as a step opens and ``storms`` (steps)
+    force a preemption after admission, where the chaos loop does."""
     max_blocks = -(-(prompt_pad + gen_max) // ps)
     kv = kvc_mod.PagedKVCache(num_pages, ps, max_blocks, slots)
     sched = serve_mod.ContinuousScheduler(
@@ -45,10 +47,14 @@ def _drive(serve_mod, kvc_mod, *, num_pages, slots, stream, ps=4,
     step = 0
     while not sched.done and step < 500:
         sched.begin_step(step)
+        if step in (cancels or {}):
+            sched.cancel(cancels[step])
         for req, slot, _ in sched.try_admit():
             sched.seed(req, slot, _token(req.rid, 0))
         if sched.done:
             break
+        if step in storms:
+            assert sched.force_preempt()
         sched.grow_for_decode()
         toks = np.zeros((slots,), np.int32)
         for slot, st in sched.active.items():
@@ -69,6 +75,10 @@ CASES = {
     'eos_and_deadline': dict(num_pages=1 + 10, slots=2, eos_id=13,
                              deadline=12),
     'backpressure': dict(num_pages=1 + 12, slots=2, max_queue=4),
+    # chaos hooks: a pending and an active cancellation, preemption storms
+    'cancel': dict(num_pages=1 + 3 * 7, slots=3, cancels={0: 9, 3: 4,
+                                                          6: 0}),
+    'storm': dict(num_pages=1 + 3 * 7, slots=3, storms=(1, 2, 5, 9)),
 }
 
 
@@ -82,8 +92,10 @@ def test_scheduler_matches_reference(case):
     for got, want in zip(t[1], r[1]):
         np.testing.assert_array_equal(got, want)          # tables per step
     assert t[2] == r[2] and t[3] == r[3]
-    if case == 'preempting':
+    if case in ('preempting', 'storm'):
         assert any(e[0] == 'preempt' for e in t[0])
+    if case == 'cancel':
+        assert list(t[3].values()).count('cancel') == 3
 
 
 @pytest.mark.parametrize('seed,num_pages,slots,max_blocks',

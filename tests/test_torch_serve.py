@@ -12,6 +12,7 @@ may differ; with no ``eos_id`` scheduling does not depend on token values,
 so the event log and ``out_lens`` must still be equal."""
 
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -125,23 +126,37 @@ def test_synthetic_stream_serves_without_params():
     assert out['completed'] == 3
 
 
-def test_cli_runs_and_rejects_later_flags(capsys):
+def test_cli_runs_and_rejects_later_flags(capsys, tmp_path):
     out = tserve.main(['--continuous', '--device', 'cpu', '--requests', '2',
                        '--prompt-len', '8', '--gen-len', '4', '--mode',
                        'w8a8', '--prequantize'])
     assert out['completed'] == 2
     assert '"completed": 2' in capsys.readouterr().out
+    base = ['--continuous', '--device', 'cpu', '--requests', '2',
+            '--prompt-len', '8', '--gen-len', '4']
     for flags in (['--kv-quant', '--hot-window', '1'],
                   ['--prefix-cache', '--shared-prefix', '4'],
-                  ['--chunk-prefill', '4']):
-        out = tserve.main(['--continuous', '--device', 'cpu', '--requests',
-                           '2', '--prompt-len', '8', '--gen-len', '4']
-                          + flags)
+                  ['--chunk-prefill', '4'],
+                  ['--trace', str(tmp_path / 't.json'), '--metrics-out',
+                   str(tmp_path / 'm.prom')]):
+        out = tserve.main(base + flags)
         assert out['completed'] == 2
-    for flags in (['--tp', '2'], ['--chaos'], ['--metrics'],
-                  ['--trace', 'x.json']):
-        with pytest.raises(NotImplementedError):
-            tserve.main(flags + ['--continuous', '--device', 'cpu'])
+        assert 'telemetry' in out                 # metrics on by default
+    assert out['trace'] == str(tmp_path / 't.json')
+    assert json.loads((tmp_path / 't.json').read_text())['traceEvents']
+    assert 'serve_events_total{kind="submit"} 2' in \
+        (tmp_path / 'm.prom').read_text()
+    # chaos may cancel a request or fail one past its retry budget; every
+    # request still ends, and the injector's faults landed (seed 0 poisons
+    # a logits row within this short run)
+    out = tserve.main(base + ['--chaos', '--chaos-seed', '0', '--metrics'])
+    assert out['completed'] + out['cancelled'] + out['failed'] == 2
+    assert out['faults'] and sum(out['faults'].values()) > 0
+    assert 'telemetry' in out
+    out = tserve.main(base + ['--no-metrics'])
+    assert out['completed'] == 2 and 'telemetry' not in out
+    with pytest.raises(NotImplementedError):
+        tserve.main(['--tp', '2', '--continuous', '--device', 'cpu'])
     with pytest.raises(NotImplementedError, match='paper-fidelity'):
         tserve.main(['--continuous', '--device', 'cpu', '--mode', 'qat'])
 
