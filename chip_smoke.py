@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
-Three main paths: continuous paged serving of stablelm-1.6b (GQA; kernels
+Four main paths: continuous paged serving of stablelm-1.6b (GQA; kernels
 K1-K6) and of deepseek-v3's dense prefix (its first 3 layers, MLA with a
 dense MLP, at the published width, the MoE layers dropped; registered at
 run time as ``deepseek-v3-dense3``; kernels K8-K10, and K3/K4 in dynamic
-w8a8), and the static ``serve()`` of stablelm-1.6b over a contiguous cache,
+w8a8), the static ``serve()`` of stablelm-1.6b over a contiguous cache,
 lock-step or ragged, greedy or sampled (kernel K7; K2/K3 with
---prequantize, K3/K4 in dynamic w8a8).
+--prequantize, K3/K4 in dynamic w8a8), and the dense family: continuous
+serving of stablelm-12b, starcoder2-15b and gemma3-27b at their published
+widths (K1-K6 at G = 4, 12 and 2, dh = 160 and 128, gemma3's 1,024-key
+window).
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -31,8 +34,13 @@ Phases, in order; any failure exits non-zero and prints no result:
              bit-equal to K1, and K10 to K8, when the hot window covers the
              table, over poisoned int8 pools; K1 and K6 (the key split over
              block tables, two device kernels a launch) also at Hkv=8, G=4,
-             dh=128 and at a 4,096-token context (W=512), each with an
-             L2-cold reading; MLA attention 2e-5, the
+             dh=128, at the dense family's layouts (Hkv=8, G=4, dh=160;
+             Hkv=4, G=12, dh=128; Hkv=16, G=2, dh=128) and at a
+             4,096-token context (W=512), each with an L2-cold reading;
+             K1 and K5 at gemma3's local layers (a 1,024-key window at a
+             1,160-token context; K5's 128-token chunk at offset 1,024);
+             K2/K3/K4 also at the dense family's linear shapes; MLA
+             attention 2e-5, the
              reference's tolerance, at H=128, DK=576, r=512, with the
              kernels' resident blocks per SM; K8, K9 and K10 (the latent
              key split, K9 with a chunk's rows, two device kernels a
@@ -51,7 +59,8 @@ Phases, in order; any failure exits non-zero and prints no result:
              dynamic linear (ops.yoco_vmm) is bit-equal to yoco_vmm_ref.
              K7 at stablelm's static shape (B=8, Hkv=32, dh=64, S=160;
              lock-step and ragged, a window on half the slots), at G=4,
-             dh=128, S=200, f32 and bf16 caches, and lock-step at S=4096,
+             dh=128 and dh=160, S=200, f32 and bf16 caches (dh=160 in f32:
+             two 16-byte pieces a lane), and lock-step at S=4096,
              1e-5, every row finite, its streamed path bit-equal to the
              prefetch path, beside scaled_dot_product_attention on the
              same cache, each warm and with L2 flushed between calls
@@ -62,7 +71,8 @@ Phases, in order; any failure exits non-zero and prints no result:
              the kernels leave non-finite exactly the plain versions'
              non-finite rows (a ``{"nan": [...]}`` line).
 3. smoke   — the port's GPU path against its own CPU plain path on each
-             smoke config in f32: prefill plus decode in every served mode,
+             smoke config in f32 (the dense family's three too): prefill
+             plus decode in every served mode,
              decode over the int8 tier (hot window 1), and a prefix hit
              served by chunked prefill, and the static serve() with
              --attn-impl flash, lock-step and --ragged, in bf16 and w8a8
@@ -111,6 +121,17 @@ Phases, in order; any failure exits non-zero and prints no result:
              --prequantize, K4 169 and K3 266 in dynamic w8a8; and the
              device busy share of the bf16 flash lock-step run and of the
              dynamic w8a8 flash --ragged run.
+5b. dense — stablelm-12b, starcoder2-15b and gemma3-27b at their
+             published widths (dense_phase): 8 requests of 128-token
+             prompts, 16 generated, in bf16, w8a8 --prequantize and
+             dynamic w8a8 (gemma3-27b's refused: its f32 masters exceed
+             the card), gemma3-27b also 2 prompts of 1,152 tokens with
+             --chunk-prefill 128 --kv-quant; every request finishes, no
+             non-finite logits row, exact launches (K1 once a layer a
+             decode step, K6 with the tier, K5 once a layer a chunk,
+             K2/K3/K4 per forward); one decode step a config under
+             torch.cuda.set_sync_debug_mode('error'), its flash and
+             einsum logits equal within 1e-4 in f32 (bf16 reported).
 6. chaos   — continuous serving under the fault injector at the published
              width, each serve beside a clean run of the same stream and
              weights (chaos_phase): stablelm bf16 with the int8 tier and
@@ -128,14 +149,16 @@ Phases, in order; any failure exits non-zero and prints no result:
 Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
 runs on, with that path's launches; K9 on both pool dtypes), a
 ``{"redesigned": [...]}`` line (every row of the redesigned kernels, all
-ten), a ``{"nan": [...]}``, a ``{"serve": [...]}``, a ``{"static_serve":
-[...]}`` and a ``{"chaos": [...]}`` line, the
+ten), a ``{"nan": [...]}``, a ``{"serve": [...]}``, a ``{"dense":
+[...]}``, a ``{"static_serve": [...]}`` and a ``{"chaos": [...]}`` line,
+the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
 reports) go to ``build/chip_smoke.json``.
 
 Usage: python3 chip_smoke.py (every phase runs, always).
-       python3 chip_smoke.py --phase kernels|profile|static|nan|chaos:
+       python3 chip_smoke.py --phase
+       kernels|profile|static|nan|chaos|dense:
        the build and that phase alone (its report in
        ``build/chip_smoke_<phase>.json``, no result line), to rehearse a
        kernel or to measure another tree with this script copied into its
@@ -192,6 +215,14 @@ LINEAR_SHAPES = (
     (MLA_ARCH, ((7168, 1536), (1536, 24576), (7168, 576), (16384, 7168),
                 (7168, 18432), (18432, 7168), (7168, 129280), (512, 32768)),
      False),
+    # the dense family (phase "dense"): q/o (gemma3: q, then o), k/v, MLP
+    # in (gate and up each), MLP out, lm_head
+    ('stablelm-12b', ((5120, 5120), (5120, 1280), (5120, 13824),
+                      (13824, 5120), (5120, 100352)), True),
+    ('starcoder2-15b', ((6144, 6144), (6144, 512), (6144, 24576),
+                        (24576, 6144), (6144, 49152)), True),
+    ('gemma3-27b', ((5376, 4096), (5376, 2048), (4096, 5376),
+                    (5376, 21504), (21504, 5376), (5376, 262144)), True),
 )
 # stablelm's layer linears (q/k/v/o, MLP in and out) also run at the static
 # prefill's M = batch * prompt rows; its lm_head reads only the last
@@ -920,14 +951,17 @@ def tier_chunk_kernel_phase(torch, kmods):
     return rows
 
 
-def k5_rows(torch, fd, rows, gen, w, limit, cases):
+def k5_rows(torch, fd, rows, gen, w, limit, cases, hkv=32, g=1, dh=64,
+            window=None):
     """Hold K5 to its plain version (1e-5 on the rows below ``limit``, every
-    row finite) for one request of Hkv=32, G=1, dh=64 over a W-page table,
-    bf16 and f32 pools, at each (C, offset) of ``cases``; record the rows
-    (the plain version over 2 calls at W > 20)."""
+    row finite) for one request of Hkv=32, G=1, dh=64 (or the given head
+    layout and sliding ``window``) over a W-page table, bf16 and f32 pools,
+    at each (C, offset) of ``cases``; record the rows (the plain version
+    over 2 calls at W > 20)."""
     dev = torch.device('cuda')
     src = 'src/repro_torch/csrc/flash_decode.cu'
-    b, hkv, g, dh, ps = 1, 32, 1, 64, 8
+    b, ps = 1, 8
+    reach = window if window is not None else w * ps + 1
     scale = 1.0 / dh ** 0.5
     n_pages = 1 + w
     bt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1) \
@@ -941,7 +975,7 @@ def k5_rows(torch, fd, rows, gen, w, limit, cases):
             qc = torch.randn((b, c, hkv * g, dh), generator=gen, device=dev)
             qg = qc.reshape(b, c, hkv, g, dh).permute(0, 2, 1, 3, 4) \
                 .reshape(b, hkv, c * g, dh).contiguous()
-            offv, posv, winv = fd._chunk_scalars(off, limit, None, b, c,
+            offv, posv, winv = fd._chunk_scalars(off, limit, window, b, c,
                                                  w * ps, dev)
             args = (qg, kp, vp, posv, winv, bt, offv)
             got = fd.flash_decode_gqa_paged(*args, scale=scale, chunk=c)
@@ -955,14 +989,16 @@ def k5_rows(torch, fd, rows, gen, w, limit, cases):
             valid = rowpos < limit
             err = float((got - want)[:, :, valid].abs().max())
             pos_u = int(posv[0])
-            live_keys = pos_u + 1               # no window: keys [0, pos]
+            # keys [max(offset - window + 1, 0), pos]: the rows' union
+            live_keys = pos_u + 1 - max(off - reach + 1, 0)
             nbytes = (2 * live_keys * hkv * dh * kp.element_size()
                       + 2 * int(valid.sum()) * hkv * dh * 4)
-            row_keys = sum(off + i + 1 for i in range(n_valid)) * g
+            row_keys = sum(min(off + i + 1, reach)
+                           for i in range(n_valid)) * g
             ops = 4.0 * hkv * dh * row_keys
             record_row(torch, rows, 'flash_chunk_paged',
                        dict(B=b, Hkv=hkv, G=g, dh=dh, page_size=ps, W=w,
-                            C=c, offset=off, limit=limit,
+                            C=c, offset=off, limit=limit, window=window,
                             pool=str(dt).replace('torch.', ''),
                             padding_rows=c - n_valid,
                             all_rows_max_abs_err=float(
@@ -984,22 +1020,28 @@ def paged_split_kernel_phase(torch, kmods):
     """K1 and K6 on the key split beyond the serving rows, bf16 and f32
     pools, K6 at hot window 2: a grouped head layout (Hkv=8, G=4, dh=128,
     W=20: K7's G > 1 case, query rows in pairs; ragged positions, an idle
-    slot, a 33-key window on every odd slot) and a 4,096-token context
-    (Hkv=32, G=1, dh=64, W=512: 8 slots within 16 keys of full, where K1
-    should reach half its bound; the plain versions walk 512 pages, so
-    they are timed over 2 calls)."""
+    slot, a 33-key window on every odd slot), the dense family's layouts
+    at the same B=8, W=20 (stablelm-12b Hkv=8, G=4, dh=160: two 16-byte
+    pieces a lane in f32; starcoder2-15b Hkv=4, G=12, dh=128; gemma3-27b
+    Hkv=16, G=2, dh=128) and a 4,096-token context (Hkv=32, G=1, dh=64,
+    W=512: 8 slots within 16 keys of full, where K1 should reach half its
+    bound; the plain versions walk 512 pages, so they are timed over 2
+    calls)."""
     fd = kmods[0]
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(5)
     rows = []
     ps, hw = 8, 2
     for case, b, hkv, g, dh, w in (('g4', 8, 8, 4, 128, 20),
+                                   ('stablelm-12b', 8, 8, 4, 160, 20),
+                                   ('starcoder2-15b', 8, 4, 12, 128, 20),
+                                   ('gemma3-27b', 8, 16, 2, 128, 20),
                                    ('long', 8, 32, 1, 64, 512)):
         n_pages = 1 + b * w
         bt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1) \
             .reshape(b, w).to(torch.int32).contiguous()
         win = torch.full((b,), w * ps + 1, dtype=torch.int32, device=dev)
-        if case == 'g4':
+        if case != 'long':
             pos = torch.randint(w * ps // 2, w * ps, (b,), generator=gen,
                                 device=dev, dtype=torch.int32)
             pos[0] = 0                     # an idle slot ...
@@ -1019,6 +1061,47 @@ def paged_split_kernel_phase(torch, kmods):
                    plain_iters=iters)
             rows[-1]['shape']['case'] = case
             del c
+    return rows
+
+
+#: gemma3-27b's local layers: Hkv=16, G=2, dh=128 and a 1,024-key window,
+#: at a 1,160-token context (W=145 pages of 8) where the window binds
+GEMMA_LOCAL = dict(hkv=16, g=2, dh=128, window=1024, w=145)
+
+
+def window_kernel_phase(torch, kmods):
+    """K1 and K5 at gemma3-27b's local-layer shape with its 1,024-key
+    window binding: K1 over 8 slots within 16 keys of a 1,160-token
+    context, K5 for one request's last 128-token chunk of a 1,152-token
+    prompt (offset 1,024, the --chunk-prefill 128 serve's), bf16 and f32
+    pools, each against its plain version (1e-5; the plain versions walk
+    145 pages, so they are timed over 2 calls)."""
+    fd = kmods[0]
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    hkv, g, dh, window, w = (GEMMA_LOCAL[k] for k in ('hkv', 'g', 'dh',
+                                                       'window', 'w'))
+    b, ps = 8, 8
+    n_pages = 1 + b * w
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1) \
+        .reshape(b, w).to(torch.int32).contiguous()
+    pos = w * ps - 1 - torch.randint(0, 16, (b,), generator=gen, device=dev,
+                                     dtype=torch.int32)
+    win = torch.full((b,), window, dtype=torch.int32, device=dev)
+    check(bool((pos - win + 1 > 0).all()), 'gemma3 K1 case: the window '
+                                           'does not bind')
+    q = torch.randn((b, hkv, g, dh), generator=gen, device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        kp = torch.randn((n_pages, ps, hkv, dh), generator=gen,
+                         device=dev).to(dt)
+        vp = torch.randn((n_pages, ps, hkv, dh), generator=gen,
+                         device=dev).to(dt)
+        k1_row(torch, fd, rows, q, kp, vp, pos, win, bt, plain_iters=2)
+        rows[-1]['shape']['case'] = 'gemma3-27b local'
+        del kp, vp
+    k5_rows(torch, fd, rows, gen, w, 1152, ((128, 1024),), hkv=hkv, g=g,
+            dh=dh, window=window)
     return rows
 
 
@@ -1049,6 +1132,8 @@ def contig_kernel_phase(torch, kmods):
              ('ragged', 8, 32, 1, 64, 160, torch.float32),
              ('g4_unaligned', 8, 8, 4, 128, 200, torch.bfloat16),
              ('g4_unaligned', 8, 8, 4, 128, 200, torch.float32),
+             ('g4_dh160', 8, 8, 4, 160, 200, torch.bfloat16),
+             ('g4_dh160', 8, 8, 4, 160, 200, torch.float32),
              ('lockstep', 8, 32, 1, 64, 4096, torch.bfloat16))
     for case, b, hkv, g, dh, s_max, dt in cases:
         scale = 1.0 / dh ** 0.5
@@ -2042,20 +2127,35 @@ def _prefill_chunks(out, stream, opts):
                 for e in admits), len(admits))
 
 
-def _gqa_launches(out, mode, prequant, chunks, chunked_admits):
-    """Launches the stablelm path must make: K1 24 a decode step (K6 in
-    its place with the tier), K5 24 a prefill chunk (each launch two device
-    kernels, its splits and their combine), and per forward 169 linears
-    over 97 distinct activations: K3 97 + K2 169 with --prequantize, K3
-    97 + 169 (the weights) + K4 169 dynamic."""
-    del chunked_admits
-    decode = LAYERS_FULL * out['steps']
+def gqa_counts(cfg):
+    """(linears, distinct activations) of one forward of a dense GQA
+    config: q k v o and the MLP's linears (gate up down, or in and out for
+    starcoder2's GELU MLP) a layer, plus the lm_head; q/k/v read one
+    activation, a gated MLP's gate and up another, then o's, the MLP
+    output's and the lm_head's (4 a layer either way)."""
+    mlp = 3 if cfg.mlp_type in ('swiglu', 'geglu') else 2
+    return (4 + mlp) * cfg.n_layers + 1, 4 * cfg.n_layers + 1
+
+
+def _gqa_launches(out, mode, prequant, chunks, chunked_admits, cfg=None):
+    """Launches a dense GQA path must make (``cfg``; None: stablelm-1.6b):
+    K1 once a layer a decode step (K6 in its place with the tier), K5 once
+    a layer a prefill chunk (each launch two device kernels, its splits and
+    their combine), and per forward (a decode step, a monolithic prefill
+    or a chunk) :func:`gqa_counts`' linears over its distinct activations:
+    at stablelm-1.6b's 24 layers 169 over 97, so K3 97 + K2 169 with
+    --prequantize, K3 97 + 169 (the weights) + K4 169 dynamic."""
+    layers, (per_fwd, acts_fwd) = (
+        (LAYERS_FULL, (LINEARS_PER_FORWARD, ACTIVATIONS_PER_FORWARD))
+        if cfg is None else (cfg.n_layers, gqa_counts(cfg)))
+    decode = layers * out['steps']
     want = dict(flash_decode_paged=0 if out['kv_quant'] else decode,
                 flash_decode_paged_q8=decode if out['kv_quant'] else 0,
-                flash_chunk_paged=LAYERS_FULL * chunks)
-    forwards = out['steps'] + out['events']['admit']
-    linears = LINEARS_PER_FORWARD * forwards
-    activations = ACTIVATIONS_PER_FORWARD * forwards
+                flash_chunk_paged=layers * chunks)
+    forwards = (out['steps'] + out['events']['admit'] - chunked_admits
+                + chunks)
+    linears = per_fwd * forwards
+    activations = acts_fwd * forwards
     if mode == 'w8a8' and prequant:
         want.update(quantize_rows=activations, int8_matmul=linears)
     elif mode == 'w8a8':
@@ -2166,6 +2266,234 @@ def serve_phase(torch, build, arch=ARCH, runs=SERVE_RUNS,
             launches={k: v for k, v in launches.items() if v}))
         print(f'serve run: {json.dumps(results[-1])}', flush=True)
     return results, totals
+
+
+# ----------------------------------------------------------------------------
+# phase 5b: the reference's other dense configs at full width
+# ----------------------------------------------------------------------------
+DENSE_PATH = 'dense family'
+# arch -> (layers, d_model, q heads, KV heads, dh, d_ff, vocab): the
+# published widths the phase must serve
+DENSE_ARCHS = {
+    'stablelm-12b': (40, 5120, 32, 8, 160, 13824, 100352),
+    'starcoder2-15b': (40, 6144, 48, 4, 128, 24576, 49152),
+    'gemma3-27b': (62, 5376, 32, 16, 128, 21504, 262144),
+}
+# every config in bf16, w8a8 --prequantize and dynamic w8a8; dynamic w8a8
+# keeps f32 masters (4 bytes a parameter), refused before any draw where
+# they exceed the card's free memory (gemma3-27b: 113.6 GB)
+DENSE_MODES = (('bf16', False), ('w8a8', True), ('w8a8', False))
+DENSE_PROMPT, DENSE_GEN = 128, 16
+# gemma3-27b also serves 2 prompts of 1,152 tokens (past its 1,024-token
+# window) chunked by 128 over the int8 tier: the window on K1's tiered
+# twin K6 and on K5 in a serve
+DENSE_LONG = dict(requests=2, prompt_len=1152,
+                  opts=dict(chunk_prefill=128, kv_quant=True, hot_window=2))
+# first-decode-step logits of the flash route against the einsum route, at
+# full width: in f32 compute (f32 pools, each bf16 weight cast per call)
+# within SMOKE_TOL, the bound the f32 smoke parity holds; in bf16 the two
+# routes round differently (the einsum oracle casts the probabilities to
+# bf16 before PV, the kernels keep them f32), so there both are reported
+# beside the f32 logits, not gated: the reference's own full-stack bf16
+# bound for the two routes (5e-2, tests/test_flash_decode.py::
+# test_model_decode_step_vector_pos_full_stack, at smoke width) was
+# exceeded at stablelm-12b's full width (0.094)
+DENSE_ROUTE_TOL = SMOKE_TOL
+
+
+def _dense_stream(SV, cfg, n_req, plen):
+    from repro_torch.data import synthetic
+    prompts = synthetic.make_batch(synthetic.for_arch(
+        cfg, global_batch=n_req, seq_len=plen), 0)['inputs'].numpy()
+    return [SV.Request(rid=i, prompt=prompts[i], target_gen=DENSE_GEN)
+            for i in range(n_req)]
+
+
+def _dense_decode_checks(torch, build, cfg, params):
+    """One decode step of ``cfg`` after a prefill of B prompts (gemma3:
+    2 of 1,152 tokens, so its local layers' window binds; else 4 of 128)
+    over a paged cache, in bf16 and in f32 compute, each through the flash
+    route under ``torch.cuda.set_sync_debug_mode('error')`` (no layer
+    copies its window, or anything else, host to device; K1 launched once
+    a layer) and then the einsum route on the same cache (each layer
+    rewrites the step's row before it reads it). Gate: the two routes'
+    f32 logits within DENSE_ROUTE_TOL; the bf16 ones are reported beside
+    the f32 flash logits. The step's token is each prompt's last."""
+    from repro_torch.core.yoco_linear import YocoConfig
+    from repro_torch.data import synthetic
+    from repro_torch.models import model as M
+    from repro_torch.runtime import layouts
+
+    b, plen = ((2, DENSE_LONG['prompt_len']) if cfg.sliding_window
+               else (4, DENSE_PROMPT))
+    ps = 8
+    blocks = -(-(plen + 1) // ps)
+    prompts = synthetic.make_batch(synthetic.for_arch(
+        cfg, global_batch=b, seq_len=plen), 0)['inputs'].to('cuda')
+    tok = prompts[:, -1].to(torch.int32).contiguous()
+    pos = torch.full((b,), plen, dtype=torch.int32, device='cuda')
+    tables = 1 + torch.arange(b * blocks, dtype=torch.int32,
+                              device='cuda').reshape(b, blocks)
+
+    def routes(dtype):
+        yoco = YocoConfig(mode='bf16', compute_dtype=dtype)
+        flash = M.ModelRuntime(attn_impl='flash', compute_dtype=dtype)
+        cache = M.init_paged_cache_tree(cfg, b, num_pages=1 + b * blocks,
+                                        page_size=ps, max_blocks=blocks,
+                                        dtype=dtype, device='cuda')
+        cache = layouts.with_block_tables(cache, tables)
+        _, cache = M.prefill(params, dict(inputs=prompts), cache, cfg, yoco,
+                             flash)
+        torch.cuda.synchronize()
+        build.reset_counts()
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            lf, cache = M.decode_step(params, tok, pos, cache, cfg, yoco,
+                                      flash)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        check(launches == dict(flash_decode_paged=cfg.n_layers),
+              f'{cfg.name} {dtype} decode step: launches {launches}, '
+              f'expected K1 {cfg.n_layers} times (once a layer)')
+        le, _ = M.decode_step(params, tok, pos, cache, cfg, yoco,
+                              M.ModelRuntime(attn_impl='einsum',
+                                             compute_dtype=dtype))
+        check(bool(torch.isfinite(lf).all() and torch.isfinite(le).all()),
+              f'{cfg.name} {dtype} decode step: non-finite logits')
+        return lf.float(), le.float()
+
+    f16, e16 = routes(torch.bfloat16)
+    f32, e32 = routes(torch.float32)
+
+    def dist(a, c):
+        return float((a - c).abs().max())
+    row = dict(arch=cfg.name, check='decode step', batch=b, context=plen,
+               window_binds=bool(cfg.sliding_window
+                                 and plen >= cfg.sliding_window),
+               sync_debug='error', k1_launches=cfg.n_layers,
+               f32_flash_vs_einsum=dist(f32, e32), tol=DENSE_ROUTE_TOL,
+               bf16_flash_vs_einsum=dist(f16, e16),
+               bf16_flash_vs_f32=dist(f16, f32),
+               bf16_einsum_vs_f32=dist(e16, f32),
+               max_abs_logit=float(f32.abs().max()))
+    print(f'dense check: {json.dumps(row)}', flush=True)
+    check(row['f32_flash_vs_einsum'] <= DENSE_ROUTE_TOL,
+          f'{cfg.name} decode step: f32 flash vs einsum logits differ by '
+          f'{row["f32_flash_vs_einsum"]} > {DENSE_ROUTE_TOL}')
+    return row
+
+
+def dense_phase(torch, build):
+    """stablelm-12b, starcoder2-15b and gemma3-27b at their published
+    widths through ``serve_continuous`` (random weights from seed 0, drawn
+    by the serve in their serving form; page 8, 8 slots): 8 requests of
+    128-token prompts and 16 generated tokens in bf16, w8a8 --prequantize
+    and dynamic w8a8 (gemma3-27b's refused for its f32 masters, the refusal
+    checked), and gemma3-27b's 2 prompts of 1,152 tokens chunked by 128
+    over the int8 tier. Gates: every request finishes, no lane has a
+    non-finite logits row, each kernel launched exactly as the path must
+    (K1 once a layer a decode step, K6 in its place with the tier, K5 once
+    a layer a chunk; K2/K3/K4 per :func:`gqa_counts`); then one decode
+    step a config through :func:`_dense_decode_checks`. Each model is
+    freed before the next loads. Returns (rows, launch totals)."""
+    import functools
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as SV
+
+    totals = {k: 0 for k in build.LAUNCHES}
+    rows = []
+    t0 = time.perf_counter()
+    dev = torch.device('cuda')
+    for arch, widths in DENSE_ARCHS.items():
+        cfg = configs.get(arch, smoke=False)
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+               cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size) == widths,
+              f'{arch} is not at its published width')
+        launches_of = functools.partial(_gqa_launches, cfg=cfg)
+        runs = [(m, p, DENSE_PROMPT, 8, {}) for m, p in DENSE_MODES]
+        if cfg.sliding_window:
+            runs.append(('bf16', False, DENSE_LONG['prompt_len'],
+                         DENSE_LONG['requests'], DENSE_LONG['opts']))
+        for mode, prequant, plen, n_req, opts in runs:
+            tag = (f'dense {arch} {mode} prequant={prequant} prompt={plen} '
+                   f'{opts}')
+            gc.collect()            # the last serve's weights, before the
+            torch.cuda.empty_cache()    # next draw
+            free = torch.cuda.mem_get_info(dev)[0]
+            if mode == 'w8a8' and not prequant \
+                    and 4 * cfg.param_count() > free:
+                try:
+                    SV.serve_continuous(arch, smoke=False, mode=mode,
+                                        n_requests=1, quiet=True)
+                except ValueError as e:
+                    check(f'{4 * cfg.param_count()} bytes' in str(e),
+                          f'{tag}: refusal without the bytes: {e}')
+                    rows.append(dict(arch=arch, mode=mode,
+                                     prequantize=prequant, refused=str(e),
+                                     free_bytes=free))
+                    print(f'dense run: {json.dumps(rows[-1])}', flush=True)
+                    continue
+                check(False, f'{tag}: f32 masters of {cfg.param_count()} '
+                             f'parameters were not refused')
+            stream = _dense_stream(SV, cfg, n_req, plen)
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_counts()
+            out = SV.serve_continuous(
+                arch, smoke=False, slots=8, n_requests=n_req,
+                prompt_len=plen, gen_len=DENSE_GEN, page_size=8, mode=mode,
+                prequantize=prequant, attn_impl='flash', seed=0,
+                request_stream=stream, quiet=True, **opts)
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)
+            check(out['completed'] == n_req and out['failed'] == 0
+                  and out['rejected'] == 0 and out['cancelled'] == 0,
+                  f'{tag}: not every request finished: {out["events"]}')
+            check(out['quarantined'] == 0,
+                  f'{tag}: {out["quarantined"]} lanes had non-finite '
+                  f'logits')
+            chunks, chunked_admits = _prefill_chunks(out, stream, opts)
+            want = {k: 0 for k in build.LAUNCHES}
+            want.update(launches_of(out, mode, prequant, chunks,
+                                    chunked_admits))
+            for name, n in want.items():
+                check(launches[name] == n,
+                      f'{tag}: {name} launched {launches[name]} times, '
+                      f'expected {n} ({out["steps"]} decode steps, '
+                      f'{chunks} prefill chunks)')
+            if out['kv_quant']:
+                check(out['pages_quantized'] > 0, f'{tag}: no page '
+                                                  f'quantized')
+            for k in totals:
+                totals[k] += launches[k]
+            rows.append(dict(
+                arch=arch, mode=mode, prequantize=prequant, slots=8,
+                requests=n_req, prompt_len=plen, gen_len=DENSE_GEN,
+                options=opts, tokens_per_s=out['tokens_per_s'],
+                wall_s=out['wall_s'], prefill_s=out['prefill_s'],
+                steps=out['steps'], peak_pages=out['peak_pages'],
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                pages_quantized=out['pages_quantized'],
+                prefill_chunks=chunks,
+                launches={k: v for k, v in launches.items() if v}))
+            print(f'dense run: {json.dumps(rows[-1])}', flush=True)
+            del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = SV._serving_params(cfg, None, dev, seed=0, mode='bf16',
+                                    prequantize=False,
+                                    compute_dtype=torch.bfloat16)
+        rows.append(_dense_decode_checks(torch, build, cfg, params))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows.append(dict(phase_s=time.perf_counter() - t0))
+    print(f'dense family phase: {rows[-1]["phase_s"]:.1f} s', flush=True)
+    return rows, totals
 
 
 # the static serve() runs at full width: (arch, mode, prequantize,
@@ -2634,7 +2962,10 @@ def all_kernel_phases(torch, kmods, nan=None):
     rows += tier_chunk_kernel_phase(torch, kmods)
     print('K5/K6 checks passed', flush=True)
     rows += paged_split_kernel_phase(torch, kmods)
-    print('K1/K6 G=4 and W=512 checks passed', flush=True)
+    print('K1/K6 G>1 (the dense family\'s layouts) and W=512 checks passed',
+          flush=True)
+    rows += window_kernel_phase(torch, kmods)
+    print('K1/K5 at gemma3\'s 1,024-key window checks passed', flush=True)
     rows += mla_kernel_phase(torch, kmods)
     print('K8/K9/K10 checks passed', flush=True)
     rows += contig_kernel_phase(torch, kmods)
@@ -2654,6 +2985,11 @@ def static_rows(torch, kmods):
     return static_serve_phase(torch, kmods[3])[0]
 
 
+def dense_rows(torch, kmods):
+    """Phase 5b, the dense family at full width, alone."""
+    return dense_phase(torch, kmods[3])[0]
+
+
 # ``--phase NAME``: the build and that phase alone, to compare two trees
 # (copy this script into the other tree's root) or to rehearse a kernel
 def chaos_rows(torch, kmods):
@@ -2662,7 +2998,8 @@ def chaos_rows(torch, kmods):
 
 
 PHASES = dict(kernels=all_kernel_phases, profile=all_profiles,
-              static=static_rows, nan=nan_kernel_phase, chaos=chaos_rows)
+              static=static_rows, nan=nan_kernel_phase, chaos=chaos_rows,
+              dense=dense_rows)
 
 
 def print_redesigned(rows):
@@ -2685,7 +3022,9 @@ def run_phases(torch, report, kmods):
     returns each main path's launch totals, by arch."""
     from repro_torch import configs
     gqa = configs.get(ARCH, smoke=False)
-    check(gqa.n_layers == LAYERS_FULL and gqa.d_model == 2048,
+    check(gqa.n_layers == LAYERS_FULL and gqa.d_model == 2048
+          and gqa_counts(gqa) == (LINEARS_PER_FORWARD,
+                                  ACTIVATIONS_PER_FORWARD),
           'stablelm-1.6b FULL config changed')
     mla = register_dense_prefix()
     check(mla.n_layers == MLA_LAYERS and mla.d_model == 7168
@@ -2711,7 +3050,9 @@ def run_phases(torch, report, kmods):
                        + smoke_phase(torch, MLA_ARCH, (('bf16', False),
                                                        ('w8a8', False)))
                        + smoke_tier_prefix_phase(torch, MLA_ARCH)
-                       + smoke_static_phase(torch))
+                       + smoke_static_phase(torch)
+                       + [row for arch in DENSE_ARCHS
+                          for row in smoke_phase(torch, arch)])
     print(f'smoke parity: {json.dumps(report["smoke"])}', flush=True)
     lap('smoke')
     report['profile'] = all_profiles(torch, kmods)
@@ -2721,6 +3062,8 @@ def run_phases(torch, report, kmods):
                                         MLA_SERVE_RUNS, _mla_launches)
     report['serve'] += mla_serve
     lap('serve')
+    report['dense'], dense_totals = dense_phase(torch, kmods[3])
+    lap('dense')
     report['static_serve'], static_totals = static_serve_phase(torch,
                                                                kmods[3])
     lap('static')
@@ -2730,7 +3073,7 @@ def run_phases(torch, report, kmods):
         check(gqa_totals[k] + mla_totals[k] + static_totals[k] > 0,
               f'kernel {k} was never launched on the main paths')
     return {ARCH: gqa_totals, MLA_ARCH: mla_totals,
-            STATIC_PATH: static_totals}
+            STATIC_PATH: static_totals, DENSE_PATH: dense_totals}
 
 
 def main(argv) -> int:
@@ -2833,7 +3176,22 @@ def main(argv) -> int:
             ('yoco_vmm_int8', STATIC_PATH,
              dict(arch=ARCH, M=STATIC_PREFILL_ROWS, K=2048, N=2048)),
             ('yoco_vmm_int8', MLA_ARCH, dict(arch=MLA_ARCH, M=8, K=7168,
-                                             N=129280)))
+                                             N=129280)),
+            # the dense family: K1 at stablelm-12b's G=4, dh=160, K6 at
+            # gemma3's G=2, K5 at gemma3's windowed 128-token chunk, the
+            # int8 linears at each config's widest decode product
+            ('flash_decode_paged', DENSE_PATH, dict(pool='bfloat16',
+                                                    case='stablelm-12b')),
+            ('flash_decode_paged_q8', DENSE_PATH, dict(pool='bfloat16',
+                                                       case='gemma3-27b')),
+            ('flash_chunk_paged', DENSE_PATH, dict(pool='bfloat16', C=128,
+                                                   offset=1024)),
+            ('quantize_rows', DENSE_PATH, dict(arch='stablelm-12b', M=8,
+                                               K=5120, dtype='bfloat16')),
+            ('int8_matmul', DENSE_PATH, dict(arch='gemma3-27b', M=8,
+                                             K=5376, N=262144)),
+            ('yoco_vmm_int8', DENSE_PATH, dict(arch='starcoder2-15b', M=8,
+                                               K=6144, N=49152)))
     check({name for name, _, _ in pick} == set(totals[ARCH]),
           'the kernels line does not cover every kernel')
     kernels = []
@@ -2861,6 +3219,7 @@ def main(argv) -> int:
     print_redesigned(rows)
     print(json.dumps(dict(profiler_misses=PROFILER_MISSES)), flush=True)
     print(json.dumps(dict(serve=report['serve'])), flush=True)
+    print(json.dumps(dict(dense=report['dense'])), flush=True)
     print(json.dumps(dict(static_serve=report['static_serve'])), flush=True)
     print(json.dumps(dict(chaos=report['chaos'])), flush=True)
     print(smi, flush=True)

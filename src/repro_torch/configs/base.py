@@ -1,6 +1,8 @@
 """Architecture configs: a copy of the reference's ``ArchConfig``, its
-``MLAConfig`` and ``MoEConfig``, and its registry. Registered so far:
-stablelm-1.6b and deepseek-v3-671b (whose MoE layers the port does not
+``MLAConfig`` and ``MoEConfig``, its parameter count and its registry.
+Registered so far: the dense GQA configs stablelm-1.6b, stablelm-12b,
+starcoder2-15b and gemma3-27b (5 local sliding-window layers to 1 global,
+sandwich norms), and deepseek-v3-671b (whose MoE layers the port does not
 serve yet: ``models.model`` refuses a config with ``moe`` set, so callers
 serve its dense prefix, ``dataclasses.replace(cfg, n_layers=3, moe=None)``);
 other architectures, and the reference's SSM and hybrid fields, join with
@@ -9,7 +11,7 @@ the families that serve them."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +52,10 @@ class ArchConfig:
     rope_theta: float = 10000.0
     rope_fraction: float = 1.0     # stablelm: partial rotary (0.25)
     sliding_window: Optional[int] = None
-    qk_norm: bool = False
+    local_global_every: int = 0    # gemma3: 1 global per N+1 layers (N local)
+    global_rope_theta: Optional[float] = None
+    qk_norm: bool = False          # gemma3
+    sandwich_norm: bool = False    # gemma3: post-attn/post-mlp norms
     attn_bias: bool = False
     mla: Optional[MLAConfig] = None
     mlp_type: str = 'swiglu'       # swiglu | gelu | geglu
@@ -67,6 +72,58 @@ class ArchConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    def per_token_matmuls(self) -> List[Tuple[str, int, int, float]]:
+        """[(name, K, N, count_per_token)] for every linear a decode token
+        runs (the reference's accounting, for the families the port
+        serves); MoE counts only the activated experts."""
+        d, dh = self.d_model, self.resolved_head_dim
+        n = float(self.n_layers)
+        if self.mla is not None:
+            m, h = self.mla, self.n_heads
+            mm = [('q_down', d, m.q_lora_rank, n),
+                  ('q_up', m.q_lora_rank,
+                   h * (m.nope_head_dim + m.rope_head_dim), n),
+                  ('kv_down', d, m.kv_lora_rank + m.rope_head_dim, n),
+                  ('kv_up', m.kv_lora_rank,
+                   h * (m.nope_head_dim + m.v_head_dim), n),
+                  ('o', h * m.v_head_dim, d, n)]
+        else:
+            mm = [('q', d, self.n_heads * dh, n),
+                  ('kv', d, 2 * self.n_kv_heads * dh, n),
+                  ('o', self.n_heads * dh, d, n)]
+        wide = 2 if self.mlp_type in ('swiglu', 'geglu') else 1
+        if self.moe is None:
+            mm += [('mlp_in', d, wide * self.d_ff, n),
+                   ('mlp_out', self.d_ff, d, n)]
+        else:
+            mo = self.moe
+            n_moe = n - mo.first_k_dense
+            if mo.first_k_dense:
+                mm += [('dense_mlp_in', d, wide * self.d_ff,
+                        mo.first_k_dense),
+                       ('dense_mlp_out', self.d_ff, d, mo.first_k_dense)]
+            mm += [('router', d, mo.n_experts, n_moe),
+                   ('expert_in', d, wide * mo.d_ff_expert, n_moe * mo.top_k),
+                   ('expert_out', mo.d_ff_expert, d, n_moe * mo.top_k)]
+            if mo.d_ff_shared:
+                mm += [('shared_in', d, wide * mo.d_ff_shared, n_moe),
+                       ('shared_out', mo.d_ff_shared, d, n_moe)]
+        return mm + [('lm_head', d, self.vocab_size, 1.0)]
+
+    def param_count(self) -> int:
+        """Total parameters, embeddings included (the reference's count)."""
+        total = self.vocab_size * self.d_model
+        if not self.tie_embeddings:
+            total += self.vocab_size * self.d_model
+        for name, kk, nn, cnt in self.per_token_matmuls():
+            if name == 'lm_head':
+                continue
+            if name.startswith('expert_'):
+                # all experts exist even though top_k are active
+                cnt = cnt / self.moe.top_k * self.moe.n_experts
+            total += int(kk * nn * cnt)
+        return total + int(2 * self.d_model * self.n_layers)   # norms
 
 
 _REGISTRY: Dict[str, ArchConfig] = {}

@@ -138,6 +138,26 @@ _WEIGHT_NAMES = ('wq', 'wk', 'wv', 'wo', 'w_gate', 'w_up', 'w_down', 'w_in',
                  'lm_head')
 
 
+def is_linear_weight(name: str, leaf) -> bool:
+    """A float (K, N) weight that the linears read, by parameter NAME as in
+    the reference (biases, norms and embeddings are not)."""
+    return (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
+            and leaf.ndim == 2 and name in _WEIGHT_NAMES)
+
+
+def quantize_leaf(name: str, leaf, mult: int = 1, min_size: int = 1024,
+                  under_moe: bool = False):
+    """``quantize_tree``'s rule for one leaf: a linear weight of at least
+    ``min_size`` values (``mult`` stacked copies counted) becomes a
+    QuantizedWeight, a leaf under an MoE's experts and anything else stays
+    as it is."""
+    if (is_linear_weight(name, leaf) and leaf.numel() * mult >= min_size
+            and not (under_moe and name in ('w_gate', 'w_up', 'w_down',
+                                            'w_in', 'w_out'))):
+        return prequantize_weight(leaf)
+    return leaf
+
+
 def quantize_tree(params, min_size: int = 1024):
     """Convert every linear weight into a QuantizedWeight — the 'load the
     network into the array' step for serving. Dispatch is by parameter
@@ -146,13 +166,8 @@ def quantize_tree(params, min_size: int = 1024):
     list counts ``len(list) * numel`` against ``min_size``, which is the size
     the reference sees on its stacked (L, K, N) leaf."""
     def conv(name, leaf, mult, under_moe):
-        if (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
-                and leaf.numel() * mult >= min_size
-                and name in _WEIGHT_NAMES and leaf.ndim == 2
-                and not (under_moe and name in ('w_gate', 'w_up', 'w_down',
-                                                'w_in', 'w_out'))):
-            return prequantize_weight(leaf)
-        return walk(leaf, name, mult, under_moe)
+        out = quantize_leaf(name, leaf, mult, min_size, under_moe)
+        return out if out is not leaf else walk(leaf, name, mult, under_moe)
 
     def walk(node, name, mult, under_moe):
         if isinstance(node, dict):

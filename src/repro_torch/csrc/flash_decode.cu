@@ -79,7 +79,9 @@
 // min(pos, S - 1)] (S = W * page_size when paged) writes m = -inf and
 // exits, and a live split visits only its live tiles (every tile when
 // streamed, K7's legacy baseline). Inside a split, lpk lanes read one key
-// row with 16-byte loads (8 bf16 or 4 f32 a lane) and reduce its dot
+// row with 16-byte loads (8 bf16 or 4 f32 a lane; an f32 row of dh > 128,
+// up to 256, takes two pieces a lane, a template instance of its own, so
+// the one-piece instances compile as before) and reduce its dot
 // products by shuffles, so no two lanes of a warp read one shared-memory
 // bank; each lane group keeps its own online softmax over the keys it owns
 // (no block barrier in the key loop), the groups merge by shuffles and the
@@ -379,22 +381,27 @@ struct TieredPagedKV : PagedKV<KV_> {
   }
 };
 
-// The pieces at d0 of the key and value rows of keys k0 + u * pass,
-// u < kStepKeys; a masked key (outside [lo, hi]) is not read: its p is 0
-// and its value row stays 0. A cold key's codes wait in kr/vr for
+// The lane's kPieces pieces, at d0 + c * pstride, of the key and value
+// rows of keys k0 + u * pass, u < kStepKeys; a masked key (outside
+// [lo, hi]) is not read: its p is 0 and its value row stays 0, and a piece
+// past dh reads nothing. A cold key's codes wait in kr/vr for
 // dequant_step.
-template <typename Rows, bool kAligned>
+template <typename Rows, bool kAligned, int kPieces>
 __device__ __forceinline__ void fetch_step(
-    const Rows& kv, int b, int h, int dh, int d0, int lo, int hi, int k0,
-    int pass, uint4 (&kr)[kStepKeys], uint4 (&vr)[kStepKeys],
-    bool (&ok)[kStepKeys], bool (&cold)[kStepKeys], float (&kc)[kStepKeys],
+    const Rows& kv, int b, int h, int dh, int d0, int pstride, int lo,
+    int hi, int k0, int pass, uint4 (&kr)[kStepKeys][kPieces],
+    uint4 (&vr)[kStepKeys][kPieces], bool (&ok)[kStepKeys],
+    bool (&cold)[kStepKeys], float (&kc)[kStepKeys],
     float (&vc)[kStepKeys]) {
 #pragma unroll
   for (int u = 0; u < kStepKeys; ++u) {
     const int kpos = k0 + u * pass;
     ok[u] = kpos >= lo && kpos <= hi;
-    cold[u] = kv.template fetch<kAligned>(b, kpos, h, dh, d0, ok[u], kr[u],
-                                          vr[u], kc[u], vc[u]);
+#pragma unroll
+    for (int c = 0; c < kPieces; ++c)
+      cold[u] = kv.template fetch<kAligned>(b, kpos, h, dh, d0 + c * pstride,
+                                            ok[u], kr[u][c], vr[u][c], kc[u],
+                                            vc[u]);
   }
 }
 
@@ -402,20 +409,25 @@ __device__ __forceinline__ void fetch_step(
 // all its loads are in flight: the step's compute then reads every key as
 // K1 reads it, in one branch-free block, so the compiler makes the same
 // arithmetic of both and K6 over hot pages equals K1 bit for bit.
-template <typename Rows>
-__device__ __forceinline__ void dequant_step(uint4 (&kr)[kStepKeys],
-                                             uint4 (&vr)[kStepKeys],
-                                             const bool (&cold)[kStepKeys],
-                                             const float (&kc)[kStepKeys],
-                                             const float (&vc)[kStepKeys],
-                                             int n_valid) {
+// n_valid: the elements of the row from the lane's first piece on.
+template <typename Rows, int kPieces>
+__device__ __forceinline__ void dequant_step(
+    uint4 (&kr)[kStepKeys][kPieces], uint4 (&vr)[kStepKeys][kPieces],
+    const bool (&cold)[kStepKeys], const float (&kc)[kStepKeys],
+    const float (&vc)[kStepKeys], int n_valid, int pstride) {
   if constexpr (Rows::kTiered) {
     using KV = typename Rows::KV;
 #pragma unroll
     for (int u = 0; u < kStepKeys; ++u)
       if (cold[u]) {
-        kr[u] = dequant<KV>(make_uint2(kr[u].x, kr[u].y), kc[u], n_valid);
-        vr[u] = dequant<KV>(make_uint2(vr[u].x, vr[u].y), vc[u], n_valid);
+#pragma unroll
+        for (int c = 0; c < kPieces; ++c) {
+          const int n = n_valid - c * pstride;
+          kr[u][c] = dequant<KV>(make_uint2(kr[u][c].x, kr[u][c].y), kc[u],
+                                 n);
+          vr[u][c] = dequant<KV>(make_uint2(vr[u][c].x, vr[u][c].y), vc[u],
+                                 n);
+        }
       }
   }
 }
@@ -446,8 +458,12 @@ struct ChunkRows {
 // [lo, hi] = [max(pos - win + 1, 0), min(pos, S - 1)] (S = kv.s); unless
 // `streamed`, only the tiles holding them are visited, and a split holding
 // none writes m = -inf and exits. A staging loader then stages the split's
-// live pages (one barrier). Lane group `grp` (lpk lanes, 16 bytes of a row
-// each) owns key kb + u * (kSplitWarps * 32 / lpk) + warp * (32 / lpk) +
+// live pages (one barrier). Lane group `grp` (lpk lanes, kPieces 16-byte
+// pieces of a row each: lane li holds elements li * V + c * lpk * V, c <
+// kPieces, so each piece's loads are contiguous across the group; kPieces
+// = 2 only for f32 rows wider than the 128 elements one piece a lane
+// covers, dh <= 256) owns key kb + u * (kSplitWarps * 32 / lpk) + warp *
+// (32 / lpk) +
 // grp of each step kb and keeps its own online-softmax state over them
 // (no block barrier in the key loop); the groups merge by shuffles, then
 // the warps through shared memory, in a fixed order. The split's partial
@@ -456,7 +472,7 @@ struct ChunkRows {
 // keys its own rows can see, and each row masks its own keys inside the
 // lane group's online softmax (logit -inf, p = 0), so a row with no
 // valid key in a split leaves that split's m at -inf.
-template <typename Rows, int kRows, bool kAligned, bool kChunk>
+template <typename Rows, int kRows, bool kAligned, bool kChunk, int kPieces>
 __global__ void __launch_bounds__(kSplitThreads)
 key_split_kernel(Rows loader, const float* __restrict__ q,
                  const int* __restrict__ pos_v, const int* __restrict__ win_v,
@@ -465,6 +481,7 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
                  int g, int dh, int lpk, int tile, int tiles_per_split,
                  int n_splits, int streamed, float scale) {
   constexpr int V = Vec<typename Rows::KV>::n;
+  constexpr int E = kPieces * V;     // a lane's elements of a row
   extern __shared__ float s_red[];   // m, l: kSplitWarps * kRows; acc; stage
   float* s_m = s_red;
   float* s_l = s_m + kSplitWarps * kRows;
@@ -477,6 +494,7 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int kpw = 32 / lpk, grp = lane / lpk, li = lane % lpk;
   const int d0 = li * V;                        // this lane's 16 bytes
+  const int pstride = lpk * V;                  // ... and its next piece's
   const int pos = pos_v[b], win = win_v[b];
   int lo = max(pos - win + 1, 0), hi = min(pos, kv.s - 1);
   // a chunk row's position and window
@@ -519,42 +537,48 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
              pos, max(k_first, lo), min(k_last - 1, hi));
     __syncthreads();
   }
-  uint4 kr[kStepKeys], vr[kStepKeys];
+  uint4 kr[kStepKeys][kPieces], vr[kStepKeys][kPieces];
   bool ok[kStepKeys], cold[kStepKeys];
   float kc[kStepKeys], vc[kStepKeys];
   // in flight while the query is read; later steps' loads overlap other
   // blocks' work
-  fetch_step<Rows, kAligned>(kv, b, h, dh, d0, lo, hi, k_first + key0, pass,
-                             kr, vr, ok, cold, kc, vc);
+  fetch_step<Rows, kAligned>(kv, b, h, dh, d0, pstride, lo, hi,
+                             k_first + key0, pass, kr, vr, ok, cold, kc, vc);
 
-  float qv[kRows][V], acc[kRows][V], m_run[kRows], l_run[kRows];
+  float qv[kRows][E], acc[kRows][E], m_run[kRows], l_run[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const float* qr = q + (static_cast<int64_t>(bh) * g + r0 + r) * dh;
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      qv[r][e] = (r < nr && d0 + e < dh) ? qr[d0 + e] : 0.f;
-      acc[r][e] = 0.f;
-    }
+    for (int c = 0; c < kPieces; ++c)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int d = d0 + c * pstride + e;
+        qv[r][c * V + e] = (r < nr && d < dh) ? qr[d] : 0.f;
+        acc[r][c * V + e] = 0.f;
+      }
     m_run[r] = -INFINITY;
     l_run[r] = 0.f;
   }
 
   for (int kb = k_first; kb < k_last; kb += span) {
     if (kb != k_first)
-      fetch_step<Rows, kAligned>(kv, b, h, dh, d0, lo, hi, kb + key0, pass,
-                                 kr, vr, ok, cold, kc, vc);
-    dequant_step<Rows>(kr, vr, cold, kc, vc, dh - d0);
+      fetch_step<Rows, kAligned>(kv, b, h, dh, d0, pstride, lo, hi,
+                                 kb + key0, pass, kr, vr, ok, cold, kc, vc);
+    dequant_step<Rows>(kr, vr, cold, kc, vc, dh - d0, pstride);
     float logit[kRows][kStepKeys];
 #pragma unroll
     for (int u = 0; u < kStepKeys; ++u) {
-      float kf[V];
-      unpack(kr[u], kf);
+      float kf[kPieces][V];
+#pragma unroll
+      for (int c = 0; c < kPieces; ++c) unpack(kr[u][c], kf[c]);
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < V; ++e) dot += qv[r][e] * kf[e];
+        for (int c = 0; c < kPieces; ++c)
+#pragma unroll
+          for (int e = 0; e < V; ++e) dot += qv[r][c * V + e] * kf[c][e];
         for (int off = 1; off < lpk; off <<= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
         logit[r][u] = sees(r, kb + key0 + u * pass, ok[u]) ? dot * scale
@@ -581,17 +605,21 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
       }
       l_run[r] = l_run[r] * alpha + p_sum;
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc[r][e] *= alpha;
+      for (int e = 0; e < E; ++e) acc[r][e] *= alpha;
       m_run[r] = m_new;
     }
 #pragma unroll
     for (int u = 0; u < kStepKeys; ++u) {
-      float vf[V];
-      unpack(vr[u], vf);
+      float vf[kPieces][V];
+#pragma unroll
+      for (int c = 0; c < kPieces; ++c) unpack(vr[u][c], vf[c]);
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[r][e] += logit[r][u] * vf[e];
+        for (int c = 0; c < kPieces; ++c)
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            acc[r][c * V + e] += logit[r][u] * vf[c][e];
     }
   }
 
@@ -608,7 +636,7 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
       const float wb = merge_weight(mo, m_new);
       l_run[r] = l_run[r] * wa + lo_ * wb;
 #pragma unroll
-      for (int e = 0; e < V; ++e) {
+      for (int e = 0; e < E; ++e) {
         const float ao = __shfl_xor_sync(0xffffffffu, acc[r][e], off);
         acc[r][e] = acc[r][e] * wa + ao * wb;
       }
@@ -624,8 +652,12 @@ key_split_kernel(Rows loader, const float* __restrict__ q,
         s_l[warp * kRows + r] = l_run[r];
       }
 #pragma unroll
-      for (int e = 0; e < V; ++e)
-        if (d0 + e < dh) s_acc[(warp * kRows + r) * dh + d0 + e] = acc[r][e];
+      for (int c = 0; c < kPieces; ++c)
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          if (d0 + c * pstride + e < dh)
+            s_acc[(warp * kRows + r) * dh + d0 + c * pstride + e] =
+                acc[r][c * V + e];
     }
   }
   __syncthreads();
@@ -760,14 +792,15 @@ size_t split_smem(const Rows& kv, int dh) {
   return bytes;
 }
 
-template <typename Rows, int kRows, bool kChunk>
+template <typename Rows, int kRows, bool kChunk, int kPieces>
 int launch_split(const Rows& kv, bool aligned, const void* q, const void* pos,
                  const void* win, ChunkRows chunk, float* pm, float* pl,
                  float* pa, int bhkv, int g, int dh, int lpk, int tile,
                  int tps, int n_splits, int streamed, float scale,
                  cudaStream_t stream) {
-  const auto kernel = aligned ? key_split_kernel<Rows, kRows, true, kChunk>
-                              : key_split_kernel<Rows, kRows, false, kChunk>;
+  const auto kernel =
+      aligned ? key_split_kernel<Rows, kRows, true, kChunk, kPieces>
+              : key_split_kernel<Rows, kRows, false, kChunk, kPieces>;
   const dim3 grid(bhkv, n_splits, (g + kRows - 1) / kRows);
   const size_t smem = split_smem<Rows, kRows>(kv, dh);
   if (smem > 48 * 1024) {
@@ -786,9 +819,12 @@ int launch_split(const Rows& kv, bool aligned, const void* q, const void* pos,
 // The key splits of a plan (kernels/flash_decode.py::contig_split_plan,
 // paged_split_plan: `rows` query rows a block, 1 or 2; chunk_split_plan
 // (kChunk): 2; lpk lanes a key row, `tile` keys a tile, tps tiles a split,
-// n_splits splits), then their combine. Refuses a plan that does
-// not cover the kv.s keys with whole steps, every lane group owning one
-// 16-byte piece of a row.
+// n_splits splits), then their combine. A lane holds the plan's `pieces`
+// 16-byte pieces of a row, ceil(dh / (lpk * V)): 1, or 2 for an f32 row
+// of more than 32 pieces (lpk = 32; only f32 builds the 2-piece
+// instances, so the bf16 ones are what they were). Refuses a plan that
+// does not cover the kv.s keys with whole steps, or a row with whole
+// pieces.
 template <typename Rows, bool kChunk>
 int launch_keys(const Rows& kv, bool aligned, const void* q, const void* pos,
                 const void* win, ChunkRows chunk, float* pm, float* pl,
@@ -798,22 +834,32 @@ int launch_keys(const Rows& kv, bool aligned, const void* q, const void* pos,
   constexpr int V = Vec<typename Rows::KV>::n;
   const int span = kSplitWarps * (lpk > 0 ? 32 / lpk : 0) * kStepKeys;
   const bool rows_ok = kChunk ? rows == 2 : rows == 1 || rows == 2;
+  const int pieces = lpk * V >= dh ? 1 : 2;
   if (!rows_ok || lpk < 1 || lpk > 32 || (lpk & (lpk - 1)) != 0 ||
-      lpk * V < dh || tile <= 0 || tile % span != 0 || tps < 1 ||
-      n_splits < 1 || static_cast<int64_t>(n_splits) * tps * tile < kv.s)
+      pieces * lpk * V < dh || (pieces == 2 && (V != 4 || lpk != 32)) ||
+      tile <= 0 || tile % span != 0 || tps < 1 || n_splits < 1 ||
+      static_cast<int64_t>(n_splits) * tps * tile < kv.s)
     return static_cast<int>(cudaErrorInvalidValue);
   const int bhkv = b * kv.hkv;
-  const auto split = [&](auto rows_c) {
-    return launch_split<Rows, decltype(rows_c)::value, kChunk>(
+  const auto split = [&](auto rows_c, auto pieces_c) {
+    return launch_split<Rows, decltype(rows_c)::value, kChunk,
+                        decltype(pieces_c)::value>(
         kv, aligned, q, pos, win, chunk, pm, pl, pa, bhkv, g, dh, lpk, tile,
         tps, n_splits, streamed, scale, stream);
   };
+  const auto by_rows = [&](auto pieces_c) {
+    if constexpr (kChunk)
+      return split(std::integral_constant<int, 2>(), pieces_c);
+    else
+      return rows == 1 ? split(std::integral_constant<int, 1>(), pieces_c)
+                       : split(std::integral_constant<int, 2>(), pieces_c);
+  };
   int err;
-  if constexpr (kChunk)
-    err = split(std::integral_constant<int, 2>());
+  if constexpr (V == 4)
+    err = pieces == 2 ? by_rows(std::integral_constant<int, 2>())
+                      : by_rows(std::integral_constant<int, 1>());
   else
-    err = rows == 1 ? split(std::integral_constant<int, 1>())
-                    : split(std::integral_constant<int, 2>());
+    err = by_rows(std::integral_constant<int, 1>());
   if (err != 0) return err;
   return launch_combine(pm, pl, pa, out, bhkv, g, dh, n_splits, stream);
 }

@@ -269,18 +269,29 @@ CONTIG_TARGET_BLOCKS = 16 * 132
 PAGED_SPLIT_PAGES = 256
 
 
+#: the widest key row the key split reads: 32 lanes of one 16-byte piece
+#: in bf16, of two in f32
+SPLIT_MAX_DH = 256
+
+
 def _split_plan(name: str, b: int, s: int, hkv: int, g: int, dh: int,
                 itemsize: int, page_size: int = 1, max_pages: int = 0,
                 rows: int = 0) -> dict:
     """The key split of ``s`` keys a request for ``g`` query rows a KV
     head, ``rows`` of them a block (0: 1 if g == 1 else 2), tiles a
     multiple of ``page_size`` keys and, if ``max_pages``, at most that
-    many pages a split."""
+    many pages a split. A row of more than 32 16-byte pieces (f32, dh >
+    128) gives each of the 32 lanes ``pieces`` = 2 of them; the kernel
+    takes ceil(dh / (lpk * 16 / itemsize)) pieces a lane, the same
+    number."""
     vec = 16 // itemsize
-    lpk = 1 << (-(-dh // vec) - 1).bit_length()
-    if lpk > 32:
+    n_pieces = -(-dh // vec)
+    if dh > SPLIT_MAX_DH:
         raise ValueError(f'{name}: dh={dh} exceeds the kernel limit of '
-                         f'{32 * vec} for {itemsize}-byte cache elements')
+                         f'{SPLIT_MAX_DH} for {itemsize}-byte cache '
+                         f'elements')
+    pieces = 1 if n_pieces <= 32 else 2
+    lpk = 1 << (-(-n_pieces // pieces) - 1).bit_length()
     span = CONTIG_WARPS * (32 // lpk) * CONTIG_STEP_KEYS
     tile = math.lcm(max(CONTIG_MIN_TILE, span), page_size)
     n_tiles = -(-s // tile)
@@ -290,17 +301,17 @@ def _split_plan(name: str, b: int, s: int, hkv: int, g: int, dh: int,
     per = -(-n_tiles // want)
     if max_pages:
         per = min(per, max(1, max_pages * page_size // tile))
-    return dict(lpk=lpk, tile=tile, tiles_per_split=per,
+    return dict(lpk=lpk, pieces=pieces, tile=tile, tiles_per_split=per,
                 n_splits=-(-n_tiles // per), rows=rows)
 
 
 def contig_split_plan(b: int, s: int, hkv: int, g: int, dh: int,
                       itemsize: int) -> dict:
     """How K7 cuts the key axis of a (B, S, Hkv, dh) cache of ``itemsize``
-    bytes an element: ``lpk`` lanes (16 bytes each) read one key row,
-    absolute tiles of ``tile`` keys, ``tiles_per_split`` tiles a block,
-    ``n_splits`` blocks a (request, KV head) and row group of ``rows`` query
-    rows. It depends on the shapes only, never on positions, so the
+    bytes an element: ``lpk`` lanes (``pieces`` 16 bytes each) read one
+    key row, absolute tiles of ``tile`` keys, ``tiles_per_split`` tiles a
+    block, ``n_splits`` blocks a (request, KV head) and row group of
+    ``rows`` query rows. It depends on the shapes only, never on positions, so the
     prefetch and streamed walks cut the keys identically."""
     return _split_plan('flash_decode_gqa', b, s, hkv, g, dh, itemsize)
 

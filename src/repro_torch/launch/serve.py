@@ -27,7 +27,15 @@ unshared suffix in chunks; ``--chunk-prefill C`` chunks every admission.
 
 Continuous decode attention reads the cache through kernel K1, or K6 over
 the int8 tier (``attn_impl='flash'``, the default there), or the einsum
-oracle; chunked prefill reads it through kernel K5 or the oracle. MLA
+oracle; chunked prefill reads it through kernel K5 or the oracle. The
+dense GQA configs served so far: stablelm-1.6b, stablelm-12b (G = 4,
+dh = 160), starcoder2-15b (G = 12, biases, a GELU MLP) and gemma3-27b
+(G = 2; 5 sliding-window layers to 1 global, each layer's window a view
+of one device tensor, so no step copies it to the card). Seeded weights
+are drawn straight into their serving form (:func:`_serving_params`), so
+a 27 B model's f32 tree never exists whole; dynamic w8a8 keeps f32
+masters and is refused up front where they exceed the card's free
+memory (gemma3-27b's 113.6 GB). MLA
 configs (deepseek-v3's dense prefix) take the latent twins: K8, K10 over
 the int8 latent tier, K9 for chunks. The path is layout-driven: nothing
 here is family-specific except the refusals of ``--prequantize`` on MLA
@@ -56,6 +64,11 @@ versions of the kernels):
       --mode w8a8 --prequantize [--kv-quant --hot-window 2] \
       [--prefix-cache] [--chunk-prefill 32] [--shared-prefix 96] \
       [--chaos --chaos-seed 0] [--metrics-out m.prom] [--trace t.json]
+  python -m repro_torch.launch.serve --arch gemma3-27b --continuous \
+      --no-smoke --slots 8 --requests 2 --prompt-len 1152 --gen-len 16 \
+      --chunk-prefill 128 [--mode w8a8 --prequantize] [--kv-quant]
+  (--arch stablelm-12b, starcoder2-15b or gemma3-27b: the reference's
+  other dense configs; their smoke widths with --smoke, the default)
 """
 
 from __future__ import annotations
@@ -107,15 +120,37 @@ def _refuse_mla_prequantize(arch: str, cfg, prequantize: bool) -> None:
             f'608), an AttributeError; serve bf16 or dynamic --mode w8a8')
 
 
+def _refuse_f32_masters(cfg, dev, mode: str, prequantize: bool) -> None:
+    """Dynamic w8a8 keeps every weight as an f32 master, as the reference
+    does: 4 bytes a parameter (gemma3-27b: 113.6 GB). Refused before any
+    draw when that exceeds the card's free memory."""
+    if mode != 'w8a8' or prequantize or dev.type != 'cuda':
+        return
+    need = 4 * cfg.param_count()
+    free, _ = torch.cuda.mem_get_info(dev)
+    if need > free:
+        raise ValueError(
+            f'{cfg.name}: dynamic w8a8 keeps f32 master weights, '
+            f'{need} bytes ({cfg.param_count()} parameters x 4), and the '
+            f'card has {free} bytes free (torch.cuda.mem_get_info); serve '
+            f'it in bf16 or w8a8 --prequantize')
+
+
 def _serving_params(cfg, params, dev, *, seed: int, mode: str,
                     prequantize: bool, compute_dtype) -> dict:
-    """Seeded random weights on ``dev`` unless ``params`` is given, then
+    """Seeded random weights on ``dev`` unless ``params`` is given,
     quantized in situ (``prequantize``), in bf16 mode cast once to the
     compute dtype, or in dynamic w8a8 stored K-major once, as kernels K3
-    and K4 read them with no per-call copy."""
+    and K4 read them with no per-call copy. Seeded weights take that form
+    as each is drawn (``model.serving_transform``), so no f32 tree is ever
+    whole on the card; given ``params`` are converted tree-wise."""
     if params is None:
+        _refuse_f32_masters(cfg, dev, mode, prequantize)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = model_mod.init_params(gen, cfg, device=dev)
+        return model_mod.init_params(
+            gen, cfg, device=dev,
+            transform=model_mod.serving_transform(mode, prequantize,
+                                                  compute_dtype))
     if prequantize:
         # load the network "into the array": int8 weights in situ
         return yoco_linear.quantize_tree(params)

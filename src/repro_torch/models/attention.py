@@ -32,7 +32,7 @@ from repro_torch import device as device_mod
 from repro_torch.core import yoco_linear
 from repro_torch.core.yoco_linear import YocoConfig
 from repro_torch.models import rope as rope_mod
-from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.models.layers import dense_init, keep, rmsnorm
 
 NEG_INF = -2.0e38
 
@@ -40,13 +40,14 @@ NEG_INF = -2.0e38
 # ----------------------------------------------------------------------------
 # init
 # ----------------------------------------------------------------------------
-def init_attention(gen: torch.Generator, cfg, *, device) -> dict:
+def init_attention(gen: torch.Generator, cfg, *, device, leaf=keep) -> dict:
+    """``leaf(name, w)`` takes each f32 weight right after its draw."""
     d, h, hkv, dh = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                      cfg.resolved_head_dim)
-    p = dict(wq=dense_init(gen, d, h * dh, device=device),
-             wk=dense_init(gen, d, hkv * dh, device=device),
-             wv=dense_init(gen, d, hkv * dh, device=device),
-             wo=dense_init(gen, h * dh, d, device=device))
+    p = dict(wq=leaf('wq', dense_init(gen, d, h * dh, device=device)),
+             wk=leaf('wk', dense_init(gen, d, hkv * dh, device=device)),
+             wv=leaf('wv', dense_init(gen, d, hkv * dh, device=device)),
+             wo=leaf('wo', dense_init(gen, h * dh, d, device=device)))
     if cfg.attn_bias:
         for name, width in (('bq', h * dh), ('bk', hkv * dh),
                             ('bv', hkv * dh)):
@@ -58,18 +59,20 @@ def init_attention(gen: torch.Generator, cfg, *, device) -> dict:
     return p
 
 
-def init_mla(gen: torch.Generator, cfg, *, device) -> dict:
+def init_mla(gen: torch.Generator, cfg, *, device, leaf=keep) -> dict:
+    """``leaf(name, w)`` takes each f32 weight right after its draw."""
     m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
     return dict(
-        w_dq=dense_init(gen, d, m.q_lora_rank, device=device),
-        w_uq=dense_init(gen, m.q_lora_rank,
-                        h * (m.nope_head_dim + m.rope_head_dim),
-                        device=device),
-        w_dkv=dense_init(gen, d, m.kv_lora_rank + m.rope_head_dim,
-                         device=device),
-        w_ukv=dense_init(gen, m.kv_lora_rank,
-                         h * (m.nope_head_dim + m.v_head_dim), device=device),
-        wo=dense_init(gen, h * m.v_head_dim, d, device=device),
+        w_dq=leaf('w_dq', dense_init(gen, d, m.q_lora_rank, device=device)),
+        w_uq=leaf('w_uq', dense_init(
+            gen, m.q_lora_rank, h * (m.nope_head_dim + m.rope_head_dim),
+            device=device)),
+        w_dkv=leaf('w_dkv', dense_init(
+            gen, d, m.kv_lora_rank + m.rope_head_dim, device=device)),
+        w_ukv=leaf('w_ukv', dense_init(
+            gen, m.kv_lora_rank, h * (m.nope_head_dim + m.v_head_dim),
+            device=device)),
+        wo=leaf('wo', dense_init(gen, h * m.v_head_dim, d, device=device)),
         q_ln=torch.zeros((m.q_lora_rank,), dtype=torch.float32,
                          device=device),
         kv_ln=torch.zeros((m.kv_lora_rank,), dtype=torch.float32,

@@ -1,6 +1,6 @@
-"""Per-layer transformer block with a dense MLP and GQA or MLA attention
-(port of ``repro/models/blocks.py``; MoE, Mamba2 and shared blocks come
-later)."""
+"""Per-layer transformer block with a dense MLP and GQA or MLA attention,
+and gemma3's sandwich norms (port of ``repro/models/blocks.py``; MoE,
+Mamba2 and shared blocks come later)."""
 
 from __future__ import annotations
 
@@ -10,17 +10,26 @@ import torch
 
 from repro_torch.core.yoco_linear import YocoConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
+                                       init_norm, keep)
 
 
-def init_transformer_block(gen: torch.Generator, cfg, *, device) -> dict:
-    attn = (attn_mod.init_mla(gen, cfg, device=device)
+def init_transformer_block(gen: torch.Generator, cfg, *, device,
+                           leaf=keep) -> dict:
+    """``leaf(name, w)`` takes each f32 linear weight right after its
+    draw. ``cfg.sandwich_norm`` (gemma3) adds the norms applied to the
+    attention's and the MLP's outputs before each residual add."""
+    attn = (attn_mod.init_mla(gen, cfg, device=device, leaf=leaf)
             if cfg.mla is not None
-            else attn_mod.init_attention(gen, cfg, device=device))
-    return dict(attn_norm=init_norm(cfg, device=device), attn=attn,
-                mlp_norm=init_norm(cfg, device=device),
-                mlp=init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
-                             device=device))
+            else attn_mod.init_attention(gen, cfg, device=device, leaf=leaf))
+    p = dict(attn_norm=init_norm(cfg, device=device), attn=attn,
+             mlp_norm=init_norm(cfg, device=device),
+             mlp=init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
+                          device=device, leaf=leaf))
+    if cfg.sandwich_norm:
+        p['post_attn_norm'] = init_norm(cfg, device=device)
+        p['post_mlp_norm'] = init_norm(cfg, device=device)
+    return p
 
 
 def _mix_attn(p, x, cfg, yoco, *, window, theta, cache, decode_pos, rt,
@@ -59,6 +68,11 @@ def transformer_block(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     a, cache = _mix_attn(p, h, cfg, yoco, window=window, theta=theta,
                          cache=cache, decode_pos=decode_pos, rt=rt,
                          chunk_ctx=chunk_ctx)
+    if 'post_attn_norm' in p:
+        a = apply_norm(p['post_attn_norm'], a, cfg)
     x = x + a
     h = apply_norm(p['mlp_norm'], x, cfg)
-    return x + apply_mlp(p['mlp'], h, cfg.mlp_type, yoco), cache
+    m = apply_mlp(p['mlp'], h, cfg.mlp_type, yoco)
+    if 'post_mlp_norm' in p:
+        m = apply_norm(p['post_mlp_norm'], m, cfg)
+    return x + m, cache

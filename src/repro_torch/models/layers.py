@@ -19,8 +19,15 @@ from repro_torch.core.yoco_linear import YocoConfig
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device,
                scale: Optional[float] = None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    # scaled in place: one f32 weight alive, not two
     return torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                       device=device) * scale
+                       device=device).mul_(scale)
+
+
+def keep(name: str, w: torch.Tensor) -> torch.Tensor:
+    """The identity ``leaf`` of the init functions: a linear weight stays
+    the f32 draw."""
+    return w
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, *,
@@ -69,13 +76,18 @@ def apply_norm(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 # MLPs
 # ----------------------------------------------------------------------------
 def init_mlp(gen: torch.Generator, d: int, d_ff: int, mlp_type: str, *,
-             device) -> dict:
+             device, leaf=keep) -> dict:
+    """``leaf(name, w)`` takes each f32 weight right after its draw, before
+    the next draw (``models.model.init_params``' serving form)."""
     if mlp_type in ('swiglu', 'geglu'):
-        return dict(w_gate=dense_init(gen, d, d_ff, device=device),
-                    w_up=dense_init(gen, d, d_ff, device=device),
-                    w_down=dense_init(gen, d_ff, d, device=device))
-    return dict(w_in=dense_init(gen, d, d_ff, device=device),
-                w_out=dense_init(gen, d_ff, d, device=device))
+        return dict(w_gate=leaf('w_gate', dense_init(gen, d, d_ff,
+                                                     device=device)),
+                    w_up=leaf('w_up', dense_init(gen, d, d_ff,
+                                                 device=device)),
+                    w_down=leaf('w_down', dense_init(gen, d_ff, d,
+                                                     device=device)))
+    return dict(w_in=leaf('w_in', dense_init(gen, d, d_ff, device=device)),
+                w_out=leaf('w_out', dense_init(gen, d_ff, d, device=device)))
 
 
 def _gelu_tanh(t: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Model assembly on the dense path (port of ``repro/models/model.py``).
 
-  init_params(gen, cfg, device)                  -> param tree
+  init_params(gen, cfg, device, transform=None)  -> param tree
   init_cache_tree(cfg, batch, max_seq, ...)      -> contiguous cache tree
   init_paged_cache_tree(cfg, batch, ...)         -> paged cache tree
   prefill(params, batch, cache, cfg, ...)        -> (last_logits, cache)
@@ -16,7 +16,10 @@ ps, r + d_rope)), or contiguous ``dict(layers=dict(k=(L, B, S_max, Hkv,
 dh), v=...))`` (MLA: ``ckv``/``krope`` (L, B, S_max, ·)); each layer works
 on views of the stacked tensors and writes them IN PLACE. Served: token
 models with dense MLPs and GQA or MLA attention (:func:`_check_dense`
-refuses the rest by feature).
+refuses the rest by feature), gemma3's local/global layers included: each
+layer takes its own (window, rope theta) from :func:`_gemma_layer_meta`,
+the windows as one device tensor a (config, device)
+(:func:`layer_windows`), so no step copies a window to the card.
 
 ``params_from_numpy`` / ``cache_from_numpy`` / ``cache_to_numpy`` carry the
 reference's trees (as numpy arrays) across, so the two packages can be run
@@ -26,7 +29,8 @@ on the same weights and compared pool for pool.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+import functools
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +40,8 @@ from repro_torch.core import yoco_linear
 from repro_torch.core.yoco_linear import DEFAULT_YOCO, QuantizedWeight, YocoConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
-from repro_torch.models.layers import apply_norm, dense_init, embed_init, init_norm
+from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
+                                       init_norm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,30 +65,60 @@ def _check_dense(cfg) -> None:
             raise NotImplementedError(
                 f'{cfg.name}: {what} belong to a later slice of the port; '
                 f'it serves token models with dense MLPs and GQA or MLA '
-                f'attention')
+                f'attention (stablelm-1.6b, stablelm-12b, starcoder2-15b, '
+                f'gemma3-27b with its sliding-window layers, and '
+                f"deepseek-v3's dense prefix)")
 
 
 # ----------------------------------------------------------------------------
 # init and interchange
 # ----------------------------------------------------------------------------
-def init_params(gen: torch.Generator, cfg, *, device=None) -> dict:
+def init_params(gen: torch.Generator, cfg, *, device=None,
+                transform=None) -> dict:
     """Random weights with the reference's distributions (embeddings
     N(0, 0.02^2), linears N(0, 1/d_in), norms at identity), drawn from
     ``gen`` directly on ``device`` (default: the card; with no card it
     raises unless the caller passes ``device='cpu'``). The draws differ
     from JAX's PRNG; to compare with the reference use
-    :func:`params_from_numpy`."""
+    :func:`params_from_numpy`.
+
+    ``transform(name, w, mult)`` (e.g. :func:`serving_transform`) takes
+    each f32 linear weight right after its draw, before the next one, so
+    at most one f32 linear weight is alive at a time; ``mult`` is the
+    number of layers the weight is stacked over in the reference (1 for
+    the lm_head). The draws are the same, in the same order, so the tree
+    equals applying the transform to the f32 tree afterwards."""
     _check_dense(cfg)
     device = device_mod.resolve(device)
+    if transform is None:
+        def transform(name, w, mult):
+            return w
     p = dict(embed=embed_init(gen, cfg.vocab_size, cfg.d_model,
                               device=device))
-    p['layers'] = [blk.init_transformer_block(gen, cfg, device=device)
-                   for _ in range(cfg.n_layers)]
+    p['layers'] = [blk.init_transformer_block(
+        gen, cfg, device=device,
+        leaf=lambda name, w: transform(name, w, cfg.n_layers))
+        for _ in range(cfg.n_layers)]
     p['final_norm'] = init_norm(cfg, device=device)
     if not cfg.tie_embeddings:
-        p['lm_head'] = dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                  device=device)
+        p['lm_head'] = transform('lm_head', dense_init(
+            gen, cfg.d_model, cfg.vocab_size, device=device), 1)
     return p
+
+
+def _map_linear_weights(params: dict, fn) -> dict:
+    """``fn(name, w, mult)`` on every linear weight of the tree (``mult``:
+    the length of the layer list it sits in, as :func:`init_params` passes
+    it)."""
+    def walk(node, name='', mult=1):
+        if isinstance(node, dict):
+            return {k: walk(v, k, mult) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, name, len(node)) for v in node]
+        if yoco_linear.is_linear_weight(name, node):
+            return fn(name, node, mult)
+        return node
+    return walk(params)
 
 
 def _is_quantized_leaf(x) -> bool:
@@ -123,21 +158,21 @@ def params_from_numpy(tree: dict, cfg, device) -> dict:
 _F32_WEIGHTS = ('w_ukv',)
 
 
+def _cast_leaf(dtype: torch.dtype):
+    def cast(name, w, mult):
+        return w if name in _F32_WEIGHTS else w.to(dtype)
+    return cast
+
+
+def _k_major_leaf(name, w, mult):
+    return yoco_linear.k_major(w)
+
+
 def cast_linear_weights(params: dict, dtype: torch.dtype) -> dict:
     """Store every float linear weight once in ``dtype`` (the bf16 mode's
     compute dtype), which the reference casts to on every call instead;
     the weights in ``_F32_WEIGHTS`` stay f32."""
-    def walk(node, name=''):
-        if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        if isinstance(node, list):
-            return [walk(v, name) for v in node]
-        if (isinstance(node, torch.Tensor) and node.is_floating_point()
-                and node.ndim == 2 and name in yoco_linear._WEIGHT_NAMES
-                and name not in _F32_WEIGHTS):
-            return node.to(dtype)
-        return node
-    return walk(params)
+    return _map_linear_weights(params, _cast_leaf(dtype))
 
 
 def k_major_linear_weights(params: dict) -> dict:
@@ -147,16 +182,19 @@ def k_major_linear_weights(params: dict) -> dict:
     w8a8 serves these: kernel K3 reads ``w.T`` in place and kernel K4 takes
     its codes as the K-major operand, so no call copies a weight. One
     weight is copied at a time; one already K-major is not copied."""
-    def walk(node, name=''):
-        if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        if isinstance(node, list):
-            return [walk(v, name) for v in node]
-        if (isinstance(node, torch.Tensor) and node.is_floating_point()
-                and node.ndim == 2 and name in yoco_linear._WEIGHT_NAMES):
-            return yoco_linear.k_major(node)
-        return node
-    return walk(params)
+    return _map_linear_weights(params, _k_major_leaf)
+
+
+def serving_transform(mode: str, prequantize: bool, dtype: torch.dtype):
+    """The ``init_params`` transform that draws each linear weight in the
+    form a serve keeps it: prequantized int8 (``quantize_tree``'s rule),
+    cast to ``dtype`` in bf16 mode (:func:`cast_linear_weights`'), or
+    stored K-major in dynamic w8a8 (:func:`k_major_linear_weights`')."""
+    if prequantize:
+        return yoco_linear.quantize_leaf
+    if mode == 'bf16':
+        return _cast_leaf(dtype)
+    return _k_major_leaf
 
 
 def cache_from_numpy(tree, device):
@@ -190,17 +228,56 @@ def _head(params: dict, x: torch.Tensor, cfg, yoco: YocoConfig) -> torch.Tensor:
     return yoco_linear.yoco_matmul(x, params['lm_head'], yoco)
 
 
+@functools.lru_cache(maxsize=None)
+def _gemma_layer_meta(cfg) -> Tuple[tuple, tuple]:
+    """(window, theta) per layer, as Python numbers, for the local/global
+    pattern: layer l is global iff ``l % every == every - 1``; a global
+    layer gets window ``max_seq_len + 1`` (never binds) and the long-rope
+    theta, a local one ``sliding_window`` and ``rope_theta``. With no
+    pattern every layer is local."""
+    every = cfg.local_global_every
+    big = cfg.max_seq_len + 1
+    glob = [bool(every) and l % every == every - 1
+            for l in range(cfg.n_layers)]
+    window = tuple(big if g else (cfg.sliding_window or big) for g in glob)
+    theta = tuple(float(cfg.global_rope_theta or cfg.rope_theta) if g
+                  else float(cfg.rope_theta) for g in glob)
+    return window, theta
+
+
+_WINDOWS: Dict[tuple, torch.Tensor] = {}
+
+
+def layer_windows(cfg, device) -> Optional[torch.Tensor]:
+    """The layers' sliding windows as one (L,) int32 tensor on ``device``,
+    made on first use and kept for the (config, device): each layer reads
+    its 0-d view, so no step copies a window host to device (a Python int
+    would be one blocking copy a layer a step in the kernels' wrappers).
+    None when no layer has a window."""
+    if cfg.sliding_window is None:
+        return None
+    key = (cfg, torch.device(device))
+    if key not in _WINDOWS:
+        _WINDOWS[key] = torch.tensor(_gemma_layer_meta(cfg)[0],
+                                     dtype=torch.int32, device=device)
+    return _WINDOWS[key]
+
+
 def _transformer_stack(layers: list, x: torch.Tensor, cfg, yoco, rt, *,
                        cache: Optional[dict], decode_pos, chunk_ctx=None):
     """Run the layers in order; ``cache`` is the stacked (L, ...) dict or
-    None, and each layer gets views of its own slice."""
+    None, and each layer gets views of its own slice and its own (window,
+    theta) (:func:`_gemma_layer_meta`; the window a view of
+    :func:`layer_windows`)."""
+    windows = layer_windows(cfg, x.device)
+    thetas = _gemma_layer_meta(cfg)[1]
     for l, lp in enumerate(layers):
         lc = ({key: leaf[l] for key, leaf in cache.items()}
               if cache is not None else None)
-        x, _ = blk.transformer_block(lp, x, cfg, yoco,
-                                     window=cfg.sliding_window, cache=lc,
-                                     decode_pos=decode_pos, rt=rt,
-                                     chunk_ctx=chunk_ctx)
+        x, _ = blk.transformer_block(
+            lp, x, cfg, yoco, window=None if windows is None else windows[l],
+            theta=thetas[l], cache=lc, decode_pos=decode_pos, rt=rt,
+            chunk_ctx=chunk_ctx)
     return x, cache
 
 

@@ -145,14 +145,23 @@ def test_dead_splits_exist_where_the_live_range_is_short(monkeypatch,
 
 @pytest.mark.parametrize('itemsize,dh,lpk', [(2, 64, 8), (2, 128, 16),
                                              (4, 64, 16), (4, 128, 32),
-                                             (4, 12, 4), (2, 12, 2)])
+                                             (4, 12, 4), (2, 12, 2),
+                                             (2, 160, 32), (2, 256, 32),
+                                             (4, 160, 32), (4, 256, 32),
+                                             (4, 136, 32)])
 def test_plan_covers_the_cache_in_whole_steps(itemsize, dh, lpk):
-    """Lanes a key row, tiles in whole steps of the kernel (4 warps, 4 keys
-    a lane group), splits covering [0, S) exactly once, independent of the
-    positions (it takes none)."""
+    """Lanes a key row and the 16-byte pieces each lane holds (two only
+    for an f32 row of more than 32 pieces, dh > 128), tiles in whole steps
+    of the kernel (4 warps, 4 keys a lane group), splits covering [0, S)
+    exactly once, independent of the positions (it takes none)."""
+    vec = 16 // itemsize
     for s in (1, 20, 160, 200, 4096):
         plan = tfd.contig_split_plan(8, s, 32, 1, dh, itemsize)
-        assert plan['lpk'] == lpk and lpk * (16 // itemsize) >= dh
+        pieces = 2 if itemsize == 4 and dh > 128 else 1
+        assert plan['lpk'] == lpk and plan['pieces'] == pieces
+        # the kernel's own count, ceil(dh / (lpk * vec)), is the plan's
+        assert -(-dh // (lpk * vec)) == pieces
+        assert pieces * lpk * vec >= dh > (pieces - 1) * lpk * vec
         span = tfd.CONTIG_WARPS * (32 // lpk) * tfd.CONTIG_STEP_KEYS
         assert plan['tile'] % span == 0 and plan['tile'] >= 64
         n_tiles = -(-s // plan['tile'])
@@ -161,5 +170,15 @@ def test_plan_covers_the_cache_in_whole_steps(itemsize, dh, lpk):
 
 
 def test_plan_refuses_a_head_wider_than_a_warp_reads():
-    with pytest.raises(ValueError, match='dh=136'):
-        tfd.contig_split_plan(1, 16, 1, 1, 136, 4)
+    """32 lanes of one bf16 piece or two f32 pieces read 256 elements: a
+    wider head is refused for both element sizes, by every plan."""
+    for itemsize in (2, 4):
+        for plan in (lambda dh: tfd.contig_split_plan(1, 16, 1, 1, dh,
+                                                      itemsize),
+                     lambda dh: tfd.paged_split_plan(1, 2, 8, 1, 1, dh,
+                                                     itemsize),
+                     lambda dh: tfd.chunk_split_plan(1, 2, 8, 1, 2, 1, dh,
+                                                     itemsize)):
+            assert plan(256)['lpk'] == 32
+            with pytest.raises(ValueError, match='dh=264.*limit of 256'):
+                plan(264)

@@ -292,7 +292,8 @@ def test_k6_mirror_bit_equal_to_k1_when_hot_window_covers_table(case,
 @pytest.mark.parametrize('itemsize,dh,g,lpk,rows',
                          [(2, 64, 1, 8, 1), (2, 128, 4, 16, 2),
                           (4, 64, 1, 16, 1), (4, 128, 4, 32, 2),
-                          (4, 12, 1, 4, 1), (2, 160, 4, 32, 2)])
+                          (4, 12, 1, 4, 1), (2, 160, 4, 32, 2),
+                          (4, 160, 4, 32, 2), (4, 256, 2, 32, 2)])
 @pytest.mark.parametrize('ps', [1, 4, 8, 12, 16, 128])
 def test_plan_tiles_whole_pages_and_covers_the_table(itemsize, dh, g, lpk,
                                                      rows, ps):
@@ -302,7 +303,8 @@ def test_plan_tiles_whole_pages_and_covers_the_table(itemsize, dh, g, lpk,
     pages each."""
     for b, w in ((8, 20), (8, 512), (1, 4096), (128, 512), (1, 1)):
         plan = tfd.paged_split_plan(b, w, ps, 32 // g, g, dh, itemsize)
-        assert plan['lpk'] == lpk and lpk * (16 // itemsize) >= dh
+        assert plan['lpk'] == lpk
+        assert plan['pieces'] * lpk * (16 // itemsize) >= dh
         assert plan['rows'] == rows
         span = tfd.CONTIG_WARPS * (32 // lpk) * tfd.CONTIG_STEP_KEYS
         tile = plan['tile']
@@ -327,10 +329,13 @@ def test_plan_takes_no_positions_and_matches_k7_on_one_key_pages():
 
 
 def test_plan_refuses_a_head_wider_than_a_warp_reads():
-    with pytest.raises(ValueError, match='dh=136'):
-        tfd.paged_split_plan(1, 4, 8, 1, 1, 136, 4)
-    with pytest.raises(ValueError, match='dh=264'):
-        tfd.paged_split_plan(1, 4, 8, 1, 1, 264, 2)
+    """f32 rows up to dh=256 take two 16-byte pieces a lane (stablelm-12b's
+    dh=160 among them); past 256 both element sizes are refused."""
+    assert tfd.paged_split_plan(1, 4, 8, 1, 1, 136, 4)['pieces'] == 2
+    assert tfd.paged_split_plan(1, 4, 8, 1, 1, 160, 2)['pieces'] == 1
+    for itemsize in (2, 4):
+        with pytest.raises(ValueError, match='dh=264'):
+            tfd.paged_split_plan(1, 4, 8, 1, 1, 264, itemsize)
 
 
 # ----------------------------------------------------------------------------
@@ -531,7 +536,7 @@ def test_chunk_plan_rows_and_cover(itemsize):
 
 
 @pytest.mark.parametrize('c,g,dh,itemsize', [(1, 1, 64, 2), (8, 0, 64, 2),
-                                             (8, 1, 64, 1), (8, 1, 136, 4)])
+                                             (8, 1, 64, 1), (8, 1, 264, 4)])
 def test_chunk_plan_refuses(c, g, dh, itemsize):
     with pytest.raises(ValueError, match='flash_chunk_paged'):
         tfd.chunk_split_plan(1, 20, 8, 32, c, g, dh, itemsize)

@@ -161,6 +161,27 @@ def test_cli_runs_and_rejects_later_flags(capsys, tmp_path):
         tserve.main(['--continuous', '--device', 'cpu', '--mode', 'qat'])
 
 
+@pytest.mark.parametrize('arch', ['stablelm-12b', 'starcoder2-15b',
+                                  'gemma3-27b'])
+def test_cli_serves_the_dense_family(arch, monkeypatch):
+    """The reference's other dense configs through the CLI at smoke width
+    (continuous, in w8a8 --prequantize too, and static), and --no-smoke
+    hands the published width to the serve."""
+    base = ['--arch', arch, '--device', 'cpu', '--prompt-len', '20',
+            '--gen-len', '3']
+    for extra in ([], ['--mode', 'w8a8', '--prequantize']):
+        out = tserve.main(base + ['--continuous', '--requests', '2',
+                                  '--no-metrics'] + extra)
+        assert out['completed'] == 2
+    out = tserve.main(base + ['--batch', '2', '--attn-impl', 'flash'])
+    assert out['generated_shape'] == [2, 3]
+    seen = {}
+    monkeypatch.setattr(tserve, 'serve_continuous',
+                        lambda arch, **kw: seen.update(kw, arch=arch) or kw)
+    tserve.main(['--continuous', '--no-smoke', '--arch', arch])
+    assert seen['smoke'] is False and seen['arch'] == arch
+
+
 def test_cli_no_smoke_selects_full_width(monkeypatch):
     seen = {}
     monkeypatch.setattr(tserve, 'serve_continuous',

@@ -42,14 +42,17 @@ PROBES = (
      '  const long long probe_start = clock64();\n'
      '  unsigned long long probe_t[6] = {0, 0, 0, 0, 0, 0};\n'
      '  unsigned probe_sink = 0;\n'),
-    ('    dequant_step<Rows>(kr, vr, cold, kc, vc, dh - d0);\n',
+    ('    dequant_step<Rows>(kr, vr, cold, kc, vc, dh - d0, pstride);\n',
      '#pragma unroll\n'
      '    for (int u = 0; u < kStepKeys; ++u)\n'
-     '      probe_sink ^= kr[u].x ^ kr[u].y ^ kr[u].z ^ kr[u].w ^ vr[u].x ^\n'
-     '                    vr[u].y ^ vr[u].z ^ vr[u].w;\n'
+     '#pragma unroll\n'
+     '      for (int c = 0; c < kPieces; ++c)\n'
+     '        probe_sink ^= kr[u][c].x ^ kr[u][c].y ^ kr[u][c].z ^\n'
+     '                      kr[u][c].w ^ vr[u][c].x ^ vr[u][c].y ^\n'
+     '                      vr[u][c].z ^ vr[u][c].w;\n'
      '    const long long probe_c1 = clock64();\n'
      '    probe_t[1] += probe_c1 - probe_c0;\n'),
-    ('        for (int e = 0; e < V; ++e) acc[r][e] += logit[r][u] * vf[e];\n'
+    ('            acc[r][c * V + e] += logit[r][u] * vf[c][e];\n'
      '    }\n',
      '    probe_t[4] += clock64() - probe_c3;\n'),
 )
@@ -64,7 +67,7 @@ BEFORE = (
      '    const long long probe_c2 = clock64();\n'
      '    probe_t[2] += probe_c2 - probe_c1;\n'),
     ('#pragma unroll\n    for (int u = 0; u < kStepKeys; ++u) {\n'
-     '      float vf[V];\n',
+     '      float vf[kPieces][V];\n',
      '    const long long probe_c3 = clock64();\n'
      '    probe_t[3] += probe_c3 - probe_c2;\n'),
     ('  // merge the lane groups of each warp',
@@ -89,7 +92,8 @@ def instrumented_source() -> str:
         .read()
     src = src.replace('#include "common.cuh"', '#include "' + os.path.join(
         ROOT, 'src/repro_torch/csrc/common.cuh') + '"')
-    head = ('template <typename Rows, int kRows, bool kAligned, bool kChunk>\n'
+    head = ('template <typename Rows, int kRows, bool kAligned, bool kChunk, '
+            'int kPieces>\n'
             '__global__ void __launch_bounds__(kSplitThreads)\n'
             'key_split_kernel(')
     start = src.index(head)
