@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
-Four main paths: continuous paged serving of stablelm-1.6b (GQA; kernels
+Main paths: continuous paged serving of stablelm-1.6b (GQA; kernels
 K1-K6) and of deepseek-v3's dense prefix (its first 3 layers, MLA with a
 dense MLP, at the published width, the MoE layers dropped; registered at
 run time as ``deepseek-v3-dense3``; kernels K8-K10, and K3/K4 in dynamic
 w8a8), the static ``serve()`` of stablelm-1.6b over a contiguous cache,
 lock-step or ragged, greedy or sampled (kernel K7; K2/K3 with
---prequantize, K3/K4 in dynamic w8a8), and the dense family: continuous
+--prequantize, K3/K4 in dynamic w8a8), the dense family: continuous
 serving of stablelm-12b, starcoder2-15b and gemma3-27b at their published
 widths (K1-K6 at G = 4, 12 and 2, dh = 160 and 128, gemma3's 1,024-key
-window).
+window), and the Mixture-of-Experts configs: continuous serving of
+qwen2-moe-a2.7b at its published width and depth (K1-K6 at Hkv = 16,
+dh = 128) and of deepseek-v3 cut to 5 layers, 3 dense and 2 MoE
+(``deepseek-v3-moe5``; K8-K10, K3/K4), and qwen2-moe's static
+``serve()`` (K7). Their experts run as float products in every mode, on
+every token.
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -39,7 +44,10 @@ Phases, in order; any failure exits non-zero and prints no result:
              4,096-token context (W=512), each with an L2-cold reading;
              K1 and K5 at gemma3's local layers (a 1,024-key window at a
              1,160-token context; K5's 128-token chunk at offset 1,024);
-             K2/K3/K4 also at the dense family's linear shapes; MLA
+             K2/K3/K4 also at the dense family's linear shapes and the
+             MoE configs' (qwen2-moe's lm_head, deepseek-v3's shared
+             FFN); K1/K6 (hot window 2), K5 (C = 8 and 32) and K7
+             (S = 160) at qwen2-moe's Hkv = 16, G = 1, dh = 128; MLA
              attention 2e-5, the
              reference's tolerance, at H=128, DK=576, r=512, with the
              kernels' resident blocks per SM; K8, K9 and K10 (the latent
@@ -71,7 +79,8 @@ Phases, in order; any failure exits non-zero and prints no result:
              the kernels leave non-finite exactly the plain versions'
              non-finite rows (a ``{"nan": [...]}`` line).
 3. smoke   — the port's GPU path against its own CPU plain path on each
-             smoke config in f32 (the dense family's three too): prefill
+             smoke config in f32 (the dense family's three, qwen2-moe and
+             deepseek-v3 with its MoE layers too): prefill
              plus decode in every served mode,
              decode over the int8 tier (hot window 1), and a prefix hit
              served by chunked prefill, and the static serve() with
@@ -132,6 +141,20 @@ Phases, in order; any failure exits non-zero and prints no result:
              K2/K3/K4 per forward); one decode step a config under
              torch.cuda.set_sync_debug_mode('error'), its flash and
              einsum logits equal within 1e-4 in f32 (bf16 reported).
+5c. moe   — qwen2-moe-a2.7b at its published width and deepseek-v3-moe5
+             (moe_phase): 8 requests of 128-token prompts, 16 generated,
+             qwen2-moe in bf16, w8a8 --prequantize and dynamic w8a8 and a
+             shared-prefix stream with --prefix-cache --kv-quant,
+             deepseek-v3-moe5 in bf16, the same shared stream, and
+             dynamic w8a8 (refused and checked where its weights would
+             not fit); every request finishes, no non-finite logits row,
+             exact launches (the router and the experts launch no int8
+             kernel), each serve's device busy share under
+             torch.profiler and its peak memory; one decode step a
+             config under set_sync_debug_mode('error'), flash vs einsum
+             in f32 within 1e-4; each model freed before the next loads.
+             The static phase then serves qwen2-moe in bf16 flash
+             lock-step (K7 24 * 31 times, no other kernel).
 6. chaos   — continuous serving under the fault injector at the published
              width, each serve beside a clean run of the same stream and
              weights (chaos_phase): stablelm bf16 with the int8 tier and
@@ -150,15 +173,15 @@ Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
 runs on, with that path's launches; K9 on both pool dtypes), a
 ``{"redesigned": [...]}`` line (every row of the redesigned kernels, all
 ten), a ``{"nan": [...]}``, a ``{"serve": [...]}``, a ``{"dense":
-[...]}``, a ``{"static_serve": [...]}`` and a ``{"chaos": [...]}`` line,
-the
+[...]}``, a ``{"moe": [...]}``, a ``{"static_serve": [...]}`` and a
+``{"chaos": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
 reports) go to ``build/chip_smoke.json``.
 
 Usage: python3 chip_smoke.py (every phase runs, always).
        python3 chip_smoke.py --phase
-       kernels|profile|static|nan|chaos|dense:
+       kernels|profile|static|nan|chaos|dense|moe:
        the build and that phase alone (its report in
        ``build/chip_smoke_<phase>.json``, no result line), to rehearse a
        kernel or to measure another tree with this script copied into its
@@ -195,16 +218,21 @@ ACTIVATIONS_PER_FORWARD = 4 * LAYERS_FULL + 1
 # registered at run time by register_dense_prefix()
 MLA_ARCH = 'deepseek-v3-dense3'
 MLA_LAYERS = 3
-# linears a forward runs per MLA layer: w_dq w_uq w_dkv wo + gate up down;
-# a monolithic prefill also expands k/v through w_ukv (decode and chunks
-# absorb it into f32 einsums instead); plus one lm_head per forward
-MLA_LINEARS_DECODE = 7 * MLA_LAYERS + 1
-MLA_LINEARS_PREFILL = 8 * MLA_LAYERS + 1
-# distinct activations of those linears: w_dq and w_dkv share x, gate and
-# up share the normed x; w_uq's, wo's and down's inputs (and w_ukv's in a
-# monolithic prefill); the lm_head's
-MLA_ACTIVATIONS_DECODE = 5 * MLA_LAYERS + 1
-MLA_ACTIVATIONS_PREFILL = 6 * MLA_LAYERS + 1
+# linears a forward runs per MLA layer (mla_counts): w_dq w_uq w_dkv wo +
+# gate up down; a monolithic prefill also expands k/v through w_ukv
+# (decode and chunks absorb it into f32 einsums instead); plus one lm_head
+# per forward. Their distinct activations: w_dq and w_dkv share x, gate
+# and up share the normed x; w_uq's, wo's and down's inputs (and w_ukv's
+# in a monolithic prefill); the lm_head's
+# the Mixture-of-Experts configs (phase "moe"): qwen2-moe-a2.7b at its
+# published width and depth, and deepseek-v3 cut to its first 5 layers (3
+# dense MLA layers, then 2 MoE layers), registered at run time by
+# register_moe5(); their MoE layers run the same linears over the same
+# activations as a dense layer (the shared FFN in the MLP's place), so
+# gqa_counts and the MLA counts hold
+MOE_ARCH = 'qwen2-moe-a2.7b'
+MOE5_ARCH = 'deepseek-v3-moe5'
+MOE5_LAYERS = 5
 # the static serve() runs at full width: batch 8, prompt 128, generation 32
 STATIC_BATCH, STATIC_PROMPT, STATIC_GEN = 8, 128, 32
 # (K, N) of every linear each main path runs through K3/K4 (and K2):
@@ -223,6 +251,11 @@ LINEAR_SHAPES = (
                         (24576, 6144), (6144, 49152)), True),
     ('gemma3-27b', ((5376, 4096), (5376, 2048), (4096, 5376),
                     (5376, 21504), (21504, 5376), (5376, 262144)), True),
+    # the MoE configs (phase "moe"): qwen2-moe's lm_head (its q/k/v/o and
+    # shared FFN have stablelm-1.6b's shapes); deepseek-v3's shared FFN
+    # (gate and up each, then down), dynamic w8a8 only
+    (MOE_ARCH, ((2048, 151936),), True),
+    (MOE5_ARCH, ((7168, 2048), (2048, 7168)), False),
 )
 # stablelm's layer linears (q/k/v/o, MLP in and out) also run at the static
 # prefill's M = batch * prompt rows; its lm_head reads only the last
@@ -254,6 +287,22 @@ def register_dense_prefix():
                             moe=None),
         dataclasses.replace(smoke, name=MLA_ARCH, moe=None))
     return configs.get(MLA_ARCH)
+
+
+def register_moe5():
+    """Register deepseek-v3 cut to its first 5 layers, ``replace(FULL,
+    n_layers=5)`` (3 dense layers and 2 MoE layers; the smoke config is the
+    reference's SMOKE, 1 dense layer and 2 MoE layers), as MOE5_ARCH;
+    returns the full config."""
+    import dataclasses
+
+    from repro_torch import configs
+    full = configs.get('deepseek-v3-671b')
+    configs.base.register(
+        dataclasses.replace(full, name=MOE5_ARCH, n_layers=MOE5_LAYERS),
+        dataclasses.replace(configs.get('deepseek-v3-671b', smoke=True),
+                            name=MOE5_ARCH))
+    return configs.get(MOE5_ARCH)
 
 
 def smi_line() -> str:
@@ -1021,9 +1070,10 @@ def paged_split_kernel_phase(torch, kmods):
     pools, K6 at hot window 2: a grouped head layout (Hkv=8, G=4, dh=128,
     W=20: K7's G > 1 case, query rows in pairs; ragged positions, an idle
     slot, a 33-key window on every odd slot), the dense family's layouts
-    at the same B=8, W=20 (stablelm-12b Hkv=8, G=4, dh=160: two 16-byte
-    pieces a lane in f32; starcoder2-15b Hkv=4, G=12, dh=128; gemma3-27b
-    Hkv=16, G=2, dh=128) and a 4,096-token context (Hkv=32, G=1, dh=64,
+    and qwen2-moe's at the same B=8, W=20 (stablelm-12b Hkv=8, G=4,
+    dh=160: two 16-byte pieces a lane in f32; starcoder2-15b Hkv=4, G=12,
+    dh=128; gemma3-27b Hkv=16, G=2, dh=128; qwen2-moe Hkv=16, G=1,
+    dh=128) and a 4,096-token context (Hkv=32, G=1, dh=64,
     W=512: 8 slots within 16 keys of full, where K1 should reach half its
     bound; the plain versions walk 512 pages, so they are timed over 2
     calls)."""
@@ -1036,7 +1086,8 @@ def paged_split_kernel_phase(torch, kmods):
                                    ('stablelm-12b', 8, 8, 4, 160, 20),
                                    ('starcoder2-15b', 8, 4, 12, 128, 20),
                                    ('gemma3-27b', 8, 16, 2, 128, 20),
-                                   ('long', 8, 32, 1, 64, 512)):
+                                   ('long', 8, 32, 1, 64, 512),
+                                   (MOE_ARCH, 8, 16, 1, 128, 20)):
         n_pages = 1 + b * w
         bt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1) \
             .reshape(b, w).to(torch.int32).contiguous()
@@ -1105,7 +1156,7 @@ def window_kernel_phase(torch, kmods):
     return rows
 
 
-def contig_kernel_phase(torch, kmods):
+def contig_kernel_phase(torch, kmods, cases=None, seed=4):
     """K7 (flash decode over a contiguous cache) against its plain version
     at stablelm-1.6b's static-serve shape, B=8, Hkv=32, G=1, dh=64, S=160
     (prompt 128 + 32 generated): lock-step at pos S - 16 = 144 and ragged
@@ -1118,15 +1169,17 @@ def contig_kernel_phase(torch, kmods):
     one PyTorch call computing the same function,
     ``scaled_dot_product_attention`` on the same cache (a permuted view)
     with a (B, 1, 1, S) boolean mask and ``enable_gqa`` when G > 1, each
-    with a warm and a cold-L2 reading (cold_device_ms)."""
+    with a warm and a cold-L2 reading (cold_device_ms). ``cases`` and
+    ``seed`` replace those cases and their generator's seed."""
     import torch.nn.functional as F
 
     fd = kmods[0]
     dev = torch.device('cuda')
-    gen = torch.Generator(device=dev).manual_seed(4)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     rows = []
     src = 'src/repro_torch/csrc/flash_decode.cu'
-    cases = (('lockstep', 8, 32, 1, 64, 160, torch.bfloat16),
+    cases = cases or (
+             ('lockstep', 8, 32, 1, 64, 160, torch.bfloat16),
              ('lockstep', 8, 32, 1, 64, 160, torch.float32),
              ('ragged', 8, 32, 1, 64, 160, torch.bfloat16),
              ('ragged', 8, 32, 1, 64, 160, torch.float32),
@@ -1204,6 +1257,25 @@ def contig_kernel_phase(torch, kmods):
         if len(cold) > 1:
             rows[-1]['cold_ms_runs'] = cold
             rows[-1]['library_cold_ms_runs'] = lib_cold
+    return rows
+
+
+def moe_kernel_phase(torch, kmods):
+    """The attention kernels at qwen2-moe's heads (Hkv=16, G=1, dh=128)
+    beyond phase 2's K1/K6 rows (paged_split_kernel_phase): K5 for one
+    request's chunks of a prefix hit's suffix (C=8 and C=32 at offset 96,
+    limit 128, W=20) and K7 at the static path's lock-step shape (B=8,
+    S=160, pos 144), bf16 and f32 pools, each against its plain version
+    (1e-5) with its own generator, so the rows before it keep their
+    inputs."""
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    rows = []
+    k5_rows(torch, kmods[0], rows, gen, 20, 128, ((32, 96), (8, 96)),
+            hkv=16, g=1, dh=128)
+    rows += contig_kernel_phase(
+        torch, kmods, seed=8,
+        cases=tuple(('lockstep', 8, 16, 1, 128, 160, dt)
+                    for dt in (torch.bfloat16, torch.float32)))
     return rows
 
 
@@ -2094,8 +2166,9 @@ MLA_SERVE_RUNS = (
     ('bf16', False, 8, 16, None, 'shared', dict(prefix_cache=True, **TIER)),
 )
 SHARED_PREFIX = 96
-# the static serve() path's name in the kernels line
+# the static serve() paths' names in the kernels line
 STATIC_PATH = f'{ARCH} static serve()'
+MOE_STATIC_PATH = f'{MOE_ARCH} static serve()'
 
 
 def _stream(SV, cfg, kind, n_req):
@@ -2164,23 +2237,35 @@ def _gqa_launches(out, mode, prequant, chunks, chunked_admits, cfg=None):
     return want
 
 
-def _mla_launches(out, mode, prequant, chunks, chunked_admits):
-    """Launches the dense-prefix MLA path must make: K8 3 a decode step
-    (K10 in its place with the tier), K9 3 a prefill chunk; in dynamic
-    w8a8, 22 linears over 16 distinct activations a decode step or chunk
-    and 25 over 19 a monolithic prefill (w_ukv expands the prompt's k/v):
-    K4 a linear, K3 an activation and a linear."""
+def mla_counts(layers):
+    """(linears a decode step or chunk, a monolithic prefill; their
+    distinct activations) of an MLA config of ``layers`` layers: w_dq w_uq
+    w_dkv wo and the MLP's (or an MoE layer's shared FFN's) gate up down a
+    layer, a monolithic prefill's w_ukv too, plus the lm_head."""
+    return (7 * layers + 1, 8 * layers + 1, 5 * layers + 1, 6 * layers + 1)
+
+
+def _mla_launches(out, mode, prequant, chunks, chunked_admits,
+                  layers=MLA_LAYERS):
+    """Launches an MLA path of ``layers`` layers must make (deepseek-v3's
+    dense prefix by default): K8 once a layer a decode step (K10 in its
+    place with the tier), K9 once a layer a prefill chunk; in dynamic
+    w8a8, :func:`mla_counts`' linears (at 3 layers 22 over 16 distinct
+    activations a decode step or chunk, 25 over 19 a monolithic prefill,
+    where w_ukv expands the prompt's k/v): K4 a linear, K3 an activation
+    and a linear. An MoE layer's router and experts launch none of
+    K2-K4."""
     check(not prequant, 'the port serves no --prequantize on MLA')
-    decode = MLA_LAYERS * out['steps']
+    dec_lin, pre_lin, dec_act, pre_act = mla_counts(layers)
+    decode = layers * out['steps']
     want = dict(flash_decode_paged_mla=0 if out['kv_quant'] else decode,
                 flash_decode_paged_mla_q8=decode if out['kv_quant'] else 0,
-                flash_chunk_paged_mla=MLA_LAYERS * chunks)
+                flash_chunk_paged_mla=layers * chunks)
     if mode == 'w8a8':
         monolithic = out['events']['admit'] - chunked_admits
-        linears = (MLA_LINEARS_DECODE * (out['steps'] + chunks)
-                   + MLA_LINEARS_PREFILL * monolithic)
-        activations = (MLA_ACTIVATIONS_DECODE * (out['steps'] + chunks)
-                       + MLA_ACTIVATIONS_PREFILL * monolithic)
+        linears = (dec_lin * (out['steps'] + chunks) + pre_lin * monolithic)
+        activations = (dec_act * (out['steps'] + chunks)
+                       + pre_act * monolithic)
         want.update(quantize_rows=activations + linears,
                     yoco_vmm_int8=linears)
     return want
@@ -2314,8 +2399,9 @@ def _dense_decode_checks(torch, build, cfg, params):
     2 of 1,152 tokens, so its local layers' window binds; else 4 of 128)
     over a paged cache, in bf16 and in f32 compute, each through the flash
     route under ``torch.cuda.set_sync_debug_mode('error')`` (no layer
-    copies its window, or anything else, host to device; K1 launched once
-    a layer) and then the einsum route on the same cache (each layer
+    copies its window, or anything else, host to device; an MoE layer
+    routes on the device; K1, or K8 on an MLA config, launched once a
+    layer) and then the einsum route on the same cache (each layer
     rewrites the step's row before it reads it). Gate: the two routes'
     f32 logits within DENSE_ROUTE_TOL; the bf16 ones are reported beside
     the f32 flash logits. The step's token is each prompt's last."""
@@ -2326,6 +2412,8 @@ def _dense_decode_checks(torch, build, cfg, params):
 
     b, plen = ((2, DENSE_LONG['prompt_len']) if cfg.sliding_window
                else (4, DENSE_PROMPT))
+    kernel = ('flash_decode_paged_mla' if cfg.mla is not None
+              else 'flash_decode_paged')
     ps = 8
     blocks = -(-(plen + 1) // ps)
     prompts = synthetic.make_batch(synthetic.for_arch(
@@ -2355,9 +2443,9 @@ def _dense_decode_checks(torch, build, cfg, params):
             torch.cuda.set_sync_debug_mode(prev)
         torch.cuda.synchronize()
         launches = {k: v for k, v in build.LAUNCHES.items() if v}
-        check(launches == dict(flash_decode_paged=cfg.n_layers),
+        check(launches == {kernel: cfg.n_layers},
               f'{cfg.name} {dtype} decode step: launches {launches}, '
-              f'expected K1 {cfg.n_layers} times (once a layer)')
+              f'expected {kernel} {cfg.n_layers} times (once a layer)')
         le, _ = M.decode_step(params, tok, pos, cache, cfg, yoco,
                               M.ModelRuntime(attn_impl='einsum',
                                              compute_dtype=dtype))
@@ -2373,7 +2461,7 @@ def _dense_decode_checks(torch, build, cfg, params):
     row = dict(arch=cfg.name, check='decode step', batch=b, context=plen,
                window_binds=bool(cfg.sliding_window
                                  and plen >= cfg.sliding_window),
-               sync_debug='error', k1_launches=cfg.n_layers,
+               sync_debug='error', decode_launches={kernel: cfg.n_layers},
                f32_flash_vs_einsum=dist(f32, e32), tol=DENSE_ROUTE_TOL,
                bf16_flash_vs_einsum=dist(f16, e16),
                bf16_flash_vs_f32=dist(f16, f32),
@@ -2496,6 +2584,217 @@ def dense_phase(torch, build):
     return rows, totals
 
 
+# ----------------------------------------------------------------------------
+# phase 5c: the Mixture-of-Experts configs at full width
+# ----------------------------------------------------------------------------
+MOE_PATH = 'moe family'
+# arch -> (layers, d_model, q heads, KV heads, experts, stack, top-k,
+# d_ff expert, d_ff shared, dense layers first, vocab): the published
+# widths the phase must serve (deepseek-v3's depth cut 61 -> 5)
+MOE_ARCHS = {
+    MOE_ARCH: (24, 2048, 16, 16, 60, 64, 4, 1408, 5632, 0, 151936),
+    MOE5_ARCH: (MOE5_LAYERS, 7168, 128, 128, 256, 256, 8, 2048, 2048, 3,
+                129280),
+}
+# (arch, mode, prequantize, stream, serve_continuous options), grouped by
+# the weights they serve: qwen2-moe in bf16 (the full stream, then the
+# shared one with the prefix cache over the int8 tier: K5 and K6), w8a8
+# --prequantize and dynamic w8a8; deepseek-v3-moe5 in bf16 (the same two
+# streams: K9 and K10) and dynamic w8a8 (the port refuses --prequantize
+# on MLA)
+MOE_RUNS = (
+    (MOE_ARCH, 'bf16', False, 'full', {}),
+    (MOE_ARCH, 'bf16', False, 'shared', dict(prefix_cache=True, **TIER)),
+    (MOE_ARCH, 'w8a8', True, 'full', {}),
+    (MOE_ARCH, 'w8a8', False, 'full', {}),
+    (MOE5_ARCH, 'bf16', False, 'full', {}),
+    (MOE5_ARCH, 'bf16', False, 'shared', dict(prefix_cache=True, **TIER)),
+    (MOE5_ARCH, 'w8a8', False, 'full', {}),
+)
+MOE_REQUESTS, MOE_PROMPT, MOE_GEN = 8, 128, 16
+# what is left allocated between two models (the next one must not load
+# beside the last)
+MOE_FREED_BYTES = 1 << 30
+
+
+def _moe_stream(SV, cfg, kind):
+    """8 requests of 128-token prompts generating 16 tokens; 'shared'
+    prompts open with one 96-token system prompt."""
+    from repro_torch.data import synthetic
+    prompts = synthetic.make_batch(synthetic.for_arch(
+        cfg, global_batch=MOE_REQUESTS, seq_len=MOE_PROMPT),
+        0)['inputs'].numpy()
+    if kind == 'shared':
+        prompts[:, :SHARED_PREFIX] = prompts[0, :SHARED_PREFIX]
+    return [SV.Request(rid=i, prompt=prompts[i], target_gen=MOE_GEN)
+            for i in range(MOE_REQUESTS)]
+
+
+def moe_phase(torch, build):
+    """qwen2-moe-a2.7b at its published width and depth and deepseek-v3
+    cut to 5 layers (3 dense, 2 MoE) at its published width, through
+    ``serve_continuous`` (random weights from seed 0, drawn once a (config,
+    mode) in their serving form, expert stacks in bf16; page 8, 8 slots):
+    each of MOE_RUNS after a warm-up, then once more under torch.profiler
+    for the device busy share. Gates: every request finishes, no lane has
+    a non-finite logits row, each kernel launched exactly as the path must
+    (K1 once a layer a decode step, K6 in its place with the tier, K5 once
+    a layer a chunk, qwen2-moe's K2/K3/K4 per :func:`gqa_counts`; K8/K10
+    and K9 once a layer, deepseek's K3/K4 per :func:`mla_counts`; the
+    router and the experts launch none), the tier quantizes pages and the
+    prefix cache hits; then one decode step a config through
+    :func:`_dense_decode_checks` (no host sync, flash vs einsum in f32).
+    Dynamic w8a8 is refused before any draw where its weights exceed the
+    card's free memory (checked as in the dense phase). Each model is
+    freed before the next loads. Returns (rows, launch totals)."""
+    import functools
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as SV
+
+    totals = {k: 0 for k in build.LAUNCHES}
+    rows = []
+    t0 = time.perf_counter()
+    dev = torch.device('cuda')
+    bf16 = torch.bfloat16
+    for arch, widths in MOE_ARCHS.items():
+        cfg = configs.get(arch, smoke=False)
+        mo = cfg.moe
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+               mo.n_experts, mo.stack_size, mo.top_k, mo.d_ff_expert,
+               mo.d_ff_shared, mo.first_k_dense, cfg.vocab_size) == widths,
+              f'{arch} is not at its published width')
+        launches_of = (functools.partial(_mla_launches, layers=cfg.n_layers)
+                       if cfg.mla is not None
+                       else functools.partial(_gqa_launches, cfg=cfg))
+        params, loaded = None, None
+        for run_arch, mode, prequant, kind, opts in MOE_RUNS:
+            if run_arch != arch:
+                continue
+            tag = (f'moe {arch} {mode} prequant={prequant} stream={kind} '
+                   f'{opts}')
+            load_s = None
+            if loaded != (mode, prequant):
+                params = kw = None          # the last serve's weights
+                gc.collect()
+                torch.cuda.empty_cache()
+                check(torch.cuda.memory_allocated() < MOE_FREED_BYTES,
+                      f'{tag}: {torch.cuda.memory_allocated()} bytes still '
+                      f'allocated before the model loads')
+                free = torch.cuda.mem_get_info(dev)[0]
+                need = SV._master_bytes(cfg, bf16)
+                if mode == 'w8a8' and not prequant and need > free:
+                    try:
+                        SV.serve_continuous(arch, smoke=False, mode=mode,
+                                            n_requests=1, quiet=True)
+                    except ValueError as e:
+                        check(f'{need} bytes' in str(e),
+                              f'{tag}: refusal without the bytes: {e}')
+                        rows.append(dict(arch=arch, mode=mode,
+                                         prequantize=prequant,
+                                         refused=str(e), free_bytes=free))
+                        print(f'moe run: {json.dumps(rows[-1])}',
+                              flush=True)
+                        continue
+                    check(False, f'{tag}: {need} bytes of weights were not '
+                                 f'refused with {free} free')
+                torch.cuda.reset_peak_memory_stats()
+                t_load = time.perf_counter()
+                params = SV._serving_params(cfg, None, dev, seed=0,
+                                            mode=mode, prequantize=prequant,
+                                            compute_dtype=bf16)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t_load
+                loaded = (mode, prequant)
+            kw = dict(smoke=False, slots=8, page_size=8, mode=mode,
+                      prequantize=prequant, attn_impl='flash',
+                      params=params, quiet=True, **opts)
+            # warm-up (library handles, allocator) outside the measured run
+            SV.serve_continuous(arch, n_requests=1, prompt_len=MOE_PROMPT,
+                                gen_len=2, **kw)
+            torch.cuda.synchronize()
+            stream = _moe_stream(SV, cfg, kind)
+            build.reset_counts()
+            t_run = time.perf_counter()
+            out = SV.serve_continuous(arch, prompt_len=MOE_PROMPT,
+                                      gen_len=MOE_GEN, request_stream=stream,
+                                      **kw)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t_run) * 1e3
+            launches = dict(build.LAUNCHES)
+            check(out['completed'] == MOE_REQUESTS and out['failed'] == 0
+                  and out['rejected'] == 0 and out['cancelled'] == 0,
+                  f'{tag}: not every request finished: {out["events"]}')
+            check(out['quarantined'] == 0,
+                  f'{tag}: {out["quarantined"]} lanes had non-finite '
+                  f'logits')
+            chunks, chunked_admits = _prefill_chunks(out, stream, opts)
+            want = {k: 0 for k in build.LAUNCHES}
+            want.update(launches_of(out, mode, prequant, chunks,
+                                    chunked_admits))
+            for name, n in want.items():
+                check(launches[name] == n,
+                      f'{tag}: {name} launched {launches[name]} times, '
+                      f'expected {n} ({out["steps"]} decode steps, '
+                      f'{chunks} prefill chunks)')
+            if out['kv_quant']:
+                check(out['pages_quantized'] > 0, f'{tag}: no page '
+                                                  f'quantized')
+            if out['prefix'] is not None:
+                check(chunks > 0, f'{tag}: no prefill chunk')
+                check(out['prefix']['hits'] >= MOE_REQUESTS - 1,
+                      f'{tag}: {out["prefix"]["hits"]} prefix hits of '
+                      f'{MOE_REQUESTS}')
+            for k in totals:
+                totals[k] += launches[k]
+            # the device busy share: the kernels' summed device time under
+            # torch.profiler over the wall time of the run above
+            stream = _moe_stream(SV, cfg, kind)
+            by_name = profiled_kernels(torch, lambda: SV.serve_continuous(
+                arch, prompt_len=MOE_PROMPT, gen_len=MOE_GEN,
+                request_stream=stream, **kw))
+            busy_ms = sum(v[0] for v in by_name.values()) if by_name \
+                else None
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+            decode_s = out['wall_s'] - out['prefill_s']
+            rows.append(dict(
+                arch=arch, mode=mode, prequantize=prequant, stream=kind,
+                slots=8, requests=MOE_REQUESTS, prompt_len=MOE_PROMPT,
+                gen_len=MOE_GEN, options=opts, load_s=load_s,
+                tokens_per_s=out['tokens_per_s'], wall_s=out['wall_s'],
+                prefill_s=out['prefill_s'], steps=out['steps'],
+                decode_step_ms=decode_s / max(out['steps'], 1) * 1e3,
+                peak_pages=out['peak_pages'],
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                pages_quantized=out['pages_quantized'],
+                prefix=out['prefix'], prefill_chunks=chunks,
+                launches={k: v for k, v in launches.items() if v},
+                wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_busy_share=(None if busy_ms is None
+                                   else busy_ms / wall_ms),
+                kernel_launches=sum(v[1] for v in by_name.values()),
+                top=[dict(kernel=k[:80], device_ms=v[0], calls=v[1])
+                     for k, v in top]))
+            print(f'moe run: {json.dumps(rows[-1])}', flush=True)
+            del out
+        params = kw = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(torch.cuda.memory_allocated() < MOE_FREED_BYTES,
+              f'{arch}: {torch.cuda.memory_allocated()} bytes still '
+              f'allocated before the decode check loads')
+        params = SV._serving_params(cfg, None, dev, seed=0, mode='bf16',
+                                    prequantize=False, compute_dtype=bf16)
+        rows.append(_dense_decode_checks(torch, build, cfg, params))
+        params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows.append(dict(phase_s=time.perf_counter() - t0))
+    print(f'moe phase: {rows[-1]["phase_s"]:.1f} s', flush=True)
+    return rows, totals
+
+
 # the static serve() runs at full width: (arch, mode, prequantize,
 # attn_impl, ragged, sampling)
 STATIC_RUNS = (
@@ -2513,7 +2812,9 @@ STATIC_RUNS = (
 
 def static_serve_phase(torch, build):
     """The static ``serve()`` path at the published width (random weights
-    from a seed), each of STATIC_RUNS once after a warm-up per model. Gates:
+    from a seed), each of STATIC_RUNS once after a warm-up per model, then
+    qwen2-moe-a2.7b in bf16 flash lock-step (its K7 launches returned on
+    their own: the MoE static path's). Gates:
     every logits row finite, ``generated_shape == [8, 32]``, K7 launched
     exactly 24 * 31 = 744 times per flash run and never by einsum, no paged
     kernel launched, K2 169 and K3 97 times per forward with
@@ -2521,7 +2822,8 @@ def static_serve_phase(torch, build):
     and the
     temperature-0 run's tokens equal to the greedy flash run's.
     Then the device busy share of the bf16 flash lock-step run and of the
-    dynamic w8a8 flash --ragged run. Returns (rows, launch totals)."""
+    dynamic w8a8 flash --ragged run. Returns (rows, launch totals, the
+    qwen2-moe run's launches)."""
     from repro_torch import configs
     from repro_torch.launch import serve as SV
     from repro_torch.models import model as M
@@ -2617,7 +2919,54 @@ def static_serve_phase(torch, build):
     print(f'static serve: flash vs einsum token agreement (ragged, bf16): '
           f'{agree}', flush=True)
     results.append(dict(flash_vs_einsum_token_agreement=agree))
-    return results, totals
+    # qwen2-moe at its published width, bf16 flash lock-step (K7 at its
+    # heads), once the two f32 trees above are freed: its weights drawn in
+    # their serving form, every expert on every one of the prefill's 1,024
+    # tokens
+    import gc
+    params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get(MOE_ARCH, smoke=False)
+    moe_params = SV._serving_params(cfg, None, torch.device('cuda'), seed=0,
+                                    mode='bf16', prequantize=False,
+                                    compute_dtype=torch.bfloat16)
+    SV.serve(MOE_ARCH, gen_len=2, params=moe_params, **kw)     # warm-up
+    torch.cuda.synchronize()
+    finite = []
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counts()
+    out = SV.serve(MOE_ARCH, gen_len=STATIC_GEN, attn_impl='flash',
+                   params=moe_params,
+                   step_hook=lambda logits, tok: finite.append(
+                       SS.logits_health(logits)[0].all()), **kw)
+    torch.cuda.synchronize()
+    moe_totals = dict(build.LAUNCHES)
+    tag = f'static serve {MOE_ARCH} bf16 flash'
+    check(len(finite) == STATIC_GEN and bool(torch.stack(finite).all()),
+          f'{tag}: a logits row is not finite')
+    check(out['generated_shape'] == [STATIC_BATCH, STATIC_GEN],
+          f'{tag}: generated_shape {out["generated_shape"]}')
+    want = {k: 0 for k in build.LAUNCHES}
+    want['flash_decode_contig'] = cfg.n_layers * (STATIC_GEN - 1)
+    for name, n in want.items():
+        check(moe_totals[name] == n, f'{tag}: {name} launched '
+                                     f'{moe_totals[name]} times, expected '
+                                     f'{n}')
+    results.append(dict(
+        arch=MOE_ARCH, mode='bf16', prequantize=False, attn_impl='flash',
+        ragged=False, sampling=None, batch=STATIC_BATCH,
+        prompt_len=STATIC_PROMPT, gen_len=STATIC_GEN,
+        tokens_per_s=out['tokens_per_s'], prefill_s=out['prefill_s'],
+        decode_s=out['decode_s'],
+        decode_step_ms=out['decode_s'] / (STATIC_GEN - 1) * 1e3,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches={k: v for k, v in moe_totals.items() if v}))
+    print(f'static serve run: {json.dumps(results[-1])}', flush=True)
+    del moe_params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, totals, moe_totals
 
 
 # ----------------------------------------------------------------------------
@@ -2970,6 +3319,8 @@ def all_kernel_phases(torch, kmods, nan=None):
     print('K8/K9/K10 checks passed', flush=True)
     rows += contig_kernel_phase(torch, kmods)
     print('K7 checks passed', flush=True)
+    rows += moe_kernel_phase(torch, kmods)
+    print('K5/K7 at qwen2-moe\'s heads checks passed', flush=True)
     return rows
 
 
@@ -2990,6 +3341,11 @@ def dense_rows(torch, kmods):
     return dense_phase(torch, kmods[3])[0]
 
 
+def moe_rows(torch, kmods):
+    """Phase 5c, the MoE configs at full width, alone."""
+    return moe_phase(torch, kmods[3])[0]
+
+
 # ``--phase NAME``: the build and that phase alone, to compare two trees
 # (copy this script into the other tree's root) or to rehearse a kernel
 def chaos_rows(torch, kmods):
@@ -2999,7 +3355,7 @@ def chaos_rows(torch, kmods):
 
 PHASES = dict(kernels=all_kernel_phases, profile=all_profiles,
               static=static_rows, nan=nan_kernel_phase, chaos=chaos_rows,
-              dense=dense_rows)
+              dense=dense_rows, moe=moe_rows)
 
 
 def print_redesigned(rows):
@@ -3027,6 +3383,7 @@ def run_phases(torch, report, kmods):
                                   ACTIVATIONS_PER_FORWARD),
           'stablelm-1.6b FULL config changed')
     mla = register_dense_prefix()
+    register_moe5()
     check(mla.n_layers == MLA_LAYERS and mla.d_model == 7168
           and mla.n_heads == 128 and mla.d_ff == 18432
           and mla.vocab_size == 129280 and mla.moe is None
@@ -3052,7 +3409,10 @@ def run_phases(torch, report, kmods):
                        + smoke_tier_prefix_phase(torch, MLA_ARCH)
                        + smoke_static_phase(torch)
                        + [row for arch in DENSE_ARCHS
-                          for row in smoke_phase(torch, arch)])
+                          for row in smoke_phase(torch, arch)]
+                       + smoke_phase(torch, MOE_ARCH)
+                       + smoke_phase(torch, MOE5_ARCH, (('bf16', False),
+                                                        ('w8a8', False))))
     print(f'smoke parity: {json.dumps(report["smoke"])}', flush=True)
     lap('smoke')
     report['profile'] = all_profiles(torch, kmods)
@@ -3064,8 +3424,10 @@ def run_phases(torch, report, kmods):
     lap('serve')
     report['dense'], dense_totals = dense_phase(torch, kmods[3])
     lap('dense')
-    report['static_serve'], static_totals = static_serve_phase(torch,
-                                                               kmods[3])
+    report['moe'], moe_totals = moe_phase(torch, kmods[3])
+    lap('moe')
+    report['static_serve'], static_totals, moe_static_totals = \
+        static_serve_phase(torch, kmods[3])
     lap('static')
     report['chaos'] = chaos_phase(torch, kmods[3])
     lap('chaos')
@@ -3073,7 +3435,8 @@ def run_phases(torch, report, kmods):
         check(gqa_totals[k] + mla_totals[k] + static_totals[k] > 0,
               f'kernel {k} was never launched on the main paths')
     return {ARCH: gqa_totals, MLA_ARCH: mla_totals,
-            STATIC_PATH: static_totals, DENSE_PATH: dense_totals}
+            STATIC_PATH: static_totals, DENSE_PATH: dense_totals,
+            MOE_PATH: moe_totals, MOE_STATIC_PATH: moe_static_totals}
 
 
 def main(argv) -> int:
@@ -3115,6 +3478,7 @@ def main(argv) -> int:
     kmods = (fd, kq, ky, build)
     if phase is not None:
         register_dense_prefix()
+        register_moe5()
         try:
             report[phase] = PHASES[phase](torch, kmods)
         finally:
@@ -3191,7 +3555,31 @@ def main(argv) -> int:
             ('int8_matmul', DENSE_PATH, dict(arch='gemma3-27b', M=8,
                                              K=5376, N=262144)),
             ('yoco_vmm_int8', DENSE_PATH, dict(arch='starcoder2-15b', M=8,
-                                               K=6144, N=49152)))
+                                               K=6144, N=49152)),
+            # the MoE configs: K1/K6 and K5 at qwen2-moe's heads (Hkv=16,
+            # G=1, dh=128), K2 at its lm_head, K3/K4 at deepseek-v3's
+            # shared FFN gate/up, K8-K10 at the dense prefix's shapes (the
+            # same attention); K7 on qwen2-moe's static path
+            ('flash_decode_paged', MOE_PATH, dict(pool='bfloat16',
+                                                  case=MOE_ARCH)),
+            ('flash_decode_paged_q8', MOE_PATH, dict(pool='bfloat16',
+                                                     case=MOE_ARCH)),
+            ('flash_chunk_paged', MOE_PATH, dict(pool='bfloat16', Hkv=16,
+                                                 C=8, offset=96)),
+            ('int8_matmul', MOE_PATH, dict(arch=MOE_ARCH, M=8, K=2048,
+                                           N=151936)),
+            ('quantize_rows', MOE_PATH, dict(arch=MOE5_ARCH, M=8, K=7168,
+                                             dtype='bfloat16')),
+            ('yoco_vmm_int8', MOE_PATH, dict(arch=MOE5_ARCH, M=8, K=7168,
+                                             N=2048)),
+            ('flash_decode_paged_mla', MOE_PATH, dict(pool='bfloat16',
+                                                      case='serving')),
+            ('flash_chunk_paged_mla', MOE_PATH, dict(pool='bfloat16', C=8,
+                                                     offset=96)),
+            ('flash_decode_paged_mla_q8', MOE_PATH, dict(pool='bfloat16',
+                                                         case='serving')),
+            ('flash_decode_contig', MOE_STATIC_PATH,
+             dict(pool='bfloat16', case='lockstep', Hkv=16)))
     check({name for name, _, _ in pick} == set(totals[ARCH]),
           'the kernels line does not cover every kernel')
     kernels = []
@@ -3220,6 +3608,7 @@ def main(argv) -> int:
     print(json.dumps(dict(profiler_misses=PROFILER_MISSES)), flush=True)
     print(json.dumps(dict(serve=report['serve'])), flush=True)
     print(json.dumps(dict(dense=report['dense'])), flush=True)
+    print(json.dumps(dict(moe=report['moe'])), flush=True)
     print(json.dumps(dict(static_serve=report['static_serve'])), flush=True)
     print(json.dumps(dict(chaos=report['chaos'])), flush=True)
     print(smi, flush=True)

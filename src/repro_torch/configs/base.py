@@ -2,11 +2,13 @@
 ``MLAConfig`` and ``MoEConfig``, its parameter count and its registry.
 Registered so far: the dense GQA configs stablelm-1.6b, stablelm-12b,
 starcoder2-15b and gemma3-27b (5 local sliding-window layers to 1 global,
-sandwich norms), and deepseek-v3-671b (whose MoE layers the port does not
-serve yet: ``models.model`` refuses a config with ``moe`` set, so callers
-serve its dense prefix, ``dataclasses.replace(cfg, n_layers=3, moe=None)``);
-other architectures, and the reference's SSM and hybrid fields, join with
-the families that serve them."""
+sandwich norms), and the Mixture-of-Experts configs qwen2-moe-a2.7b (GQA
+with biases, every layer MoE, its 60 experts padded to a stack of 64) and
+deepseek-v3-671b (MLA; 3 dense layers, then MoE layers), which callers
+serve cut in depth, ``dataclasses.replace(cfg, n_layers=5)`` (its 3 dense
+layers and 2 MoE layers) or ``replace(cfg, n_layers=3, moe=None)`` (the
+dense prefix); other architectures, and the reference's SSM and hybrid
+fields, join with the families that serve them."""
 
 from __future__ import annotations
 
@@ -36,6 +38,11 @@ class MoEConfig:
     router_aux_weight: float = 0.001
     impl: str = 'dense'            # dense | ep  (expert-parallel all_to_all)
     pad_experts_to: int = 0        # pad expert stacks for even EP sharding
+    # (zero dummy experts the router never addresses)
+
+    @property
+    def stack_size(self) -> int:
+        return max(self.n_experts, self.pad_experts_to)
 
 
 @dataclasses.dataclass(frozen=True)

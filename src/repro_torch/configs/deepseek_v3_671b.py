@@ -1,10 +1,13 @@
 """deepseek-v3-671b [moe] — MLA + 1 shared/256 routed top-8 MoE (+MTP),
 arXiv:2412.19437. 61L d_model=7168 128H d_ff(expert)=2048 vocab=129280.
 
-The port serves MLA but not yet MoE: its serving path takes the dense
-prefix, ``dataclasses.replace(FULL, n_layers=3, moe=None)`` (the first
-``first_k_dense = 3`` layers are plain MLA blocks with a SwiGLU MLP of
-``d_ff = 18432``), registered at run time by the caller."""
+The first ``first_k_dense = 3`` layers are MLA blocks with a SwiGLU MLP of
+``d_ff = 18432`` (the ``dense_prefix`` stack); the other 58 are MLA blocks
+with an MoE FFN (256 routed experts top-8 and one shared expert, each 2048
+wide). One card holds it cut in depth: callers register
+``dataclasses.replace(FULL, name=..., n_layers=5)`` (3 dense layers and 2
+MoE layers) or the dense prefix alone, ``replace(FULL, n_layers=3,
+moe=None)``, at run time."""
 from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig, register
 
 FULL = ArchConfig(

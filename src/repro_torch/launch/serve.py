@@ -36,8 +36,13 @@ are drawn straight into their serving form (:func:`_serving_params`), so
 a 27 B model's f32 tree never exists whole; dynamic w8a8 keeps f32
 masters and is refused up front where they exceed the card's free
 memory (gemma3-27b's 113.6 GB). MLA
-configs (deepseek-v3's dense prefix) take the latent twins: K8, K10 over
-the int8 latent tier, K9 for chunks. The path is layout-driven: nothing
+configs (deepseek-v3) take the latent twins: K8, K10 over the int8
+latent tier, K9 for chunks. Mixture-of-Experts configs (qwen2-moe-a2.7b;
+deepseek-v3 with its MoE layers, served cut in depth) run every expert
+on every token (``models/moe.py``), their expert stacks stored once in the
+compute dtype in every mode (never int8: the reference's ``quantize_tree``
+skips them), so dynamic w8a8 prices them at that dtype's bytes
+(:func:`_master_bytes`). The path is layout-driven: nothing
 here is family-specific except the refusals of ``--prequantize`` on MLA
 configs (see :func:`_refuse_mla_prequantize`) and of ``--attn-impl flash``
 on MLA in ``serve()``. ``--mode w8a8`` routes every linear through the
@@ -67,8 +72,13 @@ versions of the kernels):
   python -m repro_torch.launch.serve --arch gemma3-27b --continuous \
       --no-smoke --slots 8 --requests 2 --prompt-len 1152 --gen-len 16 \
       --chunk-prefill 128 [--mode w8a8 --prequantize] [--kv-quant]
-  (--arch stablelm-12b, starcoder2-15b or gemma3-27b: the reference's
-  other dense configs; their smoke widths with --smoke, the default)
+  python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --continuous \
+      --no-smoke --slots 8 --requests 8 --prompt-len 128 --gen-len 16 \
+      [--mode w8a8 [--prequantize]]
+  (--arch stablelm-12b, starcoder2-15b, gemma3-27b or qwen2-moe-a2.7b:
+  the reference's other configs; their smoke widths with --smoke, the
+  default; deepseek-v3-671b at --smoke, its 3-layer SMOKE config with one
+  dense and two MoE layers)
 """
 
 from __future__ import annotations
@@ -85,7 +95,6 @@ import torch
 
 from repro_torch import configs
 from repro_torch import device as device_mod
-from repro_torch.core import yoco_linear
 from repro_torch.core.yoco_linear import YocoConfig
 from repro_torch.data import synthetic
 from repro_torch.models import model as model_mod
@@ -120,43 +129,66 @@ def _refuse_mla_prequantize(arch: str, cfg, prequantize: bool) -> None:
             f'608), an AttributeError; serve bf16 or dynamic --mode w8a8')
 
 
-def _refuse_f32_masters(cfg, dev, mode: str, prequantize: bool) -> None:
-    """Dynamic w8a8 keeps every weight as an f32 master, as the reference
-    does: 4 bytes a parameter (gemma3-27b: 113.6 GB). Refused before any
-    draw when that exceeds the card's free memory."""
+def _expert_params(cfg, padded: bool) -> int:
+    """Parameters in the config's expert stacks (0 without MoE): the
+    reference's count, or with ``padded`` its stacks of ``stack_size``."""
+    mo = cfg.moe
+    if mo is None:
+        return 0
+    mats = 3 if cfg.mlp_type in ('swiglu', 'geglu') else 2
+    experts = mo.stack_size if padded else mo.n_experts
+    return ((cfg.n_layers - mo.first_k_dense) * experts * mats
+            * cfg.d_model * mo.d_ff_expert)
+
+
+def _master_bytes(cfg, compute_dtype) -> int:
+    """Bytes of dynamic w8a8's weights: an f32 master (4 bytes) for every
+    parameter but the expert stacks, which the reference reads only
+    through a cast to the compute dtype, so they are stored once in it,
+    padded stacks included."""
+    elt = torch.empty((), dtype=compute_dtype).element_size()
+    return (4 * (cfg.param_count() - _expert_params(cfg, padded=False))
+            + elt * _expert_params(cfg, padded=True))
+
+
+def _refuse_f32_masters(cfg, dev, mode: str, prequantize: bool,
+                        compute_dtype=torch.bfloat16) -> None:
+    """Dynamic w8a8 keeps every linear weight as an f32 master, as the
+    reference does: 4 bytes a parameter (gemma3-27b: 113.6 GB), expert
+    stacks at the compute dtype's bytes (:func:`_master_bytes`). Refused
+    before any draw when that exceeds the card's free memory."""
     if mode != 'w8a8' or prequantize or dev.type != 'cuda':
         return
-    need = 4 * cfg.param_count()
+    need = _master_bytes(cfg, compute_dtype)
     free, _ = torch.cuda.mem_get_info(dev)
     if need > free:
         raise ValueError(
             f'{cfg.name}: dynamic w8a8 keeps f32 master weights, '
-            f'{need} bytes ({cfg.param_count()} parameters x 4), and the '
-            f'card has {free} bytes free (torch.cuda.mem_get_info); serve '
-            f'it in bf16 or w8a8 --prequantize')
+            f'{need} bytes ({cfg.param_count()} parameters, expert stacks '
+            f'at the compute dtype\'s bytes, the rest at 4), and the card '
+            f'has {free} bytes free (torch.cuda.mem_get_info); serve it in '
+            f'bf16 or w8a8 --prequantize')
 
 
 def _serving_params(cfg, params, dev, *, seed: int, mode: str,
                     prequantize: bool, compute_dtype) -> dict:
     """Seeded random weights on ``dev`` unless ``params`` is given,
-    quantized in situ (``prequantize``), in bf16 mode cast once to the
-    compute dtype, or in dynamic w8a8 stored K-major once, as kernels K3
-    and K4 read them with no per-call copy. Seeded weights take that form
-    as each is drawn (``model.serving_transform``), so no f32 tree is ever
-    whole on the card; given ``params`` are converted tree-wise."""
+    quantized in situ (``prequantize``: the network loaded "into the
+    array"), in bf16 mode cast once to the compute dtype, or in dynamic
+    w8a8 stored K-major once, as kernels K3 and K4 read them with no
+    per-call copy; expert stacks cast once to the compute dtype in every
+    mode. Seeded weights take that form as each is drawn
+    (``model.serving_transform``), so no f32 tree is ever whole on the
+    card; given ``params`` are converted tree-wise (``model.serving_form``;
+    a tree already in that form is not copied)."""
     if params is None:
-        _refuse_f32_masters(cfg, dev, mode, prequantize)
+        _refuse_f32_masters(cfg, dev, mode, prequantize, compute_dtype)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return model_mod.init_params(
             gen, cfg, device=dev,
             transform=model_mod.serving_transform(mode, prequantize,
                                                   compute_dtype))
-    if prequantize:
-        # load the network "into the array": int8 weights in situ
-        return yoco_linear.quantize_tree(params)
-    if mode == 'bf16':
-        return model_mod.cast_linear_weights(params, compute_dtype)
-    return model_mod.k_major_linear_weights(params)
+    return model_mod.serving_form(params, mode, prequantize, compute_dtype)
 
 
 def _refuse_kernel_fault(faults) -> None:

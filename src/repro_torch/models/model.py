@@ -1,4 +1,4 @@
-"""Model assembly on the dense path (port of ``repro/models/model.py``).
+"""Model assembly (port of ``repro/models/model.py``).
 
   init_params(gen, cfg, device, transform=None)  -> param tree
   init_cache_tree(cfg, batch, max_seq, ...)      -> contiguous cache tree
@@ -15,11 +15,15 @@ dh), v=..., bt=(L, B, W)))`` (MLA configs: one latent pool ``cl`` (L, P,
 ps, r + d_rope)), or contiguous ``dict(layers=dict(k=(L, B, S_max, Hkv,
 dh), v=...))`` (MLA: ``ckv``/``krope`` (L, B, S_max, ·)); each layer works
 on views of the stacked tensors and writes them IN PLACE. Served: token
-models with dense MLPs and GQA or MLA attention (:func:`_check_dense`
-refuses the rest by feature), gemma3's local/global layers included: each
-layer takes its own (window, rope theta) from :func:`_gemma_layer_meta`,
-the windows as one device tensor a (config, device)
-(:func:`layer_windows`), so no step copies a window to the card.
+models with GQA or MLA attention and dense MLPs or MoE FFNs
+(:func:`_check_served` refuses other inputs), gemma3's local/global
+layers included: each layer takes its own (window, rope theta) from
+:func:`_gemma_layer_meta`, the windows as one device tensor a (config,
+device) (:func:`layer_windows`), so no step copies a window to the card.
+MoE configs: every layer in ``layers`` has an MoE FFN (qwen2-moe), or,
+with ``first_k_dense`` (deepseek-v3), a ``dense_prefix`` list runs first
+and the caches are ``dict(prefix=..., moe=...)``, each stacked over its
+own layers, as in the reference.
 
 ``params_from_numpy`` / ``cache_from_numpy`` / ``cache_to_numpy`` carry the
 reference's trees (as numpy arrays) across, so the two packages can be run
@@ -40,6 +44,7 @@ from repro_torch.core import yoco_linear
 from repro_torch.core.yoco_linear import DEFAULT_YOCO, QuantizedWeight, YocoConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
                                        init_norm)
 
@@ -53,21 +58,31 @@ class ModelRuntime:
 DEFAULT_RT = ModelRuntime()
 
 
-def _check_dense(cfg) -> None:
-    """Refuse, by feature, what the port does not serve yet. A family name
-    says too little: deepseek-v3's dense prefix keeps ``family='moe'``
-    with ``moe=None``, as in the reference."""
-    later = [(cfg.moe is not None, 'MoE layers (ROADMAP Queue 1 item 11)'),
-             (cfg.input_kind != 'tokens',
-              f'{cfg.input_kind!r} input (Queue 1 item 11)')]
-    for refused, what in later:
-        if refused:
-            raise NotImplementedError(
-                f'{cfg.name}: {what} belong to a later slice of the port; '
-                f'it serves token models with dense MLPs and GQA or MLA '
-                f'attention (stablelm-1.6b, stablelm-12b, starcoder2-15b, '
-                f'gemma3-27b with its sliding-window layers, and '
-                f"deepseek-v3's dense prefix)")
+def _check_served(cfg) -> None:
+    """Refuse, by feature, what the port does not serve yet: inputs other
+    than tokens. A family name says too little (deepseek-v3's dense prefix
+    keeps ``family='moe'`` with ``moe=None``, as in the reference)."""
+    if cfg.input_kind != 'tokens':
+        raise NotImplementedError(
+            f'{cfg.name}: {cfg.input_kind!r} input belongs to a later slice '
+            f'of the port (ROADMAP Queue 1 item 11); it serves token models '
+            f'with GQA or MLA attention and dense MLPs or MoE FFNs '
+            f'(stablelm-1.6b, stablelm-12b, starcoder2-15b, gemma3-27b with '
+            f'its sliding-window layers, qwen2-moe-a2.7b, deepseek-v3)')
+
+
+def _stacks(cfg) -> Tuple[Tuple[str, str, int, bool], ...]:
+    """The layer stacks in the order they run: (param key, cache key,
+    layers, MoE). A ``first_k_dense`` MoE config runs ``dense_prefix`` on
+    the ``prefix`` cache, then its MoE ``layers`` on ``moe``, as the
+    reference does; any other config ``layers`` on ``layers``."""
+    mo = cfg.moe
+    if mo is None:
+        return (('layers', 'layers', cfg.n_layers, False),)
+    if not mo.first_k_dense:
+        return (('layers', 'layers', cfg.n_layers, True),)
+    return (('dense_prefix', 'prefix', mo.first_k_dense, False),
+            ('layers', 'moe', cfg.n_layers - mo.first_k_dense, True))
 
 
 # ----------------------------------------------------------------------------
@@ -83,22 +98,28 @@ def init_params(gen: torch.Generator, cfg, *, device=None,
     :func:`params_from_numpy`.
 
     ``transform(name, w, mult)`` (e.g. :func:`serving_transform`) takes
-    each f32 linear weight right after its draw, before the next one, so
-    at most one f32 linear weight is alive at a time; ``mult`` is the
-    number of layers the weight is stacked over in the reference (1 for
-    the lm_head). The draws are the same, in the same order, so the tree
-    equals applying the transform to the f32 tree afterwards."""
-    _check_dense(cfg)
+    each f32 linear weight, and each slice of an expert stack
+    (``moe.init_moe``), right after its draw, before the next one, so at
+    most one f32 linear weight or one slice of at most ``moe.DRAW_BYTES``
+    is alive at a time; ``mult`` is the number of layers the weight is
+    stacked over in the reference (1 for the lm_head). The draws are the
+    same, in the same order, so the tree equals applying the transform to
+    the f32 tree afterwards (:func:`serving_form`).
+
+    MoE configs build the reference's stacks: ``dense_prefix`` (the
+    ``first_k_dense`` dense layers, drawn first) and ``layers`` (MoE)."""
+    _check_served(cfg)
     device = device_mod.resolve(device)
     if transform is None:
         def transform(name, w, mult):
             return w
     p = dict(embed=embed_init(gen, cfg.vocab_size, cfg.d_model,
                               device=device))
-    p['layers'] = [blk.init_transformer_block(
-        gen, cfg, device=device,
-        leaf=lambda name, w: transform(name, w, cfg.n_layers))
-        for _ in range(cfg.n_layers)]
+    for key, _, n, use_moe in _stacks(cfg):
+        p[key] = [blk.init_transformer_block(
+            gen, cfg, device=device, use_moe=use_moe,
+            leaf=lambda name, w, n=n: transform(name, w, n))
+            for _ in range(n)]
     p['final_norm'] = init_norm(cfg, device=device)
     if not cfg.tie_embeddings:
         p['lm_head'] = transform('lm_head', dense_init(
@@ -106,16 +127,17 @@ def init_params(gen: torch.Generator, cfg, *, device=None,
     return p
 
 
-def _map_linear_weights(params: dict, fn) -> dict:
-    """``fn(name, w, mult)`` on every linear weight of the tree (``mult``:
-    the length of the layer list it sits in, as :func:`init_params` passes
-    it)."""
+def _map_weights(params: dict, fn, stacks: bool = True) -> dict:
+    """``fn(name, w, mult)`` on every linear weight of the tree and, with
+    ``stacks``, every expert stack (``mult``: the length of the layer list
+    it sits in, as :func:`init_params` passes it)."""
     def walk(node, name='', mult=1):
         if isinstance(node, dict):
             return {k: walk(v, k, mult) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v, name, len(node)) for v in node]
-        if yoco_linear.is_linear_weight(name, node):
+        if yoco_linear.is_linear_weight(name, node) or (
+                stacks and moe_mod.is_expert_stack(name, node)):
             return fn(name, node, mult)
         return node
     return walk(params)
@@ -128,11 +150,13 @@ def _is_quantized_leaf(x) -> bool:
 def params_from_numpy(tree: dict, cfg, device) -> dict:
     """The reference's param tree, as numpy arrays (stacked ``(L, ...)``
     layer leaves, ``QuantizedWeight(wq, scale)`` leaves allowed), to the
-    port's: tensors on ``device`` with the layer stack split into a list,
-    int8 weights stored K-major as kernel K2 reads them."""
-    _check_dense(cfg)
+    port's: tensors on ``device`` with each layer stack (``layers``, and
+    ``dense_prefix`` of a ``first_k_dense`` MoE config) split into a list
+    by its own length, int8 weights stored K-major as kernel K2 reads
+    them, expert stacks in ``moe.stack_layout``."""
+    _check_served(cfg)
 
-    def conv(node, layer=None):
+    def conv(node, layer=None, name=''):
         if _is_quantized_leaf(node):
             wq, scale = node
             if layer is not None:
@@ -140,15 +164,22 @@ def params_from_numpy(tree: dict, cfg, device) -> dict:
             return QuantizedWeight(yoco_linear.k_major(conv(wq)),
                                    conv(scale))
         if isinstance(node, dict):
-            return {k: conv(v, layer) for k, v in node.items()}
+            return {k: conv(v, layer, k) for k, v in node.items()}
         arr = np.asarray(node)
         if layer is not None:
             arr = arr[layer]
-        return torch.from_numpy(np.array(arr)).to(device)
+        t = torch.from_numpy(np.array(arr)).to(device)
+        return (moe_mod.stack_layout(name, t)
+                if moe_mod.is_expert_stack(name, t) else t)
 
-    out = {k: conv(v) for k, v in tree.items() if k != 'layers'}
-    out['layers'] = [conv(tree['layers'], l) for l in range(cfg.n_layers)]
-    return out
+    def length(node):
+        while isinstance(node, dict):
+            node = next(iter(node.values()))
+        return len(node[0] if _is_quantized_leaf(node) else node)
+
+    lists = {key for key, _, _, _ in _stacks(cfg)}
+    return {k: ([conv(v, l) for l in range(length(v))] if k in lists
+                else conv(v)) for k, v in tree.items()}
 
 
 # Kept f32 by cast_linear_weights: MLA decode absorbs W_uk into the query
@@ -169,10 +200,11 @@ def _k_major_leaf(name, w, mult):
 
 
 def cast_linear_weights(params: dict, dtype: torch.dtype) -> dict:
-    """Store every float linear weight once in ``dtype`` (the bf16 mode's
-    compute dtype), which the reference casts to on every call instead;
-    the weights in ``_F32_WEIGHTS`` stay f32."""
-    return _map_linear_weights(params, _cast_leaf(dtype))
+    """Store every float linear weight and expert stack once in ``dtype``
+    (the bf16 mode's compute dtype), which the reference casts to on every
+    call instead; the weights in ``_F32_WEIGHTS`` (and the MoE router,
+    which is no linear weight) stay f32."""
+    return _map_weights(params, _cast_leaf(dtype))
 
 
 def k_major_linear_weights(params: dict) -> dict:
@@ -181,20 +213,35 @@ def k_major_linear_weights(params: dict) -> dict:
     (``yoco_linear.k_major``), f32 as the reference keeps them. Dynamic
     w8a8 serves these: kernel K3 reads ``w.T`` in place and kernel K4 takes
     its codes as the K-major operand, so no call copies a weight. One
-    weight is copied at a time; one already K-major is not copied."""
-    return _map_linear_weights(params, _k_major_leaf)
+    weight is copied at a time; one already K-major is not copied. Expert
+    stacks are no linear weights: :func:`serving_form` casts them."""
+    return _map_weights(params, _k_major_leaf, stacks=False)
 
 
 def serving_transform(mode: str, prequantize: bool, dtype: torch.dtype):
     """The ``init_params`` transform that draws each linear weight in the
     form a serve keeps it: prequantized int8 (``quantize_tree``'s rule),
     cast to ``dtype`` in bf16 mode (:func:`cast_linear_weights`'), or
-    stored K-major in dynamic w8a8 (:func:`k_major_linear_weights`')."""
-    if prequantize:
-        return yoco_linear.quantize_leaf
-    if mode == 'bf16':
-        return _cast_leaf(dtype)
-    return _k_major_leaf
+    stored K-major in dynamic w8a8 (:func:`k_major_linear_weights`'). An
+    expert stack is cast to ``dtype`` in every mode, never quantized and
+    never K-major: the reference reads its f32 masters only through a cast
+    to the compute dtype, so storing that cast once is exact."""
+    linear = (yoco_linear.quantize_leaf if prequantize
+              else _cast_leaf(dtype) if mode == 'bf16' else _k_major_leaf)
+
+    def transform(name, w, mult):
+        if moe_mod.is_expert_stack(name, w):
+            return w.to(dtype)
+        return linear(name, w, mult)
+    return transform
+
+
+def serving_form(params: dict, mode: str, prequantize: bool,
+                 dtype: torch.dtype) -> dict:
+    """A given tree in the form a serve keeps it: :func:`serving_transform`
+    on each of its linear weights and expert stacks. A tree already in
+    that form is returned with no weight copied."""
+    return _map_weights(params, serving_transform(mode, prequantize, dtype))
 
 
 def cache_from_numpy(tree, device):
@@ -283,11 +330,15 @@ def _transformer_stack(layers: list, x: torch.Tensor, cfg, yoco, rt, *,
 
 def _backbone(params: dict, x: torch.Tensor, cfg, yoco, rt, *,
               cache: Optional[dict], decode_pos, chunk_ctx=None):
-    lc = cache['layers'] if cache is not None else None
-    x, lc = _transformer_stack(params['layers'], x, cfg, yoco, rt,
-                               cache=lc, decode_pos=decode_pos,
-                               chunk_ctx=chunk_ctx)
-    return x, (dict(cache, layers=lc) if cache is not None else None)
+    """Each param stack on its own cache stack (:func:`_stacks`), each
+    indexing the layer metadata by its own layer index, as the
+    reference's scans do."""
+    for key, ckey, _, _ in _stacks(cfg):
+        x, _ = _transformer_stack(params[key], x, cfg, yoco, rt,
+                                  cache=None if cache is None
+                                  else cache[ckey],
+                                  decode_pos=decode_pos, chunk_ctx=chunk_ctx)
+    return x, cache
 
 
 # ----------------------------------------------------------------------------
@@ -297,13 +348,14 @@ def init_cache_tree(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                     device=None) -> dict:
     """One contiguous cache per layer, stacked over L (the static
     ``serve()`` path's): ``k``/``v`` (L, B, max_seq, Hkv, dh), MLA configs
-    ``ckv``/``krope`` (L, B, max_seq, ·). ``device`` defaults to the card;
-    with no card it raises unless the caller passes ``device='cpu'``."""
-    _check_dense(cfg)
-    one = attn_mod.init_cache(cfg, batch, max_seq, dtype=dtype,
-                              device=device)
+    ``ckv``/``krope`` (L, B, max_seq, ·); stacked per :func:`_stacks`.
+    ``device`` defaults to the card; with no card it raises unless the
+    caller passes ``device='cpu'``."""
+    _check_served(cfg)
     from repro_torch.runtime import layouts
-    return dict(layers=layouts.stack_layers(one, cfg.n_layers))
+    return {ckey: layouts.stack_layers(attn_mod.init_cache(
+                cfg, batch, max_seq, dtype=dtype, device=device), n)
+            for _, ckey, n, _ in _stacks(cfg)}
 
 
 def init_paged_cache_tree(cfg, batch: int, *, num_pages: int, page_size: int,
@@ -316,17 +368,17 @@ def init_paged_cache_tree(cfg, batch: int, *, num_pages: int, page_size: int,
     the int8 cold tier per layer (``kq``/``vq`` (L, P, ps, Hkv, dh),
     ``ks``/``vs`` (L, P, Hkv) f32; MLA: ``clq`` (L, P, ps, r + d_rope),
     ``cs`` (L, P, 1)) and the hot window ``hw``, a (1,) int32 broadcast
-    per layer like ``bt``.
+    per layer like ``bt``. Stacked per :func:`_stacks` (a
+    ``first_k_dense`` MoE config: ``prefix`` and ``moe``).
     ``device`` defaults to the card; with no card it raises unless the
     caller passes ``device='cpu'``."""
-    _check_dense(cfg)
-    one = attn_mod.init_paged_cache(cfg, batch, num_pages=num_pages,
-                                    page_size=page_size,
-                                    max_blocks=max_blocks, dtype=dtype,
-                                    kv_dtype=kv_dtype, hot_window=hot_window,
-                                    device=device)
+    _check_served(cfg)
     from repro_torch.runtime import layouts
-    return dict(layers=layouts.stack_layers(one, cfg.n_layers))
+    return {ckey: layouts.stack_layers(attn_mod.init_paged_cache(
+                cfg, batch, num_pages=num_pages, page_size=page_size,
+                max_blocks=max_blocks, dtype=dtype, kv_dtype=kv_dtype,
+                hot_window=hot_window, device=device), n)
+            for _, ckey, n, _ in _stacks(cfg)}
 
 
 # ----------------------------------------------------------------------------

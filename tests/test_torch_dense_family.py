@@ -244,7 +244,7 @@ def test_gemma_layer_meta_matches_reference(arch, smoke):
 
 
 @pytest.mark.parametrize('arch', ARCHS + ['stablelm-1.6b',
-                                  'deepseek-v3-671b'])
+                                  'deepseek-v3-671b', 'qwen2-moe-a2.7b'])
 def test_param_count_matches_reference(arch):
     """The count the dynamic w8a8 refusal prices (4 bytes a parameter) is
     the reference's, at both widths."""

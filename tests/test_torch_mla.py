@@ -29,6 +29,7 @@ from repro.models import model as rmodel
 from repro.models.model import ModelRuntime
 from repro.runtime import kv_quant as rkvq
 from repro.runtime import layouts as rlayouts
+from repro_torch import configs as tconfigs
 from repro_torch.core import yoco_linear as tyl
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.models import attention as tattention
@@ -517,11 +518,29 @@ def test_mla_chunk_matches_reference(attn_impl):
 
 
 def test_uncut_config_is_refused_by_feature():
-    """deepseek-v3 with its MoE layers is refused for the MoE, not for its
-    family name; the cut keeps ``family='moe'`` and is served."""
-    full = rconfigs.get('deepseek-v3-671b', smoke=True)
-    with pytest.raises(NotImplementedError, match='MoE'):
-        tmodel.init_params(torch.Generator(), full, device='cpu')
+    """Refusals go by feature, not by family name: input other than tokens
+    is refused; deepseek-v3 with its MoE layers is served, its params the
+    reference's ``dense_prefix`` and ``layers`` stacks leaf for leaf in
+    shape; the dense-prefix cut keeps ``family='moe'`` and is served."""
+    full = tconfigs.get('deepseek-v3-671b', smoke=True)
+    with pytest.raises(NotImplementedError, match="'embeddings' input"):
+        tmodel.init_params(torch.Generator(), dataclasses.replace(
+            full, input_kind='embeddings'), device='cpu')
+    got = tmodel.init_params(torch.Generator().manual_seed(0), full,
+                             device='cpu')
+    want = jax.eval_shape(lambda: rmodel.init_params(
+        jax.random.key(0), rconfigs.get('deepseek-v3-671b', smoke=True)))
+    assert set(got) == set(want) >= {'dense_prefix', 'layers'}
+    for key in ('dense_prefix', 'layers'):
+        n = full.moe.first_k_dense if key == 'dense_prefix' else \
+            full.n_layers - full.moe.first_k_dense
+        assert len(got[key]) == n
+        paths = jax.tree_util.tree_leaves_with_path(want[key])
+        mine = jax.tree_util.tree_leaves_with_path(got[key][0])
+        assert [p for p, _ in mine] == [p for p, _ in paths]
+        for (path, leaf), (_, w) in zip(mine, paths):
+            assert (n,) + tuple(leaf.shape) == w.shape, (key, path)
+    assert 'moe' in got['layers'][0] and 'mlp' in got['dense_prefix'][0]
     assert CFG.family == 'moe'
     params = tmodel.init_params(torch.Generator().manual_seed(0), CFG,
                                 device='cpu')

@@ -162,13 +162,14 @@ def test_cli_runs_and_rejects_later_flags(capsys, tmp_path):
 
 
 @pytest.mark.parametrize('arch', ['stablelm-12b', 'starcoder2-15b',
-                                  'gemma3-27b'])
+                                  'gemma3-27b', 'qwen2-moe-a2.7b'])
 def test_cli_serves_the_dense_family(arch, monkeypatch):
-    """The reference's other dense configs through the CLI at smoke width
-    (continuous, in w8a8 --prequantize too, and static), and --no-smoke
-    hands the published width to the serve."""
-    base = ['--arch', arch, '--device', 'cpu', '--prompt-len', '20',
-            '--gen-len', '3']
+    """The reference's other dense configs and qwen2-moe (``--arch
+    qwen2-moe-a2.7b --smoke --continuous --device cpu``) through the CLI
+    at smoke width (continuous, in w8a8 --prequantize too, and static),
+    and --no-smoke hands the published width to the serve."""
+    base = ['--arch', arch, '--smoke', '--device', 'cpu', '--prompt-len',
+            '20', '--gen-len', '3']
     for extra in ([], ['--mode', 'w8a8', '--prequantize']):
         out = tserve.main(base + ['--continuous', '--requests', '2',
                                   '--no-metrics'] + extra)

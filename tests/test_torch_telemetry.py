@@ -60,7 +60,8 @@ def _lane_trace(seed=0, steps=40):
             for _ in range(steps)]
 
 
-@pytest.mark.parametrize('arch', ['stablelm-1.6b', 'deepseek-v3-671b'])
+@pytest.mark.parametrize('arch', ['stablelm-1.6b', 'deepseek-v3-671b',
+                                  'qwen2-moe-a2.7b'])
 @pytest.mark.parametrize('kv_quant', [False, True])
 def test_energy_meter_equals_hwmodel_and_reference(arch, kv_quant):
     tcfg = tconfigs.get(arch, smoke=True)
