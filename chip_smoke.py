@@ -15,7 +15,12 @@ qwen2-moe-a2.7b at its published width and depth (K1-K6 at Hkv = 16,
 dh = 128) and of deepseek-v3 cut to 5 layers, 3 dense and 2 MoE
 (``deepseek-v3-moe5``; K8-K10, K3/K4), and qwen2-moe's static
 ``serve()`` (K7). Their experts run as float products in every mode, on
-every token.
+every token. The recurrent configs: continuous serving of mamba2-780m (a
+pure SSM: K2-K4 only) and zamba2-1.2b (Mamba2 layers and six sites of one
+shared attention block: K1 and K6 at its sites, K3/K4) at their published
+widths and depths, and their static ``serve()`` (zamba2's sites on K7);
+their SSD scans, convs and gated norms are plain torch ops, as the
+reference's are plain jnp.
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -46,7 +51,9 @@ Phases, in order; any failure exits non-zero and prints no result:
              1,160-token context; K5's 128-token chunk at offset 1,024);
              K2/K3/K4 also at the dense family's linear shapes and the
              MoE configs' (qwen2-moe's lm_head, deepseek-v3's shared
-             FFN); K1/K6 (hot window 2), K5 (C = 8 and 32) and K7
+             FFN) and the recurrent configs' (mamba2's in_proj N = 6448,
+             out_proj and tied head N = 50280; zamba2's in_proj N = 8384,
+             out_proj, shared MLP out K = 8192); K1/K6 (hot window 2), K5 (C = 8 and 32) and K7
              (S = 160) at qwen2-moe's Hkv = 16, G = 1, dh = 128; MLA
              attention 2e-5, the
              reference's tolerance, at H=128, DK=576, r=512, with the
@@ -79,8 +86,9 @@ Phases, in order; any failure exits non-zero and prints no result:
              the kernels leave non-finite exactly the plain versions'
              non-finite rows (a ``{"nan": [...]}`` line).
 3. smoke   — the port's GPU path against its own CPU plain path on each
-             smoke config in f32 (the dense family's three, qwen2-moe and
-             deepseek-v3 with its MoE layers too): prefill
+             smoke config in f32 (the dense family's three, qwen2-moe,
+             deepseek-v3 with its MoE layers, mamba2 and zamba2 too, and
+             zamba2 over the int8 tier): prefill
              plus decode in every served mode,
              decode over the int8 tier (hot window 1), and a prefix hit
              served by chunked prefill, and the static serve() with
@@ -155,6 +163,24 @@ Phases, in order; any failure exits non-zero and prints no result:
              in f32 within 1e-4; each model freed before the next loads.
              The static phase then serves qwen2-moe in bf16 flash
              lock-step (K7 24 * 31 times, no other kernel).
+5d. ssm   — mamba2-780m and zamba2-1.2b at their published widths and
+             depths (ssm_phase): 8 requests of 128-token prompts, 16
+             generated, mamba2 in bf16, bf16 over a pool that forces
+             preemption (its tokens equal to the bf16 run's), w8a8
+             --prequantize and dynamic w8a8, then 2 prompts of 1,024
+             tokens (four SSD chunks) and layer 0's SSD at full width
+             against the sequential recurrence (2e-4, the reference's);
+             zamba2 in bf16, the preempting pool, --kv-quant --hot-window
+             2 and dynamic w8a8 (--prequantize refused); the static
+             serve() (batch 8, prompt 128, generation 32): zamba2 flash
+             lock-step (K7 6 * 31) and einsum --ragged, mamba2 einsum
+             --ragged (flash refused); exact launches (K1 6 a zamba2
+             decode step, K6 with the tier; mamba2 --prequantize K2 96,
+             K3 98, K4 1 a forward, dynamic K4 97, K3 194; zamba2 dynamic
+             K4 101, K3 190), each run's device busy share, peak memory
+             and recurrent state bytes; one decode step a config under
+             set_sync_debug_mode('error'), and its SSM ops' device time
+             beside the state-traffic bound.
 6. chaos   — continuous serving under the fault injector at the published
              width, each serve beside a clean run of the same stream and
              weights (chaos_phase): stablelm bf16 with the int8 tier and
@@ -162,7 +188,9 @@ Phases, in order; any failure exits non-zero and prints no result:
              K2, K3, K5, K6 under poisoned pages and logits rows, dropped
              quantize chunks, pool squeezes, preemption storms,
              cancellations, mangled prompts), the dense prefix in dynamic
-             w8a8 (K3, K4, K8 under poisoned pages and logits rows). Every
+             w8a8 (K3, K4, K8 under poisoned pages and logits rows),
+             zamba2 in bf16 (K1 at its six sites; a quarantined lane's
+             recurrent rows zeroed before reuse). Every
              lane that read a poisoned row quarantined, every request the
              injector did not touch with the clean run's tokens, the
              metrics equal to the event log, the trace a Chrome trace, no
@@ -173,15 +201,15 @@ Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
 runs on, with that path's launches; K9 on both pool dtypes), a
 ``{"redesigned": [...]}`` line (every row of the redesigned kernels, all
 ten), a ``{"nan": [...]}``, a ``{"serve": [...]}``, a ``{"dense":
-[...]}``, a ``{"moe": [...]}``, a ``{"static_serve": [...]}`` and a
-``{"chaos": [...]}`` line, the
+[...]}``, a ``{"moe": [...]}``, a ``{"static_serve": [...]}``, a
+``{"chaos": [...]}`` and a ``{"ssm": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
 reports) go to ``build/chip_smoke.json``.
 
 Usage: python3 chip_smoke.py (every phase runs, always).
        python3 chip_smoke.py --phase
-       kernels|profile|static|nan|chaos|dense|moe:
+       kernels|profile|static|nan|chaos|dense|moe|ssm:
        the build and that phase alone (its report in
        ``build/chip_smoke_<phase>.json``, no result line), to rehearse a
        kernel or to measure another tree with this script copied into its
@@ -206,6 +234,7 @@ OUT_DIR = os.path.join(HERE, 'build')
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor rate
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor rate
+FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 ARCH = 'stablelm-1.6b'
 LAYERS_FULL = 24
 LINEARS_PER_FORWARD = 7 * LAYERS_FULL + 1      # q k v o gate up down + lm_head
@@ -256,6 +285,14 @@ LINEAR_SHAPES = (
     # (gate and up each, then down), dynamic w8a8 only
     (MOE_ARCH, ((2048, 151936),), True),
     (MOE5_ARCH, ((7168, 2048), (2048, 7168)), False),
+    # the recurrent configs (phase "ssm"): mamba2's in_proj (N = 6448),
+    # out_proj and tied head (N = 50280, no multiple of 16: the K2/K4 edge
+    # masks), --prequantize and dynamic; zamba2's Mamba2 in_proj
+    # (N = 8384) and out_proj, and its shared block's MLP out (K = 8192),
+    # dynamic only (the port refuses --prequantize there); its q/k/v/o
+    # have stablelm-1.6b's (2048, 2048)
+    ('mamba2-780m', ((1536, 6448), (3072, 1536), (1536, 50280)), True),
+    ('zamba2-1.2b', ((2048, 8384), (4096, 2048), (8192, 2048)), False),
 )
 # stablelm's layer linears (q/k/v/o, MLP in and out) also run at the static
 # prefill's M = batch * prompt rows; its lm_head reads only the last
@@ -1944,12 +1981,13 @@ def smoke_phase(torch, arch=ARCH, modes=(('bf16', False), ('w8a8', True),
     return results
 
 
-def smoke_tier_prefix_phase(torch, arch=ARCH):
+def smoke_tier_prefix_phase(torch, arch=ARCH, paths=('tier', 'prefix')):
     """The slice-2 paths on ``arch``'s smoke config in f32, GPU against CPU:
     decode over the int8 tier with hot window 1 (K6; aged-out pages
     quantized before each step), and a prefix hit whose unshared suffix is
     prefilled in chunks (K5) and then decoded beside its donor (K1); K10,
-    K9 and K8 on an MLA config."""
+    K9 and K8 on an MLA config. ``paths`` picks them (a hybrid serves no
+    prefix cache: its tier only)."""
     from repro_torch import configs
     from repro_torch.core.yoco_linear import YocoConfig
     from repro_torch.models import model as M
@@ -1992,8 +2030,11 @@ def smoke_tier_prefix_phase(torch, arch=ARCH):
                 idx = torch.tensor(pages, device=dev)
                 cache = kvq.quantize_tree_pages(cache, idx)
                 # the codes just written, first read by forward i + 1;
-                # int8 leaves are stacked (L, P, ...)
-                for _, leaf in sorted(cache['layers'].items()):
+                # int8 leaves are stacked (L, P, ...); a hybrid's are its
+                # attention sites'
+                pools = cache['attn'] if cfg.hybrid_group \
+                    else cache['layers']
+                for _, leaf in sorted(pools.items()):
                     if leaf.dtype != torch.int8:
                         continue
                     if follow is not None:
@@ -2059,6 +2100,9 @@ def smoke_tier_prefix_phase(torch, arch=ARCH):
     results = []
     for name, fn in (('kv_quant hot_window=1', tier_run),
                      ('prefix hit, chunked prefill C=4', prefix_run)):
+        if (fn is tier_run and 'tier' not in paths) or \
+                (fn is prefix_run and 'prefix' not in paths):
+            continue
         gpu = fn('cuda')
         cpu = fn('cpu', gpu[2])         # the CPU run follows the card's codes
         results.append(dict(arch=arch, mode='bf16', path=name,
@@ -2795,6 +2839,454 @@ def moe_phase(torch, build):
     return rows, totals
 
 
+# ----------------------------------------------------------------------------
+# phase 5d: the recurrent configs at full width and depth
+# ----------------------------------------------------------------------------
+SSM_ARCH, HYB_ARCH = 'mamba2-780m', 'zamba2-1.2b'
+SSM_PATH = 'ssm family'
+# arch -> (layers, d_model, d_state, expand, head_dim, groups, conv width,
+# chunk, hybrid_group, heads, d_ff, vocab): the published widths and depths
+SSM_ARCHS = {
+    SSM_ARCH: (48, 1536, 128, 2, 64, 1, 4, 256, 0, 0, 0, 50280),
+    HYB_ARCH: (38, 2048, 64, 2, 64, 1, 4, 256, 6, 32, 8192, 32000),
+}
+SSM_REQUESTS, SSM_PROMPT, SSM_GEN = 8, 128, 16
+# 3 lanes of 16 pages fill the 48-page pool and all must grow past position
+# 128, so the youngest is preempted and later recomputes from its prompt
+SSM_PREEMPT_PAGES = 1 + 48
+# (arch, mode, prequantize, num_pages, serve_continuous options), grouped
+# by the weights they serve; zamba2's --prequantize is refused (the
+# reference fails there), checked before its runs
+SSM_RUNS = (
+    (SSM_ARCH, 'bf16', False, None, {}),
+    (SSM_ARCH, 'bf16', False, SSM_PREEMPT_PAGES, {}),
+    (SSM_ARCH, 'w8a8', True, None, {}),
+    (SSM_ARCH, 'w8a8', False, None, {}),
+    (HYB_ARCH, 'bf16', False, None, {}),
+    (HYB_ARCH, 'bf16', False, SSM_PREEMPT_PAGES, {}),
+    (HYB_ARCH, 'bf16', False, None, TIER),
+    (HYB_ARCH, 'w8a8', False, None, {}),
+)
+# mamba2's long prompts: 1,024 tokens, four SSD chunks of 256
+SSM_LONG = dict(requests=2, prompt_len=1024)
+# ssd_chunked against the sequential recurrence: the reference's own
+# tolerance (tests/test_ssm.py, rtol and atol)
+SSD_TOL = 2e-4
+# (arch, attn_impl, ragged) of the static serve() at full width
+SSM_STATIC_RUNS = ((HYB_ARCH, 'flash', False), (HYB_ARCH, 'einsum', True),
+                   (SSM_ARCH, 'einsum', True))
+
+
+def ssm_counts(cfg):
+    """(linears, distinct activations) of one forward of a recurrent config:
+    in_proj and out_proj a Mamba2 layer (each its own activation); a
+    hybrid's shared block at each site runs q k v o and the GELU MLP's in
+    and out (q/k/v share one activation: 4 a site); the lm_head (mamba2's
+    tied embedding's transpose) one more. The shared block's per-site
+    in_proj is a float einsum, no linear. mamba2-780m: 97 over 97;
+    zamba2-1.2b: 101 over 89."""
+    from repro_torch.models import model as M
+    sites = M._n_sites(cfg)
+    return (2 * M._n_mamba(cfg) + 6 * sites + 1,
+            2 * M._n_mamba(cfg) + 4 * sites + 1)
+
+
+def _ssm_launches(cfg, forwards, decode_steps, mode, prequant, *,
+                  kv_quant=False, static_flash=False):
+    """Launches a recurrent path must make: a hybrid's K1 once a site a
+    decode step (K6 in its place with the tier; K7 in the static flash
+    serve()), a pure SSM no attention kernel; per forward
+    :func:`ssm_counts`' linears: with --prequantize K2 on every linear but
+    the tied head, which is quantized dynamically in every w8a8 mode (K3
+    on its weight, then K4): K2 96, K3 98, K4 1 for mamba2; dynamic K4 on
+    every linear, K3 on each activation and each weight (mamba2 97 and
+    194, zamba2 101 and 190)."""
+    sites = cfg.n_layers // cfg.hybrid_group if cfg.hybrid_group else 0
+    linears, acts = ssm_counts(cfg)
+    attn = sites * decode_steps
+    want = dict(flash_decode_paged=0 if kv_quant or static_flash else attn,
+                flash_decode_paged_q8=attn if kv_quant else 0,
+                flash_decode_contig=attn if static_flash else 0)
+    if mode == 'w8a8' and prequant:
+        check(cfg.tie_embeddings, 'prequantize counted for a tied head')
+        want.update(int8_matmul=(linears - 1) * forwards,
+                    quantize_rows=(acts + 1) * forwards,
+                    yoco_vmm_int8=forwards)
+    elif mode == 'w8a8':
+        want.update(yoco_vmm_int8=linears * forwards,
+                    quantize_rows=(acts + linears) * forwards)
+    return want
+
+
+def _check_launches(build, tag, want):
+    full = {k: 0 for k in build.LAUNCHES}
+    full.update(want)
+    for name, n in full.items():
+        check(build.LAUNCHES[name] == n,
+              f'{tag}: {name} launched {build.LAUNCHES[name]} times, '
+              f'expected {n}')
+
+
+def _state_bytes(cache):
+    return sum(t.numel() * t.element_size() for t in cache['ssm'].values())
+
+
+def _ssd_check(torch, cfg, params, prompt):
+    """Layer 0's SSD inputs for ``prompt`` (1, S) at full width, made as
+    the served forward makes them (bf16 embedding, norm and in_proj; the
+    f32 conv and softplus), then ``ssd_chunked`` against the sequential
+    ``ssd_reference`` in f32 on the card, the reference's SSD_TOL."""
+    from repro_torch.core import yoco_linear
+    from repro_torch.models import ssm as S
+    from repro_torch.models.layers import apply_norm
+
+    lp = params['layers'][0]
+    mix = lp['mixer']
+    dm = S.dims(cfg)
+    s = cfg.ssm
+    x = params['embed'][prompt.long()].to(torch.bfloat16)
+    h = apply_norm(lp['norm'], x, cfg)
+    zx = yoco_linear.linear(h, mix['in_proj'])
+    _, xbc, dt, di, gn = S._split_in_proj(zx, cfg)
+    xbc = S._causal_conv(xbc, mix['conv_w'], mix['conv_b'])
+    n = prompt.shape[1]
+    xh = xbc[..., :di].reshape(1, n, dm['n_heads'], s.head_dim)
+    b = xbc[..., di:di + gn].reshape(1, n, s.n_groups, s.d_state)
+    c = xbc[..., di + gn:].reshape(1, n, s.n_groups, s.d_state)
+    dt = S.softplus(dt.float() + mix['dt_bias'])
+    a = -torch.exp(mix['a_log'])
+    y, fin = S.ssd_chunked(xh, dt, a, b, c, s.chunk_size)
+    y_s, fin_s = S.ssd_reference(xh, dt, a, b, c)
+    torch.cuda.synchronize()
+    row = dict(arch=cfg.name, check='ssd_chunked vs ssd_reference, layer 0',
+               tokens=n, chunks=n // s.chunk_size, heads=dm['n_heads'],
+               head_dim=s.head_dim, d_state=s.d_state)
+    for name, got, want in (('y', y, y_s), ('state', fin, fin_s)):
+        err = (got - want).abs()
+        excess = float((err - SSD_TOL * want.abs()).max())
+        row[f'{name}_max_abs_err'] = float(err.max())
+        row[f'{name}_max_abs'] = float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and excess <= SSD_TOL,
+              f'{cfg.name} ssd_chunked {name} differs from the sequential '
+              f'recurrence beyond rtol = atol = {SSD_TOL}: {row}')
+    row['tol'] = dict(rtol=SSD_TOL, atol=SSD_TOL)
+    print(f'ssm check: {json.dumps(row)}', flush=True)
+    return row
+
+
+def _ssm_decode_check(torch, build, cfg, params):
+    """One decode step of ``cfg`` (8 slots after a prefill of 8 prompts of
+    128 tokens, bf16, paged) under ``set_sync_debug_mode('error')``: no
+    host sync, a hybrid's K1 once a site and nothing else, every logit
+    finite. Then the step's SSM ops alone (``ssm.decode_core`` on every
+    Mamba2 layer's state: the conv window, softplus, the SSD step, the D
+    skip and the gated norm) timed on the device beside their bound: the
+    f32 state read and written once, the in_proj output read and out_proj's
+    input written once, over the card's memory rate."""
+    from repro_torch.core.yoco_linear import YocoConfig
+    from repro_torch.data import synthetic
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as S
+    from repro_torch.runtime import layouts
+
+    b, plen, ps = 8, SSM_PROMPT, 8
+    blocks = -(-(plen + 1) // ps)
+    prompts = synthetic.make_batch(synthetic.for_arch(
+        cfg, global_batch=b, seq_len=plen), 0)['inputs'].to('cuda')
+    tok = prompts[:, -1].to(torch.int32).contiguous()
+    pos = torch.full((b,), plen, dtype=torch.int32, device='cuda')
+    tables = 1 + torch.arange(b * blocks, dtype=torch.int32,
+                              device='cuda').reshape(b, blocks)
+    yoco = YocoConfig(mode='bf16')
+    rt = M.ModelRuntime(attn_impl='flash')
+    cache = M.init_paged_cache_tree(cfg, b, num_pages=1 + b * blocks,
+                                    page_size=ps, max_blocks=blocks,
+                                    device='cuda')
+    cache = layouts.with_block_tables(cache, tables)
+    _, cache = M.prefill(params, dict(inputs=prompts), cache, cfg, yoco, rt)
+    torch.cuda.synchronize()
+    build.reset_counts()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        logits, cache = M.decode_step(params, tok, pos, cache, cfg, yoco, rt)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    sites = M._n_sites(cfg)
+    want = {'flash_decode_paged': sites} if sites else {}
+    check(launches == want, f'{cfg.name} decode step: launches {launches}, '
+                            f'expected {want}')
+    check(bool(torch.isfinite(logits).all()),
+          f'{cfg.name} decode step: non-finite logits')
+    # the SSM ops of one decode step, every Mamba2 layer, on the served
+    # state (decode_core writes it in place, as the step does)
+    dm = S.dims(cfg)
+    st = cache['ssm']
+    n_layers = M._n_mamba(cfg)
+    zx = torch.randn((b, 1, dm['d_in_proj']), device='cuda').to(
+        torch.bfloat16)
+    views = [{k: v[l] for k, v in st.items()} for l in range(n_layers)]
+    mixers = [lp['mixer'] for lp in params['layers']]
+
+    def ssm_ops():
+        for mix, view in zip(mixers, views):
+            S.decode_core(mix, zx, cfg, view)
+    state = _state_bytes(cache)
+    io = n_layers * (zx.numel() + b * dm['d_inner']) * 2
+    s_cfg = cfg.ssm
+    ops = 6.0 * n_layers * b * dm['n_heads'] * s_cfg.head_dim * s_cfg.d_state
+    b_ms, b_by = bound(2 * state + io, ops, FP32_OPS_PER_S)
+    ms, timer, kernels = device_ms(torch, ssm_ops, iters=10)
+    check(bool(torch.isfinite(st['ssm']).all()),
+          f'{cfg.name}: the decode state went non-finite')
+    row = dict(arch=cfg.name, check='decode step', batch=b, context=plen,
+               sync_debug='error', decode_launches=want,
+               max_abs_logit=float(logits.float().abs().max()),
+               state_bytes=state, state_bytes_per_slot=state // b,
+               ssm_ops_ms=ms, ssm_ops_timer=timer,
+               ssm_ops_kernels=kernels, ssm_ops_bound_ms=b_ms,
+               ssm_ops_bound_by=b_by, ssm_ops_bytes=2 * state + io,
+               mamba_layers=n_layers)
+    print(f'ssm check: {json.dumps(row)}', flush=True)
+    return row
+
+
+def ssm_phase(torch, build):
+    """mamba2-780m and zamba2-1.2b at their published widths and depths
+    through ``serve_continuous`` (random weights from seed 0, drawn once a
+    (config, mode) in their serving form; page 8, 8 slots): each of
+    SSM_RUNS on 8 requests of 128-token prompts generating 16 tokens,
+    after a warm-up, then once more under torch.profiler for the device
+    busy share; mamba2 also on 2 prompts of 1,024 tokens (four SSD chunks)
+    and, on one of them, layer 0's SSD at full width against the
+    sequential recurrence (:func:`_ssd_check`); zamba2's --prequantize
+    refused; the static serve() (batch 8, prompt 128, generation 32) of
+    SSM_STATIC_RUNS and mamba2's --attn-impl flash refused; one decode
+    step a config through :func:`_ssm_decode_check`. The preempting runs
+    are not profiled. Gates: every request
+    finishes, no non-finite logits row, exact launches
+    (:func:`_ssm_launches`), the tier quantizes pages, the preempting
+    pool preempts and leaves the tokens of the run beside it, the
+    recurrent state's bytes are the config's. Each model is freed before
+    the next loads. Returns (rows, launch totals)."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as S
+    from repro_torch.runtime import serve_step as SS
+
+    totals = {k: 0 for k in build.LAUNCHES}
+    rows = []
+    t0 = time.perf_counter()
+    dev = torch.device('cuda')
+    bf16 = torch.bfloat16
+
+    def add(tag, want):
+        _check_launches(build, tag, want)
+        for k in totals:
+            totals[k] += build.LAUNCHES[k]
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(torch.cuda.memory_allocated() < MOE_FREED_BYTES,
+              f'{torch.cuda.memory_allocated()} bytes still allocated '
+              f'before a model loads')
+
+    for arch, widths in SSM_ARCHS.items():
+        cfg = configs.get(arch, smoke=False)
+        s = cfg.ssm
+        check((cfg.n_layers, cfg.d_model, s.d_state, s.expand, s.head_dim,
+               s.n_groups, s.conv_width, s.chunk_size, cfg.hybrid_group,
+               cfg.n_heads, cfg.d_ff, cfg.vocab_size) == widths,
+              f'{arch} is not at its published width and depth')
+        dm = S.dims(cfg)
+        # f32 conv window and SSD state a Mamba2 layer, a slot
+        slot_bytes = 4 * (M._n_mamba(cfg) * (
+            (s.conv_width - 1) * dm['conv_dim']
+            + dm['n_heads'] * s.head_dim * s.d_state))
+        if cfg.hybrid_group:
+            try:
+                SV.serve_continuous(arch, smoke=False, mode='w8a8',
+                                    prequantize=True, n_requests=1,
+                                    quiet=True)
+            except ValueError as e:
+                check('blocks.py:136' in str(e),
+                      f'{arch} --prequantize refused without the reason: '
+                      f'{e}')
+                rows.append(dict(arch=arch, mode='w8a8', prequantize=True,
+                                 refused=str(e)))
+            else:
+                check(False, f'{arch} --prequantize was not refused')
+        params, kw, loaded, base_tokens = None, None, None, None
+        for run_arch, mode, prequant, num_pages, opts in SSM_RUNS:
+            if run_arch != arch:
+                continue
+            tag = (f'ssm {arch} {mode} prequant={prequant} pages='
+                   f'{num_pages} {opts}')
+            if loaded != (mode, prequant):
+                params = kw = None      # the serve kwargs hold the weights
+                free()
+                params = SV._serving_params(cfg, None, dev, seed=0,
+                                            mode=mode, prequantize=prequant,
+                                            compute_dtype=bf16)
+                loaded = (mode, prequant)
+            kw = dict(smoke=False, slots=8, page_size=8, mode=mode,
+                      prequantize=prequant, attn_impl='flash',
+                      params=params, quiet=True, num_pages=num_pages,
+                      **opts)
+            SV.serve_continuous(arch, n_requests=1, prompt_len=SSM_PROMPT,
+                                gen_len=2, **kw)            # warm-up
+            torch.cuda.synchronize()
+            stream = _dense_stream(SV, cfg, SSM_REQUESTS, SSM_PROMPT)
+            seen = []
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_counts()
+            t_run = time.perf_counter()
+            out = SV.serve_continuous(
+                arch, prompt_len=SSM_PROMPT, gen_len=SSM_GEN,
+                request_stream=stream,
+                step_hook=lambda sched, kv, cache: seen.append(
+                    _state_bytes(cache)) if not seen else None, **kw)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t_run) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            check(out['completed'] == SSM_REQUESTS and out['failed'] == 0
+                  and out['rejected'] == 0 and out['cancelled'] == 0,
+                  f'{tag}: not every request finished: {out["events"]}')
+            check(out['quarantined'] == 0,
+                  f'{tag}: {out["quarantined"]} lanes had non-finite '
+                  f'logits')
+            add(tag, _ssm_launches(
+                cfg, out['steps'] + out['events']['admit'], out['steps'],
+                mode, prequant, kv_quant=bool(opts.get('kv_quant'))))
+            launched = {k: v for k, v in build.LAUNCHES.items() if v}
+            check(seen and seen[0] == 8 * slot_bytes,
+                  f'{tag}: recurrent state of {seen} bytes, expected '
+                  f'{8 * slot_bytes}')
+            if opts.get('kv_quant'):
+                check(out['pages_quantized'] > 0, f'{tag}: no page '
+                                                  f'quantized')
+            if mode == 'bf16' and num_pages is None and not opts:
+                base_tokens = out['outputs']
+            if num_pages is not None:
+                check(out['preempted'] > 0, f'{tag}: the small pool forced '
+                                            f'no preemption')
+                check(out['outputs'] == base_tokens,
+                      f'{tag}: the preempted requests\' tokens differ from '
+                      f'the unpressured run\'s')
+            # the device busy share: the unpressured runs' kernels under
+            # torch.profiler over their wall time (the preempting runs
+            # repeat the bf16 run's work four times over)
+            stream = _dense_stream(SV, cfg, SSM_REQUESTS, SSM_PROMPT)
+            by_name = {} if num_pages is not None else profiled_kernels(
+                torch, lambda: SV.serve_continuous(
+                    arch, prompt_len=SSM_PROMPT, gen_len=SSM_GEN,
+                    request_stream=stream, **kw))
+            busy_ms = sum(v[0] for v in by_name.values()) if by_name \
+                else None
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+            decode_s = out['wall_s'] - out['prefill_s']
+            rows.append(dict(
+                arch=arch, mode=mode, prequantize=prequant, slots=8,
+                requests=SSM_REQUESTS, prompt_len=SSM_PROMPT,
+                gen_len=SSM_GEN, num_pages=num_pages, options=opts,
+                tokens_per_s=out['tokens_per_s'], wall_s=out['wall_s'],
+                prefill_s=out['prefill_s'], steps=out['steps'],
+                decode_step_ms=decode_s / max(out['steps'], 1) * 1e3,
+                preempted=out['preempted'],
+                pages_quantized=out['pages_quantized'],
+                state_bytes=seen[0], state_bytes_per_slot=slot_bytes,
+                max_memory_allocated=peak, launches=launched,
+                wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_busy_share=(None if busy_ms is None
+                                   else busy_ms / wall_ms),
+                kernel_launches=sum(v[1] for v in by_name.values()),
+                top=[dict(kernel=k[:80], device_ms=v[0], calls=v[1])
+                     for k, v in top]))
+            print(f'ssm run: {json.dumps(rows[-1])}', flush=True)
+            if arch == SSM_ARCH and mode == 'bf16' and num_pages is None:
+                # the long prompts: four SSD chunks a prefill
+                n_req, plen = SSM_LONG['requests'], SSM_LONG['prompt_len']
+                stream = _dense_stream(SV, cfg, n_req, plen)
+                build.reset_counts()
+                out = SV.serve_continuous(
+                    arch, smoke=False, slots=n_req, page_size=8,
+                    prompt_len=plen, gen_len=SSM_GEN, params=params,
+                    request_stream=stream, quiet=True)
+                torch.cuda.synchronize()
+                ltag = f'ssm {arch} bf16 prompt={plen}'
+                check(out['completed'] == n_req and out['quarantined'] == 0,
+                      f'{ltag}: {out["events"]}')
+                add(ltag, {})
+                rows.append(dict(
+                    arch=arch, mode='bf16', requests=n_req,
+                    prompt_len=plen, gen_len=SSM_GEN,
+                    ssd_chunks=plen // s.chunk_size,
+                    tokens_per_s=out['tokens_per_s'], wall_s=out['wall_s'],
+                    prefill_s=out['prefill_s'], steps=out['steps']))
+                print(f'ssm run: {json.dumps(rows[-1])}', flush=True)
+                prompt = torch.from_numpy(stream[0].prompt[None]).to(dev)
+                rows.append(_ssd_check(torch, cfg, params, prompt))
+        # the static serve() and one decode step, on bf16 weights
+        params = kw = None
+        free()
+        params = SV._serving_params(cfg, None, dev, seed=0, mode='bf16',
+                                    prequantize=False, compute_dtype=bf16)
+        kw = dict(smoke=False, batch=STATIC_BATCH, prompt_len=STATIC_PROMPT,
+                  quiet=True, params=params)
+        if not cfg.hybrid_group:
+            try:
+                SV.serve(arch, attn_impl='flash', gen_len=2, **kw)
+            except ValueError as e:
+                rows.append(dict(arch=arch, attn_impl='flash',
+                                 refused=str(e)))
+            else:
+                check(False, f'{arch} static --attn-impl flash was not '
+                             f'refused')
+        SV.serve(arch, gen_len=2, **kw)                     # warm-up
+        for run_arch, impl, ragged in SSM_STATIC_RUNS:
+            if run_arch != arch:
+                continue
+            tag = f'ssm static serve {arch} {impl} ragged={ragged}'
+            finite = []
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_counts()
+            out = SV.serve(arch, gen_len=STATIC_GEN, attn_impl=impl,
+                           ragged=ragged,
+                           step_hook=lambda logits, tok: finite.append(
+                               SS.logits_health(logits)[0].all()), **kw)
+            torch.cuda.synchronize()
+            check(len(finite) == STATIC_GEN
+                  and bool(torch.stack(finite).all()),
+                  f'{tag}: a logits row is not finite')
+            check(out['generated_shape'] == [STATIC_BATCH, STATIC_GEN],
+                  f'{tag}: generated_shape {out["generated_shape"]}')
+            add(tag, _ssm_launches(cfg, STATIC_GEN, STATIC_GEN - 1, 'bf16',
+                                   False, static_flash=impl == 'flash')
+                if impl == 'flash' else {})
+            rows.append(dict(
+                arch=arch, static=True, attn_impl=impl, ragged=ragged,
+                batch=STATIC_BATCH, prompt_len=STATIC_PROMPT,
+                gen_len=STATIC_GEN, tokens_per_s=out['tokens_per_s'],
+                prefill_s=out['prefill_s'], decode_s=out['decode_s'],
+                decode_step_ms=out['decode_s'] / (STATIC_GEN - 1) * 1e3,
+                prompt_lens=out.get('prompt_lens'),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                launches={k: v for k, v in build.LAUNCHES.items() if v}))
+            print(f'ssm run: {json.dumps(rows[-1])}', flush=True)
+        rows.append(_ssm_decode_check(torch, build, cfg, params))
+        params = kw = None
+        free()
+    rows.append(dict(phase_s=time.perf_counter() - t0))
+    print(f'ssm phase: {rows[-1]["phase_s"]:.1f} s', flush=True)
+    return rows, totals
+
+
 # the static serve() runs at full width: (arch, mode, prequantize,
 # attn_impl, ragged, sampling)
 STATIC_RUNS = (
@@ -3058,6 +3550,10 @@ CHAOS_RUNS = (
      ('flash_decode_paged', 'quantize_rows', 'int8_matmul')),
     (MLA_ARCH, 'w8a8', False, 8, 'ragged', {}, MLA_CHAOS_SCHEDULE,
      ('flash_decode_paged_mla', 'quantize_rows', 'yoco_vmm_int8')),
+    # zamba2: a poisoned page reaches every site's pool, and a quarantined
+    # lane's recurrent rows are zeroed before the slot is reused
+    ('zamba2-1.2b', 'bf16', False, 8, 'ragged', {}, MLA_CHAOS_SCHEDULE,
+     ('flash_decode_paged',)),
 )
 # the telemetry hooks the serve loop calls each step (checked to make no
 # device synchronisation)
@@ -3346,6 +3842,11 @@ def moe_rows(torch, kmods):
     return moe_phase(torch, kmods[3])[0]
 
 
+def ssm_rows(torch, kmods):
+    """Phase 5d, the recurrent configs at full width and depth, alone."""
+    return ssm_phase(torch, kmods[3])[0]
+
+
 # ``--phase NAME``: the build and that phase alone, to compare two trees
 # (copy this script into the other tree's root) or to rehearse a kernel
 def chaos_rows(torch, kmods):
@@ -3355,7 +3856,7 @@ def chaos_rows(torch, kmods):
 
 PHASES = dict(kernels=all_kernel_phases, profile=all_profiles,
               static=static_rows, nan=nan_kernel_phase, chaos=chaos_rows,
-              dense=dense_rows, moe=moe_rows)
+              dense=dense_rows, moe=moe_rows, ssm=ssm_rows)
 
 
 def print_redesigned(rows):
@@ -3412,7 +3913,12 @@ def run_phases(torch, report, kmods):
                           for row in smoke_phase(torch, arch)]
                        + smoke_phase(torch, MOE_ARCH)
                        + smoke_phase(torch, MOE5_ARCH, (('bf16', False),
-                                                        ('w8a8', False))))
+                                                        ('w8a8', False)))
+                       + smoke_phase(torch, SSM_ARCH)
+                       + smoke_phase(torch, HYB_ARCH, (('bf16', False),
+                                                       ('w8a8', False)))
+                       + smoke_tier_prefix_phase(torch, HYB_ARCH,
+                                                 paths=('tier',)))
     print(f'smoke parity: {json.dumps(report["smoke"])}', flush=True)
     lap('smoke')
     report['profile'] = all_profiles(torch, kmods)
@@ -3426,6 +3932,8 @@ def run_phases(torch, report, kmods):
     lap('dense')
     report['moe'], moe_totals = moe_phase(torch, kmods[3])
     lap('moe')
+    report['ssm'], ssm_totals = ssm_phase(torch, kmods[3])
+    lap('ssm')
     report['static_serve'], static_totals, moe_static_totals = \
         static_serve_phase(torch, kmods[3])
     lap('static')
@@ -3436,7 +3944,8 @@ def run_phases(torch, report, kmods):
               f'kernel {k} was never launched on the main paths')
     return {ARCH: gqa_totals, MLA_ARCH: mla_totals,
             STATIC_PATH: static_totals, DENSE_PATH: dense_totals,
-            MOE_PATH: moe_totals, MOE_STATIC_PATH: moe_static_totals}
+            MOE_PATH: moe_totals, MOE_STATIC_PATH: moe_static_totals,
+            SSM_PATH: ssm_totals}
 
 
 def main(argv) -> int:
@@ -3579,7 +4088,23 @@ def main(argv) -> int:
             ('flash_decode_paged_mla_q8', MOE_PATH, dict(pool='bfloat16',
                                                          case='serving')),
             ('flash_decode_contig', MOE_STATIC_PATH,
-             dict(pool='bfloat16', case='lockstep', Hkv=16)))
+             dict(pool='bfloat16', case='lockstep', Hkv=16)),
+            # the recurrent configs: zamba2's sites decode at stablelm's
+            # heads (Hkv=32, G=1, dh=64), paged, over the tier and, in its
+            # static serve(), contiguous at S=160; the int8 linears at
+            # mamba2's in_proj (K2, K3) and tied head (K4)
+            ('flash_decode_paged', SSM_PATH, dict(pool='bfloat16', W=20,
+                                                  G=1)),
+            ('flash_decode_paged_q8', SSM_PATH, dict(pool='bfloat16', W=20,
+                                                     G=1)),
+            ('flash_decode_contig', SSM_PATH, dict(pool='bfloat16',
+                                                   case='lockstep')),
+            ('quantize_rows', SSM_PATH, dict(arch=SSM_ARCH, M=8, K=1536,
+                                             dtype='bfloat16')),
+            ('int8_matmul', SSM_PATH, dict(arch=SSM_ARCH, M=8, K=1536,
+                                           N=6448)),
+            ('yoco_vmm_int8', SSM_PATH, dict(arch=SSM_ARCH, M=8, K=1536,
+                                             N=50280)))
     check({name for name, _, _ in pick} == set(totals[ARCH]),
           'the kernels line does not cover every kernel')
     kernels = []
@@ -3611,6 +4136,7 @@ def main(argv) -> int:
     print(json.dumps(dict(moe=report['moe'])), flush=True)
     print(json.dumps(dict(static_serve=report['static_serve'])), flush=True)
     print(json.dumps(dict(chaos=report['chaos'])), flush=True)
+    print(json.dumps(dict(ssm=report['ssm'])), flush=True)
     print(smi, flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform='gpu', kind=torch.cuda.get_device_name(0),

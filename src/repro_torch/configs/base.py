@@ -1,14 +1,17 @@
 """Architecture configs: a copy of the reference's ``ArchConfig``, its
-``MLAConfig`` and ``MoEConfig``, its parameter count and its registry.
-Registered so far: the dense GQA configs stablelm-1.6b, stablelm-12b,
-starcoder2-15b and gemma3-27b (5 local sliding-window layers to 1 global,
-sandwich norms), and the Mixture-of-Experts configs qwen2-moe-a2.7b (GQA
-with biases, every layer MoE, its 60 experts padded to a stack of 64) and
-deepseek-v3-671b (MLA; 3 dense layers, then MoE layers), which callers
-serve cut in depth, ``dataclasses.replace(cfg, n_layers=5)`` (its 3 dense
-layers and 2 MoE layers) or ``replace(cfg, n_layers=3, moe=None)`` (the
-dense prefix); other architectures, and the reference's SSM and hybrid
-fields, join with the families that serve them."""
+``MLAConfig``, ``MoEConfig`` and ``SSMConfig``, its parameter count and
+its registry. Registered so far: the dense GQA configs stablelm-1.6b,
+stablelm-12b, starcoder2-15b and gemma3-27b (5 local sliding-window
+layers to 1 global, sandwich norms), the Mixture-of-Experts configs
+qwen2-moe-a2.7b (GQA with biases, every layer MoE, its 60 experts padded
+to a stack of 64) and deepseek-v3-671b (MLA; 3 dense layers, then MoE
+layers), which callers serve cut in depth, ``dataclasses.replace(cfg,
+n_layers=5)`` (its 3 dense layers and 2 MoE layers) or ``replace(cfg,
+n_layers=3, moe=None)`` (the dense prefix), and the recurrent configs
+mamba2-780m (a pure SSM, 48 Mamba2 layers, tied embeddings) and
+zamba2-1.2b (32 Mamba2 layers and 6 applications of one shared
+attention+MLP block, ``hybrid_group`` 6); other architectures join with
+the families that serve them."""
 
 from __future__ import annotations
 
@@ -46,6 +49,19 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD (arXiv:2405.21060)."""
+    d_state: int = 128
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    conv_width: int = 4
+    chunk_size: int = 256
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                    # dense | moe | ssm | hybrid | vlm | audio
@@ -68,6 +84,8 @@ class ArchConfig:
     mlp_type: str = 'swiglu'       # swiglu | gelu | geglu
     norm_type: str = 'rmsnorm'     # rmsnorm | layernorm
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid_group: int = 0          # zamba2: layers per shared-attn group
     input_kind: str = 'tokens'
     tie_embeddings: bool = False
     max_seq_len: int = 131072
@@ -80,15 +98,38 @@ class ArchConfig:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == 'ssm'
+
+    @property
+    def supports_long_context(self) -> bool:
+        """long_500k eligibility: needs sub-quadratic sequence mixing."""
+        return self.family in ('ssm', 'hybrid')
+
     def per_token_matmuls(self) -> List[Tuple[str, int, int, float]]:
         """[(name, K, N, count_per_token)] for every linear a decode token
         runs (the reference's accounting, for the families the port
-        serves); MoE counts only the activated experts."""
+        serves); MoE counts only the activated experts. Mamba2 layers are
+        counted over all ``n_layers`` and a hybrid's attention and MLP over
+        ``n_layers / hybrid_group`` applications, as the reference counts
+        them."""
         d, dh = self.d_model, self.resolved_head_dim
         n = float(self.n_layers)
+        mm: List[Tuple[str, int, int, float]] = []
+        if self.ssm is not None:
+            s = self.ssm
+            d_in = s.expand * d
+            mm += [('ssm_in', d, 2 * d_in + 2 * s.n_groups * s.d_state
+                    + d_in // s.head_dim, n),
+                   ('ssm_out', d_in, d, n)]
+        if self.family == 'ssm':
+            return mm + [('lm_head', d, self.vocab_size, 1.0)]
+        if self.hybrid_group:
+            n = n / self.hybrid_group
         if self.mla is not None:
             m, h = self.mla, self.n_heads
-            mm = [('q_down', d, m.q_lora_rank, n),
+            mm += [('q_down', d, m.q_lora_rank, n),
                   ('q_up', m.q_lora_rank,
                    h * (m.nope_head_dim + m.rope_head_dim), n),
                   ('kv_down', d, m.kv_lora_rank + m.rope_head_dim, n),
@@ -96,7 +137,7 @@ class ArchConfig:
                    h * (m.nope_head_dim + m.v_head_dim), n),
                   ('o', h * m.v_head_dim, d, n)]
         else:
-            mm = [('q', d, self.n_heads * dh, n),
+            mm += [('q', d, self.n_heads * dh, n),
                   ('kv', d, 2 * self.n_kv_heads * dh, n),
                   ('o', self.n_heads * dh, d, n)]
         wide = 2 if self.mlp_type in ('swiglu', 'geglu') else 1

@@ -287,3 +287,46 @@ def decode_latent_traffic(s_live: int, *, n_heads: int, latent_dim: int,
         cold_scale_bytes_per_block=tier.scale_bytes,  # one scale per page
         ops=2.0 * n_heads * s_live * (latent_dim + kv_lora_rank))
     return dict(out, latent_dim=latent_dim)
+
+
+def decode_state_traffic(*, conv_elems: int, ssm_elems: int, n_heads: int,
+                         n_layers: int, fp_bytes: int = 4,
+                         tier: KVTierConfig = DEFAULT_KV_TIER
+                         ) -> Dict[str, float]:
+    """:func:`decode_kv_traffic` for recurrent (SSM) decode state: bytes
+    and pJ one decode token pays to carry its per-slot state
+    (``runtime.layouts.RecurrentLayout``: ``conv_elems`` + ``ssm_elems``
+    values per layer, ``n_layers`` Mamba2 layers).
+
+    Constant in sequence length: every layer reads the whole state and
+    writes the whole new state back each token (2x the state bytes), and
+    nothing ages, so the KV tiers' hot/cold split does not apply. The
+    tiered column prices the design the layout leaves room for: the ssd
+    state held int8 with one f32 absmax scale per head per layer, the
+    small conv tail kept fp. ``fp_bytes`` defaults to 4: serving keeps
+    recurrent state in f32.
+    """
+    per_layer_fp = (conv_elems + ssm_elems) * fp_bytes
+    per_layer_tiered = (conv_elems * fp_bytes + ssm_elems * 1
+                        + n_heads * tier.scale_bytes)
+    baseline_bytes = 2.0 * n_layers * per_layer_fp       # read + write
+    tiered_bytes = 2.0 * n_layers * per_layer_tiered
+    # ssd update ops per token per layer: decay-multiply, outer-product
+    # accumulate and output reduction each touch every state element
+    ops = 6.0 * n_layers * ssm_elems
+    baseline_pj = (baseline_bytes * tier.hbm_pj_per_byte
+                   + ops / tier.digital_tops_w)
+    tiered_pj = (tiered_bytes * tier.hbm_pj_per_byte
+                 + ops / tier.imc_tops_w)
+    return dict(
+        conv_elems=conv_elems, ssm_elems=ssm_elems, n_layers=n_layers,
+        fp_bytes=fp_bytes,
+        state_bytes_resident=n_layers * per_layer_fp,
+        baseline_bytes_per_token=baseline_bytes,
+        tiered_bytes_per_token=tiered_bytes,
+        bytes_reduction=baseline_bytes / max(tiered_bytes, 1),
+        baseline_pj_per_token=baseline_pj,
+        tiered_pj_per_token=tiered_pj,
+        energy_reduction=baseline_pj / max(tiered_pj, 1e-12),
+        ops_per_token=ops,
+    )

@@ -42,10 +42,21 @@ deepseek-v3 with its MoE layers, served cut in depth) run every expert
 on every token (``models/moe.py``), their expert stacks stored once in the
 compute dtype in every mode (never int8: the reference's ``quantize_tree``
 skips them), so dynamic w8a8 prices them at that dtype's bytes
-(:func:`_master_bytes`). The path is layout-driven: nothing
-here is family-specific except the refusals of ``--prequantize`` on MLA
-configs (see :func:`_refuse_mla_prequantize`) and of ``--attn-impl flash``
-on MLA in ``serve()``. ``--mode w8a8`` routes every linear through the
+(:func:`_master_bytes`). Recurrent configs: mamba2-780m (a pure
+SSM) and zamba2-1.2b (Mamba2 layers and six applications of one shared
+attention+MLP block, whose sites read their paged pools through K1, K6 on
+the int8 tier, or K7 in ``serve()``) carry per-slot f32 state
+(``runtime/layouts.py``'s ``RecurrentLayout``): admission zeroes the
+slot's rows and prefills a batch-1 copy of them, an evict or preempt marks
+the rows dirty and they are zeroed before the next decode step, and a
+requeued request recomputes from its prompt. A pure SSM has no pool to
+tier, zero, scrub or poison. The path is layout-driven: nothing here is
+family-specific except the refusals of ``--prequantize`` on MLA and
+hybrid configs (:func:`_refuse_mla_prequantize`,
+:func:`_refuse_hybrid_prequantize`), of ``--kv-quant`` on a pure SSM and
+of ``--prefix-cache`` and ``--chunk-prefill`` on recurrent state
+(:func:`_refuse_recurrent_paging`), and of ``--attn-impl flash`` on MLA
+and on a pure SSM in ``serve()``. ``--mode w8a8`` routes every linear through the
 int8 kernels (K3 + K2 with ``--prequantize``, K3 + K4 without).
 ``--sample`` (with ``--temperature`` / ``--top-k``) replaces the greedy
 argmax with temperature / top-k sampling on both paths.
@@ -75,10 +86,13 @@ versions of the kernels):
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --continuous \
       --no-smoke --slots 8 --requests 8 --prompt-len 128 --gen-len 16 \
       [--mode w8a8 [--prequantize]]
-  (--arch stablelm-12b, starcoder2-15b, gemma3-27b or qwen2-moe-a2.7b:
-  the reference's other configs; their smoke widths with --smoke, the
-  default; deepseek-v3-671b at --smoke, its 3-layer SMOKE config with one
-  dense and two MoE layers)
+  python -m repro_torch.launch.serve --arch zamba2-1.2b --continuous \
+      --no-smoke --slots 8 --requests 8 --prompt-len 128 --gen-len 16 \
+      [--mode w8a8] [--kv-quant --hot-window 2]
+  (--arch stablelm-12b, starcoder2-15b, gemma3-27b, qwen2-moe-a2.7b,
+  mamba2-780m or zamba2-1.2b: the reference's other configs; their smoke
+  widths with --smoke, the default; deepseek-v3-671b at --smoke, its
+  3-layer SMOKE config with one dense and two MoE layers)
 """
 
 from __future__ import annotations
@@ -127,6 +141,41 @@ def _refuse_mla_prequantize(arch: str, cfg, prequantize: bool) -> None:
             f'reference quantizes w_ukv and its absorbed decode then '
             f'reshapes the QuantizedWeight (src/repro/models/attention.py:'
             f'608), an AttributeError; serve bf16 or dynamic --mode w8a8')
+
+
+def _refuse_hybrid_prequantize(arch: str, cfg, prequantize: bool) -> None:
+    """The reference fails on hybrid configs with ``--prequantize``:
+    quantize_tree turns the shared block's per-site in_proj (n_sites, 2d,
+    d), named in its _WEIGHT_NAMES, into a QuantizedWeight, which
+    shared_block then indexes by site and feeds to a float einsum
+    (src/repro/models/blocks.py:136) -> ValueError. The port refuses it up
+    front, on both paths."""
+    if prequantize and cfg.hybrid_group:
+        raise ValueError(
+            f'{arch}: --prequantize is not served on hybrid configs: the '
+            f'reference quantizes the shared block\'s per-site in_proj and '
+            f'shared_block then feeds the QuantizedWeight to an einsum '
+            f'(src/repro/models/blocks.py:136), a ValueError; serve bf16 or '
+            f'dynamic --mode w8a8')
+
+
+def _refuse_recurrent_paging(arch: str, cfg, kv_quant: bool,
+                             prefix_cache: bool, chunk_prefill) -> None:
+    """As the reference: a pure SSM has no attention pool to tier, and
+    recurrent state folds the whole prompt into one state, so it has no
+    per-position cache to share or to prefill a suffix of."""
+    if kv_quant and cfg.family == 'ssm':
+        raise ValueError(f'--kv-quant tiers paged attention KV; {arch} is '
+                         f'family=ssm with recurrent state only (no int8 '
+                         f'tier: drop --kv-quant)')
+    if (prefix_cache or chunk_prefill is not None) and \
+            model_mod._recurrent(cfg):
+        flag = '--prefix-cache' if prefix_cache else '--chunk-prefill'
+        raise ValueError(f'{flag} needs random-access paged attention '
+                         f'state; {arch} (family={cfg.family}, '
+                         f'hybrid_group={cfg.hybrid_group}) carries '
+                         f'recurrent state that must see every prompt '
+                         f'position')
 
 
 def _expert_params(cfg, padded: bool) -> int:
@@ -246,6 +295,7 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
                          f'contiguous cache; {arch} uses {kind} layers '
                          f'({hint})')
     _refuse_mla_prequantize(arch, cfg, prequantize)
+    _refuse_hybrid_prequantize(arch, cfg, prequantize)
     _check_attn_impl(attn_impl)
     dev = device_mod.resolve(device)
     yoco = YocoConfig(mode=mode, compute_dtype=compute_dtype)
@@ -368,6 +418,10 @@ class ContinuousScheduler:
       mid-stream, :meth:`force_preempt` preempts the youngest lane.
     * **tier** (``hot_window``): :meth:`aged_out` lists the pages that left
       each lane's hot window; a released lane's tracker resets.
+    * **recurrent state**: every release marks the slot in
+      :attr:`dirty_slots` (the driver zeroes those rows before the next
+      decode step); an admission drops its slot's mark (it zeroes the rows
+      itself, and a later zeroing would wipe the prefilled state).
     """
 
     def __init__(self, kv: kvc.PagedKVCache, *, prompt_pad: int,
@@ -396,6 +450,7 @@ class ContinuousScheduler:
         self.free_slots = list(range(kv.slots - 1, -1, -1))
         self._admit_seq = 0
         self.completed: List[_SlotState] = []
+        self.dirty_slots: List[int] = []       # recurrent rows to zero
         self.step_no = 0
         self._retries: dict = {}               # rid -> requeue count
         self._deadline_at: dict = {}           # rid -> step it expires at
@@ -417,6 +472,7 @@ class ContinuousScheduler:
         st = self.active.pop(slot)
         self.kv.release(slot)
         self.free_slots.append(slot)
+        self.dirty_slots.append(slot)
         if self.tier is not None:
             self.tier.reset(slot)
         self.events.emit('evict', step=self.step_no, rid=st.req.rid,
@@ -507,6 +563,7 @@ class ContinuousScheduler:
             if plan is None:
                 break                           # pool dry: wait for release
             self.free_slots.pop()
+            self.dirty_slots = [s for s in self.dirty_slots if s != slot]
             self.pending.popleft()
             self.events.emit('admit', step=self.step_no, rid=req.rid,
                              slot=slot,
@@ -697,6 +754,13 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     with non-finite logits (pages scrubbed, request requeued). A
     ``kernel_fault`` is refused (:func:`_refuse_kernel_fault`).
 
+    Recurrent configs (:func:`_refuse_recurrent_paging` refuses what they
+    cannot serve): each admission zeroes the slot's state rows, prefills
+    a batch-1 copy of them (``layouts.slice_state_slot``) and writes it
+    back (``merge_state_slot``); released slots' rows are zeroed before
+    the next decode step. A pure SSM has no pool: no tail zeroing, scrub or
+    page poisoning.
+
     Observability: ``metrics=True`` threads ``runtime.telemetry.
     ServeTelemetry`` through the loop (span histograms from the event log,
     scheduler/pool/tier gauges, the hardware model's per-step energy and
@@ -710,6 +774,9 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     Pools are updated in place. Returns the reference's report keys."""
     cfg = configs.get(arch, smoke=smoke)
     _refuse_mla_prequantize(arch, cfg, prequantize)
+    _refuse_hybrid_prequantize(arch, cfg, prequantize)
+    _refuse_recurrent_paging(arch, cfg, kv_quant, prefix_cache,
+                             chunk_prefill)
     _refuse_kernel_fault(faults)
     dev = device_mod.resolve(device)
     _check_attn_impl(attn_impl)
@@ -774,6 +841,13 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         device=dev)
     n_pages_quantized = 0
     n_pages_quant_dropped = 0
+    has_recurrent = model_mod._recurrent(cfg)
+    has_pool = cfg.family != 'ssm'      # a pure SSM's tree has no fp pool
+
+    def scrub_pages(cache, pages):
+        if not pages or not has_pool:
+            return cache
+        return layouts_mod.scrub_tree_pages(cache, pages)
 
     def in_page_chunks(fn, cache, pages):
         """Apply ``fn(cache, (max_blocks,) pages)`` over an arbitrary-length
@@ -856,7 +930,7 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
                 params, dict(inputs=torch.from_numpy(pad).to(dev)), part,
                 torch.tensor([plen - 1], device=dev))
         stop = int(kv.counts[slot]) * page_size
-        if plen < stop:
+        if has_pool and plen < stop:
             part = layouts_mod.zero_tree_tail(part, kv.tables[slot], plen,
                                               stop)
         return logits, part
@@ -911,9 +985,8 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
                     else (injector.pick(live) if live else None)
                 if rid is not None:
                     sched.cancel(rid)
-        deferred = kv.drain_scrub_queue()
-        if deferred:
-            cache = layouts_mod.scrub_tree_pages(cache, deferred)
+        if has_pool:
+            cache = scrub_pages(cache, kv.drain_scrub_queue())
         # the prefix cache admits one at a time (prefill and seal between
         # admissions) so same-step bursts share the first tenant's pages
         admit_limit = 1 if prefix_cache else None
@@ -931,6 +1004,11 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
                 if sched.force_preempt():
                     events.emit('fault', step=steps, fault='preempt_storm')
         sched.grow_for_decode()
+        if has_recurrent and sched.dirty_slots:
+            # released lanes decode against zeroed state until re-admission
+            cache = layouts_mod.reset_state_slots(
+                cache, sorted(set(sched.dirty_slots)))
+        sched.dirty_slots.clear()
         if kv_quant:
             # pages that just left the hot window become int8 before the
             # step reads them as cold (fresh admissions included)
@@ -940,7 +1018,7 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
             if telem is not None and n_pages_quantized > quantized_before:
                 telem.phase('quantize', tq, time.perf_counter(),
                             pages=n_pages_quantized - quantized_before)
-        if (injector is not None and sched.active
+        if (injector is not None and has_pool and sched.active
                 and injector.poison_page_now()):
             # NaN an owned fp pool page (a corrupted in-memory read): the
             # sentinel below must catch every lane that reads it; a shared
@@ -987,7 +1065,7 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
             # quarantine BEFORE absorb, scrub before the pages are reused
             tsb = time.perf_counter()
             pages = sched.quarantine(slot)
-            cache = layouts_mod.scrub_tree_pages(cache, pages)
+            cache = scrub_pages(cache, pages)
             if telem is not None:
                 telem.phase('scrub', tsb, time.perf_counter(), slot=slot,
                             pages=len(pages))

@@ -1,6 +1,7 @@
-"""Per-layer transformer block with GQA or MLA attention and a dense MLP
-or an MoE FFN, and gemma3's sandwich norms (port of
-``repro/models/blocks.py``; Mamba2 and shared blocks come later)."""
+"""Per-layer blocks (port of ``repro/models/blocks.py``): the transformer
+block with GQA or MLA attention and a dense MLP or an MoE FFN, and
+gemma3's sandwich norms; the Mamba2 block; zamba2's shared attention+MLP
+block, applied at several sites through a per-site input projection."""
 
 from __future__ import annotations
 
@@ -11,8 +12,9 @@ import torch
 from repro_torch.core.yoco_linear import YocoConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
-                                       init_norm, keep)
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
+                                       init_mlp, init_norm, keep)
 
 
 def init_transformer_block(gen: torch.Generator, cfg, *, device,
@@ -87,3 +89,55 @@ def transformer_block(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     if 'post_mlp_norm' in p:
         m = apply_norm(p['post_mlp_norm'], m, cfg)
     return x + m, cache
+
+
+# ----------------------------------------------------------------------------
+# mamba2 block
+# ----------------------------------------------------------------------------
+def init_mamba_block(gen: torch.Generator, cfg, *, device,
+                     leaf=keep) -> dict:
+    return dict(norm=init_norm(cfg, device=device),
+                mixer=ssm_mod.init_mamba2(gen, cfg, device=device, leaf=leaf))
+
+
+def mamba_block(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
+                state: Optional[dict] = None, decode: bool = False,
+                last_pos=None) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Pre-norm residual Mamba2 block; ``state`` is updated in place."""
+    h = apply_norm(p['norm'], x, cfg)
+    if decode:
+        y, state = ssm_mod.mamba2_decode(p['mixer'], h, cfg, yoco,
+                                         state=state)
+    else:
+        y, state = ssm_mod.mamba2_forward(p['mixer'], h, cfg, yoco,
+                                          state=state, last_pos=last_pos)
+    return x + y, state
+
+
+# ----------------------------------------------------------------------------
+# zamba2 shared block (one attention+MLP block applied at several sites)
+# ----------------------------------------------------------------------------
+def init_shared_block(gen: torch.Generator, cfg, n_sites: int, *, device,
+                      leaf=keep) -> dict:
+    """The shared transformer block and per-site input projections (the
+    Zamba2 pattern: the block's input is concat(hidden, embedding) -> d).
+    ``in_proj`` (n_sites, 2d, d) is a float einsum weight, never passed to
+    ``leaf``: it is no linear of ``yoco_linear`` (the reference quantizes
+    it under --prequantize and then fails; the port refuses that mode)."""
+    block = init_transformer_block(gen, cfg, device=device, leaf=leaf)
+    in_proj = torch.stack([dense_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                      device=device)
+                           for _ in range(n_sites)])
+    return dict(block=block, in_proj=in_proj)
+
+
+def shared_block(p: dict, x: torch.Tensor, x0: torch.Tensor, site: int,
+                 cfg, yoco: YocoConfig, *, cache=None, decode_pos=None,
+                 rt=None) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x0: the embedding stream (concat-conditioning). The residual adds
+    the block's own delta, ``x + (y - h)``, in the block's dtype."""
+    h = torch.cat([x, x0], dim=-1)
+    h = torch.matmul(h, p['in_proj'][site].to(h.dtype))
+    y, cache = transformer_block(p['block'], h, cfg, yoco, cache=cache,
+                                 decode_pos=decode_pos, rt=rt)
+    return x + (y - h), cache

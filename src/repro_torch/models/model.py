@@ -23,7 +23,14 @@ device) (:func:`layer_windows`), so no step copies a window to the card.
 MoE configs: every layer in ``layers`` has an MoE FFN (qwen2-moe), or,
 with ``first_k_dense`` (deepseek-v3), a ``dense_prefix`` list runs first
 and the caches are ``dict(prefix=..., moe=...)``, each stacked over its
-own layers, as in the reference.
+own layers, as in the reference. Recurrent configs: a pure SSM
+(mamba2-780m) runs Mamba2 blocks in ``layers`` over ``dict(ssm=dict(conv=
+(L, B, W-1, C), ssm=(L, B, H, P, N)))``, f32 rows updated in place; a
+hybrid (zamba2-1.2b) runs its ``layers`` in groups of ``hybrid_group - 1``
+Mamba2 blocks, each followed by one application of the ``shared``
+attention+MLP block at its own site, then the trailing Mamba2 blocks,
+over ``dict(ssm=..., attn=...)`` (the sites' caches stacked over sites,
+one set of block tables broadcast over them).
 
 ``params_from_numpy`` / ``cache_from_numpy`` / ``cache_to_numpy`` carry the
 reference's trees (as numpy arrays) across, so the two packages can be run
@@ -45,6 +52,7 @@ from repro_torch.core.yoco_linear import DEFAULT_YOCO, QuantizedWeight, YocoConf
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
                                        init_norm)
 
@@ -66,17 +74,43 @@ def _check_served(cfg) -> None:
         raise NotImplementedError(
             f'{cfg.name}: {cfg.input_kind!r} input belongs to a later slice '
             f'of the port (ROADMAP Queue 1 item 11); it serves token models '
-            f'with GQA or MLA attention and dense MLPs or MoE FFNs '
+            f'with GQA or MLA attention and dense MLPs or MoE FFNs, and '
+            f'Mamba2 layers alone or with a shared attention block '
             f'(stablelm-1.6b, stablelm-12b, starcoder2-15b, gemma3-27b with '
-            f'its sliding-window layers, qwen2-moe-a2.7b, deepseek-v3)')
+            f'its sliding-window layers, qwen2-moe-a2.7b, deepseek-v3, '
+            f'mamba2-780m, zamba2-1.2b)')
+
+
+def _recurrent(cfg) -> bool:
+    """Mamba2 layers: a pure SSM or a hybrid."""
+    return cfg.family == 'ssm' or bool(cfg.hybrid_group)
+
+
+def _n_sites(cfg) -> int:
+    """Hybrid configs: applications of the shared attention block."""
+    return cfg.n_layers // cfg.hybrid_group if cfg.hybrid_group else 0
+
+
+def _n_mamba(cfg) -> int:
+    """Sequence-mixing layers that are Mamba2 (a hybrid's others are the
+    shared block's applications)."""
+    if cfg.family == 'ssm':
+        return cfg.n_layers
+    if cfg.hybrid_group:
+        return cfg.n_layers - _n_sites(cfg)
+    return 0
 
 
 def _stacks(cfg) -> Tuple[Tuple[str, str, int, bool], ...]:
     """The layer stacks in the order they run: (param key, cache key,
     layers, MoE). A ``first_k_dense`` MoE config runs ``dense_prefix`` on
     the ``prefix`` cache, then its MoE ``layers`` on ``moe``, as the
-    reference does; any other config ``layers`` on ``layers``."""
+    reference does; a recurrent config none (:func:`_backbone` runs its
+    Mamba2 and shared blocks); any other config ``layers`` on
+    ``layers``."""
     mo = cfg.moe
+    if _recurrent(cfg):
+        return ()
     if mo is None:
         return (('layers', 'layers', cfg.n_layers, False),)
     if not mo.first_k_dense:
@@ -107,7 +141,9 @@ def init_params(gen: torch.Generator, cfg, *, device=None,
     the f32 tree afterwards (:func:`serving_form`).
 
     MoE configs build the reference's stacks: ``dense_prefix`` (the
-    ``first_k_dense`` dense layers, drawn first) and ``layers`` (MoE)."""
+    ``first_k_dense`` dense layers, drawn first) and ``layers`` (MoE).
+    Recurrent configs: ``layers``, their Mamba2 blocks, and a hybrid's
+    ``shared`` block (its per-site ``in_proj`` stays f32: no transform)."""
     _check_served(cfg)
     device = device_mod.resolve(device)
     if transform is None:
@@ -115,6 +151,15 @@ def init_params(gen: torch.Generator, cfg, *, device=None,
             return w
     p = dict(embed=embed_init(gen, cfg.vocab_size, cfg.d_model,
                               device=device))
+    if _recurrent(cfg):
+        n = _n_mamba(cfg)
+        p['layers'] = [blk.init_mamba_block(
+            gen, cfg, device=device,
+            leaf=lambda name, w: transform(name, w, n)) for _ in range(n)]
+        if cfg.hybrid_group:
+            p['shared'] = blk.init_shared_block(
+                gen, cfg, _n_sites(cfg), device=device,
+                leaf=lambda name, w: transform(name, w, 1))
     for key, _, n, use_moe in _stacks(cfg):
         p[key] = [blk.init_transformer_block(
             gen, cfg, device=device, use_moe=use_moe,
@@ -177,7 +222,8 @@ def params_from_numpy(tree: dict, cfg, device) -> dict:
             node = next(iter(node.values()))
         return len(node[0] if _is_quantized_leaf(node) else node)
 
-    lists = {key for key, _, _, _ in _stacks(cfg)}
+    lists = ({'layers'} if _recurrent(cfg)
+             else {key for key, _, _, _ in _stacks(cfg)})
     return {k: ([conv(v, l) for l in range(length(v))] if k in lists
                 else conv(v)) for k, v in tree.items()}
 
@@ -328,11 +374,71 @@ def _transformer_stack(layers: list, x: torch.Tensor, cfg, yoco, rt, *,
     return x, cache
 
 
+def _mamba_stack(layers: list, x: torch.Tensor, cfg, yoco, *,
+                 state: Optional[dict], decode: bool, last_pos=None):
+    """Run Mamba2 blocks in order; ``state`` is the stacked (L, ...)
+    recurrent dict or None, each layer updating its own view in place."""
+    for l, lp in enumerate(layers):
+        st = ({key: leaf[l] for key, leaf in state.items()}
+              if state is not None else None)
+        x, _ = blk.mamba_block(lp, x, cfg, yoco, state=st, decode=decode,
+                               last_pos=last_pos)
+    return x
+
+
+def _hybrid_backbone(params: dict, x: torch.Tensor, cfg, yoco, rt, *,
+                     cache: Optional[dict], decode_pos, last_pos):
+    """zamba2: ``hybrid_group - 1`` Mamba2 layers, then the shared block at
+    site g on its own cache, for each of the sites; then the trailing
+    Mamba2 layers. ``x0``, the embedding output, conditions every site."""
+    x0 = x
+    per = cfg.hybrid_group - 1
+    st = cache['ssm'] if cache is not None else None
+    atc = cache['attn'] if cache is not None else None
+    decode = decode_pos is not None
+
+    def mamba(x, lo, hi):
+        seg = ({key: leaf[lo:hi] for key, leaf in st.items()}
+               if st is not None else None)
+        return _mamba_stack(params['layers'][lo:hi], x, cfg, yoco,
+                            state=seg, decode=decode, last_pos=last_pos)
+
+    n_sites = _n_sites(cfg)
+    for g in range(n_sites):
+        x = mamba(x, g * per, (g + 1) * per)
+        site = ({key: leaf[g] for key, leaf in atc.items()}
+                if atc is not None else None)
+        x, _ = blk.shared_block(params['shared'], x, x0, g, cfg, yoco,
+                                cache=site, decode_pos=decode_pos, rt=rt)
+    return mamba(x, n_sites * per, _n_mamba(cfg))
+
+
 def _backbone(params: dict, x: torch.Tensor, cfg, yoco, rt, *,
-              cache: Optional[dict], decode_pos, chunk_ctx=None):
+              cache: Optional[dict], decode_pos, last_pos=None,
+              chunk_ctx=None):
     """Each param stack on its own cache stack (:func:`_stacks`), each
     indexing the layer metadata by its own layer index, as the
-    reference's scans do."""
+    reference's scans do; a recurrent config's Mamba2 (and shared) blocks.
+
+    ``last_pos`` (prefill only): per-request last valid prompt positions
+    of a right-padded batch. Attention layers ignore it (the causal mask
+    keeps padded keys inert); Mamba2 layers mask the padded steps' dt to
+    0, so the recurrent state equals the unpadded prompt's."""
+    if decode_pos is not None:
+        last_pos = None         # decode steps have no padding to mask
+    if _recurrent(cfg):
+        if chunk_ctx is not None:
+            raise NotImplementedError(
+                f'chunked prefill needs random-access cache positions; '
+                f'family={cfg.family!r} carries recurrent state')
+        if cfg.hybrid_group:
+            return _hybrid_backbone(params, x, cfg, yoco, rt, cache=cache,
+                                    decode_pos=decode_pos,
+                                    last_pos=last_pos), cache
+        return _mamba_stack(params['layers'], x, cfg, yoco,
+                            state=None if cache is None else cache['ssm'],
+                            decode=decode_pos is not None,
+                            last_pos=last_pos), cache
     for key, ckey, _, _ in _stacks(cfg):
         x, _ = _transformer_stack(params[key], x, cfg, yoco, rt,
                                   cache=None if cache is None
@@ -350,12 +456,29 @@ def init_cache_tree(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
     ``serve()`` path's): ``k``/``v`` (L, B, max_seq, Hkv, dh), MLA configs
     ``ckv``/``krope`` (L, B, max_seq, ·); stacked per :func:`_stacks`.
     ``device`` defaults to the card; with no card it raises unless the
-    caller passes ``device='cpu'``."""
+    caller passes ``device='cpu'``. Recurrent configs: f32 ``ssm`` state
+    per Mamba2 layer, and a hybrid's ``attn`` caches per site."""
     _check_served(cfg)
     from repro_torch.runtime import layouts
+    if _recurrent(cfg):
+        tree = dict(ssm=_recurrent_states(cfg, batch, device))
+        if cfg.hybrid_group:
+            tree['attn'] = layouts.stack_layers(attn_mod.init_cache(
+                cfg, batch, max_seq, dtype=dtype, device=device),
+                _n_sites(cfg))
+        return tree
     return {ckey: layouts.stack_layers(attn_mod.init_cache(
                 cfg, batch, max_seq, dtype=dtype, device=device), n)
             for _, ckey, n, _ in _stacks(cfg)}
+
+
+def _recurrent_states(cfg, batch: int, device) -> dict:
+    """Zeroed f32 recurrent state per Mamba2 layer, stacked over them (the
+    decay recurrence compounds rounding token over token, so serving
+    keeps it f32 in every mode, as the reference does)."""
+    from repro_torch.runtime import layouts
+    return layouts.stack_layers(ssm_mod.init_ssm_state(
+        cfg, batch, device=device_mod.resolve(device)), _n_mamba(cfg))
 
 
 def init_paged_cache_tree(cfg, batch: int, *, num_pages: int, page_size: int,
@@ -371,9 +494,27 @@ def init_paged_cache_tree(cfg, batch: int, *, num_pages: int, page_size: int,
     per layer like ``bt``. Stacked per :func:`_stacks` (a
     ``first_k_dense`` MoE config: ``prefix`` and ``moe``).
     ``device`` defaults to the card; with no card it raises unless the
-    caller passes ``device='cpu'``."""
+    caller passes ``device='cpu'``.
+
+    Recurrent configs get f32 ``ssm`` state per Mamba2 layer
+    (``layouts.RecurrentLayout``: no positional axis; the scheduler's page
+    accounting is then virtual) and a hybrid the sites' paged ``attn``
+    pools (``layouts.HybridLayout``). Recurrent state has no int8 tier:
+    ``kv_dtype`` on a pure SSM raises (a hybrid tiers its sites only)."""
     _check_served(cfg)
     from repro_torch.runtime import layouts
+    if _recurrent(cfg):
+        if cfg.family == 'ssm' and kv_dtype is not None:
+            raise ValueError(
+                'recurrent state has no int8 tier; drop kv_dtype for '
+                f'family={cfg.family!r}')
+        tree = dict(ssm=_recurrent_states(cfg, batch, device))
+        if cfg.hybrid_group:
+            tree['attn'] = layouts.stack_layers(attn_mod.init_paged_cache(
+                cfg, batch, num_pages=num_pages, page_size=page_size,
+                max_blocks=max_blocks, dtype=dtype, kv_dtype=kv_dtype,
+                hot_window=hot_window, device=device), _n_sites(cfg))
+        return tree
     return {ckey: layouts.stack_layers(attn_mod.init_paged_cache(
                 cfg, batch, num_pages=num_pages, page_size=page_size,
                 max_blocks=max_blocks, dtype=dtype, kv_dtype=kv_dtype,
@@ -388,10 +529,11 @@ def prefill(params: dict, batch: dict, cache: dict, cfg,
             yoco: YocoConfig = DEFAULT_YOCO, rt: ModelRuntime = DEFAULT_RT,
             last_pos=None) -> Tuple[torch.Tensor, dict]:
     """Process the prompt ``batch['inputs']`` (B, S), fill the cache, return
-    the logits at ``last_pos`` (B,) (default: the last position)."""
+    the logits at ``last_pos`` (B,) (default: the last position); Mamba2
+    layers mask the steps past ``last_pos``."""
     x = _embed(params, batch['inputs'], rt)
     x, cache = _backbone(params, x, cfg, yoco, rt, cache=cache,
-                         decode_pos=None)
+                         decode_pos=None, last_pos=last_pos)
     if last_pos is None:
         x = x[:, -1:]
     else:

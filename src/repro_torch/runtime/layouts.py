@@ -14,6 +14,9 @@ PagedQ8Layout       PagedLayout + ``kq``/``vq`` (P, ps, Hkv, dh) int8,
 PagedLayout         ``k``/``v`` (P, ps, Hkv, dh), ``bt`` (B, W) int32
 ContiguousMLALayout ``ckv`` (B, S_max, r), ``krope`` (B, S_max, d_rope)
 ContiguousLayout    ``k``/``v`` (B, S_max, Hkv, dh)
+RecurrentLayout     ``conv`` (B, W_conv-1, C), ``ssm`` (B, H, P, N), f32
+HybridLayout        ``ssm`` (a RecurrentLayout stack) + ``attn`` (a paged
+                    or contiguous site stack); no ops of its own
 ==================  ======================================================
 
 ``hw`` is the hot window in pages (>= 1; >= W never reads the int8 tier;
@@ -22,8 +25,11 @@ pool, written together, scored together; the first r columns are the
 values); its gathers and kernels take the latent rank ``r``. The
 contiguous caches serve the static ``serve()`` path: GQA through kernel K7
 or the einsum oracle, MLA through the einsum oracle only (as in the
-reference, its flash kernels are paged). The recurrent layouts are a later
-slice. Write ops and
+reference, its flash kernels are paged). Recurrent state has no position
+axis: its layout offers the continuous scheduler three slot ops instead
+(:func:`reset_state_slots`, :func:`slice_state_slot`,
+:func:`merge_state_slot`), and every tree walker passes recurrent nodes
+through and recurses into a hybrid's ``attn``. Write ops, slot ops and
 tree walkers update pools IN PLACE (the reference returns new arrays); the
 returned dicts share the caller's tensors.
 """
@@ -91,6 +97,7 @@ class CacheLayout:
     required: frozenset = frozenset()
     paged: bool = False
     quantized: bool = False             # carries an int8 tier
+    recurrent: bool = False             # per-slot state (slot ops)
     table_leaves: Tuple[str, ...] = ()  # refreshed by with_block_tables
     shared_leaves: Tuple[str, ...] = () # one copy broadcast over layers
     scrub_leaves: Tuple[str, ...] = ()  # zeroed by scrub_tree_pages
@@ -416,6 +423,52 @@ class ContiguousLayout(CacheLayout):
                                window=window)
 
 
+@_register
+class RecurrentLayout(CacheLayout):
+    """Per-slot recurrent state: ``conv`` (B, W_conv-1, C) and ``ssm``
+    (B, H, P, N). No positional axis (the whole state is rewritten every
+    token), so instead of write and gather ops the layout offers the three
+    slot ops the continuous scheduler needs (reset, snapshot, restore),
+    delegated to ``models.ssm``, on single or (L,)-stacked dicts (the
+    batch axis found from ``conv``'s ndim)."""
+    name = 'recurrent'
+    required = frozenset({'conv', 'ssm'})
+    recurrent = True
+    state_probe = 'conv'
+    state_probe_ndim = 3        # (B, W_conv-1, C); stacks prepend (L,)
+
+    @classmethod
+    def _axis(cls, cache: dict) -> int:
+        return cache[cls.state_probe].ndim - cls.state_probe_ndim
+
+    @classmethod
+    def slot_reset(cls, cache, slots):
+        from repro_torch.models import ssm as ssm_mod
+        return ssm_mod.slot_reset(cache, slots, axis=cls._axis(cache))
+
+    @classmethod
+    def slot_snapshot(cls, cache, slot):
+        from repro_torch.models import ssm as ssm_mod
+        return ssm_mod.slot_snapshot(cache, slot, axis=cls._axis(cache))
+
+    @classmethod
+    def slot_restore(cls, cache, snap, slot):
+        from repro_torch.models import ssm as ssm_mod
+        return ssm_mod.slot_restore(cache, snap, slot,
+                                    axis=cls._axis(cache))
+
+
+@_register
+class HybridLayout(CacheLayout):
+    """Structural marker of a hybrid (attention + SSM) cache tree: ``ssm``
+    (a RecurrentLayout stack) and ``attn`` (a paged or contiguous site
+    stack). No ops of its own: the walkers recurse into both members, and
+    each classifies to its own layout."""
+    name = 'hybrid'
+    required = frozenset({'ssm', 'attn'})
+    composite = True
+
+
 # ----------------------------------------------------------------------------
 # tree walkers (layer-stacked cache trees)
 # ----------------------------------------------------------------------------
@@ -577,20 +630,49 @@ def zero_tree_tail(cache_tree, table_row, start: int, stop: int) -> dict:
     return walk(cache_tree)
 
 
-# The three slot ops below carry recurrent (SSM) state through admission;
-# the port has no recurrent layout yet, so on its attention-only trees they
-# are the identity walks the reference's are on such trees.
 def reset_state_slots(cache_tree, slots):
-    del slots
-    return cache_tree
+    """Zero the given batch slots of every recurrent node of a (possibly
+    layer-stacked, possibly hybrid) cache tree, in place: on admit (a fresh
+    request must not see the evicted tenant's state) and before the decode
+    step after an evict or preempt (idle lanes decode against zeroed
+    state). Other nodes pass through."""
+    def walk(node):
+        if isinstance(node, dict):
+            lay = match_layout(node)
+            if lay is not None and lay.recurrent:
+                return lay.slot_reset(node, slots)
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    return walk(cache_tree)
 
 
 def slice_state_slot(cache_tree, slot: int):
-    del slot
-    return cache_tree
+    """Batch-1 copy of one slot's recurrent state, the admission prefill's
+    tree; every other node (paged pools, tables) passes through by
+    reference. On an attention-only tree this is the identity walk."""
+    def walk(node):
+        if isinstance(node, dict):
+            lay = match_layout(node)
+            if lay is not None and lay.recurrent:
+                return lay.slot_snapshot(node, slot)
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    return walk(cache_tree)
 
 
 def merge_state_slot(full_tree, part_tree, slot: int):
-    """Every non-recurrent node takes the part's value."""
-    del full_tree, slot
-    return part_tree
+    """Fold an admission prefill's batch-1 tree back into the full tree:
+    recurrent nodes write the part's row into the full tree's leaves in
+    place; every other node takes the part's value (the pools the prefill
+    wrote in place, under the slot's block tables)."""
+    def walk(full, part):
+        if isinstance(full, dict) and isinstance(part, dict):
+            lay = match_layout(full)
+            if lay is not None and lay.recurrent:
+                return lay.slot_restore(full, part, slot)
+            return {k: walk(full[k], part[k]) for k in full}
+        return part
+
+    return walk(full_tree, part_tree)

@@ -17,9 +17,9 @@ tracing for the continuous scheduler.
   paper's macro constants and planning numbers for the memory tiers), not
   a measurement of the card**: ``serve_energy_pj_total`` and
   ``serve_kv_bytes_total`` say what the modelled design would pay for the
-  stream the port served. SSM and hybrid layers are not metered yet
-  (their models are Queue 1 item 11c); tensor-parallel views wait for
-  item 13.
+  stream the port served. Mamba2 layers add their recurrent state's
+  read and write a token (``decode_state_traffic``), a hybrid's attention
+  sites their KV; tensor-parallel views wait for item 13.
 * :class:`StepTracer`: the ``--trace FILE`` Chrome-trace JSON (one track
   a decode slot and a scheduler track; complete ``ph='X'`` spans and
   instants only). Load it in ``ui.perfetto.dev`` or ``chrome://tracing``.
@@ -388,8 +388,11 @@ class EnergyMeter:
       digital arithmetic): ``achieved == baseline`` by construction.
 
     The meter is bookkeeping, not a model: it prices exactly as direct
-    hwmodel calls do (the tests hold it to equality). Configs with SSM or
-    hybrid layers raise ``NotImplementedError``.
+    hwmodel calls do (the tests hold it to equality). Layers split as the
+    reference's: a pure SSM has no attention layer, a hybrid one a
+    ``hybrid_group``; their Mamba2 layers price the fp read and write of
+    the recurrent state (``decode_state_traffic``) every token, tiered or
+    not (the state keeps no int8 tier).
     """
 
     _KEYS = ('tokens', 'hot_bytes', 'cold_bytes', 'achieved_bytes',
@@ -399,18 +402,21 @@ class EnergyMeter:
     def __init__(self, cfg, *, page_size: int, kv_quant: bool = False,
                  hot_window: int = 1, fp_bytes: int = 2,
                  tier: hwmodel.KVTierConfig = hwmodel.DEFAULT_KV_TIER):
-        if cfg.family in ('ssm', 'hybrid'):
-            raise NotImplementedError(
-                f'EnergyMeter: {cfg.name} has SSM or hybrid layers, whose '
-                f'decode state the port does not model yet (Queue 1 item '
-                f'11c: SSM and hybrid)')
         self.kv_quant = bool(kv_quant)
         self.tier = tier
         self.page_size = page_size
         self.hot_window = max(int(hot_window), 1)
         self.fp_bytes = fp_bytes
-        self.n_attn = cfg.n_layers
-        self.n_mamba = 0
+        # layer split: hybrid groups share one attention site a group; a
+        # pure SSM has no attention cache at all
+        if cfg.family == 'ssm':
+            self.n_attn = 0
+        elif cfg.hybrid_group:
+            self.n_attn = cfg.n_layers // cfg.hybrid_group
+        else:
+            self.n_attn = cfg.n_layers
+        self.n_mamba = (cfg.n_layers - self.n_attn
+                        if cfg.family in ('ssm', 'hybrid') else 0)
         self.is_mla = cfg.mla is not None
         if self.is_mla:
             m = cfg.mla
@@ -431,6 +437,14 @@ class EnergyMeter:
             self._elems_per_block = (page_size * cfg.n_kv_heads
                                      * cfg.resolved_head_dim * 2)
             self._cold_scale_b = cfg.n_kv_heads * 2 * tier.scale_bytes
+        self._state: Optional[dict] = None
+        if self.n_mamba:
+            from repro_torch.models.ssm import dims as ssm_dims
+            s, dm = cfg.ssm, ssm_dims(cfg)
+            self._state = hwmodel.decode_state_traffic(
+                conv_elems=(s.conv_width - 1) * dm['conv_dim'],
+                ssm_elems=dm['n_heads'] * s.head_dim * s.d_state,
+                n_heads=dm['n_heads'], n_layers=self.n_mamba, tier=tier)
         self._price_cache: Dict[Tuple[int, int], dict] = {}
         self.totals_raw: Dict[str, float] = {k: 0.0 for k in self._KEYS}
 
@@ -482,6 +496,15 @@ class EnergyMeter:
                     inc['hot_bytes'] += r['baseline_bytes_per_token'] * n
                     inc['achieved_bytes'] += r['baseline_bytes_per_token'] * n
                     inc['achieved_pj'] += r['baseline_pj_per_token'] * n
+            if self._state is not None:
+                # recurrent state stays fp: achieved and baseline both
+                # price its fp read and write
+                st = self._state
+                for key in ('hot_bytes', 'achieved_bytes', 'baseline_bytes'):
+                    inc[key] += st['baseline_bytes_per_token']
+                inc['achieved_pj'] += st['baseline_pj_per_token']
+                inc['baseline_pj'] += st['baseline_pj_per_token']
+                inc['ops'] += st['ops_per_token']
         if self.n_attn and (dup_hot_blocks or dup_cold_blocks):
             n = self.n_attn
             hot_b = dup_hot_blocks * self._elems_per_block * self.fp_bytes * n

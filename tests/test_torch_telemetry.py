@@ -107,10 +107,19 @@ def test_energy_meter_equals_hwmodel_and_reference(arch, kv_quant):
 
 
 def test_energy_meter_refuses_recurrent_families():
-    cfg = dataclasses.replace(tconfigs.get('stablelm-1.6b', smoke=True),
-                              family='ssm')
-    with pytest.raises(NotImplementedError, match='11c'):
-        ttel.EnergyMeter(cfg, page_size=8)
+    """The meter no longer refuses SSM and hybrid configs: it splits their
+    layers as the reference's does (no attention layer in a pure SSM, one
+    a ``hybrid_group`` in a hybrid) and prices the recurrent state, equal
+    to the reference's meter on the same lane trace."""
+    for arch, split in (('mamba2-780m', (0, 48)), ('zamba2-1.2b', (6, 32))):
+        for kv_quant in (False, True):
+            kw = dict(page_size=8, kv_quant=kv_quant, hot_window=2)
+            got = ttel.EnergyMeter(tconfigs.get(arch), **kw)
+            want = rtel.EnergyMeter(rconfigs.get(arch), **kw)
+            assert (got.n_attn, got.n_mamba) == split
+            for lanes, _, _ in _lane_trace(seed=1, steps=10):
+                assert got.observe_step(lanes) == want.observe_step(lanes)
+            assert got.totals() == want.totals()
 
 
 def _fill(mod, values):
