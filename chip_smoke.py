@@ -20,7 +20,11 @@ pure SSM: K2-K4 only) and zamba2-1.2b (Mamba2 layers and six sites of one
 shared attention block: K1 and K6 at its sites, K3/K4) at their published
 widths and depths, and their static ``serve()`` (zamba2's sites on K7);
 their SSD scans, convs and gated norms are plain torch ops, as the
-reference's are plain jnp.
+reference's are plain jnp. The non-token frontends: the static
+``serve()`` of qwen2-vl-72b (patch embeddings in, M-RoPE; 12 of its 80
+layers, ``qwen2-vl-72b-L12``, in every mode, and all 80 with
+--prequantize) and of musicgen-large (four codebooks) at their published
+widths (K7 at G = 8, dh = 128; K2-K4 up to K = 29568 and N = 152064).
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -53,8 +57,13 @@ Phases, in order; any failure exits non-zero and prints no result:
              MoE configs' (qwen2-moe's lm_head, deepseek-v3's shared
              FFN) and the recurrent configs' (mamba2's in_proj N = 6448,
              out_proj and tied head N = 50280; zamba2's in_proj N = 8384,
-             out_proj, shared MLP out K = 8192); K1/K6 (hot window 2), K5 (C = 8 and 32) and K7
-             (S = 160) at qwen2-moe's Hkv = 16, G = 1, dh = 128; MLA
+             out_proj, shared MLP out K = 8192) and the frontends'
+             (qwen2-vl-72b's q/o, k/v, MLP in, MLP down K = 29568 and
+             lm_head N = 152064; musicgen's MLP in and out); K1/K6 (hot
+             window 2), K5 (C = 8 and 32) and K7 (S = 160) at
+             qwen2-moe's Hkv = 16, G = 1, dh = 128; K7 (S = 160) at
+             qwen2-vl's Hkv = 8, G = 8, dh = 128 (musicgen's heads are
+             stablelm's, whose row is above); MLA
              attention 2e-5, the
              reference's tolerance, at H=128, DK=576, r=512, with the
              kernels' resident blocks per SM; K8, K9 and K10 (the latent
@@ -181,6 +190,26 @@ Phases, in order; any failure exits non-zero and prints no result:
              and recurrent state bytes; one decode step a config under
              set_sync_debug_mode('error'), and its SSM ops' device time
              beside the state-traffic bound.
+5e. frontends — qwen2-vl-72b and musicgen-large through the static
+             serve() (frontends_phase): their smoke configs card against
+             CPU in f32 (lock-step and --ragged, flash, bf16, w8a8
+             --prequantize, dynamic w8a8; every forward's logits within
+             1e-4, equal tokens); qwen2-vl-72b-L12 (12 of 80 layers) and
+             musicgen-large (48 layers) at their published widths, batch
+             8, prompt 128, generation 32, in bf16 (flash lock-step,
+             einsum --ragged, sampled flash --ragged), w8a8 --prequantize
+             (flash --ragged) and dynamic w8a8 (flash lock-step): every
+             logits row finite, shape [8, 32] ([8, 32, 4] for musicgen),
+             exact launches (K7 once a layer a decode step; per forward
+             K2 85 and K3 49 with --prequantize, K4 85 and K3 134 dynamic
+             on qwen2-vl-72b-L12; 288 and 192 / 288 and 480 on musicgen,
+             whose four heads are a float einsum), peak memory beside the
+             weights' read bound; 4 greedy decode steps in f32 through
+             flash and einsum with equal tokens; then qwen2-vl-72b's 80
+             layers, refused in bf16 and dynamic w8a8 before any draw,
+             served with --prequantize (71.5 GB of int8 weights, flash):
+             finite logits, exact launches, peak memory beside the card's
+             total, decode_step_ms beside the weights' read bound.
 6. chaos   — continuous serving under the fault injector at the published
              width, each serve beside a clean run of the same stream and
              weights (chaos_phase): stablelm bf16 with the int8 tier and
@@ -202,14 +231,15 @@ runs on, with that path's launches; K9 on both pool dtypes), a
 ``{"redesigned": [...]}`` line (every row of the redesigned kernels, all
 ten), a ``{"nan": [...]}``, a ``{"serve": [...]}``, a ``{"dense":
 [...]}``, a ``{"moe": [...]}``, a ``{"static_serve": [...]}``, a
-``{"chaos": [...]}`` and a ``{"ssm": [...]}`` line, the
+``{"chaos": [...]}``, a ``{"ssm": [...]}`` and a ``{"frontends": [...]}``
+line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
 reports) go to ``build/chip_smoke.json``.
 
 Usage: python3 chip_smoke.py (every phase runs, always).
        python3 chip_smoke.py --phase
-       kernels|profile|static|nan|chaos|dense|moe|ssm:
+       kernels|profile|static|nan|chaos|dense|moe|ssm|frontends:
        the build and that phase alone (its report in
        ``build/chip_smoke_<phase>.json``, no result line), to rehearse a
        kernel or to measure another tree with this script copied into its
@@ -293,6 +323,14 @@ LINEAR_SHAPES = (
     # have stablelm-1.6b's (2048, 2048)
     ('mamba2-780m', ((1536, 6448), (3072, 1536), (1536, 50280)), True),
     ('zamba2-1.2b', ((2048, 8384), (4096, 2048), (8192, 2048)), False),
+    # the non-token frontends (phase "frontends"): qwen2-vl-72b's q/o, k/v,
+    # MLP in (gate and up each), MLP down (K = 29568, the longest
+    # contraction) and lm_head (N = 152064); musicgen-large's GELU MLP in
+    # and out (its q/k/v/o have stablelm-1.6b's (2048, 2048); its four
+    # heads are a float einsum, no linear)
+    ('qwen2-vl-72b', ((8192, 8192), (8192, 1024), (8192, 29568),
+                      (29568, 8192), (8192, 152064)), True),
+    ('musicgen-large', ((2048, 8192), (8192, 2048)), True),
 )
 # stablelm's layer linears (q/k/v/o, MLP in and out) also run at the static
 # prefill's M = batch * prompt rows; its lm_head reads only the last
@@ -1316,6 +1354,18 @@ def moe_kernel_phase(torch, kmods):
     return rows
 
 
+def frontend_kernel_phase(torch, kmods):
+    """K7 at qwen2-vl-72b's static shapes (B=8, S=160, lock-step at pos
+    144, a 33-key window on every odd slot; Hkv=8, G=8, dh=128) on bf16
+    and f32 caches, each against its plain version (1e-5) beside SDPA,
+    with its own generator. musicgen-large's heads (Hkv=32, G=1, dh=64)
+    are stablelm-1.6b's: the static phase's row holds them."""
+    return contig_kernel_phase(
+        torch, kmods, seed=9,
+        cases=(('lockstep', 8, 8, 8, 128, 160, torch.bfloat16),
+               ('lockstep', 8, 8, 8, 128, 160, torch.float32)))
+
+
 def _median(xs):
     """The median of the readings that are not None (None if none is)."""
     xs = sorted(x for x in xs if x is not None)
@@ -2115,7 +2165,9 @@ def smoke_static_phase(torch, arch=ARCH, modes=(('bf16', False),
     """The static ``serve()`` on ``arch``'s smoke config in f32, GPU
     against CPU: lock-step and ``--ragged``, ``attn_impl='flash'`` (K7 on
     the card), in each of ``modes``; every forward's logits (from
-    ``step_hook``) and the tokens held by :func:`_hold_smoke`."""
+    ``step_hook``) and the tokens held by :func:`_hold_smoke`. Prompts of
+    the config's input kind: token ids, codebook grids (musicgen) or f32
+    embeddings (qwen2-vl)."""
     from repro_torch import configs
     from repro_torch.core import yoco_linear
     from repro_torch.launch import serve as SV
@@ -2124,8 +2176,11 @@ def smoke_static_phase(torch, arch=ARCH, modes=(('bf16', False),
     cfg = configs.get(arch, smoke=True)
     base = M.init_params(torch.Generator().manual_seed(0), cfg, device='cpu')
     b, plen, gen_len = 4, 12, 8
-    prompts = np.random.RandomState(3).randint(
-        0, cfg.vocab_size, (b, plen)).astype(np.int32)
+    rng = np.random.RandomState(3)
+    shape = SV._prompt_shape(cfg, b, plen)
+    prompts = (rng.randn(*shape).astype(np.float32)
+               if cfg.input_kind == 'embeddings'
+               else rng.randint(0, cfg.vocab_size, shape).astype(np.int32))
     results = []
     for ragged in (False, True):
         for mode, prequant in modes:
@@ -2536,6 +2591,7 @@ def dense_phase(torch, build):
 
     from repro_torch import configs
     from repro_torch.launch import serve as SV
+    from repro_torch.models import model as M
 
     totals = {k: 0 for k in build.LAUNCHES}
     rows = []
@@ -2557,21 +2613,21 @@ def dense_phase(torch, build):
             gc.collect()            # the last serve's weights, before the
             torch.cuda.empty_cache()    # next draw
             free = torch.cuda.mem_get_info(dev)[0]
-            if mode == 'w8a8' and not prequant \
-                    and 4 * cfg.param_count() > free:
+            need = M.serving_bytes(cfg, mode, prequant, torch.bfloat16)
+            if mode == 'w8a8' and not prequant and need > free:
                 try:
                     SV.serve_continuous(arch, smoke=False, mode=mode,
                                         n_requests=1, quiet=True)
                 except ValueError as e:
-                    check(f'{4 * cfg.param_count()} bytes' in str(e),
+                    check(f'{need} bytes' in str(e),
                           f'{tag}: refusal without the bytes: {e}')
                     rows.append(dict(arch=arch, mode=mode,
                                      prequantize=prequant, refused=str(e),
                                      free_bytes=free))
                     print(f'dense run: {json.dumps(rows[-1])}', flush=True)
                     continue
-                check(False, f'{tag}: f32 masters of {cfg.param_count()} '
-                             f'parameters were not refused')
+                check(False, f'{tag}: f32 masters of {need} bytes were '
+                             f'not refused')
             stream = _dense_stream(SV, cfg, n_req, plen)
             torch.cuda.reset_peak_memory_stats()
             build.reset_counts()
@@ -2696,6 +2752,7 @@ def moe_phase(torch, build):
 
     from repro_torch import configs
     from repro_torch.launch import serve as SV
+    from repro_torch.models import model as M
 
     totals = {k: 0 for k in build.LAUNCHES}
     rows = []
@@ -2727,7 +2784,7 @@ def moe_phase(torch, build):
                       f'{tag}: {torch.cuda.memory_allocated()} bytes still '
                       f'allocated before the model loads')
                 free = torch.cuda.mem_get_info(dev)[0]
-                need = SV._master_bytes(cfg, bf16)
+                need = M.serving_bytes(cfg, 'w8a8', False, bf16)
                 if mode == 'w8a8' and not prequant and need > free:
                     try:
                         SV.serve_continuous(arch, smoke=False, mode=mode,
@@ -3287,6 +3344,322 @@ def ssm_phase(torch, build):
     return rows, totals
 
 
+# ----------------------------------------------------------------------------
+# phase 5e: the non-token frontends (qwen2-vl-72b, musicgen-large)
+# ----------------------------------------------------------------------------
+FRONTEND_PATH = 'frontends static serve()'
+VL_ARCH, MG_ARCH = 'qwen2-vl-72b', 'musicgen-large'
+# qwen2-vl-72b cut to 12 of its 80 layers (bf16: 23.56 GB of weights;
+# dynamic w8a8's f32 masters 47.11 GB), registered at run time by
+# register_vl12(); its 80 layers serve whole with --prequantize only
+VL12_ARCH, VL12_LAYERS = 'qwen2-vl-72b-L12', 12
+# arch -> (layers, d_model, q heads, KV heads, dh, d_ff, vocab, codebooks):
+# the published widths the phase must serve
+FRONTEND_ARCHS = {
+    VL12_ARCH: (VL12_LAYERS, 8192, 64, 8, 128, 29568, 152064, 1),
+    MG_ARCH: (48, 2048, 32, 32, 64, 8192, 2048, 4),
+}
+# the static serve() runs of each config, by mode: (attn_impl, ragged,
+# sampling); batch 8, prompt 128, generation 32
+FRONTEND_RUNS = {
+    ('bf16', False): (('flash', False, None), ('einsum', True, None),
+                      ('flash', True, dict(temperature=0.8, top_k=40))),
+    ('w8a8', True): (('flash', True, None),),
+    ('w8a8', False): (('flash', False, None),),
+}
+# greedy decode steps the f32 flash and einsum routes must agree on
+FRONTEND_ROUTE_STEPS = 4
+
+
+def register_vl12():
+    """Register qwen2-vl-72b cut to its first 12 layers, ``replace(FULL,
+    n_layers=12)`` (the smoke config is the reference's SMOKE), as
+    VL12_ARCH; returns the full config."""
+    import dataclasses
+
+    from repro_torch import configs
+    configs.base.register(
+        dataclasses.replace(configs.get(VL_ARCH), name=VL12_ARCH,
+                            n_layers=VL12_LAYERS),
+        dataclasses.replace(configs.get(VL_ARCH, smoke=True),
+                            name=VL12_ARCH))
+    return configs.get(VL12_ARCH)
+
+
+def frontend_counts(cfg):
+    """(linears, distinct activations) of one forward of a frontend config:
+    :func:`gqa_counts`' (q k v o and the MLP a layer: qwen2-vl's SwiGLU
+    7, musicgen's GELU 6; 4 activations a layer), with the lm_head's
+    linear and activation only where the head is one: musicgen's four
+    codebook heads are a float einsum. qwen2-vl-72b-L12: 85 over 49;
+    musicgen-large: 288 over 192."""
+    linears, acts = gqa_counts(cfg)
+    head = 0 if cfg.n_codebooks > 1 else 1
+    return linears - 1 + head, acts - 1 + head
+
+
+def _frontend_launches(cfg, mode, prequant, impl, forwards=STATIC_GEN):
+    """Launches a static serve() of a frontend config must make: K7 once a
+    layer a decode step with flash (none with einsum), and per forward
+    :func:`frontend_counts`' linears over their activations: K2 a linear
+    and K3 an activation with --prequantize, K4 a linear and K3 an
+    activation and a linear in dynamic w8a8."""
+    linears, acts = frontend_counts(cfg)
+    want = dict(flash_decode_contig=cfg.n_layers * (forwards - 1)
+                if impl == 'flash' else 0)
+    if mode == 'w8a8' and prequant:
+        want.update(int8_matmul=linears * forwards,
+                    quantize_rows=acts * forwards)
+    elif mode == 'w8a8':
+        want.update(yoco_vmm_int8=linears * forwards,
+                    quantize_rows=(acts + linears) * forwards)
+    return want
+
+
+def _frontend_route_check(torch, build, cfg, params):
+    """Greedy decode of 8 prompts of 128 (the config's synthetic input
+    kind) over a contiguous f32 cache, in f32 compute on the served bf16
+    weights (each cast per call), FRONTEND_ROUTE_STEPS steps through the
+    flash route (K7 once a layer a step, nothing else) and through the
+    einsum route from the same prefill: equal tokens at every step, every
+    logit finite. The embeddings input's next-step row
+    (``serve._step_input``) is made under ``set_sync_debug_mode('error')``:
+    no host round trip."""
+    from repro_torch.core.yoco_linear import YocoConfig
+    from repro_torch.data import synthetic
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as M
+
+    b, plen, steps = STATIC_BATCH, STATIC_PROMPT, FRONTEND_ROUTE_STEPS
+    f32 = torch.float32
+    prompts = synthetic.make_batch(synthetic.for_arch(
+        cfg, global_batch=b, seq_len=plen), 0)['inputs'].to('cuda')
+    yoco = YocoConfig(mode='bf16', compute_dtype=f32)
+    cache = M.init_cache_tree(cfg, b, plen + steps, dtype=f32, device='cuda')
+    logits0, cache = M.prefill(params, dict(inputs=prompts), cache, cfg,
+                               yoco, M.ModelRuntime(compute_dtype=f32))
+    ids = torch.arange(cfg.d_model, device='cuda')
+    pos = torch.arange(plen, plen + steps, dtype=torch.int32, device='cuda')
+    runs = {}
+    copy = {ck: {k: v.clone() for k, v in leaves.items()}
+            for ck, leaves in cache.items()}
+    for impl, c in (('flash', copy), ('einsum', cache)):
+        rt = M.ModelRuntime(attn_impl=impl, compute_dtype=f32)
+        logits, toks, rows = logits0, [], []
+        torch.cuda.synchronize()
+        build.reset_counts()
+        for i in range(steps):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks.append(tok)
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                step_in = SV._step_input(cfg, tok, ids)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+            logits, c = M.decode_step(params, step_in, pos[i], c, cfg, yoco,
+                                      rt)
+            rows.append(logits)
+        torch.cuda.synchronize()
+        want = {'flash_decode_contig': cfg.n_layers * steps} \
+            if impl == 'flash' else {}
+        launched = {k: v for k, v in build.LAUNCHES.items() if v}
+        check(launched == want, f'{cfg.name} f32 {impl} decode: launches '
+                                f'{launched}, expected {want}')
+        runs[impl] = (torch.stack(toks), torch.stack(rows))
+    (tf, lf), (te, le) = runs['flash'], runs['einsum']
+    check(bool(torch.isfinite(lf).all() and torch.isfinite(le).all()),
+          f'{cfg.name} f32 decode: non-finite logits')
+    row = dict(arch=cfg.name, check='f32 flash vs einsum decode', batch=b,
+               context=plen, steps=steps,
+               tokens_equal=bool(torch.equal(tf, te)),
+               max_abs_logit_diff=float((lf - le).abs().max()),
+               max_abs_logit=float(le.abs().max()),
+               flash_launches=cfg.n_layers * steps)
+    print(f'frontends check: {json.dumps(row)}', flush=True)
+    check(row['tokens_equal'], f'{cfg.name}: f32 flash and einsum greedy '
+                               f'tokens differ: {row}')
+    return row
+
+
+def frontends_phase(torch, build):
+    """The two non-token frontends through the static ``serve()``.
+    (1) Smoke configs, card against CPU (:func:`smoke_static_phase`, f32,
+    lock-step and --ragged, flash) in bf16, w8a8 --prequantize and dynamic
+    w8a8. (2) qwen2-vl-72b-L12 and musicgen-large at their published
+    widths (random weights from seed 0, drawn in their serving form; batch
+    8, prompt 128, generation 32), FRONTEND_RUNS in each mode, after a
+    warm-up: every logits row finite, ``generated_shape`` [8, 32] (and 4
+    codebooks for musicgen), exact launches (:func:`_frontend_launches`),
+    each run's peak memory beside its weights' read bound; then the f32
+    flash and einsum routes' tokens (:func:`_frontend_route_check`); the
+    device busy share of each config's bf16 flash lock-step run.
+    (3) qwen2-vl-72b's 80 layers: bf16 and dynamic w8a8 refused before any
+    draw with their bytes, then served with --prequantize, bf16 compute,
+    flash: finite logits, exact launches, peak memory beside the card's
+    total, ``decode_step_ms`` beside the int8 weights' read bound, its
+    device busy share. Each
+    model is freed before the next loads. Returns (rows, launch totals)."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve_step as SS
+
+    t0 = time.perf_counter()
+    rows = []
+    for arch in (VL_ARCH, MG_ARCH):
+        rows += smoke_static_phase(torch, arch, modes=DENSE_MODES)
+    print(f'frontends smoke: {json.dumps(rows)}', flush=True)
+    totals = {k: 0 for k in build.LAUNCHES}
+    dev = torch.device('cuda')
+    bf16 = torch.bfloat16
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(torch.cuda.memory_allocated() < MOE_FREED_BYTES,
+              f'{torch.cuda.memory_allocated()} bytes still allocated '
+              f'before a model loads')
+
+    def measured(arch, tag, cfg, params, want, mode, prequant, impl, ragged,
+                 sampling, profile=False, **extra):
+        """One static serve at full width, held to its gates; its row, with
+        ``extra`` and, with ``profile``, the device busy share of the same
+        serve run again under torch.profiler."""
+        finite = []
+        kw = dict(smoke=False, batch=STATIC_BATCH, prompt_len=STATIC_PROMPT,
+                  gen_len=STATIC_GEN, mode=mode, prequantize=prequant,
+                  attn_impl=impl, ragged=ragged, greedy=sampling is None,
+                  **(sampling or {}), params=params, quiet=True)
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_counts()
+        t_run = time.perf_counter()
+        out = SV.serve(arch, step_hook=lambda logits, tok: finite.append(
+            SS.logits_health(logits.flatten(0, -2))[0].all()), **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_run) * 1e3
+        check(len(finite) == STATIC_GEN and bool(torch.stack(finite).all()),
+              f'{tag}: a logits row is not finite')
+        shape = [STATIC_BATCH, STATIC_GEN] + (
+            [cfg.n_codebooks] if cfg.n_codebooks > 1 else [])
+        check(out['generated_shape'] == shape,
+              f'{tag}: generated_shape {out["generated_shape"]}')
+        _check_launches(build, tag, want)
+        for k in totals:
+            totals[k] += build.LAUNCHES[k]
+        weights = M.serving_bytes(cfg, mode, prequant, torch.bfloat16)
+        rows.append(dict(
+            arch=arch, mode=mode, prequantize=prequant, attn_impl=impl,
+            ragged=ragged, sampling=sampling, batch=STATIC_BATCH,
+            prompt_len=STATIC_PROMPT, gen_len=STATIC_GEN,
+            tokens_per_s=out['tokens_per_s'], prefill_s=out['prefill_s'],
+            decode_s=out['decode_s'],
+            decode_step_ms=out['decode_s'] / (STATIC_GEN - 1) * 1e3,
+            weight_bytes=weights,
+            weight_read_bound_ms=weights / HBM_BYTES_PER_S * 1e3,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            total_memory=total_mem, sample=out['sample'], wall_ms=wall_ms,
+            launches={k: v for k, v in build.LAUNCHES.items() if v},
+            **extra))
+        if profile:
+            def run():
+                SV.serve(arch, **kw)
+                torch.cuda.synchronize()
+            by_name = profiled_kernels(torch, run)
+            busy_ms = sum(v[0] for v in by_name.values()) if by_name \
+                else None
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+            rows[-1].update(
+                device_busy_ms=busy_ms,
+                device_busy_share=(None if busy_ms is None
+                                   else busy_ms / wall_ms),
+                kernel_launches=sum(v[1] for v in by_name.values()),
+                top=[dict(kernel=k[:80], device_ms=v[0], calls=v[1])
+                     for k, v in top])
+        print(f'frontends run: {json.dumps(rows[-1])}', flush=True)
+
+    for arch, widths in FRONTEND_ARCHS.items():
+        cfg = configs.get(arch, smoke=False)
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+               cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+               cfg.n_codebooks) == widths,
+              f'{arch} is not at its published width')
+        for (mode, prequant), runs in FRONTEND_RUNS.items():
+            params = None
+            free()
+            t_load = time.perf_counter()
+            params = SV._serving_params(cfg, None, dev, seed=0, mode=mode,
+                                        prequantize=prequant,
+                                        compute_dtype=bf16)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t_load
+            SV.serve(arch, smoke=False, batch=STATIC_BATCH,
+                     prompt_len=STATIC_PROMPT, gen_len=2, mode=mode,
+                     prequantize=prequant, params=params, quiet=True)
+            for i, (impl, ragged, sampling) in enumerate(runs):
+                tag = (f'frontends {arch} {mode} prequant={prequant} {impl} '
+                       f'ragged={ragged} sampling={sampling}')
+                # the first run of a mode: its load time; of bf16: its
+                # device busy share
+                measured(arch, tag, cfg, params,
+                         _frontend_launches(cfg, mode, prequant, impl),
+                         mode, prequant, impl, ragged, sampling,
+                         profile=i == 0 and mode == 'bf16',
+                         **(dict(load_s=load_s) if i == 0 else {}))
+            if mode == 'bf16':
+                rows.append(_frontend_route_check(torch, build, cfg, params))
+        params = None
+        free()
+    # qwen2-vl-72b whole: refused in bf16 and dynamic w8a8 before any draw,
+    # served with its int8 weights resident
+    cfg = configs.get(VL_ARCH, smoke=False)
+    check(cfg.n_layers == 80 and cfg.d_ff == 29568, f'{VL_ARCH} is not at '
+                                                    f'its published depth')
+    for mode, prequant in (('bf16', False), ('w8a8', False)):
+        need = M.serving_bytes(cfg, mode, prequant, torch.bfloat16)
+        free_bytes = torch.cuda.mem_get_info(dev)[0]
+        try:
+            SV.serve(VL_ARCH, smoke=False, mode=mode, batch=1,
+                     prompt_len=8, gen_len=2, quiet=True)
+        except ValueError as e:
+            check(f'{need} bytes' in str(e),
+                  f'{VL_ARCH} {mode}: refusal without the bytes: {e}')
+            check(torch.cuda.memory_allocated() < MOE_FREED_BYTES,
+                  f'{VL_ARCH} {mode}: weights were drawn before the '
+                  f'refusal')
+            rows.append(dict(arch=VL_ARCH, mode=mode, prequantize=prequant,
+                             refused=str(e), weight_bytes=need,
+                             free_bytes=free_bytes))
+            print(f'frontends run: {json.dumps(rows[-1])}', flush=True)
+        else:
+            check(False, f'{VL_ARCH} {mode}: {need} bytes of weights were '
+                         f'not refused')
+    torch.cuda.reset_peak_memory_stats()
+    t_load = time.perf_counter()
+    params = SV._serving_params(cfg, None, dev, seed=0, mode='w8a8',
+                                prequantize=True, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t_load
+    load_peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    SV.serve(VL_ARCH, smoke=False, batch=STATIC_BATCH,
+             prompt_len=STATIC_PROMPT, gen_len=2, mode='w8a8',
+             prequantize=True, attn_impl='flash', params=params, quiet=True)
+    measured(VL_ARCH, f'frontends {VL_ARCH} 80 layers w8a8 prequant flash',
+             cfg, params, _frontend_launches(cfg, 'w8a8', True, 'flash'),
+             'w8a8', True, 'flash', False, None, profile=True,
+             load_s=load_s, load_peak_memory=load_peak,
+             resident_weight_memory=resident, layers=cfg.n_layers)
+    params = None
+    free()
+    rows.append(dict(phase_s=time.perf_counter() - t0))
+    print(f'frontends phase: {rows[-1]["phase_s"]:.1f} s', flush=True)
+    return rows, totals
+
+
 # the static serve() runs at full width: (arch, mode, prequantize,
 # attn_impl, ragged, sampling)
 STATIC_RUNS = (
@@ -3817,6 +4190,8 @@ def all_kernel_phases(torch, kmods, nan=None):
     print('K7 checks passed', flush=True)
     rows += moe_kernel_phase(torch, kmods)
     print('K5/K7 at qwen2-moe\'s heads checks passed', flush=True)
+    rows += frontend_kernel_phase(torch, kmods)
+    print('K7 at qwen2-vl\'s G=8 checks passed', flush=True)
     return rows
 
 
@@ -3847,6 +4222,11 @@ def ssm_rows(torch, kmods):
     return ssm_phase(torch, kmods[3])[0]
 
 
+def frontends_rows(torch, kmods):
+    """Phase 5e, the non-token frontends, alone."""
+    return frontends_phase(torch, kmods[3])[0]
+
+
 # ``--phase NAME``: the build and that phase alone, to compare two trees
 # (copy this script into the other tree's root) or to rehearse a kernel
 def chaos_rows(torch, kmods):
@@ -3856,7 +4236,8 @@ def chaos_rows(torch, kmods):
 
 PHASES = dict(kernels=all_kernel_phases, profile=all_profiles,
               static=static_rows, nan=nan_kernel_phase, chaos=chaos_rows,
-              dense=dense_rows, moe=moe_rows, ssm=ssm_rows)
+              dense=dense_rows, moe=moe_rows, ssm=ssm_rows,
+              frontends=frontends_rows)
 
 
 def print_redesigned(rows):
@@ -3885,6 +4266,7 @@ def run_phases(torch, report, kmods):
           'stablelm-1.6b FULL config changed')
     mla = register_dense_prefix()
     register_moe5()
+    register_vl12()
     check(mla.n_layers == MLA_LAYERS and mla.d_model == 7168
           and mla.n_heads == 128 and mla.d_ff == 18432
           and mla.vocab_size == 129280 and mla.moe is None
@@ -3934,6 +4316,8 @@ def run_phases(torch, report, kmods):
     lap('moe')
     report['ssm'], ssm_totals = ssm_phase(torch, kmods[3])
     lap('ssm')
+    report['frontends'], frontend_totals = frontends_phase(torch, kmods[3])
+    lap('frontends')
     report['static_serve'], static_totals, moe_static_totals = \
         static_serve_phase(torch, kmods[3])
     lap('static')
@@ -3945,7 +4329,7 @@ def run_phases(torch, report, kmods):
     return {ARCH: gqa_totals, MLA_ARCH: mla_totals,
             STATIC_PATH: static_totals, DENSE_PATH: dense_totals,
             MOE_PATH: moe_totals, MOE_STATIC_PATH: moe_static_totals,
-            SSM_PATH: ssm_totals}
+            SSM_PATH: ssm_totals, FRONTEND_PATH: frontend_totals}
 
 
 def main(argv) -> int:
@@ -3988,6 +4372,7 @@ def main(argv) -> int:
     if phase is not None:
         register_dense_prefix()
         register_moe5()
+        register_vl12()
         try:
             report[phase] = PHASES[phase](torch, kmods)
         finally:
@@ -4104,7 +4489,18 @@ def main(argv) -> int:
             ('int8_matmul', SSM_PATH, dict(arch=SSM_ARCH, M=8, K=1536,
                                            N=6448)),
             ('yoco_vmm_int8', SSM_PATH, dict(arch=SSM_ARCH, M=8, K=1536,
-                                             N=50280)))
+                                             N=50280)),
+            # the non-token frontends' static serve(): K7 at qwen2-vl's
+            # G=8, dh=128; the int8 linears at its lm_head (K2, K4; N =
+            # 152064) and its decode activation (K3, K = 8192)
+            ('flash_decode_contig', FRONTEND_PATH,
+             dict(pool='bfloat16', case='lockstep', Hkv=8, G=8)),
+            ('quantize_rows', FRONTEND_PATH, dict(arch=VL_ARCH, M=8, K=8192,
+                                                  dtype='bfloat16')),
+            ('int8_matmul', FRONTEND_PATH, dict(arch=VL_ARCH, M=8, K=8192,
+                                                N=152064)),
+            ('yoco_vmm_int8', FRONTEND_PATH, dict(arch=VL_ARCH, M=8, K=8192,
+                                                  N=152064)))
     check({name for name, _, _ in pick} == set(totals[ARCH]),
           'the kernels line does not cover every kernel')
     kernels = []
@@ -4137,6 +4533,7 @@ def main(argv) -> int:
     print(json.dumps(dict(static_serve=report['static_serve'])), flush=True)
     print(json.dumps(dict(chaos=report['chaos'])), flush=True)
     print(json.dumps(dict(ssm=report['ssm'])), flush=True)
+    print(json.dumps(dict(frontends=report['frontends'])), flush=True)
     print(smi, flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform='gpu', kind=torch.cuda.get_device_name(0),

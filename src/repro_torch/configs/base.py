@@ -10,8 +10,10 @@ n_layers=5)`` (its 3 dense layers and 2 MoE layers) or ``replace(cfg,
 n_layers=3, moe=None)`` (the dense prefix), and the recurrent configs
 mamba2-780m (a pure SSM, 48 Mamba2 layers, tied embeddings) and
 zamba2-1.2b (32 Mamba2 layers and 6 applications of one shared
-attention+MLP block, ``hybrid_group`` 6); other architectures join with
-the families that serve them."""
+attention+MLP block, ``hybrid_group`` 6), and the two configs whose input
+is no token stream: qwen2-vl-72b (precomputed patch embeddings, M-RoPE,
+q/k/v biases) and musicgen-large (4-codebook token grids, four summed
+embedding tables, four heads): every config the reference registers."""
 
 from __future__ import annotations
 
@@ -79,14 +81,16 @@ class ArchConfig:
     global_rope_theta: Optional[float] = None
     qk_norm: bool = False          # gemma3
     sandwich_norm: bool = False    # gemma3: post-attn/post-mlp norms
-    attn_bias: bool = False
+    attn_bias: bool = False        # qwen2-vl, starcoder2, qwen2-moe
+    mrope: bool = False            # qwen2-vl multimodal rope (3 sections)
     mla: Optional[MLAConfig] = None
     mlp_type: str = 'swiglu'       # swiglu | gelu | geglu
     norm_type: str = 'rmsnorm'     # rmsnorm | layernorm
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid_group: int = 0          # zamba2: layers per shared-attn group
-    input_kind: str = 'tokens'
+    input_kind: str = 'tokens'     # tokens | embeddings | codebooks
+    n_codebooks: int = 1           # musicgen: 4
     tie_embeddings: bool = False
     max_seq_len: int = 131072
     source: str = ''
@@ -123,8 +127,9 @@ class ArchConfig:
             mm += [('ssm_in', d, 2 * d_in + 2 * s.n_groups * s.d_state
                     + d_in // s.head_dim, n),
                    ('ssm_out', d_in, d, n)]
+        head = ('lm_head', d, self.vocab_size * self.n_codebooks, 1.0)
         if self.family == 'ssm':
-            return mm + [('lm_head', d, self.vocab_size, 1.0)]
+            return mm + [head]
         if self.hybrid_group:
             n = n / self.hybrid_group
         if self.mla is not None:
@@ -157,13 +162,15 @@ class ArchConfig:
             if mo.d_ff_shared:
                 mm += [('shared_in', d, wide * mo.d_ff_shared, n_moe),
                        ('shared_out', mo.d_ff_shared, d, n_moe)]
-        return mm + [('lm_head', d, self.vocab_size, 1.0)]
+        return mm + [head]
 
     def param_count(self) -> int:
-        """Total parameters, embeddings included (the reference's count)."""
-        total = self.vocab_size * self.d_model
+        """Total parameters, embeddings included (the reference's count:
+        an embedding table a codebook for every input kind, although
+        ``embeddings`` input draws none)."""
+        total = self.vocab_size * self.d_model * self.n_codebooks
         if not self.tie_embeddings:
-            total += self.vocab_size * self.d_model
+            total += self.vocab_size * self.d_model * self.n_codebooks
         for name, kk, nn, cnt in self.per_token_matmuls():
             if name == 'lm_head':
                 continue

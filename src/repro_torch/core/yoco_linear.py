@@ -52,12 +52,29 @@ def k_major(wq: torch.Tensor) -> torch.Tensor:
     return wq.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
+#: f32 bytes of a column slice :func:`prequantize_weight` quantizes at once
+PREQUANT_SLICE_BYTES = 1 << 28
+
+
 def prequantize_weight(w: torch.Tensor) -> QuantizedWeight:
     """Per-out-channel scales; the contraction dim is axis -2. ``wq`` keeps
-    the reference's (..., K, N) shape and values, stored K-major."""
+    the reference's (..., K, N) shape and values, stored K-major. The
+    output columns are quantized a slice of at most
+    ``PREQUANT_SLICE_BYTES`` of f32 at a time straight into the K-major
+    codes: each column's scale reads only that column, so the result is
+    the same, and the temporaries stay one slice wide (a 152064-wide
+    lm_head's would be 5 GB each whole)."""
+    *lead, k, n = w.shape
     keep = tuple(a for a in range(w.ndim) if a != w.ndim - 2)
-    sw = quant.absmax_scale(w, axis=keep)
-    return QuantizedWeight(k_major(quant.quantize(w, sw)), sw)
+    codes = torch.empty((*lead, n, k), dtype=torch.int8, device=w.device)
+    sw = torch.empty((*lead, 1, n), dtype=torch.float32, device=w.device)
+    step = max(1, PREQUANT_SLICE_BYTES // (4 * w[..., :1].numel()))
+    for j in range(0, n, step):
+        part = w[..., j:j + step]
+        s = quant.absmax_scale(part, axis=keep)
+        codes[..., j:j + step, :] = quant.quantize(part, s).transpose(-1, -2)
+        sw[..., j:j + step] = s
+    return QuantizedWeight(codes.transpose(-1, -2), sw)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,12 @@
-"""Deterministic, seeded synthetic token data (port of
-``repro/data/synthetic.py``): the same affine token process — token
-``t`` = (start + a * t(t+1)/2 + drift * t) % vocab with sparse resets — drawn
-from a seeded ``torch.Generator``. The draws differ from JAX's PRNG stream,
-so tests that compare the two packages hand both the same numpy-made
-request stream instead."""
+"""Deterministic, seeded synthetic data (port of
+``repro/data/synthetic.py``) for every input kind: the same affine token
+process — token ``t`` = (start + a * t(t+1)/2 + drift * t) % vocab with
+sparse resets — for token streams and for each codebook of a codebook
+grid, and standard-normal (B, S, d) rows with random labels for
+embeddings input (the stubbed frontend's patch embeddings), drawn from a
+seeded ``torch.Generator``. The draws differ from JAX's PRNG stream, so
+tests that compare the two packages hand both the same numpy-made
+prompts instead."""
 
 from __future__ import annotations
 
@@ -18,6 +21,9 @@ class DataConfig:
     global_batch: int = 8
     seq_len: int = 128
     vocab_size: int = 256
+    input_kind: str = 'tokens'        # tokens | codebooks | embeddings
+    n_codebooks: int = 1
+    d_model: int = 0                  # for embeddings input
 
 
 def _token_batch(gen: torch.Generator, batch: int, seq: int,
@@ -33,14 +39,28 @@ def _token_batch(gen: torch.Generator, batch: int, seq: int,
 
 
 def make_batch(cfg: DataConfig, step: int) -> dict:
-    """Batch ``step``: dict(inputs, labels), (B, S) int32 on the CPU."""
+    """Batch ``step``: dict(inputs, labels) on the CPU. Tokens: (B, S)
+    int32 each; codebooks: (B, S, CB) int32 each, codebook c its own token
+    process; embeddings: (B, S, d) f32 standard-normal inputs and (B, S)
+    int32 labels in the vocabulary."""
     gen = torch.Generator().manual_seed(cfg.seed * 1_000_003 + step)
-    toks = _token_batch(gen, cfg.global_batch, cfg.seq_len + 1,
-                        cfg.vocab_size)
+    b, s = cfg.global_batch, cfg.seq_len
+    if cfg.input_kind == 'embeddings':
+        x = torch.randn((b, s, cfg.d_model), generator=gen)
+        labels = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+        return dict(inputs=x, labels=labels.to(torch.int32))
+    if cfg.input_kind == 'codebooks':
+        toks = torch.stack([_token_batch(gen, b, s + 1, cfg.vocab_size)
+                            for _ in range(cfg.n_codebooks)], dim=-1)
+        return dict(inputs=toks[:, :-1], labels=toks[:, 1:])
+    toks = _token_batch(gen, b, s + 1, cfg.vocab_size)
     return dict(inputs=toks[:, :-1], labels=toks[:, 1:])
 
 
 def for_arch(arch_cfg, *, seed: int = 1234, global_batch: int = 8,
              seq_len: int = 128) -> DataConfig:
     return DataConfig(seed=seed, global_batch=global_batch, seq_len=seq_len,
-                      vocab_size=arch_cfg.vocab_size)
+                      vocab_size=arch_cfg.vocab_size,
+                      input_kind=arch_cfg.input_kind,
+                      n_codebooks=arch_cfg.n_codebooks,
+                      d_model=arch_cfg.d_model)

@@ -33,16 +33,17 @@ dh = 160), starcoder2-15b (G = 12, biases, a GELU MLP) and gemma3-27b
 (G = 2; 5 sliding-window layers to 1 global, each layer's window a view
 of one device tensor, so no step copies it to the card). Seeded weights
 are drawn straight into their serving form (:func:`_serving_params`), so
-a 27 B model's f32 tree never exists whole; dynamic w8a8 keeps f32
-masters and is refused up front where they exceed the card's free
-memory (gemma3-27b's 113.6 GB). MLA
+a 27 B model's f32 tree never exists whole, and a weight of any mode is
+refused up front where it exceeds the card's free memory in its serving
+form (:func:`_refuse_oversize`: gemma3-27b's dynamic w8a8 f32 masters,
+113.7 GB; qwen2-vl-72b in bf16, 142.9 GB). MLA
 configs (deepseek-v3) take the latent twins: K8, K10 over the int8
 latent tier, K9 for chunks. Mixture-of-Experts configs (qwen2-moe-a2.7b;
 deepseek-v3 with its MoE layers, served cut in depth) run every expert
 on every token (``models/moe.py``), their expert stacks stored once in the
 compute dtype in every mode (never int8: the reference's ``quantize_tree``
-skips them), so dynamic w8a8 prices them at that dtype's bytes
-(:func:`_master_bytes`). Recurrent configs: mamba2-780m (a pure
+skips them), so dynamic w8a8's refusal prices them at that dtype's
+bytes. Recurrent configs: mamba2-780m (a pure
 SSM) and zamba2-1.2b (Mamba2 layers and six applications of one shared
 attention+MLP block, whose sites read their paged pools through K1, K6 on
 the int8 tier, or K7 in ``serve()``) carry per-slot f32 state
@@ -59,7 +60,13 @@ of ``--prefix-cache`` and ``--chunk-prefill`` on recurrent state
 and on a pure SSM in ``serve()``. ``--mode w8a8`` routes every linear through the
 int8 kernels (K3 + K2 with ``--prequantize``, K3 + K4 without).
 ``--sample`` (with ``--temperature`` / ``--top-k``) replaces the greedy
-argmax with temperature / top-k sampling on both paths.
+argmax with temperature / top-k sampling on both paths. The two
+non-token frontends serve through ``serve()`` only, as in the reference:
+qwen2-vl-72b (precomputed (B, S, d) patch embeddings, M-RoPE; each
+generated id fed back as the stubbed frontend's one-hot row; served whole
+on one card with ``--prequantize``, 71.5 GB of int8 weights) and
+musicgen-large ((B, S, 4) codebook grids, four heads, (B, gen, 4)
+tokens); ``--continuous`` refuses them.
 ``--chaos`` (``--chaos-seed``) serves the stream under
 ``runtime/faults.py``'s deterministic fault injector; every step a NaN/Inf
 sentinel on the logits quarantines poisoned lanes (pages scrubbed, request
@@ -89,10 +96,17 @@ versions of the kernels):
   python -m repro_torch.launch.serve --arch zamba2-1.2b --continuous \
       --no-smoke --slots 8 --requests 8 --prompt-len 128 --gen-len 16 \
       [--mode w8a8] [--kv-quant --hot-window 2]
+  python -m repro_torch.launch.serve --arch qwen2-vl-72b --no-smoke \
+      --batch 8 --prompt-len 128 --gen-len 32 --mode w8a8 --prequantize \
+      --attn-impl flash [--ragged]
+  python -m repro_torch.launch.serve --arch musicgen-large --no-smoke \
+      --batch 8 --prompt-len 128 --gen-len 32 --attn-impl flash \
+      [--mode w8a8 [--prequantize]] [--ragged] [--sample --top-k 40]
   (--arch stablelm-12b, starcoder2-15b, gemma3-27b, qwen2-moe-a2.7b,
-  mamba2-780m or zamba2-1.2b: the reference's other configs; their smoke
-  widths with --smoke, the default; deepseek-v3-671b at --smoke, its
-  3-layer SMOKE config with one dense and two MoE layers)
+  mamba2-780m, zamba2-1.2b, qwen2-vl-72b or musicgen-large: the
+  reference's other configs; their smoke widths with --smoke, the
+  default; deepseek-v3-671b at --smoke, its 3-layer SMOKE config with one
+  dense and two MoE layers)
 """
 
 from __future__ import annotations
@@ -178,45 +192,27 @@ def _refuse_recurrent_paging(arch: str, cfg, kv_quant: bool,
                          f'position')
 
 
-def _expert_params(cfg, padded: bool) -> int:
-    """Parameters in the config's expert stacks (0 without MoE): the
-    reference's count, or with ``padded`` its stacks of ``stack_size``."""
-    mo = cfg.moe
-    if mo is None:
-        return 0
-    mats = 3 if cfg.mlp_type in ('swiglu', 'geglu') else 2
-    experts = mo.stack_size if padded else mo.n_experts
-    return ((cfg.n_layers - mo.first_k_dense) * experts * mats
-            * cfg.d_model * mo.d_ff_expert)
-
-
-def _master_bytes(cfg, compute_dtype) -> int:
-    """Bytes of dynamic w8a8's weights: an f32 master (4 bytes) for every
-    parameter but the expert stacks, which the reference reads only
-    through a cast to the compute dtype, so they are stored once in it,
-    padded stacks included."""
-    elt = torch.empty((), dtype=compute_dtype).element_size()
-    return (4 * (cfg.param_count() - _expert_params(cfg, padded=False))
-            + elt * _expert_params(cfg, padded=True))
-
-
-def _refuse_f32_masters(cfg, dev, mode: str, prequantize: bool,
-                        compute_dtype=torch.bfloat16) -> None:
-    """Dynamic w8a8 keeps every linear weight as an f32 master, as the
-    reference does: 4 bytes a parameter (gemma3-27b: 113.6 GB), expert
-    stacks at the compute dtype's bytes (:func:`_master_bytes`). Refused
-    before any draw when that exceeds the card's free memory."""
-    if mode != 'w8a8' or prequantize or dev.type != 'cuda':
+def _refuse_oversize(cfg, dev, mode: str, prequantize: bool,
+                     compute_dtype=torch.bfloat16) -> None:
+    """Refuse, before any draw, weights that exceed the card's free memory
+    in their serving form (``model.serving_bytes``, the drawn leaves
+    counted on the meta device): qwen2-vl-72b's 80 layers take 142.9 GB
+    in bf16 and 285.8 GB as dynamic w8a8's f32 masters (gemma3-27b's
+    113.7 GB too), and 71.5 GB with ``--prequantize``, which one 80 GB
+    card holds."""
+    if dev.type != 'cuda':
         return
-    need = _master_bytes(cfg, compute_dtype)
+    need = model_mod.serving_bytes(cfg, mode, prequantize, compute_dtype)
     free, _ = torch.cuda.mem_get_info(dev)
-    if need > free:
-        raise ValueError(
-            f'{cfg.name}: dynamic w8a8 keeps f32 master weights, '
-            f'{need} bytes ({cfg.param_count()} parameters, expert stacks '
-            f'at the compute dtype\'s bytes, the rest at 4), and the card '
-            f'has {free} bytes free (torch.cuda.mem_get_info); serve it in '
-            f'bf16 or w8a8 --prequantize')
+    if need <= free:
+        return
+    form = ('w8a8 --prequantize' if prequantize
+            else 'dynamic w8a8 (f32 masters)' if mode == 'w8a8' else mode)
+    raise ValueError(
+        f'{cfg.name}: its weights take {need} bytes in {form} (the drawn '
+        f'leaves in their serving form), and the card has {free} bytes '
+        f'free (torch.cuda.mem_get_info); serve a mode whose weights fit '
+        f'(w8a8 --prequantize stores int8), or cut its depth')
 
 
 def _serving_params(cfg, params, dev, *, seed: int, mode: str,
@@ -231,7 +227,7 @@ def _serving_params(cfg, params, dev, *, seed: int, mode: str,
     card; given ``params`` are converted tree-wise (``model.serving_form``;
     a tree already in that form is not copied)."""
     if params is None:
-        _refuse_f32_masters(cfg, dev, mode, prequantize, compute_dtype)
+        _refuse_oversize(cfg, dev, mode, prequantize, compute_dtype)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return model_mod.init_params(
             gen, cfg, device=dev,
@@ -263,6 +259,28 @@ def _check_attn_impl(attn_impl: str) -> None:
                          f'{attn_impl!r}')
 
 
+def _prompt_shape(cfg, batch: int, prompt_len: int) -> tuple:
+    """The prompt a config takes: (B, S) token ids, (B, S, CB) codebook
+    ids, or (B, S, d) embeddings (the stubbed frontend's rows)."""
+    if cfg.input_kind == 'codebooks':
+        return (batch, prompt_len, cfg.n_codebooks)
+    if cfg.input_kind == 'embeddings':
+        return (batch, prompt_len, cfg.d_model)
+    return (batch, prompt_len)
+
+
+def _step_input(cfg, tok: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """What a decode step feeds the model after the ids ``tok``: the ids,
+    or for embeddings input the stubbed frontend's row of each id, the
+    reference's ``one_hot(tok % d_model, d_model)`` in bf16, compared on
+    the card against ``ids`` (arange(d_model) there): no host round
+    trip."""
+    if cfg.input_kind != 'embeddings':
+        return tok
+    return ((tok.to(torch.int64) % cfg.d_model)[:, None] == ids).to(
+        torch.bfloat16)
+
+
 def serve(arch: str, *, smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, gen_len: int = 32, mode: str = 'bf16',
           prequantize: bool = False, seed: int = 0,
@@ -282,7 +300,13 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     int) replaces the synthetic batch. ``step_hook(logits, tokens)`` runs
     after the prefill and after every decode step. Prints the reference's
     report keys plus ``device``, then attaches the (batch, gen_len) int32
-    token array under ``tokens``."""
+    token array under ``tokens``.
+
+    Non-token frontends, as the reference serves them: musicgen's prompts
+    are (batch, prompt_len, CB) codebook ids and its tokens (batch,
+    gen_len, CB); qwen2-vl's prompts are (batch, prompt_len, d_model)
+    float embeddings, its tokens ids, each fed back to the next decode
+    step as the stubbed frontend's one-hot row (:func:`_step_input`)."""
     cfg = configs.get(arch, smoke=smoke)
     if attn_impl == 'flash' and (cfg.mla is not None
                                  or cfg.family == 'ssm'):
@@ -308,10 +332,14 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     if prompts is None:
         dc = synthetic.for_arch(cfg, global_batch=batch, seq_len=prompt_len)
         prompts = synthetic.make_batch(dc, 0)['inputs']
-    prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(dev)
-    if tuple(prompts.shape) != (batch, prompt_len):
-        raise ValueError(f'prompts {tuple(prompts.shape)}, expected '
-                         f'({batch}, {prompt_len})')
+    prompts = torch.as_tensor(
+        np.asarray(prompts), dtype=(torch.float32
+                                    if cfg.input_kind == 'embeddings'
+                                    else torch.int32)).to(dev)
+    want = _prompt_shape(cfg, batch, prompt_len)
+    if tuple(prompts.shape) != want:
+        raise ValueError(f'prompts {tuple(prompts.shape)}, expected {want} '
+                         f'for {arch}\'s {cfg.input_kind} input')
 
     prefill_fn = SS.make_prefill_step(cfg, yoco, rt)
     decode_fn = SS.make_decode_step(cfg, yoco, rt, greedy=greedy,
@@ -328,6 +356,7 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     # lock-step positions, made once: no host-to-device copy per step
     steps_pos = torch.arange(prompt_len, max_seq, dtype=torch.int32,
                              device=dev)
+    embed_ids = torch.arange(cfg.d_model, device=dev)
     sync()
     t0 = time.time()
     # ragged: padded prompts; K/V beyond each request's length stay masked
@@ -348,10 +377,11 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     t0 = time.time()
     for i in range(gen_len - 1):
         pos = lens + i if ragged else steps_pos[i]
+        step_in = _step_input(cfg, tok, embed_ids)
         if greedy:
-            tok, logits, cache = decode_fn(params, tok, pos, cache)
+            tok, logits, cache = decode_fn(params, step_in, pos, cache)
         else:
-            tok, logits, cache = decode_fn(params, tok, pos, cache,
+            tok, logits, cache = decode_fn(params, step_in, pos, cache,
                                            sample_gen)
         if step_hook is not None:
             step_hook(logits, tok)
@@ -771,8 +801,16 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     and no ``trace`` skip every hook. No hook reads the device: the max
     |logit| gauge keeps the sentinel's device scalar until the end.
 
-    Pools are updated in place. Returns the reference's report keys."""
+    Pools are updated in place. Returns the reference's report keys.
+    Only token streams are scheduled: qwen2-vl's embeddings and musicgen's
+    codebook grids are refused, as the reference refuses them, before
+    anything is drawn (serve them with :func:`serve`)."""
     cfg = configs.get(arch, smoke=smoke)
+    if cfg.input_kind != 'tokens':
+        raise ValueError(f'--continuous schedules token streams; {arch} '
+                         f'has input_kind={cfg.input_kind} (the stubbed '
+                         f'frontend cannot requeue/re-prefill non-token '
+                         f'prompts)')
     _refuse_mla_prequantize(arch, cfg, prequantize)
     _refuse_hybrid_prequantize(arch, cfg, prequantize)
     _refuse_recurrent_paging(arch, cfg, kv_quant, prefix_cache,

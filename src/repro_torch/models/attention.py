@@ -4,7 +4,9 @@ decode) over a paged or contiguous KV cache (port of
 sequence-parallel training branch, ``_mla_sdpa_latent_2d``, waits for
 tensor-parallel training).
 
-All projections route through ``core.yoco_linear``. Prompt attention is the
+All projections route through ``core.yoco_linear``; q and k rotate by RoPE,
+or by M-RoPE's (t, h, w) sections on an ``mrope`` config (qwen2-vl, a text
+stream's positions feeding all three). Prompt attention is the
 ``_sdpa`` einsum (the reference has no kernel there). Decode reads the
 cache either through the layout's densify view plus ``sdpa_decode`` (the
 ``einsum`` route, the oracle) or through the layout's flash kernel
@@ -251,8 +253,15 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
     if cfg.qk_norm:
         q = rmsnorm(q, p['q_norm'])
         k = rmsnorm(k, p['k_norm'])
-    q = rope_mod.apply_rope(q, positions, theta, cfg.rope_fraction)
-    k = rope_mod.apply_rope(k, positions, theta, cfg.rope_fraction)
+    if cfg.mrope:
+        # a text stream's (B, S) positions feed all three sections
+        if positions.ndim == 2:
+            positions = torch.stack([positions] * 3, dim=-1)
+        q = rope_mod.apply_mrope(q, positions, theta)
+        k = rope_mod.apply_mrope(k, positions, theta)
+    else:
+        q = rope_mod.apply_rope(q, positions, theta, cfg.rope_fraction)
+        k = rope_mod.apply_rope(k, positions, theta, cfg.rope_fraction)
     return q, k, v
 
 

@@ -107,9 +107,34 @@ def apply_mlp(params: dict, x: torch.Tensor, mlp_type: str,
 
 
 # ----------------------------------------------------------------------------
-# embeddings
+# embeddings / heads
 # ----------------------------------------------------------------------------
 def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor,
                  dtype=torch.bfloat16) -> torch.Tensor:
-    """tokens: (...,) int -> (..., d) in ``dtype``."""
-    return emb[tokens.to(torch.int64)].to(dtype)
+    """tokens: (...,) int -> (..., d) in ``dtype``; with a codebook table
+    ``emb`` (CB, V, d) (musicgen), tokens (..., CB): each codebook's rows
+    gathered and summed in the table's dtype, codebook 0 first, as the
+    reference's ``sum(parts)``, and only the sum cast."""
+    tokens = tokens.to(torch.int64)
+    if emb.ndim == 3:
+        total = 0
+        for c in range(emb.shape[0]):
+            total = total + emb[c][tokens[..., c]]
+        return total.to(dtype)
+    return emb[tokens].to(dtype)
+
+
+def is_codebook_head(name: str, w) -> bool:
+    """A codebook model's (CB, d, V) ``lm_head``."""
+    return (name == 'lm_head' and isinstance(w, torch.Tensor)
+            and w.ndim == 3)
+
+
+def lm_head(w, x: torch.Tensor, yoco: YocoConfig) -> torch.Tensor:
+    """x: (..., d) -> logits (..., V), or (..., CB, V) with a codebook head
+    ``w`` (CB, d, V). The codebook head is the reference model's float
+    einsum with the head cast to x's dtype, in every mode: no kernel and no
+    int8 (its ``quantize_tree`` skips a 3-D ``lm_head``)."""
+    if is_codebook_head('lm_head', w):
+        return torch.einsum('...d,cdv->...cv', x, w.to(x.dtype))
+    return yoco_linear.yoco_matmul(x, w, yoco)

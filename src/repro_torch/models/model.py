@@ -14,10 +14,9 @@ the reference's layer-stacked schema, ``dict(layers=dict(k=(L, P, ps, Hkv,
 dh), v=..., bt=(L, B, W)))`` (MLA configs: one latent pool ``cl`` (L, P,
 ps, r + d_rope)), or contiguous ``dict(layers=dict(k=(L, B, S_max, Hkv,
 dh), v=...))`` (MLA: ``ckv``/``krope`` (L, B, S_max, ·)); each layer works
-on views of the stacked tensors and writes them IN PLACE. Served: token
-models with GQA or MLA attention and dense MLPs or MoE FFNs
-(:func:`_check_served` refuses other inputs), gemma3's local/global
-layers included: each layer takes its own (window, rope theta) from
+on views of the stacked tensors and writes them IN PLACE. Served: every
+config the reference registers. Token models with GQA or MLA attention
+and dense MLPs or MoE FFNs, gemma3's local/global layers included: each layer takes its own (window, rope theta) from
 :func:`_gemma_layer_meta`, the windows as one device tensor a (config,
 device) (:func:`layer_windows`), so no step copies a window to the card.
 MoE configs: every layer in ``layers`` has an MoE FFN (qwen2-moe), or,
@@ -30,7 +29,12 @@ hybrid (zamba2-1.2b) runs its ``layers`` in groups of ``hybrid_group - 1``
 Mamba2 blocks, each followed by one application of the ``shared``
 attention+MLP block at its own site, then the trailing Mamba2 blocks,
 over ``dict(ssm=..., attn=...)`` (the sites' caches stacked over sites,
-one set of block tables broadcast over them).
+one set of block tables broadcast over them). The two non-token
+frontends, as in the reference: ``embeddings`` input (qwen2-vl: (B, S, d)
+precomputed patch embeddings, cast to the compute dtype; no ``embed``
+table; M-RoPE in attention) and ``codebooks`` input (musicgen: (B, S, CB)
+ids, ``embed`` (CB, V, d) summed over the codebooks, ``lm_head`` (CB, d,
+V) a float einsum giving (B, S, CB, V) logits in every mode).
 
 ``params_from_numpy`` / ``cache_from_numpy`` / ``cache_to_numpy`` carry the
 reference's trees (as numpy arrays) across, so the two packages can be run
@@ -53,6 +57,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import layers as layers_mod
 from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
                                        init_norm)
 
@@ -66,19 +71,18 @@ class ModelRuntime:
 DEFAULT_RT = ModelRuntime()
 
 
+INPUT_KINDS = ('tokens', 'embeddings', 'codebooks')
+
+
 def _check_served(cfg) -> None:
-    """Refuse, by feature, what the port does not serve yet: inputs other
-    than tokens. A family name says too little (deepseek-v3's dense prefix
-    keeps ``family='moe'`` with ``moe=None``, as in the reference)."""
-    if cfg.input_kind != 'tokens':
+    """Refuse, by feature, an input kind the reference does not have (a
+    family name says too little: deepseek-v3's dense prefix keeps
+    ``family='moe'`` with ``moe=None``, as in the reference)."""
+    if cfg.input_kind not in INPUT_KINDS:
         raise NotImplementedError(
-            f'{cfg.name}: {cfg.input_kind!r} input belongs to a later slice '
-            f'of the port (ROADMAP Queue 1 item 11); it serves token models '
-            f'with GQA or MLA attention and dense MLPs or MoE FFNs, and '
-            f'Mamba2 layers alone or with a shared attention block '
-            f'(stablelm-1.6b, stablelm-12b, starcoder2-15b, gemma3-27b with '
-            f'its sliding-window layers, qwen2-moe-a2.7b, deepseek-v3, '
-            f'mamba2-780m, zamba2-1.2b)')
+            f'{cfg.name}: {cfg.input_kind!r} input is no input kind of the '
+            f'reference; the port serves {", ".join(INPUT_KINDS)} '
+            f'(qwen2-vl-72b takes embeddings, musicgen-large codebooks)')
 
 
 def _recurrent(cfg) -> bool:
@@ -138,19 +142,32 @@ def init_params(gen: torch.Generator, cfg, *, device=None,
     is alive at a time; ``mult`` is the number of layers the weight is
     stacked over in the reference (1 for the lm_head). The draws are the
     same, in the same order, so the tree equals applying the transform to
-    the f32 tree afterwards (:func:`serving_form`).
+    the f32 tree afterwards (:func:`serving_form`). On ``device='meta'``
+    ``gen`` may be None: the tree then holds shapes and dtypes only
+    (:func:`serving_bytes`).
 
     MoE configs build the reference's stacks: ``dense_prefix`` (the
     ``first_k_dense`` dense layers, drawn first) and ``layers`` (MoE).
     Recurrent configs: ``layers``, their Mamba2 blocks, and a hybrid's
-    ``shared`` block (its per-site ``in_proj`` stays f32: no transform)."""
+    ``shared`` block (its per-site ``in_proj`` stays f32: no transform).
+
+    Input kinds, as the reference draws them: ``embeddings`` input draws
+    no ``embed`` (the frontend supplies d-wide rows); ``codebooks`` draws
+    ``embed`` (CB, V, d) and ``lm_head`` (CB, d, V), one codebook after
+    another, the head passed whole to ``transform``."""
     _check_served(cfg)
     device = device_mod.resolve(device)
     if transform is None:
         def transform(name, w, mult):
             return w
-    p = dict(embed=embed_init(gen, cfg.vocab_size, cfg.d_model,
-                              device=device))
+    p = {}
+    if cfg.input_kind == 'codebooks':
+        p['embed'] = torch.stack([
+            embed_init(gen, cfg.vocab_size, cfg.d_model, device=device)
+            for _ in range(cfg.n_codebooks)])
+    elif cfg.input_kind == 'tokens':
+        p['embed'] = embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                device=device)
     if _recurrent(cfg):
         n = _n_mamba(cfg)
         p['layers'] = [blk.init_mamba_block(
@@ -166,26 +183,59 @@ def init_params(gen: torch.Generator, cfg, *, device=None,
             leaf=lambda name, w, n=n: transform(name, w, n))
             for _ in range(n)]
     p['final_norm'] = init_norm(cfg, device=device)
-    if not cfg.tie_embeddings:
+    if cfg.input_kind == 'codebooks':
+        p['lm_head'] = transform('lm_head', torch.stack([
+            dense_init(gen, cfg.d_model, cfg.vocab_size, device=device)
+            for _ in range(cfg.n_codebooks)]), 1)
+    elif not cfg.tie_embeddings:
         p['lm_head'] = transform('lm_head', dense_init(
             gen, cfg.d_model, cfg.vocab_size, device=device), 1)
     return p
 
 
+@functools.lru_cache(maxsize=None)
+def serving_bytes(cfg, mode: str, prequantize: bool,
+                  dtype: torch.dtype) -> int:
+    """Bytes of the tree a seeded serve draws, ``init_params(...,
+    transform=serving_transform(mode, prequantize, dtype))``, counted on
+    that very draw made on the meta device, which keeps each leaf's shape
+    and dtype and allocates nothing (seconds of host time at 80 layers
+    with ``prequantize``, as each meta op runs in Python, so each set of
+    arguments is counted once)."""
+    tree = init_params(None, cfg, device='meta',
+                       transform=serving_transform(mode, prequantize, dtype))
+
+    def size(node):
+        if isinstance(node, dict):
+            node = list(node.values())
+        if isinstance(node, (list, tuple)):
+            return sum(size(v) for v in node)
+        return node.numel() * node.element_size()
+    return size(tree)
+
+
 def _map_weights(params: dict, fn, stacks: bool = True) -> dict:
     """``fn(name, w, mult)`` on every linear weight of the tree and, with
-    ``stacks``, every expert stack (``mult``: the length of the layer list
-    it sits in, as :func:`init_params` passes it)."""
+    ``stacks``, every expert stack and codebook head (``mult``: the length
+    of the layer list it sits in, as :func:`init_params` passes it)."""
     def walk(node, name='', mult=1):
         if isinstance(node, dict):
             return {k: walk(v, k, mult) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v, name, len(node)) for v in node]
         if yoco_linear.is_linear_weight(name, node) or (
-                stacks and moe_mod.is_expert_stack(name, node)):
+                stacks and _float_in_compute_dtype(name, node)):
             return fn(name, node, mult)
         return node
     return walk(params)
+
+
+def _float_in_compute_dtype(name: str, w) -> bool:
+    """The float weights a serve stores once in the compute dtype in every
+    mode, never int8: expert stacks and the codebook head (the reference
+    reads both only through a cast to the compute dtype)."""
+    return (moe_mod.is_expert_stack(name, w)
+            or layers_mod.is_codebook_head(name, w))
 
 
 def _is_quantized_leaf(x) -> bool:
@@ -246,10 +296,10 @@ def _k_major_leaf(name, w, mult):
 
 
 def cast_linear_weights(params: dict, dtype: torch.dtype) -> dict:
-    """Store every float linear weight and expert stack once in ``dtype``
-    (the bf16 mode's compute dtype), which the reference casts to on every
-    call instead; the weights in ``_F32_WEIGHTS`` (and the MoE router,
-    which is no linear weight) stay f32."""
+    """Store every float linear weight, expert stack and codebook head once
+    in ``dtype`` (the bf16 mode's compute dtype), which the reference casts
+    to on every call instead; the weights in ``_F32_WEIGHTS`` (and the MoE
+    router, which is no linear weight) stay f32."""
     return _map_weights(params, _cast_leaf(dtype))
 
 
@@ -260,7 +310,8 @@ def k_major_linear_weights(params: dict) -> dict:
     w8a8 serves these: kernel K3 reads ``w.T`` in place and kernel K4 takes
     its codes as the K-major operand, so no call copies a weight. One
     weight is copied at a time; one already K-major is not copied. Expert
-    stacks are no linear weights: :func:`serving_form` casts them."""
+    stacks and the codebook head are no linear weights:
+    :func:`serving_form` casts them."""
     return _map_weights(params, _k_major_leaf, stacks=False)
 
 
@@ -269,14 +320,15 @@ def serving_transform(mode: str, prequantize: bool, dtype: torch.dtype):
     form a serve keeps it: prequantized int8 (``quantize_tree``'s rule),
     cast to ``dtype`` in bf16 mode (:func:`cast_linear_weights`'), or
     stored K-major in dynamic w8a8 (:func:`k_major_linear_weights`'). An
-    expert stack is cast to ``dtype`` in every mode, never quantized and
-    never K-major: the reference reads its f32 masters only through a cast
-    to the compute dtype, so storing that cast once is exact."""
+    expert stack and the codebook head are cast to ``dtype`` in every mode,
+    never quantized and never K-major: the reference reads their f32
+    masters only through a cast to the compute dtype, so storing that cast
+    once is exact."""
     linear = (yoco_linear.quantize_leaf if prequantize
               else _cast_leaf(dtype) if mode == 'bf16' else _k_major_leaf)
 
     def transform(name, w, mult):
-        if moe_mod.is_expert_stack(name, w):
+        if _float_in_compute_dtype(name, w):
             return w.to(dtype)
         return linear(name, w, mult)
     return transform
@@ -285,7 +337,8 @@ def serving_transform(mode: str, prequantize: bool, dtype: torch.dtype):
 def serving_form(params: dict, mode: str, prequantize: bool,
                  dtype: torch.dtype) -> dict:
     """A given tree in the form a serve keeps it: :func:`serving_transform`
-    on each of its linear weights and expert stacks. A tree already in
+    on each of its linear weights, expert stacks and codebook head. A tree
+    already in
     that form is returned with no weight copied."""
     return _map_weights(params, serving_transform(mode, prequantize, dtype))
 
@@ -310,15 +363,21 @@ def cache_to_numpy(tree):
 # ----------------------------------------------------------------------------
 # embedding / head / stack
 # ----------------------------------------------------------------------------
-def _embed(params: dict, tokens: torch.Tensor, rt: ModelRuntime) -> torch.Tensor:
-    return params['embed'][tokens.to(torch.int64)].to(rt.compute_dtype)
+def _embed(params: dict, inputs: torch.Tensor, cfg,
+           rt: ModelRuntime) -> torch.Tensor:
+    """(B, S) token ids, (B, S, CB) codebook ids or (B, S, d) embeddings
+    (the stubbed frontend's rows, cast to the compute dtype) -> (B, S,
+    d)."""
+    if cfg.input_kind == 'embeddings':
+        return inputs.to(rt.compute_dtype)
+    return layers_mod.embed_tokens(params['embed'], inputs, rt.compute_dtype)
 
 
 def _head(params: dict, x: torch.Tensor, cfg, yoco: YocoConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return yoco_linear.yoco_matmul(x, params['embed'].t().to(x.dtype),
                                        yoco)
-    return yoco_linear.yoco_matmul(x, params['lm_head'], yoco)
+    return layers_mod.lm_head(params['lm_head'], x, yoco)
 
 
 @functools.lru_cache(maxsize=None)
@@ -528,10 +587,11 @@ def init_paged_cache_tree(cfg, batch: int, *, num_pages: int, page_size: int,
 def prefill(params: dict, batch: dict, cache: dict, cfg,
             yoco: YocoConfig = DEFAULT_YOCO, rt: ModelRuntime = DEFAULT_RT,
             last_pos=None) -> Tuple[torch.Tensor, dict]:
-    """Process the prompt ``batch['inputs']`` (B, S), fill the cache, return
-    the logits at ``last_pos`` (B,) (default: the last position); Mamba2
-    layers mask the steps past ``last_pos``."""
-    x = _embed(params, batch['inputs'], rt)
+    """Process the prompt ``batch['inputs']`` ((B, S) ids, (B, S, CB)
+    codebook ids or (B, S, d) embeddings), fill the cache, return the
+    logits ((B, V), or (B, CB, V)) at ``last_pos`` (B,) (default: the last
+    position); Mamba2 layers mask the steps past ``last_pos``."""
+    x = _embed(params, batch['inputs'], cfg, rt)
     x, cache = _backbone(params, x, cfg, yoco, rt, cache=cache,
                          decode_pos=None, last_pos=last_pos)
     if last_pos is None:
@@ -557,7 +617,7 @@ def prefill_chunk(params: dict, batch: dict, offset, limit, cache: dict, cfg,
     monolithic prefill would. Returns the logits of the chunk row holding
     position ``limit - 1`` (meaningful on the final chunk only) and the
     cache."""
-    x = _embed(params, batch['inputs'], rt)
+    x = _embed(params, batch['inputs'], cfg, rt)
     b, c = x.shape[:2]
     offset = torch.as_tensor(offset, dtype=torch.int32,
                              device=x.device).reshape(-1).expand(b)
@@ -575,8 +635,9 @@ def prefill_chunk(params: dict, batch: dict, offset, limit, cache: dict, cfg,
 def decode_step(params: dict, token: torch.Tensor, pos, cache: dict, cfg,
                 yoco: YocoConfig = DEFAULT_YOCO,
                 rt: ModelRuntime = DEFAULT_RT) -> Tuple[torch.Tensor, dict]:
-    """One decode step: ``token`` (B,) int, ``pos`` 0-d or (B,) positions."""
-    x = _embed(params, token[:, None], rt)
+    """One decode step: ``token`` (B,) ids, (B, CB) codebook ids or (B, d)
+    embeddings; ``pos`` 0-d or (B,) positions."""
+    x = _embed(params, token[:, None], cfg, rt)
     x, cache = _backbone(params, x, cfg, yoco, rt, cache=cache,
                          decode_pos=pos)
     x = apply_norm(params['final_norm'], x, cfg)

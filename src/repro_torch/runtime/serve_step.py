@@ -53,7 +53,8 @@ def logits_health(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def sample_tokens(logits: torch.Tensor, generator: torch.Generator, *,
                   temperature: float = 1.0, top_k: int = 0) -> torch.Tensor:
-    """Temperature / top-k sampling over (..., V) logits -> int32 ids.
+    """Temperature / top-k sampling over (..., V) logits -> int32 ids
+    ((B, V) -> (B,), a codebook model's (B, CB, V) -> (B, CB)).
 
     ``temperature <= 0`` is the argmax (the greedy limit); ``top_k`` in
     (0, V) keeps the k largest logits (ties with the k-th included) and
@@ -80,7 +81,11 @@ def make_decode_step(cfg, yoco: YocoConfig = DEFAULT_YOCO,
     cache) -> (next_tok int32, logits, cache)``; sampling steps take a
     ``torch.Generator`` as a 5th argument and draw from the temperature /
     top-k filtered logits (:func:`sample_tokens`). The cache is updated in
-    place."""
+    place. Either picks over the last axis: (B,) ids from (B, V) logits,
+    (B, CB) from a codebook model's (B, CB, V). ``token`` is what the model
+    takes ((B,) or (B, CB) ids, or (B, d) embeddings); for embeddings
+    input the step still returns token ids, and the (stubbed) frontend
+    owns the id-to-embedding map."""
     def decode_logits(params, token, pos, cache):
         return model_mod.decode_step(params, token, pos, cache, cfg, yoco,
                                      rt)

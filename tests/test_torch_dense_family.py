@@ -296,27 +296,43 @@ def test_serving_init_bit_equal_to_init_then_convert(arch, mode, prequant):
                        * (1.0 / math.sqrt(48)))
 
 
+def _forbid_draws(monkeypatch):
+    """Fail on a generator or a draw anywhere but on the meta device, where
+    the refusal counts the serving form's bytes and allocates nothing."""
+    init = tmodel.init_params
+
+    def meta_only(gen, cfg, *, device=None, **kw):
+        if torch.device(device).type != 'meta':
+            raise AssertionError('drew weights')
+        return init(gen, cfg, device=device, **kw)
+
+    class NoGenerator:          # a type: torch's lazy imports annotate with it
+        def __init__(self, *a, **k):
+            raise AssertionError('made a generator')
+    monkeypatch.setattr(tmodel, 'init_params', meta_only)
+    monkeypatch.setattr(torch, 'Generator', NoGenerator)
+
+
 def test_dynamic_w8a8_refused_before_any_draw(monkeypatch):
     """gemma3-27b's f32 masters (4 bytes a parameter) exceed an 80 GB
-    card's free memory: refused with the bytes, before the generator or a
-    weight is made. bf16 and --prequantize are not refused."""
+    card's free memory: refused with the bytes of the drawn tree (counted
+    on the meta device, within 1e-4 of 4 bytes a parameter of the
+    reference's count), before the generator or a weight is made. bf16 and
+    --prequantize are not refused."""
     cfg = tconfigs.get('gemma3-27b')
     free = 79 * 10 ** 9
     monkeypatch.setattr(torch.cuda, 'mem_get_info',
                         lambda dev=None: (free, 80 * 10 ** 9))
-
-    def no_draw(*a, **k):
-        raise AssertionError('drew weights')
-    monkeypatch.setattr(tmodel, 'init_params', no_draw)
-    monkeypatch.setattr(torch, 'Generator', no_draw)
-    need = 4 * cfg.param_count()
+    _forbid_draws(monkeypatch)
+    need = tmodel.serving_bytes(cfg, 'w8a8', False, torch.bfloat16)
+    assert 0 <= need - 4 * cfg.param_count() < 1e-4 * need
     assert need > 113 * 10 ** 9
     with pytest.raises(ValueError, match=f'{need} bytes.*{free} bytes'):
         tserve._serving_params(cfg, None, torch.device('cuda'), seed=0,
                                mode='w8a8', prequantize=False,
                                compute_dtype=torch.bfloat16)
     for arch in ('stablelm-12b', 'starcoder2-15b'):
-        tserve._refuse_f32_masters(tconfigs.get(arch),
-                                   torch.device('cuda'), 'w8a8', False)
+        tserve._refuse_oversize(tconfigs.get(arch),
+                                torch.device('cuda'), 'w8a8', False)
     for mode, prequant in (('bf16', False), ('w8a8', True)):
-        tserve._refuse_f32_masters(cfg, torch.device('cuda'), mode, prequant)
+        tserve._refuse_oversize(cfg, torch.device('cuda'), mode, prequant)

@@ -30,9 +30,19 @@ def _is_k_major(wq: torch.Tensor) -> bool:
     return wq.transpose(-1, -2).is_contiguous()
 
 
-@pytest.mark.parametrize('shape', [(64, 48), (40, 1), (3, 40, 24)],
-                         ids=['2d', 'one_column', 'stacked'])
-def test_prequantize_weight_is_k_major_with_reference_values(shape):
+@pytest.mark.parametrize(
+    'shape,sliced',
+    [((64, 48), False), ((40, 1), False), ((3, 40, 24), False),
+     ((64, 48), True), ((3, 40, 24), True)],
+    ids=['2d', 'one_column', 'stacked', '2d_sliced', 'stacked_sliced'])
+def test_prequantize_weight_is_k_major_with_reference_values(
+        monkeypatch, shape, sliced):
+    """``sliced``: five output columns a slice, a ragged last one, as a
+    weight over ``PREQUANT_SLICE_BYTES`` is quantized; bit-equal all the
+    same."""
+    if sliced:
+        monkeypatch.setattr(tyl, 'PREQUANT_SLICE_BYTES',
+                            5 * 4 * int(np.prod(shape[:-1])))
     w = np.random.RandomState(11).randn(*shape).astype(np.float32)
     want = ryl.prequantize_weight(jnp.asarray(w))
     got = tyl.prequantize_weight(torch.from_numpy(w))

@@ -518,14 +518,15 @@ def test_mla_chunk_matches_reference(attn_impl):
 
 
 def test_uncut_config_is_refused_by_feature():
-    """Refusals go by feature, not by family name: input other than tokens
-    is refused; deepseek-v3 with its MoE layers is served, its params the
-    reference's ``dense_prefix`` and ``layers`` stacks leaf for leaf in
-    shape; the dense-prefix cut keeps ``family='moe'`` and is served."""
+    """Refusals go by feature, not by family name: an input kind the
+    reference does not have is refused; deepseek-v3 with its MoE layers is
+    served, its params the reference's ``dense_prefix`` and ``layers``
+    stacks leaf for leaf in shape; the dense-prefix cut keeps
+    ``family='moe'`` and is served."""
     full = tconfigs.get('deepseek-v3-671b', smoke=True)
-    with pytest.raises(NotImplementedError, match="'embeddings' input"):
+    with pytest.raises(NotImplementedError, match="'pixels' input"):
         tmodel.init_params(torch.Generator(), dataclasses.replace(
-            full, input_kind='embeddings'), device='cpu')
+            full, input_kind='pixels'), device='cpu')
     got = tmodel.init_params(torch.Generator().manual_seed(0), full,
                              device='cpu')
     want = jax.eval_shape(lambda: rmodel.init_params(

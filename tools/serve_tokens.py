@@ -14,25 +14,31 @@ Serves (``serve_continuous``, seed 0, page 8, 8 slots, the synthetic
 ragged stream of 8 requests with prompts up to 128 tokens, generation up
 to 16): stablelm-1.6b in bf16, w8a8 --prequantize and dynamic w8a8, and
 deepseek-v3's first 3 layers (MLA, the MoE layers dropped) in bf16 and
-dynamic w8a8. ``--compare`` prints one line a serve and exits non-zero
-unless every request's tokens are equal.
+dynamic w8a8. Beside them, SHA-256 digests of ``prequantize_weight``'s
+codes and scales for seeded f32 weights of stablelm-1.6b's and
+qwen2-vl-72b's lm_head shapes, quantized on the card. ``--compare`` prints
+one line a serve or weight and exits non-zero unless every request's
+tokens and every digest are equal.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import sys
 
 RUNS = (('stablelm-1.6b', 'bf16', False), ('stablelm-1.6b', 'w8a8', True),
         ('stablelm-1.6b', 'w8a8', False), ('deepseek-v3-dense3', 'bf16', False),
         ('deepseek-v3-dense3', 'w8a8', False))
+PREQUANT_SHAPES = ((2048, 100352), (8192, 152064))
 
 
 def dump(path: str) -> None:
     import torch
 
     from repro_torch import configs
+    from repro_torch.core.yoco_linear import prequantize_weight
     from repro_torch.launch import serve as SV
 
     full = configs.get('deepseek-v3-671b')
@@ -50,6 +56,14 @@ def dump(path: str) -> None:
         torch.cuda.synchronize()
         out[f'{arch} {mode} prequantize={prequant}'] = {
             str(rid): toks for rid, toks in res['outputs'].items()}
+    for k, n in PREQUANT_SHAPES:
+        gen = torch.Generator(device='cuda').manual_seed(0)
+        q = prequantize_weight(torch.randn((k, n), generator=gen,
+                                           device='cuda'))
+        out[f'prequantize_weight ({k}, {n})'] = {
+            name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+            for name, t in (('codes', q.wq.t()), ('scale', q.scale))}
+        del q
     with open(path, 'w') as f:
         json.dump(out, f)
 
@@ -63,7 +77,7 @@ def compare(a: str, b: str) -> int:
     for key in sorted(set(x) | set(y)):
         same = x.get(key) == y.get(key)
         n = len(x.get(key) or {})
-        print(f'{key}: {"equal" if same else "DIFFERENT"} ({n} requests)')
+        print(f'{key}: {"equal" if same else "DIFFERENT"} ({n} entries)')
         bad += not same
     return 1 if bad else 0
 
