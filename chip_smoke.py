@@ -25,6 +25,11 @@ reference's are plain jnp. The non-token frontends: the static
 layers, ``qwen2-vl-72b-L12``, in every mode, and all 80 with
 --prequantize) and of musicgen-large (four codebooks) at their published
 widths (K7 at G = 8, dh = 128; K2-K4 up to K = 29568 and N = 152064).
+The paper-fidelity modes: continuous serving of stablelm-1.6b at its
+published width in ``qat`` (K3 for every activation and weight, a float
+matmul) and ``analog_sim`` (w8a8's K2-K4 products, then the analog noise
+and TDC epilogue in plain torch), the analog VMM at the paper's size and
+the straight-through backward passes.
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -98,7 +103,9 @@ Phases, in order; any failure exits non-zero and prints no result:
              smoke config in f32 (the dense family's three, qwen2-moe,
              deepseek-v3 with its MoE layers, mamba2 and zamba2 too, and
              zamba2 over the int8 tier): prefill
-             plus decode in every served mode,
+             plus decode in every served mode (stablelm and the dense
+             prefix also in qat and analog_sim, stablelm's analog_sim
+             with --prequantize too),
              decode over the int8 tier (hot window 1), and a prefix hit
              served by chunked prefill, and the static serve() with
              --attn-impl flash, lock-step and --ragged, in bf16 and w8a8
@@ -106,7 +113,10 @@ Phases, in order; any failure exits non-zero and prints no result:
              equal greedy tokens. The card runs first; the CPU
              run takes the card's int8 codes (K3, the tier's page
              quantize) where its own differ by rounding-boundary flips
-             only, and fails on any other difference (see SMOKE_TOL).
+             only, and fails on any other difference (see SMOKE_TOL);
+             in analog_sim it also takes the card's noise draws (a CPU
+             generator draws another stream) and, likewise, its TDC
+             codes.
 4. profile — the device busy share and device kernels of a short
              full-width serve under torch.profiler: stablelm in bf16, w8a8
              --prequantize and dynamic w8a8, the dense prefix in bf16 and
@@ -210,6 +220,22 @@ Phases, in order; any failure exits non-zero and prints no result:
              served with --prequantize (71.5 GB of int8 weights, flash):
              finite logits, exact launches, peak memory beside the card's
              total, decode_step_ms beside the weights' read bound.
+5f. fidelity — the paper-fidelity modes on stablelm-1.6b at its
+             published width (fidelity_phase): 8 requests of 128-token
+             prompts, 16 generated, in dynamic w8a8, qat, analog_sim
+             (twice at noise seed 0, once at seed 1), w8a8 --prequantize
+             and analog_sim --prequantize; every request finishes, no
+             non-finite logits, exact K1-K4 launches (analog_sim as w8a8;
+             qat K3 97 + 169 a forward and no K2 or K4), equal tokens at
+             one seed and different logits at another, the share of
+             tokens equal to w8a8's, the device busy share of the qat and
+             analog_sim serves; layer 0's seven linears in analog_sim
+             within (0, 3%) of full scale from w8a8; the analog VMM at the
+             paper's 1024 x 256 (64 rows) over 256 Monte-Carlo chips, its
+             worst code error within 0.79% + 0.4% of full scale, ideal
+             circuits within one code, card vs CPU on the same draws equal
+             up to boundary flips; a qat and a w8a8 linear's STE backward
+             at K = N = 2048, card vs CPU within 1e-5.
 6. chaos   — continuous serving under the fault injector at the published
              width, each serve beside a clean run of the same stream and
              weights (chaos_phase): stablelm bf16 with the int8 tier and
@@ -231,15 +257,15 @@ runs on, with that path's launches; K9 on both pool dtypes), a
 ``{"redesigned": [...]}`` line (every row of the redesigned kernels, all
 ten), a ``{"nan": [...]}``, a ``{"serve": [...]}``, a ``{"dense":
 [...]}``, a ``{"moe": [...]}``, a ``{"static_serve": [...]}``, a
-``{"chaos": [...]}``, a ``{"ssm": [...]}`` and a ``{"frontends": [...]}``
-line, the
+``{"chaos": [...]}``, a ``{"ssm": [...]}``, a ``{"frontends": [...]}``
+and a ``{"fidelity": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
 reports) go to ``build/chip_smoke.json``.
 
 Usage: python3 chip_smoke.py (every phase runs, always).
        python3 chip_smoke.py --phase
-       kernels|profile|static|nan|chaos|dense|moe|ssm|frontends:
+       kernels|profile|static|nan|chaos|dense|moe|ssm|frontends|fidelity:
        the build and that phase alone (its report in
        ``build/chip_smoke_<phase>.json``, no result line), to rehearse a
        kernel or to measure another tree with this script copied into its
@@ -1955,6 +1981,54 @@ class _K3Codes:
         self._kq.quantize_rows = self._orig
 
 
+class _AnalogDraws:
+    """While active, records every ``analog_sim`` linear's draws
+    (``yoco_linear.analog_normals``) and TDC codes
+    (``yoco_linear.tdc_quantize``), each tagged with the forward that made
+    it (``forward``, set by the caller). Given the card run's record as
+    ``follow``, each call takes the card's draws instead (a CPU generator
+    draws another stream than the card's), and returns the card's TDC codes
+    through :func:`_match_codes`, as :class:`_K3Codes` does K3's."""
+
+    def __init__(self, follow=None):
+        self.forward, self.draws, self.codes, self.flips = 0, [], [], []
+        self._follow = follow
+
+    def __enter__(self):
+        from repro_torch.core import yoco_linear as yl
+        self._yl = yl
+        self._orig = yl.analog_normals, yl.tdc_quantize
+
+        def normals(seed, word, shape, need_gain, device):
+            if self._follow is None:
+                n1, n2 = self._orig[0](seed, word, shape, need_gain, device)
+                self.draws.append((self.forward, word, n1.cpu(),
+                                   None if n2 is None else n2.cpu()))
+                return n1, n2
+            check(len(self.draws) < len(self._follow.draws),
+                  'more analog draws on the CPU than on the card')
+            fwd, card_word, n1, n2 = self._follow.draws[len(self.draws)]
+            check(fwd == self.forward and card_word == word
+                  and tuple(n1.shape) == tuple(shape),
+                  f'analog draw {len(self.draws)}: forward {self.forward}, '
+                  f'word {word} here, {fwd}, {card_word} on the card')
+            self.draws.append((fwd, word, n1, n2))
+            return n1.to(device), None if n2 is None else n2.to(device)
+
+        def tdc(y, bits):
+            q, scale = self._orig[1](y, bits)
+            if self._follow is not None:
+                fwd, card = self._follow.codes[len(self.codes)]
+                q = _match_codes(q, card.to(q.device), fwd, self.flips)
+            self.codes.append((self.forward, q.cpu()))
+            return q, scale
+        yl.analog_normals, yl.tdc_quantize = normals, tdc
+        return self
+
+    def __exit__(self, *exc):
+        self._yl.analog_normals, self._yl.tdc_quantize = self._orig
+
+
 def _hold_smoke(tag, cpu, gpu):
     """Hold every forward of a smoke run to SMOKE_TOL and the greedy tokens
     to equality; returns the report row's numbers. ``cpu``, ``gpu``:
@@ -1969,6 +2043,14 @@ def _hold_smoke(tag, cpu, gpu):
     check(bool(torch.equal(cpu[1], gpu[1])), f'{tag}: greedy tokens differ')
     return dict(max_abs_logit_err=max(per), tol=SMOKE_TOL,
                 code_flips=cpu[3], per_step=per)
+
+
+# the paper-fidelity modes the smoke phase adds on stablelm and the MLA
+# prefix (which serves no --prequantize)
+FIDELITY_SMOKE_MODES = (('qat', False), ('analog_sim', False),
+                        ('analog_sim', True))
+MLA_SMOKE_MODES = (('bf16', False), ('w8a8', False), ('qat', False),
+                   ('analog_sim', False))
 
 
 def smoke_phase(torch, arch=ARCH, modes=(('bf16', False), ('w8a8', True),
@@ -1991,10 +2073,10 @@ def smoke_phase(torch, arch=ARCH, modes=(('bf16', False), ('w8a8', True),
     for mode, prequant in modes:
         yoco = YocoConfig(mode=mode, compute_dtype=f32)
         rt = M.ModelRuntime(attn_impl='flash', compute_dtype=f32)
-        # the trees serve() loads: int8 in situ, or dynamic w8a8's K-major
-        # float weights (K4 refuses any other layout on the card)
+        # the trees serve() loads: int8 in situ, or the dynamic modes'
+        # K-major float weights (K4 refuses any other layout on the card)
         host = (yoco_linear.quantize_tree(base) if prequant
-                else M.k_major_linear_weights(base) if mode == 'w8a8'
+                else M.k_major_linear_weights(base) if mode != 'bf16'
                 else base)
         runs = {}
         for dev in ('cuda', 'cpu'):     # the CPU run follows the card's codes
@@ -2007,14 +2089,15 @@ def smoke_phase(torch, arch=ARCH, modes=(('bf16', False), ('w8a8', True),
                 kv.alloc_blocks(s, max_blocks)
             cache = layouts.with_block_tables(cache, kv.tables)
             follow = runs['cuda'][2] if dev == 'cpu' else None
-            with _K3Codes(follow) as k3:
+            analog = runs['cuda'][4] if dev == 'cpu' else None
+            with _K3Codes(follow) as k3, _AnalogDraws(analog) as an:
                 logits, cache = M.prefill(params,
                                           dict(inputs=prompts.to(dev)),
                                           cache, cfg, yoco, rt)
                 rows, toks = [logits.cpu()], []
                 tok = torch.argmax(logits, -1)
                 for i in range(steps):
-                    k3.forward = i + 1
+                    k3.forward = an.forward = i + 1
                     toks.append(tok.cpu())
                     pos = torch.full((b,), plen + i, dtype=torch.int32,
                                      device=dev)
@@ -2023,7 +2106,12 @@ def smoke_phase(torch, arch=ARCH, modes=(('bf16', False), ('w8a8', True),
                     rows.append(logits.cpu())
                     tok = torch.argmax(logits, -1)
             runs[dev] = (torch.stack(rows), torch.stack(toks), k3.codes,
-                         k3.flips)
+                         k3.flips + an.flips, an)
+        check(mode != 'analog_sim' or len(runs['cpu'][4].draws)
+              == len(runs['cuda'][4].draws) > 0,
+              f'smoke {arch} {mode}: the CPU run took '
+              f'{len(runs["cpu"][4].draws)} of the card\'s '
+              f'{len(runs["cuda"][4].draws)} analog draws')
         results.append(dict(arch=arch, mode=mode, prequantize=prequant,
                             **_hold_smoke(f'smoke {arch} {mode} prequant='
                                           f'{prequant}', runs['cpu'],
@@ -2316,7 +2404,11 @@ def _gqa_launches(out, mode, prequant, chunks, chunked_admits, cfg=None):
     their combine), and per forward (a decode step, a monolithic prefill
     or a chunk) :func:`gqa_counts`' linears over its distinct activations:
     at stablelm-1.6b's 24 layers 169 over 97, so K3 97 + K2 169 with
-    --prequantize, K3 97 + 169 (the weights) + K4 169 dynamic."""
+    --prequantize, K3 97 + 169 (the weights) + K4 169 dynamic. analog_sim
+    launches what w8a8 does (its noise epilogue is plain torch); qat K3 97
+    + 169 (activations, then each weight's fake quantization, with or
+    without --prequantize) and neither K2 nor K4 (its product is a float
+    matmul)."""
     layers, (per_fwd, acts_fwd) = (
         (LAYERS_FULL, (LINEARS_PER_FORWARD, ACTIVATIONS_PER_FORWARD))
         if cfg is None else (cfg.n_layers, gqa_counts(cfg)))
@@ -2328,11 +2420,13 @@ def _gqa_launches(out, mode, prequant, chunks, chunked_admits, cfg=None):
                 + chunks)
     linears = per_fwd * forwards
     activations = acts_fwd * forwards
-    if mode == 'w8a8' and prequant:
+    if mode in ('w8a8', 'analog_sim') and prequant:
         want.update(quantize_rows=activations, int8_matmul=linears)
-    elif mode == 'w8a8':
+    elif mode in ('w8a8', 'analog_sim'):
         want.update(quantize_rows=activations + linears,
                     yoco_vmm_int8=linears)
+    elif mode == 'qat':
+        want.update(quantize_rows=activations + linears)
     return want
 
 
@@ -3660,6 +3754,326 @@ def frontends_phase(torch, build):
     return rows, totals
 
 
+# ----------------------------------------------------------------------------
+# phase 5f: the paper-fidelity modes (qat, analog_sim) at full width
+# ----------------------------------------------------------------------------
+FIDELITY_PATH = f'{ARCH} fidelity modes'
+FIDELITY_REQUESTS, FIDELITY_GEN = 8, 16
+# (mode, prequantize, noise_seed, role, generated tokens): the two w8a8
+# serves the others' tokens are compared with; analog_sim served twice at
+# one seed and once, to its first decode step, at another; the 'measured'
+# ones are served once more under torch.profiler for the busy share
+FIDELITY_RUNS = (
+    ('w8a8', False, 0, 'baseline', FIDELITY_GEN),
+    ('qat', False, 0, 'measured', FIDELITY_GEN),
+    ('analog_sim', False, 0, 'measured', FIDELITY_GEN),
+    ('analog_sim', False, 0, 'same seed', FIDELITY_GEN),
+    ('analog_sim', False, 1, 'other seed', 2),
+    ('w8a8', True, 0, 'baseline', FIDELITY_GEN),
+    ('analog_sim', True, 0, 'measured', FIDELITY_GEN),
+)
+# the reference's bounds: an analog_sim linear within 3% of full scale of
+# its digital product (tests/test_yoco_linear.py), the analog VMM's total
+# error 0.79% + 0.4% of the TDC's full scale (tests/test_analog.py)
+ANALOG_LINEAR_BOUND = 0.03
+ANALOG_VMM_BOUND = 0.0079 + 0.004
+VMM_CHIPS = 256
+VMM_TOL = 1e-5          # volts: a card-vs-CPU code flip must lie this close
+                        # to a TDC boundary
+
+
+class _DecodeLogits:
+    """While active, keeps a copy of the logits of the first ``steps``
+    decode steps of every ``serve_continuous`` (it wraps the decode step
+    the serve builds)."""
+
+    def __init__(self, SV, steps=2):
+        self.rows, self._ss, self._steps = [], SV.SS, steps
+
+    def __enter__(self):
+        self._orig = self._ss.make_decode_step
+
+        def make(*a, **k):
+            step = self._orig(*a, **k)
+
+            def tapped(*args):
+                tok, logits, cache = step(*args)
+                if len(self.rows) < self._steps:
+                    self.rows.append(logits.float().clone())
+                return tok, logits, cache
+            return tapped
+        self._ss.make_decode_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self._ss.make_decode_step = self._orig
+
+
+def _token_share(a, b):
+    """The share of generated token positions where two serves of one
+    stream agree."""
+    same = total = 0
+    for rid, toks in a['outputs'].items():
+        other = b['outputs'][rid]
+        n = min(len(toks), len(other))
+        same += sum(int(x == y) for x, y in zip(toks[:n], other[:n]))
+        total += max(len(toks), len(other))
+    return same / max(total, 1)
+
+
+def _analog_linear_check(torch, trees):
+    """Layer 0's seven linears at a decode activation (8 rows, bf16), each
+    in analog_sim against w8a8 on the same weight (dynamic and with
+    --prequantize): the largest difference over the w8a8 output's full
+    scale must lie in (0, ANALOG_LINEAR_BOUND)."""
+    from repro_torch.core import yoco_linear as yl
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    out = []
+    for prequant, tree in trees:
+        layer = tree['layers'][0]
+        for grp, name in (('attn', 'wq'), ('attn', 'wk'), ('attn', 'wv'),
+                          ('attn', 'wo'), ('mlp', 'w_gate'), ('mlp', 'w_up'),
+                          ('mlp', 'w_down')):
+            w = layer[grp][name]
+            k = (w.wq if isinstance(w, yl.QuantizedWeight) else w).shape[0]
+            x = torch.randn((8, 1, k), generator=gen, device='cuda',
+                            dtype=torch.float32).to(bf16)
+            yw, ya = (yl.linear(x, w, cfg=yl.YocoConfig(
+                mode=mode, compute_dtype=bf16)).float()
+                for mode in ('w8a8', 'analog_sim'))
+            rel = float((ya - yw).abs().max() / yw.abs().max())
+            check(0.0 < rel < ANALOG_LINEAR_BOUND,
+                  f'analog_sim {name} (prequant={prequant}): {rel} of full '
+                  f'scale from its w8a8 output, outside (0, '
+                  f'{ANALOG_LINEAR_BOUND})')
+            out.append(dict(linear=name, prequantize=prequant, K=k,
+                            rel_to_w8a8=rel))
+    return out
+
+
+def _analog_vmm_check(torch):
+    """The paper's 1024 x 256 VMM, x of 64 rows, on the card: ideal
+    circuits within one code of the exact product's codes; over
+    VMM_CHIPS Monte-Carlo chips (each with its thermal and share-line
+    draws) the worst code error within ANALOG_VMM_BOUND of the TDC's
+    full scale; and two chips' draws replayed on the CPU give the card's
+    codes, up to one-step flips whose volts lie within VMM_TOL of a TDC
+    boundary."""
+    from repro_torch.core import analog
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    x = torch.randint(0, 256, (64, 1024), generator=gen, device='cuda')
+    w = torch.randint(0, 256, (1024, 256), generator=gen, device='cuda')
+    ideal = analog.analog_vmm_ideal_codes(x, w)
+    ideal_err = int((analog.analog_vmm(x, w) - ideal).abs().max())
+    check(ideal_err <= 1, f'analog_vmm with ideal circuits is {ideal_err} '
+                          f'codes from the exact product')
+    errs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(VMM_CHIPS):
+        chip_gen = torch.Generator(device='cuda').manual_seed(1000 + c)
+        errs.append((analog.analog_vmm(x, w, chip_gen) - ideal).abs().amax())
+    errs = torch.stack(errs).double() / 255.0
+    torch.cuda.synchronize()
+    vmm_ms = (time.perf_counter() - t0) * 1e3 / VMM_CHIPS
+    worst = float(errs.max())
+    check(worst <= ANALOG_VMM_BOUND, f'analog_vmm: worst code error '
+                                     f'{worst} of full scale over '
+                                     f'{VMM_CHIPS} chips > '
+                                     f'{ANALOG_VMM_BOUND}')
+    flips = []
+    full_scale = 1024 // analog.MACRO_ROWS * analog.VDD
+    for c in range(2):
+        chip, normals = analog.vmm_draws(
+            torch.Generator(device='cuda').manual_seed(1000 + c), (64,),
+            1024, 256)
+        card, volts = analog.analog_vmm(x, w, chip=chip, normals=normals,
+                                        return_volts=True)
+        chip_cpu = analog.ChipSample(**{
+            k: v.cpu() for k, v in vars(chip).items()})
+        mine = analog.analog_vmm(x.cpu(), w.cpu(), chip=chip_cpu,
+                                 normals=[n.cpu() for n in normals])
+        step = (mine - card.cpu()).abs()
+        lvl = volts.cpu().double() / full_scale * 255
+        near = (lvl - lvl.floor() - 0.5).abs() <= VMM_TOL / full_scale * 255
+        check(int(step.max()) <= 1 and bool(near[step > 0].all()),
+              f'analog_vmm chip {c}: card and CPU codes differ beyond '
+              f'boundary flips ({int((step > 0).sum())} codes, max step '
+              f'{int(step.max())})')
+        flips.append(int((step > 0).sum()))
+    check(sum(flips) <= max(4, 2 * x.shape[0] * w.shape[1] // 100),
+          f'analog_vmm: {flips} boundary flips card vs CPU')
+    return dict(shape=dict(M=64, K=1024, N=256), chips=VMM_CHIPS,
+                worst_rel_code_err=worst,
+                mean_rel_code_err=float(errs.mean()),
+                bound=ANALOG_VMM_BOUND, ideal_max_code_err=ideal_err,
+                ms_per_vmm=vmm_ms, card_vs_cpu_flips=flips)
+
+
+def _ste_backward_check(torch):
+    """One qat and one w8a8 linear's straight-through backward at
+    stablelm's width (8 rows, K = N = 2048, f32, a K-major weight), card
+    against CPU: equal forward, gradients within 1e-5 of their full
+    scale (float matmuls in another order)."""
+    from repro_torch.core import yoco_linear as yl
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((8, 2048), generator=gen)
+    w = yl.k_major(torch.randn((2048, 2048), generator=gen) / 2048 ** 0.5)
+    g = torch.randn((8, 2048), generator=gen)
+    out = []
+    for mode in ('qat', 'w8a8'):
+        res = {}
+        for dev in ('cuda', 'cpu'):
+            # new leaves (on the CPU ``to`` returns the tensor itself)
+            xt = x.to(dev).detach().requires_grad_()
+            wt = w.to(dev).detach().requires_grad_()
+            y = yl.linear(xt, wt, cfg=yl.YocoConfig(
+                mode=mode, compute_dtype=torch.float32))
+            (y * g.to(dev)).sum().backward()
+            res[dev] = [t.detach().cpu() for t in (y, xt.grad, wt.grad)]
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(res['cuda'], res['cpu'])]
+        check(max(errs) <= 1e-5, f'{mode} STE backward: card vs CPU '
+                                 f'(y, dx, dw) differ by {errs} of full '
+                                 f'scale')
+        out.append(dict(mode=mode, rel_err_y_dx_dw=errs))
+    return out
+
+
+def fidelity_phase(torch, build):
+    """The paper-fidelity modes at stablelm-1.6b's published width
+    (random weights from seed 0, f32 masters stored K-major for the dynamic
+    modes, int8 with --prequantize): ``serve_continuous`` of 8 requests of
+    128-token prompts, 16 generated, page 8, in each of FIDELITY_RUNS after
+    a warm-up a mode. Gates: every request finishes, no lane has a
+    non-finite logits row, K1-K4 launched exactly as the mode must
+    (:func:`_gqa_launches`), analog_sim served twice at one noise seed
+    gives equal tokens and at another seed different logits, layer 0's
+    linears in analog_sim within (0, 3%) of their w8a8 outputs
+    (:func:`_analog_linear_check`), the analog VMM at the paper's size
+    (:func:`_analog_vmm_check`) and the STE backward passes
+    (:func:`_ste_backward_check`). Reports each serve's tokens_per_s,
+    decode_step_ms, the share of its tokens equal to w8a8's, and the
+    device busy share of the measured ones under torch.profiler. Returns
+    (rows, launch totals)."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.core import yoco_linear as yl
+    from repro_torch.data import synthetic
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    cfg = configs.get(ARCH, smoke=False)
+    base = M.init_params(torch.Generator(device='cuda').manual_seed(0), cfg,
+                         device='cuda')
+    trees = {False: M.k_major_linear_weights(base),
+             True: yl.quantize_tree(base)}
+    del base
+    gc.collect()
+    prompts = synthetic.make_batch(synthetic.for_arch(
+        cfg, global_batch=FIDELITY_REQUESTS, seq_len=128), 0)['inputs']
+    prompts = prompts.numpy()
+
+    def stream(gen=FIDELITY_GEN):
+        return [SV.Request(rid=i, prompt=prompts[i], target_gen=gen)
+                for i in range(FIDELITY_REQUESTS)]
+
+    totals = {k: 0 for k in build.LAUNCHES}
+    rows, outs, warmed = [], {}, set()
+    for mode, prequant, seed, role, gen in FIDELITY_RUNS:
+        kw = dict(smoke=False, slots=8, prompt_len=128, gen_len=gen,
+                  page_size=8, mode=mode, prequantize=prequant,
+                  noise_seed=seed, attn_impl='flash',
+                  params=trees[prequant], quiet=True)
+        if (mode, prequant) not in warmed:
+            SV.serve_continuous(ARCH, n_requests=1, **dict(kw, gen_len=2))
+            warmed.add((mode, prequant))
+        torch.cuda.synchronize()
+        tag = (f'fidelity {ARCH} {mode} prequant={prequant} '
+               f'noise_seed={seed}')
+        build.reset_counts()
+        t_run = time.perf_counter()
+        with _DecodeLogits(SV) as tap:
+            out = SV.serve_continuous(ARCH, request_stream=stream(gen), **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_run) * 1e3
+        launches = dict(build.LAUNCHES)
+        check(out['completed'] == FIDELITY_REQUESTS and out['failed'] == 0
+              and out['rejected'] == 0 and out['cancelled'] == 0,
+              f'{tag}: not every request finished: {out["events"]}')
+        check(out['quarantined'] == 0,
+              f'{tag}: {out["quarantined"]} lanes had non-finite logits')
+        check(all(bool(torch.isfinite(r).all()) for r in tap.rows),
+              f'{tag}: non-finite decode logits')
+        want = {k: 0 for k in build.LAUNCHES}
+        want.update(_gqa_launches(out, mode, prequant, 0, 0))
+        for name, n in want.items():
+            check(launches[name] == n,
+                  f'{tag}: {name} launched {launches[name]} times, '
+                  f'expected {n} ({out["steps"]} decode steps)')
+        for k in totals:
+            totals[k] += launches[k]
+        outs[(mode, prequant, seed, role)] = out, tap.rows
+        baseline = outs[('w8a8', prequant, 0, 'baseline')][0]
+        decode_s = out['wall_s'] - out['prefill_s']
+        row = dict(
+            arch=ARCH, mode=mode, prequantize=prequant, noise_seed=seed,
+            role=role, slots=8, requests=FIDELITY_REQUESTS, prompt_len=128,
+            gen_len=gen, tokens_per_s=out['tokens_per_s'],
+            wall_s=out['wall_s'], prefill_s=out['prefill_s'],
+            steps=out['steps'],
+            decode_step_ms=decode_s / max(out['steps'], 1) * 1e3,
+            tokens_equal_to_w8a8=(_token_share(out, baseline)
+                                  if gen == FIDELITY_GEN else None),
+            launches={k: v for k, v in launches.items() if v})
+        if role == 'measured':
+            # the device busy share: the kernels' summed device time under
+            # torch.profiler over the wall time of the run above
+            by_name = profiled_kernels(torch, lambda: SV.serve_continuous(
+                ARCH, request_stream=stream(), **kw))
+            busy_ms = sum(v[0] for v in by_name.values()) if by_name \
+                else None
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+            row.update(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                       device_busy_share=(None if busy_ms is None
+                                          else busy_ms / wall_ms),
+                       kernel_launches=sum(v[1] for v in by_name.values()),
+                       top=[dict(kernel=k[:80], device_ms=v[0], calls=v[1])
+                            for k, v in top])
+        rows.append(row)
+        print(f'fidelity run: {json.dumps(row)}', flush=True)
+    (a, la), (b, lb), (c, lc) = (
+        outs[('analog_sim', False, s, r)] for s, r in
+        ((0, 'measured'), (0, 'same seed'), (1, 'other seed')))
+    check(a['outputs'] == b['outputs'], 'analog_sim served twice at noise '
+                                        'seed 0 gave different tokens')
+    # the first decode step: the other-seed serve stops after it
+    check(not torch.equal(la[0], lc[0]),
+          'analog_sim at noise seeds 0 and 1 gave equal decode logits')
+    seeds = dict(same_seed_tokens_equal=True,
+                 same_seed_logits_equal=all(bool(torch.equal(x, y))
+                                            for x, y in zip(la, lb)),
+                 other_seed_max_logit_diff=float((la[0] - lc[0]).abs().max()))
+    rows.append(dict(noise_seeds=seeds))
+    print(f'fidelity seeds: {json.dumps(seeds)}', flush=True)
+    rows.append(dict(analog_linears=_analog_linear_check(
+        torch, sorted(trees.items()))))
+    print(f'fidelity linears: {json.dumps(rows[-1])}', flush=True)
+    del trees, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.append(dict(analog_vmm=_analog_vmm_check(torch)))
+    print(f'fidelity vmm: {json.dumps(rows[-1])}', flush=True)
+    rows.append(dict(ste_backward=_ste_backward_check(torch)))
+    print(f'fidelity ste: {json.dumps(rows[-1])}', flush=True)
+    rows.append(dict(phase_s=time.perf_counter() - t0))
+    print(f'fidelity phase: {rows[-1]["phase_s"]:.1f} s', flush=True)
+    return rows, totals
+
+
 # the static serve() runs at full width: (arch, mode, prequantize,
 # attn_impl, ragged, sampling)
 STATIC_RUNS = (
@@ -4227,6 +4641,11 @@ def frontends_rows(torch, kmods):
     return frontends_phase(torch, kmods[3])[0]
 
 
+def fidelity_rows(torch, kmods):
+    """Phase 5f, the paper-fidelity modes at full width, alone."""
+    return fidelity_phase(torch, kmods[3])[0]
+
+
 # ``--phase NAME``: the build and that phase alone, to compare two trees
 # (copy this script into the other tree's root) or to rehearse a kernel
 def chaos_rows(torch, kmods):
@@ -4237,7 +4656,7 @@ def chaos_rows(torch, kmods):
 PHASES = dict(kernels=all_kernel_phases, profile=all_profiles,
               static=static_rows, nan=nan_kernel_phase, chaos=chaos_rows,
               dense=dense_rows, moe=moe_rows, ssm=ssm_rows,
-              frontends=frontends_rows)
+              frontends=frontends_rows, fidelity=fidelity_rows)
 
 
 def print_redesigned(rows):
@@ -4286,9 +4705,10 @@ def run_phases(torch, report, kmods):
     report['kernel_sweep'] = all_kernel_phases(torch, kmods, k3_nan)
     report['nan'] = nan_kernel_phase(torch, kmods, k3=k3_nan)
     lap('kernels')
-    report['smoke'] = (smoke_phase(torch) + smoke_tier_prefix_phase(torch)
-                       + smoke_phase(torch, MLA_ARCH, (('bf16', False),
-                                                       ('w8a8', False)))
+    report['smoke'] = (smoke_phase(torch)
+                       + smoke_phase(torch, ARCH, FIDELITY_SMOKE_MODES)
+                       + smoke_tier_prefix_phase(torch)
+                       + smoke_phase(torch, MLA_ARCH, MLA_SMOKE_MODES)
                        + smoke_tier_prefix_phase(torch, MLA_ARCH)
                        + smoke_static_phase(torch)
                        + [row for arch in DENSE_ARCHS
@@ -4318,6 +4738,8 @@ def run_phases(torch, report, kmods):
     lap('ssm')
     report['frontends'], frontend_totals = frontends_phase(torch, kmods[3])
     lap('frontends')
+    report['fidelity'], fidelity_totals = fidelity_phase(torch, kmods[3])
+    lap('fidelity')
     report['static_serve'], static_totals, moe_static_totals = \
         static_serve_phase(torch, kmods[3])
     lap('static')
@@ -4329,7 +4751,8 @@ def run_phases(torch, report, kmods):
     return {ARCH: gqa_totals, MLA_ARCH: mla_totals,
             STATIC_PATH: static_totals, DENSE_PATH: dense_totals,
             MOE_PATH: moe_totals, MOE_STATIC_PATH: moe_static_totals,
-            SSM_PATH: ssm_totals, FRONTEND_PATH: frontend_totals}
+            SSM_PATH: ssm_totals, FRONTEND_PATH: frontend_totals,
+            FIDELITY_PATH: fidelity_totals}
 
 
 def main(argv) -> int:
@@ -4500,7 +4923,17 @@ def main(argv) -> int:
             ('int8_matmul', FRONTEND_PATH, dict(arch=VL_ARCH, M=8, K=8192,
                                                 N=152064)),
             ('yoco_vmm_int8', FRONTEND_PATH, dict(arch=VL_ARCH, M=8, K=8192,
-                                                  N=152064)))
+                                                  N=152064)),
+            # the paper-fidelity modes on stablelm: its decode shapes (K3
+            # the decode activation, K2/K4 the lm_head, K1 the serving row)
+            ('flash_decode_paged', FIDELITY_PATH, dict(pool='bfloat16', W=20,
+                                                       G=1)),
+            ('quantize_rows', FIDELITY_PATH, dict(arch=ARCH, M=8, K=2048,
+                                                  dtype='bfloat16')),
+            ('int8_matmul', FIDELITY_PATH, dict(arch=ARCH, M=8, K=2048,
+                                                N=100352)),
+            ('yoco_vmm_int8', FIDELITY_PATH, dict(arch=ARCH, M=8, K=2048,
+                                                  N=100352)))
     check({name for name, _, _ in pick} == set(totals[ARCH]),
           'the kernels line does not cover every kernel')
     kernels = []
@@ -4534,6 +4967,7 @@ def main(argv) -> int:
     print(json.dumps(dict(chaos=report['chaos'])), flush=True)
     print(json.dumps(dict(ssm=report['ssm'])), flush=True)
     print(json.dumps(dict(frontends=report['frontends'])), flush=True)
+    print(json.dumps(dict(fidelity=report['fidelity'])), flush=True)
     print(smi, flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform='gpu', kind=torch.cuda.get_device_name(0),

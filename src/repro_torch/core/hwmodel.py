@@ -1,5 +1,17 @@
-"""The YOCO hardware model's decode-traffic pricing (port of the part of
-``repro/core/hwmodel.py`` that the serving energy meter needs).
+"""Analytical energy, latency and area model of the AiDAC/YOCO core (port
+of ``repro/core/hwmodel.py``; paper Table I), and its decode-traffic
+pricing.
+
+Bottom-up from component numbers it gives the paper's headline figures:
+4.235 nJ and < 20 ns per full-parallel 1024x256 8-bit VMM
+(:func:`core_vmm_energy`, :func:`core_vmm_latency`), 123.8 TOPS/W and 26.2
+TOPS (:func:`energy_efficiency_tops_w`, :func:`throughput_tops`), the area
+(:func:`core_area_um2`), the 87.5% ADC-overhead cut
+(:func:`adc_overhead_reduction`), the Fig. 7 SOTA comparison
+(:func:`sota_comparison`) and the Fig. 8 breakdown
+(:func:`overhead_breakdown`). :func:`map_matmul` tiles an (M, K, N) matmul
+onto 1024x256 core-shots, and :func:`map_architecture` walks a config's
+``per_token_matmuls`` to a per-decode-token cost.
 
 :func:`decode_kv_traffic` (GQA) and :func:`decode_latent_traffic` (MLA)
 price the bytes and pJ one decode token pays to read its KV cache: the fp
@@ -14,18 +26,14 @@ of the card the port runs on.** The pJ constants are the paper's macro
 model (Table I, residual-calibrated to its 4.235 nJ / 1024x256 8-bit VMM)
 and commonly cited memory-system planning numbers (:class:`KVTierConfig`);
 the H100 neither has an in-situ multiply array nor reports energy here.
-The headline :func:`energy_efficiency_tops_w` (123.8 TOPS/W) and
-:func:`throughput_tops` are kept only because the meter prints them beside
-its totals. The rest of the reference's macro model (latency, area, the
-SOTA comparison, ``map_matmul`` / ``map_architecture``) and
-``decode_state_traffic`` (SSM decode state) are not ported yet.
+Every function returns the reference's floats exactly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 # ----------------------------------------------------------------------------
 # Table I: component parameters (28 nm, 0.9 V, 50 MHz analog, 1 GHz digital)
@@ -125,6 +133,26 @@ def core_vmm_energy(cfg: CoreConfig = DEFAULT_CORE,
                 breakdown_macro=m)
 
 
+def core_vmm_latency(cfg: CoreConfig = DEFAULT_CORE) -> Dict[str, float]:
+    """Latency of one core-shot VMM (the <20 ns claim)."""
+    chain = cfg.macros_v * cfg.time_acc_latency
+    in_lat = (cfg.vmm_k * 8) / 256.0 * cfg.io_latency_per_256b
+    out_lat = (cfg.vmm_n * 8) / 256.0 * cfg.io_latency_per_256b
+    total = in_lat + cfg.macro_latency + chain + cfg.tdc_latency + out_lat
+    return dict(io_in=in_lat, macro=cfg.macro_latency, vtc_chain=chain,
+                tdc=cfg.tdc_latency, io_out=out_lat, total=total)
+
+
+def core_area_um2(cfg: CoreConfig = DEFAULT_CORE) -> Dict[str, float]:
+    mcc = cfg.macro_rows * cfg.macro_cols * cfg.mcc_area
+    drv = cfg.macro_rows * cfg.row_driver_area
+    tac = cfg.cbs_per_macro * cfg.time_acc_area
+    macro = mcc + drv + tac
+    total = cfg.n_macros * macro + cfg.tdc_area_total + cfg.io_area
+    return dict(macro=macro, macros=cfg.n_macros * macro,
+                tdcs=cfg.tdc_area_total, io=cfg.io_area, total=total)
+
+
 # ----------------------------------------------------------------------------
 # Headline figures
 # ----------------------------------------------------------------------------
@@ -142,6 +170,86 @@ def throughput_tops(cfg: CoreConfig = DEFAULT_CORE) -> float:
     # The paper quotes throughput against the 20 ns budget (one VMM per cycle
     # of the 50 MHz analog clock fits 20 ns).
     return ops_per_vmm(cfg) / cfg.paper_core_latency / 1e12
+
+
+def adc_overhead_reduction(cfg: CoreConfig = DEFAULT_CORE) -> float:
+    """Fig. 7b: against digital bit-plane weighting, which needs one
+    conversion per bit-plane column (8 an output) instead of one an
+    output: 1 - 1/8."""
+    return 1.0 - 1.0 / cfg.cb_bits
+
+
+def overhead_breakdown(cfg: CoreConfig = DEFAULT_CORE,
+                       activity: float = 0.5) -> Dict[str, float]:
+    """Fig. 8: the share of core energy by function."""
+    e = core_vmm_energy(cfg, activity)
+    m = e['breakdown_macro']
+    n = cfg.n_macros
+    total = e['total']
+    return dict(
+        compute=(m['mcc'] * n) / total,
+        interconnect=((m['row_drivers'] + m['time_accumulators']) * n)
+        / total,
+        conversion=(e['tdcs'] + m['macro_other'] * n) / total,
+        communication=e['io'] / total,
+        control=e['core_control'] / total,
+    )
+
+
+# ----------------------------------------------------------------------------
+# SOTA comparison (Fig. 1 / 6 / 7: values digitized from the paper's charts
+# and the cited publications; 8-bit-equivalent numbers)
+# ----------------------------------------------------------------------------
+SOTA_BASELINES: List[Dict] = [
+    dict(key='tu_isscc22', ref='[15]', kind='digital CIM', tops_w=36.5,
+         tops=2.90),
+    dict(key='jia_jssc22', ref='[16]', kind='programmable IMC', tops_w=30.0,
+         tops=1.00),
+    dict(key='wu_isscc22', ref='[17]', kind='time-domain CIM', tops_w=37.01,
+         tops=1.241),
+    dict(key='hsieh_isscc23', ref='[20]', kind='word-wise ACIM',
+         tops_w=86.27, tops=1.80),
+    dict(key='si_jssc21', ref='[9]', kind='6T LCC macro', tops_w=17.5,
+         tops=0.060),
+    dict(key='chen_capram', ref='[18]', kind='charge-domain 6T', tops_w=25.0,
+         tops=0.030),
+    dict(key='wang_sepwl', ref='[19]', kind='separate-WL 6T', tops_w=3.1,
+         tops=0.176),
+    dict(key='wang_c2c', ref='[7]', kind='C-2C ladder', tops_w=32.2,
+         tops=0.100),
+]
+
+
+def sota_comparison(cfg: CoreConfig = DEFAULT_CORE) -> List[Dict]:
+    ours_e = energy_efficiency_tops_w(cfg)
+    ours_t = throughput_tops(cfg)
+    return [dict(**b, energy_ratio=ours_e / b['tops_w'],
+                 throughput_ratio=ours_t / b['tops'])
+            for b in SOTA_BASELINES]
+
+
+# ----------------------------------------------------------------------------
+# Workload mapping
+# ----------------------------------------------------------------------------
+def map_matmul(m_tokens: int, k: int, n: int, cfg: CoreConfig = DEFAULT_CORE,
+               n_cores: int = 1, activity: float = 0.5) -> Dict[str, float]:
+    """Tile an (M x K) @ (K x N) matmul onto core-shots. A core-shot takes
+    K <= 1024 inputs and gives N <= 256 outputs for one token; vertical
+    K-tiles are time-accumulated inside a shot, but K > 1024 needs digital
+    partial-sum adds (priced as one extra output readback a K-tile)."""
+    k_tiles = math.ceil(k / cfg.vmm_k)
+    n_tiles = math.ceil(n / cfg.vmm_n)
+    shots = m_tokens * k_tiles * n_tiles
+    e_shot = core_vmm_energy(cfg, activity)['total']
+    extra_io = (k_tiles - 1) * n_tiles * m_tokens * (cfg.vmm_n * 8 / 256.0) \
+        * cfg.io_energy_per_256b
+    energy = shots * e_shot + extra_io
+    latency = math.ceil(shots / n_cores) * cfg.paper_core_latency
+    useful_ops = 2.0 * m_tokens * k * n
+    return dict(shots=shots, energy=energy, latency=latency,
+                useful_ops=useful_ops,
+                utilization=useful_ops / (shots * ops_per_vmm(cfg)),
+                effective_tops_w=useful_ops / energy / 1e12)
 
 
 # ----------------------------------------------------------------------------
@@ -330,3 +438,28 @@ def decode_state_traffic(*, conv_elems: int, ssm_elems: int, n_heads: int,
         energy_reduction=baseline_pj / max(tiered_pj, 1e-12),
         ops_per_token=ops,
     )
+
+
+def map_architecture(arch_cfg, cfg: CoreConfig = DEFAULT_CORE,
+                     activity: float = 0.5,
+                     target_tokens_per_s: float = 1e5) -> Dict[str, float]:
+    """Per-decode-token AiDAC cost of a config (``repro_torch.configs``'
+    ``ArchConfig``): every matmul of its ``per_token_matmuls`` mapped by
+    :func:`map_matmul`; the embedding lookup is no VMM, the lm_head is
+    one."""
+    total_e = 0.0
+    total_shots = 0
+    useful = 0.0
+    for _, kk, nn, cnt in arch_cfg.per_token_matmuls():
+        r = map_matmul(1, kk, nn, cfg, activity=activity)
+        total_e += r['energy'] * cnt
+        total_shots += r['shots'] * cnt
+        useful += r['useful_ops'] * cnt
+    lat = total_shots * cfg.paper_core_latency   # single-core serial bound
+    return dict(energy_per_token=total_e, shots_per_token=total_shots,
+                useful_ops_per_token=useful,
+                effective_tops_w=useful / total_e / 1e12,
+                single_core_latency_per_token=lat,
+                cores_for_target=math.ceil(target_tokens_per_s /
+                                           (1.0 / lat)) if lat > 0 else 1,
+                utilization=useful / (total_shots * ops_per_vmm(cfg)))

@@ -1,40 +1,64 @@
 """``yoco_linear`` — the paper's technique as a composable layer (port of
 ``repro/core/yoco_linear.py``). Every matmul of the model routes here.
 
-Modes ported so far:
+Modes:
 
-  bf16   digital baseline: ``x @ w`` in the compute dtype;
-  w8a8   YOCO inference: activations quantized ONCE per row (kernel K3;
-         :func:`linears` shares that quantization between the weights
-         that read one activation),
-         int8 x int8 -> int32 with no mid-reduction rounding, ONE dequant.
-         With a float weight (dynamic quantization) the weight's output
-         channels go through K3 as well and the product is K4 with its
-         fused scale epilogue: serving stores that weight K-major at load
-         (``models.model.k_major_linear_weights``), so K3 reads ``w.T``
-         in place and its (N, K) codes are K4's K-major operand; with a
-         prequantized ``QuantizedWeight`` (int8 weights resident, the
-         in-situ analogue) the product is K2 and the epilogue
-         ``acc * sx * w.scale`` follows it. On the card both kernels
-         refuse a weight that is not K-major rather than copy it.
+  bf16        digital baseline: ``x @ w`` in the compute dtype;
+  qat         quantization-aware training: the activation fake-quantized
+              per token and the weight per output channel (the codes and
+              scales from kernel K3, dequantized with the reference's
+              straight-through backward, ``quant.dequantize_ste``), then
+              one ``torch.matmul`` in the compute dtype (the reference's
+              ``jnp.matmul`` there is no Pallas kernel). A
+              ``QuantizedWeight`` is dequantized to f32 and fake-quantized
+              again, as in the reference;
+  w8a8        YOCO inference: activations quantized ONCE per row (kernel K3;
+              :func:`linears` shares that quantization between the weights
+              that read one activation), int8 x int8 -> int32 with no
+              mid-reduction rounding, ONE dequant. With a float weight
+              (dynamic quantization) the weight's output channels go
+              through K3 as well and the product is K4 with its fused scale
+              epilogue (:func:`w8a8_ste`, whose backward is the reference's
+              f32 straight-through one): serving stores that weight K-major
+              at load (``models.model.k_major_linear_weights``), so K3 reads
+              ``w.T`` in place and its (N, K) codes are K4's K-major
+              operand; with a prequantized ``QuantizedWeight`` (int8
+              weights resident, the in-situ analogue) the product is K2 and
+              the epilogue ``acc * sx * w.scale`` follows it. On the card
+              both kernels refuse a weight that is not K-major rather than
+              copy it;
+  analog_sim  the w8a8 product, then the paper-calibrated analog error
+              model in f32 (:func:`analog_epilogue`: share-line gain loss,
+              share-line and input noise, the per-K-tile VTC gain when K >
+              1024, the ``tdc_bits`` TDC quantization), then the cast.
 
 The reference routes w8a8 through its Pallas kernels only when
 ``use_pallas=True`` and through XLA otherwise; both compute the same
 function. The port always goes through its kernels (``kernels/ops.py``): on
 the card the hand-written CUDA kernels, on the CPU their plain versions.
+The fake-quant dequantize, the analog noise and the TDC are plain ``jnp``
+in the reference, outside any Pallas kernel, and plain torch here.
 
-``qat`` and ``analog_sim`` are the paper-fidelity slice (``ROADMAP.md``
-Queue 1 item 12) and raise here.
+**The analog draws.** The reference draws each linear's noise from
+``fold_in(key(noise_seed), K * 131 + N)``, so equal (K, N) means equal
+noise (stablelm's ``wq``, ``wk`` and ``wv``). JAX's PRNG cannot be
+reproduced, so the draws are a seam of their own: :func:`analog_normals`
+seeds a ``torch.Generator`` on the output's device from ``(noise_seed,
+K * 131 + N)`` on every call, and the noise is a pure function of
+``(noise_seed, K, N, shape)`` as in the reference. The full scale ``max
+|y|`` and the TDC scale are taken over the whole output, idle and padded
+rows included, so a request's noise depends on what is batched beside it,
+as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core import quant
+from repro_torch.core import analog, quant
 from repro_torch.kernels import ops
 
 
@@ -79,61 +103,187 @@ def prequantize_weight(w: torch.Tensor) -> QuantizedWeight:
 
 @dataclasses.dataclass(frozen=True)
 class YocoConfig:
-    mode: str = 'bf16'              # bf16 | w8a8 (qat | analog_sim: later)
+    mode: str = 'bf16'              # bf16 | qat | w8a8 | analog_sim
     bits: int = 8
+    tdc_bits: int = 8               # analog_sim output conversion width
+    noise_seed: int = 0             # analog_sim draws (analog_normals)
     compute_dtype: torch.dtype = torch.bfloat16
 
 
 DEFAULT_YOCO = YocoConfig()
 
-_LATER_MODES = ('qat', 'analog_sim')
+MODES = ('bf16', 'qat', 'w8a8', 'analog_sim')
 
 
 def _check_mode(cfg: YocoConfig) -> None:
-    if cfg.mode in _LATER_MODES:
-        raise NotImplementedError(
-            f'yoco mode {cfg.mode!r} belongs to the paper-fidelity slice '
-            f'(ROADMAP.md Queue 1 item 12); this port serves bf16 and w8a8')
-    if cfg.mode not in ('bf16', 'w8a8'):
+    if cfg.mode not in MODES:
         raise ValueError(f'unknown yoco mode: {cfg.mode}')
-    if cfg.mode == 'w8a8' and cfg.bits != 8:
+    if cfg.mode != 'bf16' and cfg.bits != 8:
         raise NotImplementedError('the int8 kernels take bits=8 only')
 
 
-def _w8a8_product(xq: torch.Tensor, sx: torch.Tensor, w,
-                  cfg: YocoConfig) -> torch.Tensor:
-    """One w8a8 product from the activation's codes and scales (K3's). A
-    ``QuantizedWeight`` (weights already int8 in memory): K2, then the
-    reference's ``acc * sx * w.scale``. A float weight (dynamic
-    quantization): K3 on its output channels, then K4."""
+# ----------------------------------------------------------------------------
+# w8a8 forward with the straight-through backward
+# ----------------------------------------------------------------------------
+class _W8A8STE(torch.autograd.Function):
+    """Forward: the dynamic w8a8 product from x's codes (K3, then K3 on
+    the weight and K4). Backward: the reference's f32 ``dx = g @ w.T``,
+    ``dw = x.T @ g``, as if the product were exact."""
+
+    @staticmethod
+    def forward(ctx, x, w, xq, sx):
+        ctx.save_for_backward(x, w)
+        return ops.yoco_vmm_codes(xq, sx, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        f32 = torch.float32
+        g2 = g.to(f32).reshape(-1, g.shape[-1])
+        x2 = x.reshape(-1, x.shape[-1]).to(f32)
+        dx = (g2 @ w.to(f32).t()).reshape(x.shape).to(x.dtype)
+        dw = (x2.t() @ g2).to(w.dtype)
+        return dx, dw, None, None
+
+
+def w8a8_ste(x: torch.Tensor, w: torch.Tensor,
+             codes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+             ) -> torch.Tensor:
+    """Dynamic w8a8 ``x @ w`` in f32 (port of the reference's
+    ``_w8a8_ste``): ``codes`` are x's K3 codes and scales (made here when
+    None). Through the straight-through backward where autograd asks for
+    a gradient; serving builds no graph and calls the product directly."""
+    xq, sx = ops.quantize_rows(x) if codes is None else codes
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _W8A8STE.apply(x, w, xq, sx)
+    return ops.yoco_vmm_codes(xq, sx, w)
+
+
+# ----------------------------------------------------------------------------
+# analog_sim: the draws, then the noise epilogue
+# ----------------------------------------------------------------------------
+_NOISE_GENERATORS = {}
+
+
+def analog_normals(noise_seed: int, word: int, shape, need_gain: bool,
+                   device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The standard normals of one linear's noise: (n1, n2), n2 None unless
+    ``need_gain``, drawn on ``device`` from a generator seeded from
+    ``(noise_seed, word)`` on every call (``word = K * 131 + N``, the
+    reference's ``fold_in`` argument), so equal arguments give equal
+    draws."""
+    device = torch.device(device)
+    gen = _NOISE_GENERATORS.get(device)
+    if gen is None:
+        gen = _NOISE_GENERATORS[device] = torch.Generator(device=device)
+    # the CPU generator keeps 32 bits of a seed: fold the noise seed into
+    # them (a word is K * 131 + N, far below 2^32)
+    gen.manual_seed((int(noise_seed) * 0x9E3779B1 + int(word)) % (1 << 32))
+
+    def normal():
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device)
+    n1 = normal()
+    return n1, (normal() if need_gain else None)
+
+
+def analog_epilogue(y: torch.Tensor, k_channels: int, n_ktiles: int,
+                    cfg: YocoConfig, n1: torch.Tensor,
+                    n2: Optional[torch.Tensor]) -> torch.Tensor:
+    """The reference's ``_analog_noise`` on the f32 product ``y``, given
+    its draws: error relative to the per-tensor full scale ``max |y|``
+    (kept a device scalar), term for term in the reference's order, then
+    :func:`tdc_quantize`, whose scale is the compiled form, as the
+    reference's jitted steps compute it."""
+    em = analog.error_model_summary()
+    fs = y.abs().amax() + 1e-9
+    # deterministic share-line gain loss (Eq. 3 parasitics)
+    y = y * (1.0 - em['mac_gain_loss'])
+    # share-line kT/C and input-conversion noise folded over the channels;
+    # the reference's jnp.sqrt of the Python number runs in f32
+    rel = float(torch.sqrt(torch.tensor(
+        em['mac_sigma_fs'] ** 2 + em['input_sigma_fs'] ** 2
+        / max(k_channels, 1), dtype=torch.float32)))
+    y = y + (fs * rel) * n1
+    # time-domain accumulation: per-K-tile VTC gain error
+    if n_ktiles > 1:
+        y = y * (1.0 + em['time_sigma_fs'] * n2)
+    # the TDC: the single output conversion
+    return quant.dequantize(*tdc_quantize(y, cfg.tdc_bits))
+
+
+def tdc_quantize(y: torch.Tensor, bits: int):
+    """The analog output's ``bits``-bit TDC codes and their one per-tensor
+    scale (the compiled form, ``quant.jit_absmax_scale``)."""
+    scale = quant.jit_absmax_scale(y, None, bits)
+    return quant.quantize(y, scale, bits), scale
+
+
+def _analog(y: torch.Tensor, k: int, cfg: YocoConfig) -> torch.Tensor:
+    # K-tiles: a macro's rows times the VTC chain's 8 macros (1024) a tile
+    n_ktiles = -(-k // (analog.MACRO_ROWS * 8))
+    n1, n2 = analog_normals(cfg.noise_seed, k * 131 + y.shape[-1],
+                            tuple(y.shape), n_ktiles > 1, y.device)
+    return analog_epilogue(y, k, n_ktiles, cfg, n1, n2)
+
+
+# ----------------------------------------------------------------------------
+# public layer
+# ----------------------------------------------------------------------------
+def _w8a8_product(x: torch.Tensor, codes, w, cfg: YocoConfig) -> torch.Tensor:
+    """One w8a8 product in f32 from the activation's codes and scales
+    (K3's). A ``QuantizedWeight`` (weights already int8 in memory): K2,
+    then the reference's ``acc * sx * w.scale``. A float weight (dynamic
+    quantization): :func:`w8a8_ste`, K3 on its output channels then K4.
+    ``analog_sim`` adds the noise epilogue."""
+    xq, sx = codes
     if isinstance(w, QuantizedWeight):
-        acc = ops.int8_matmul(xq, w.wq)
-        y = acc.to(torch.float32) * sx * w.scale
+        y = ops.int8_matmul(xq, w.wq).to(torch.float32) * sx * w.scale
     else:
-        y = ops.yoco_vmm_codes(xq, sx, w)
+        y = w8a8_ste(x, w, codes)
+    if cfg.mode == 'analog_sim':
+        y = _analog(y, x.shape[-1], cfg)
     return y.to(cfg.compute_dtype)
+
+
+def _float_weight(w) -> torch.Tensor:
+    """A weight as a float (K, N): a ``QuantizedWeight`` dequantized to f32,
+    as the reference's bf16 and qat modes read it."""
+    if isinstance(w, QuantizedWeight):
+        return quant.dequantize(w.wq, w.scale, torch.float32)
+    return w
+
+
+def _fake_quant_weight(w: torch.Tensor) -> torch.Tensor:
+    """``quant.fake_quant(w, axis=1)``: per-output-channel codes and
+    scales from K3 on the rows of ``w.T`` (in place for a K-major
+    weight), dequantized to w's dtype."""
+    wq_t, sw_t = ops.quantize_rows(w.t())
+    return quant.dequantize_ste(w, wq_t.t(), sw_t.t())
 
 
 def linears(x: torch.Tensor, ws, bs=None,
             cfg: YocoConfig = DEFAULT_YOCO) -> list:
     """``[x @ w + b for w, b in zip(ws, bs)]`` under the configured mode, in
     the compute dtype (``bs`` None, or a list with None entries: no bias).
-    w8a8 quantizes x ONCE (K3) for all the weights, as the reference's
-    compiled step computes one quantization of an activation that several
-    linears read (XLA merges the duplicates); bf16 runs one matmul a
-    weight. Anything that runs several linears on one x uses this form:
-    the q/k/v projections, an MLP's gate and up, MLA's w_dq and w_dkv."""
+    Every mode but bf16 quantizes x ONCE (K3) for all the weights, as the
+    reference's compiled step computes one quantization of an activation
+    that several linears read (XLA merges the duplicates); bf16 runs one
+    matmul a weight. Anything that runs several linears on one x uses this
+    form: the q/k/v projections, an MLP's gate and up, MLA's w_dq and
+    w_dkv."""
     _check_mode(cfg)
-    if cfg.mode == 'w8a8':
+    cd = cfg.compute_dtype
+    if cfg.mode == 'bf16':
+        ys = [torch.matmul(x.to(cd), _float_weight(w).to(cd)) for w in ws]
+    elif cfg.mode == 'qat':
         xq, sx = ops.quantize_rows(x)
-        ys = [_w8a8_product(xq, sx, w, cfg) for w in ws]
-    else:
-        cd = cfg.compute_dtype
-        ys = [torch.matmul(x.to(cd), (quant.dequantize(w.wq, w.scale,
-                                                       torch.float32)
-                                      if isinstance(w, QuantizedWeight)
-                                      else w).to(cd))
+        xf = quant.dequantize_ste(x, xq, sx).to(cd)
+        ys = [torch.matmul(xf, _fake_quant_weight(_float_weight(w)).to(cd))
               for w in ws]
+    else:
+        codes = ops.quantize_rows(x)
+        ys = [_w8a8_product(x, codes, w, cfg) for w in ws]
     bs = [None] * len(ws) if bs is None else bs
     return [y if b is None else y + b.to(y.dtype) for y, b in zip(ys, bs)]
 

@@ -58,7 +58,12 @@ hybrid configs (:func:`_refuse_mla_prequantize`,
 of ``--prefix-cache`` and ``--chunk-prefill`` on recurrent state
 (:func:`_refuse_recurrent_paging`), and of ``--attn-impl flash`` on MLA
 and on a pure SSM in ``serve()``. ``--mode w8a8`` routes every linear through the
-int8 kernels (K3 + K2 with ``--prequantize``, K3 + K4 without).
+int8 kernels (K3 + K2 with ``--prequantize``, K3 + K4 without);
+``--mode analog_sim`` adds the paper-calibrated analog noise and 8-bit TDC
+to each of those products (``core/yoco_linear.py``), and ``--mode qat``
+fake-quantizes each linear's activation and weight through K3 before one
+float matmul. Both serve wherever bf16 and w8a8 do, and are refused where
+the reference fails (``--prequantize`` on MLA and hybrid configs).
 ``--sample`` (with ``--temperature`` / ``--top-k``) replaces the greedy
 argmax with temperature / top-k sampling on both paths. The two
 non-token frontends serve through ``serve()`` only, as in the reference:
@@ -90,6 +95,8 @@ versions of the kernels):
   python -m repro_torch.launch.serve --arch gemma3-27b --continuous \
       --no-smoke --slots 8 --requests 2 --prompt-len 1152 --gen-len 16 \
       --chunk-prefill 128 [--mode w8a8 --prequantize] [--kv-quant]
+  python -m repro_torch.launch.serve --arch stablelm-1.6b --no-smoke \
+      --continuous --mode {qat | analog_sim} [--prequantize]
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --continuous \
       --no-smoke --slots 8 --requests 8 --prompt-len 128 --gen-len 16 \
       [--mode w8a8 [--prequantize]]
@@ -144,33 +151,38 @@ def _ragged_lens(batch: int, prompt_len: int) -> torch.Tensor:
                         dtype=torch.int32)
 
 
+_DYNAMIC_HINT = 'serve bf16 or a dynamic --mode (w8a8, qat or analog_sim)'
+
+
 def _refuse_mla_prequantize(arch: str, cfg, prequantize: bool) -> None:
-    """The reference fails on MLA with ``--prequantize``: quantize_tree
-    turns w_ukv into a QuantizedWeight, which mla_attention_decode/_chunk
-    then reshape (src/repro/models/attention.py:608, :670) ->
-    AttributeError. The port refuses it up front, on both paths."""
+    """The reference fails on MLA with ``--prequantize``, in every mode:
+    quantize_tree turns w_ukv into a QuantizedWeight, which
+    mla_attention_decode/_chunk then reshape
+    (src/repro/models/attention.py:608, :670) -> AttributeError. The port
+    refuses it up front, on both paths (ROADMAP Queue 3)."""
     if prequantize and cfg.mla is not None:
         raise ValueError(
             f'{arch}: --prequantize is not served on MLA configs: the '
             f'reference quantizes w_ukv and its absorbed decode then '
             f'reshapes the QuantizedWeight (src/repro/models/attention.py:'
-            f'608), an AttributeError; serve bf16 or dynamic --mode w8a8')
+            f'608), an AttributeError in every mode (ROADMAP Queue 3); '
+            f'{_DYNAMIC_HINT}')
 
 
 def _refuse_hybrid_prequantize(arch: str, cfg, prequantize: bool) -> None:
-    """The reference fails on hybrid configs with ``--prequantize``:
-    quantize_tree turns the shared block's per-site in_proj (n_sites, 2d,
-    d), named in its _WEIGHT_NAMES, into a QuantizedWeight, which
-    shared_block then indexes by site and feeds to a float einsum
+    """The reference fails on hybrid configs with ``--prequantize``, in
+    every mode: quantize_tree turns the shared block's per-site in_proj
+    (n_sites, 2d, d), named in its _WEIGHT_NAMES, into a QuantizedWeight,
+    which shared_block then indexes by site and feeds to a float einsum
     (src/repro/models/blocks.py:136) -> ValueError. The port refuses it up
-    front, on both paths."""
+    front, on both paths (ROADMAP Queue 3)."""
     if prequantize and cfg.hybrid_group:
         raise ValueError(
             f'{arch}: --prequantize is not served on hybrid configs: the '
             f'reference quantizes the shared block\'s per-site in_proj and '
             f'shared_block then feeds the QuantizedWeight to an einsum '
-            f'(src/repro/models/blocks.py:136), a ValueError; serve bf16 or '
-            f'dynamic --mode w8a8')
+            f'(src/repro/models/blocks.py:136), a ValueError in every mode '
+            f'(ROADMAP Queue 3); {_DYNAMIC_HINT}')
 
 
 def _refuse_recurrent_paging(arch: str, cfg, kv_quant: bool,
@@ -198,30 +210,33 @@ def _refuse_oversize(cfg, dev, mode: str, prequantize: bool,
     in their serving form (``model.serving_bytes``, the drawn leaves
     counted on the meta device): qwen2-vl-72b's 80 layers take 142.9 GB
     in bf16 and 285.8 GB as dynamic w8a8's f32 masters (gemma3-27b's
-    113.7 GB too), and 71.5 GB with ``--prequantize``, which one 80 GB
-    card holds."""
+    113.7 GB too, as are qat's and dynamic analog_sim's, which keep the
+    same masters), and 71.5 GB with ``--prequantize``, which one 80 GB card
+    holds."""
     if dev.type != 'cuda':
         return
     need = model_mod.serving_bytes(cfg, mode, prequantize, compute_dtype)
     free, _ = torch.cuda.mem_get_info(dev)
     if need <= free:
         return
-    form = ('w8a8 --prequantize' if prequantize
-            else 'dynamic w8a8 (f32 masters)' if mode == 'w8a8' else mode)
+    form = (f'{mode} --prequantize' if prequantize
+            else mode if mode == 'bf16'
+            else f'dynamic {mode} (f32 masters)')
     raise ValueError(
         f'{cfg.name}: its weights take {need} bytes in {form} (the drawn '
         f'leaves in their serving form), and the card has {free} bytes '
         f'free (torch.cuda.mem_get_info); serve a mode whose weights fit '
-        f'(w8a8 --prequantize stores int8), or cut its depth')
+        f'(--prequantize stores int8), or cut its depth')
 
 
 def _serving_params(cfg, params, dev, *, seed: int, mode: str,
                     prequantize: bool, compute_dtype) -> dict:
     """Seeded random weights on ``dev`` unless ``params`` is given,
     quantized in situ (``prequantize``: the network loaded "into the
-    array"), in bf16 mode cast once to the compute dtype, or in dynamic
-    w8a8 stored K-major once, as kernels K3 and K4 read them with no
-    per-call copy; expert stacks cast once to the compute dtype in every
+    array"), in bf16 mode cast once to the compute dtype, or in the dynamic
+    modes (w8a8, qat, analog_sim) stored K-major once, as kernel K3 (and
+    K4) read them with no per-call copy; expert stacks cast once to the
+    compute dtype in every
     mode. Seeded weights take that form as each is drawn
     (``model.serving_transform``), so no f32 tree is ever whole on the
     card; given ``params`` are converted tree-wise (``model.serving_form``;
@@ -283,7 +298,7 @@ def _step_input(cfg, tok: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def serve(arch: str, *, smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, gen_len: int = 32, mode: str = 'bf16',
-          prequantize: bool = False, seed: int = 0,
+          prequantize: bool = False, seed: int = 0, noise_seed: int = 0,
           attn_impl: str = 'einsum', ragged: bool = False,
           greedy: bool = True, temperature: float = 1.0, top_k: int = 0,
           quiet: bool = False, device=None, compute_dtype=torch.bfloat16,
@@ -297,7 +312,9 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     ``greedy=False`` samples (``temperature``, ``top_k``; generator seeded
     ``seed + 1``). ``params`` (the port's f32 param tree on ``device``)
     replaces the seeded random init; ``prompts`` ((batch, prompt_len)
-    int) replaces the synthetic batch. ``step_hook(logits, tokens)`` runs
+    int) replaces the synthetic batch. ``noise_seed`` seeds ``analog_sim``'s
+    draws (``YocoConfig.noise_seed``; the reference's CLI keeps it 0 and
+    has no flag for it). ``step_hook(logits, tokens)`` runs
     after the prefill and after every decode step. Prints the reference's
     report keys plus ``device``, then attaches the (batch, gen_len) int32
     token array under ``tokens``.
@@ -322,7 +339,8 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     _refuse_hybrid_prequantize(arch, cfg, prequantize)
     _check_attn_impl(attn_impl)
     dev = device_mod.resolve(device)
-    yoco = YocoConfig(mode=mode, compute_dtype=compute_dtype)
+    yoco = YocoConfig(mode=mode, noise_seed=noise_seed,
+                      compute_dtype=compute_dtype)
     rt = ModelRuntime(attn_impl=attn_impl, compute_dtype=compute_dtype)
     max_seq = prompt_len + gen_len
 
@@ -734,7 +752,7 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
                      gen_len: int = 32, page_size: int = 8,
                      num_pages: Optional[int] = None, mode: str = 'bf16',
                      prequantize: bool = False, seed: int = 0,
-                     attn_impl: str = 'flash',
+                     noise_seed: int = 0, attn_impl: str = 'flash',
                      greedy: bool = True, temperature: float = 1.0,
                      top_k: int = 0,
                      eos_id: Optional[int] = None,
@@ -770,6 +788,7 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     ``shared_prefix`` N makes every synthetic prompt open with the same N
     tokens. ``params`` (the port's f32 param tree on ``device``, e.g.
     from ``model.params_from_numpy``) replaces the seeded random init.
+    ``noise_seed`` seeds ``analog_sim``'s draws, as in :func:`serve`.
     ``step_hook(sched, kv, cache)`` runs after every absorbed step;
     ``max_steps`` caps the scheduler steps (the run then raises as
     stalled).
@@ -818,7 +837,8 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     _refuse_kernel_fault(faults)
     dev = device_mod.resolve(device)
     _check_attn_impl(attn_impl)
-    yoco = YocoConfig(mode=mode, compute_dtype=compute_dtype)
+    yoco = YocoConfig(mode=mode, noise_seed=noise_seed,
+                      compute_dtype=compute_dtype)
     rt = ModelRuntime(attn_impl=attn_impl, compute_dtype=compute_dtype)
     max_seq = prompt_len + gen_len
     max_blocks = -(-max_seq // page_size)

@@ -306,9 +306,11 @@ def cast_linear_weights(params: dict, dtype: torch.dtype) -> dict:
 def k_major_linear_weights(params: dict) -> dict:
     """Store every float linear weight K-major once, at load: the same
     (K, N) values as a view of an (N, K)-contiguous tensor
-    (``yoco_linear.k_major``), f32 as the reference keeps them. Dynamic
-    w8a8 serves these: kernel K3 reads ``w.T`` in place and kernel K4 takes
-    its codes as the K-major operand, so no call copies a weight. One
+    (``yoco_linear.k_major``), f32 as the reference keeps them. The
+    dynamic modes serve these (w8a8, qat, analog_sim): kernel K3 reads
+    ``w.T`` in place and kernel K4 takes its codes as the K-major operand
+    (qat dequantizes them for its float matmul), so no call copies a
+    weight. One
     weight is copied at a time; one already K-major is not copied. Expert
     stacks and the codebook head are no linear weights:
     :func:`serving_form` casts them."""
@@ -317,9 +319,11 @@ def k_major_linear_weights(params: dict) -> dict:
 
 def serving_transform(mode: str, prequantize: bool, dtype: torch.dtype):
     """The ``init_params`` transform that draws each linear weight in the
-    form a serve keeps it: prequantized int8 (``quantize_tree``'s rule),
-    cast to ``dtype`` in bf16 mode (:func:`cast_linear_weights`'), or
-    stored K-major in dynamic w8a8 (:func:`k_major_linear_weights`'). An
+    form a serve keeps it: prequantized int8 (``quantize_tree``'s rule, in
+    every mode with ``prequantize``), cast to ``dtype`` in bf16 mode
+    (:func:`cast_linear_weights`'), or as f32 masters stored K-major in the
+    dynamic modes, w8a8, qat and analog_sim
+    (:func:`k_major_linear_weights`'). An
     expert stack and the codebook head are cast to ``dtype`` in every mode,
     never quantized and never K-major: the reference reads their f32
     masters only through a cast to the compute dtype, so storing that cast

@@ -25,7 +25,8 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert 'repro_torch.launch.serve' in mods and len(mods) >= 20
     # the port's own copies of the reference's jax-free modules
     assert {'repro_torch.runtime.faults', 'repro_torch.runtime.telemetry',
-            'repro_torch.core.hwmodel'} <= set(mods)
+            'repro_torch.core.hwmodel', 'repro_torch.core.analog',
+            'repro_torch.core.bitplane'} <= set(mods)
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -97,14 +97,6 @@ def test_linear_matches_reference(mode, prequant, dtype, bias):
                                    rtol=2e-2)
 
 
-def test_later_modes_raise():
-    x, w = _xw()
-    for mode in ('qat', 'analog_sim'):
-        with pytest.raises(NotImplementedError, match='paper-fidelity'):
-            tyl.linear(torch.from_numpy(x), torch.from_numpy(w),
-                       cfg=tyl.YocoConfig(mode=mode))
-
-
 def test_quantize_tree_converts_the_same_leaves():
     """Name dispatch over the stablelm smoke tree: the same weights become
     QuantizedWeights, bit-equal per layer, and norms/embeddings stay."""
