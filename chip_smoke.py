@@ -22,14 +22,18 @@ widths and depths, and their static ``serve()`` (zamba2's sites on K7);
 their SSD scans, convs and gated norms are plain torch ops, as the
 reference's are plain jnp. The non-token frontends: the static
 ``serve()`` of qwen2-vl-72b (patch embeddings in, M-RoPE; 12 of its 80
-layers, ``qwen2-vl-72b-L12``, in every mode, and all 80 with
---prequantize) and of musicgen-large (four codebooks) at their published
+layers, ``qwen2-vl-72b-L12``, in every mode, and 40, ``qwen2-vl-72b-L40``,
+with --prequantize) and of musicgen-large (four codebooks) at their published
 widths (K7 at G = 8, dh = 128; K2-K4 up to K = 29568 and N = 152064).
 The paper-fidelity modes: continuous serving of stablelm-1.6b at its
 published width in ``qat`` (K3 for every activation and weight, a float
 matmul) and ``analog_sim`` (w8a8's K2-K4 products, then the analog noise
 and TDC epilogue in plain torch), the analog VMM at the paper's size and
-the straight-through backward passes.
+the straight-through backward passes. Training: stablelm-1.6b trained at
+its published width and depth through ``make_train_step`` in bf16, qat
+(K3 on every activation and weight transpose) and w8a8 (K3 and K4 on
+every linear), at M = 8 x 256 rows, and the trainer's checkpoint and
+resume on the card.
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -216,10 +220,11 @@ Phases, in order; any failure exits non-zero and prints no result:
              whose four heads are a float einsum), peak memory beside the
              weights' read bound; 4 greedy decode steps in f32 through
              flash and einsum with equal tokens; then qwen2-vl-72b's 80
-             layers, refused in bf16 and dynamic w8a8 before any draw,
-             served with --prequantize (71.5 GB of int8 weights, flash):
-             finite logits, exact launches, peak memory beside the card's
-             total, decode_step_ms beside the weights' read bound.
+             layers refused in bf16 and dynamic w8a8 before any draw, and
+             40 of them (qwen2-vl-72b-L40) served with --prequantize
+             (flash): finite logits, exact launches, peak memory beside
+             the card's total, decode_step_ms beside the weights' read
+             bound.
 5f. fidelity — the paper-fidelity modes on stablelm-1.6b at its
              published width (fidelity_phase): 8 requests of 128-token
              prompts, 16 generated, in dynamic w8a8, qat, analog_sim
@@ -236,6 +241,28 @@ Phases, in order; any failure exits non-zero and prints no result:
              circuits within one code, card vs CPU on the same draws equal
              up to boundary flips; a qat and a w8a8 linear's STE backward
              at K = N = 2048, card vs CPU within 1e-5.
+5g. train  — training (train_phase): one make_train_step step at smoke
+             size on the card against the CPU from the same seed-0 params
+             and batch (stablelm in bf16, qat, w8a8 and analog_sim, the
+             last on the card's replayed draws, with grad_accum 1 and 2;
+             qwen2-moe and mamba2 in bf16), to the CPU tests' bounds (loss
+             1e-3 and grad norm 5e-3 relative, at most 3% of params off by
+             more than 1e-6, each by at most 2.2 lr); the trainer at smoke
+             size, 10 steps, against the CLI killed at step 6
+             (``--simulate-failure-at 6``, exit 17, after its step-6
+             checkpoint) and resumed by train() to step 10: the losses at
+             steps 6-9 equal bit for bit (else again under
+             torch.use_deterministic_algorithms, reported); stablelm-1.6b
+             at its published width and depth, 8 AdamW steps of global
+             batch 8 x 256 tokens in bf16, qat and w8a8: finite losses,
+             the last below the first, K3 266 and K4 169 (w8a8) or 0
+             (qat) launches a step exactly, none in bf16, every linear
+             master and its moments K-major after the last step; the step
+             time, tokens/s, peak memory, busy share of a profiled step
+             and 6 N tokens a step over the card's dense bf16 peak; K3 on
+             the bf16 activations (K = 2048, 5632) and weight transposes,
+             K4 at M = 2048 through the four linear shapes, bit-exact and
+             timed beside torch._int_mm.
 6. chaos   — continuous serving under the fault injector at the published
              width, each serve beside a clean run of the same stream and
              weights (chaos_phase): stablelm bf16 with the int8 tier and
@@ -257,15 +284,16 @@ runs on, with that path's launches; K9 on both pool dtypes), a
 ``{"redesigned": [...]}`` line (every row of the redesigned kernels, all
 ten), a ``{"nan": [...]}``, a ``{"serve": [...]}``, a ``{"dense":
 [...]}``, a ``{"moe": [...]}``, a ``{"static_serve": [...]}``, a
-``{"chaos": [...]}``, a ``{"ssm": [...]}``, a ``{"frontends": [...]}``
-and a ``{"fidelity": [...]}`` line, the
+``{"chaos": [...]}``, a ``{"ssm": [...]}``, a ``{"frontends": [...]}``,
+a ``{"fidelity": [...]}`` and a ``{"train": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
 reports) go to ``build/chip_smoke.json``.
 
 Usage: python3 chip_smoke.py (every phase runs, always).
        python3 chip_smoke.py --phase
-       kernels|profile|static|nan|chaos|dense|moe|ssm|frontends|fidelity:
+       kernels|profile|static|nan|chaos|dense|moe|ssm|frontends|fidelity|
+       train:
        the build and that phase alone (its report in
        ``build/chip_smoke_<phase>.json``, no result line), to rehearse a
        kernel or to measure another tree with this script copied into its
@@ -1988,11 +2016,13 @@ class _AnalogDraws:
     it (``forward``, set by the caller). Given the card run's record as
     ``follow``, each call takes the card's draws instead (a CPU generator
     draws another stream than the card's), and returns the card's TDC codes
-    through :func:`_match_codes`, as :class:`_K3Codes` does K3's."""
+    through :func:`_match_codes`, as :class:`_K3Codes` does K3's (unless
+    ``follow_codes`` is False: a train step is held to bounds instead)."""
 
-    def __init__(self, follow=None):
+    def __init__(self, follow=None, follow_codes=True):
         self.forward, self.draws, self.codes, self.flips = 0, [], [], []
         self._follow = follow
+        self._follow_codes = follow_codes
 
     def __enter__(self):
         from repro_torch.core import yoco_linear as yl
@@ -2017,7 +2047,7 @@ class _AnalogDraws:
 
         def tdc(y, bits):
             q, scale = self._orig[1](y, bits)
-            if self._follow is not None:
+            if self._follow is not None and self._follow_codes:
                 fwd, card = self._follow.codes[len(self.codes)]
                 q = _match_codes(q, card.to(q.device), fwd, self.flips)
             self.codes.append((self.forward, q.cpu()))
@@ -3444,9 +3474,12 @@ def ssm_phase(torch, build):
 FRONTEND_PATH = 'frontends static serve()'
 VL_ARCH, MG_ARCH = 'qwen2-vl-72b', 'musicgen-large'
 # qwen2-vl-72b cut to 12 of its 80 layers (bf16: 23.56 GB of weights;
-# dynamic w8a8's f32 masters 47.11 GB), registered at run time by
-# register_vl12(); its 80 layers serve whole with --prequantize only
+# dynamic w8a8's f32 masters 47.11 GB), and to 40 for the --prequantize
+# serve (its 80 layers' 71.5 GB of int8 weights served whole until the
+# train phase needed the time), registered at run time by
+# register_vl_cuts()
 VL12_ARCH, VL12_LAYERS = 'qwen2-vl-72b-L12', 12
+VL40_ARCH, VL40_LAYERS = 'qwen2-vl-72b-L40', 40
 # arch -> (layers, d_model, q heads, KV heads, dh, d_ff, vocab, codebooks):
 # the published widths the phase must serve
 FRONTEND_ARCHS = {
@@ -3465,18 +3498,18 @@ FRONTEND_RUNS = {
 FRONTEND_ROUTE_STEPS = 4
 
 
-def register_vl12():
-    """Register qwen2-vl-72b cut to its first 12 layers, ``replace(FULL,
-    n_layers=12)`` (the smoke config is the reference's SMOKE), as
-    VL12_ARCH; returns the full config."""
+def register_vl_cuts():
+    """Register qwen2-vl-72b cut to its first 12 and its first 40 layers,
+    ``replace(FULL, n_layers=n)`` (the smoke config is the reference's
+    SMOKE), as VL12_ARCH and VL40_ARCH; returns the 12-layer config."""
     import dataclasses
 
     from repro_torch import configs
-    configs.base.register(
-        dataclasses.replace(configs.get(VL_ARCH), name=VL12_ARCH,
-                            n_layers=VL12_LAYERS),
-        dataclasses.replace(configs.get(VL_ARCH, smoke=True),
-                            name=VL12_ARCH))
+    for name, layers in ((VL12_ARCH, VL12_LAYERS), (VL40_ARCH, VL40_LAYERS)):
+        configs.base.register(
+            dataclasses.replace(configs.get(VL_ARCH), name=name,
+                                n_layers=layers),
+            dataclasses.replace(configs.get(VL_ARCH, smoke=True), name=name))
     return configs.get(VL12_ARCH)
 
 
@@ -3589,7 +3622,8 @@ def frontends_phase(torch, build):
     flash and einsum routes' tokens (:func:`_frontend_route_check`); the
     device busy share of each config's bf16 flash lock-step run.
     (3) qwen2-vl-72b's 80 layers: bf16 and dynamic w8a8 refused before any
-    draw with their bytes, then served with --prequantize, bf16 compute,
+    draw with their bytes; then 40 of them (VL40_ARCH) served with
+    --prequantize, bf16 compute,
     flash: finite logits, exact launches, peak memory beside the card's
     total, ``decode_step_ms`` beside the int8 weights' read bound, its
     device busy share. Each
@@ -3731,6 +3765,11 @@ def frontends_phase(torch, build):
         else:
             check(False, f'{VL_ARCH} {mode}: {need} bytes of weights were '
                          f'not refused')
+    # the --prequantize serve at 40 of the 80 layers
+    cfg = configs.get(VL40_ARCH, smoke=False)
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size)
+          == (VL40_LAYERS, 8192, 29568, 152064),
+          f'{VL40_ARCH} is not at its published width')
     torch.cuda.reset_peak_memory_stats()
     t_load = time.perf_counter()
     params = SV._serving_params(cfg, None, dev, seed=0, mode='w8a8',
@@ -3739,10 +3778,10 @@ def frontends_phase(torch, build):
     load_s = time.perf_counter() - t_load
     load_peak = torch.cuda.max_memory_allocated()
     resident = torch.cuda.memory_allocated()
-    SV.serve(VL_ARCH, smoke=False, batch=STATIC_BATCH,
+    SV.serve(VL40_ARCH, smoke=False, batch=STATIC_BATCH,
              prompt_len=STATIC_PROMPT, gen_len=2, mode='w8a8',
              prequantize=True, attn_impl='flash', params=params, quiet=True)
-    measured(VL_ARCH, f'frontends {VL_ARCH} 80 layers w8a8 prequant flash',
+    measured(VL40_ARCH, f'frontends {VL40_ARCH} w8a8 prequant flash',
              cfg, params, _frontend_launches(cfg, 'w8a8', True, 'flash'),
              'w8a8', True, 'flash', False, None, profile=True,
              load_s=load_s, load_peak_memory=load_peak,
@@ -4072,6 +4111,372 @@ def fidelity_phase(torch, build):
     rows.append(dict(phase_s=time.perf_counter() - t0))
     print(f'fidelity phase: {rows[-1]["phase_s"]:.1f} s', flush=True)
     return rows, totals
+
+
+# ----------------------------------------------------------------------------
+# phase 5g: training (the train step, the trainer) on stablelm-1.6b
+# ----------------------------------------------------------------------------
+TRAIN_PATH = f'{ARCH} train'
+# full width: global batch 8 of 256 tokens, 8 AdamW steps a mode
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 8
+TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ       # M of every training linear
+TRAIN_MODES = ('bf16', 'qat', 'w8a8')
+TRAIN_LR = 1e-3
+# one train step on the card against the CPU's at smoke size: (arch, mode,
+# grad_accum)
+TRAIN_SMOKE = (tuple((ARCH, m, a) for m in ('bf16', 'qat', 'w8a8',
+                                           'analog_sim') for a in (1, 2))
+               + ((MOE_ARCH, 'bf16', 1), (SSM_ARCH, 'bf16', 1)))
+# the CPU tests' bounds (tests/test_torch_train_step.py): loss and grad
+# norm relative, the share of params off by more than 1e-6, each at most
+# 2.2 lr off (a sign flip of the first AdamW step plus the decay)
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_PARAM_SHARE = 1e-3, 5e-3, 0.03
+# the activation widths and weights (K, N) of stablelm's training linears:
+# q/k/v/o, MLP in (gate, up), MLP down, lm_head
+TRAIN_ACT_KS = (2048, 5632)
+TRAIN_WEIGHTS = ((2048, 2048), (2048, 5632), (5632, 2048), (2048, 100352))
+
+
+def _linear_masters(tree):
+    """(name, tensor) of every linear weight of a param-shaped tree."""
+    from repro_torch.core.yoco_linear import is_linear_weight
+    out = []
+
+    def walk(node, name=''):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v, name)
+        elif is_linear_weight(name, node):
+            out.append((name, node))
+    walk(tree)
+    return out
+
+
+def _train_step_pair(torch, arch, mode, accum):
+    """One ``make_train_step`` step from the trainer's seed-0 params and
+    the port's batch 0 (4 x 16 tokens) on the card and on the CPU (which
+    replays the card's analog draws); held to the CPU tests' bounds."""
+    from repro_torch import configs
+    from repro_torch.core.yoco_linear import YocoConfig
+    from repro_torch.data import synthetic
+    from repro_torch.launch.train import init_state
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_step as TS
+
+    cfg = configs.get(arch, smoke=True)
+    opt = adamw.OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10,
+                          grad_accum=accum)
+    batch = synthetic.make_batch(synthetic.for_arch(cfg, global_batch=4,
+                                                    seq_len=16), 0)
+    host, _ = init_state(cfg, opt, 0, 'cpu')
+    out, draws = {}, None
+    for dev in ('cuda', 'cpu'):
+        params = adamw.tree_map(lambda t: t.to(dev, copy=True), host)
+        state = adamw.init(params, opt)
+        with _AnalogDraws(draws, follow_codes=False) as an:
+            params, state, m = TS.make_train_step(
+                cfg, YocoConfig(mode=mode), opt_cfg=opt)(
+                params, state, {k: v.to(dev) for k, v in batch.items()})
+        draws = an
+        out[dev] = (M.params_to_numpy(params, cfg),
+                    {k: float(v) for k, v in m.items()})
+    tag = f'train smoke {arch} {mode} grad_accum={accum}'
+    (pg, mg), (pc, mc) = out['cuda'], out['cpu']
+    loss_err = abs(mg['loss'] - mc['loss']) / abs(mc['loss'])
+    gn_err = abs(mg['grad_norm'] - mc['grad_norm']) / mc['grad_norm']
+    check(loss_err <= TRAIN_LOSS_TOL, f'{tag}: loss {mg["loss"]} on the '
+                                      f'card, {mc["loss"]} on the CPU')
+    check(gn_err <= TRAIN_GNORM_TOL, f'{tag}: grad norm {mg["grad_norm"]} '
+                                     f'on the card, {mc["grad_norm"]} on '
+                                     f'the CPU')
+    check(abs(mg['lr'] - mc['lr']) <= 1e-9, f'{tag}: learning rates differ')
+    off = total = 0
+    worst = 0.0
+
+    def walk(a, b):
+        nonlocal off, total, worst
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k])
+            return
+        d = np.abs(a - b)
+        off += int((d > 1e-6).sum())
+        total += d.size
+        worst = max(worst, float(d.max()))
+    walk(pg, pc)
+    check(worst <= 2.2 * TRAIN_LR and off <= TRAIN_PARAM_SHARE * total,
+          f'{tag}: {off} of {total} params off by > 1e-6, the worst by '
+          f'{worst}')
+    check(mode != 'analog_sim' or len(draws.draws) > 0,
+          f'{tag}: no analog draw replayed')
+    return dict(arch=arch, mode=mode, grad_accum=accum, loss=mg['loss'],
+                loss_rel_err=loss_err, grad_norm_rel_err=gn_err,
+                params_off=off, params=total, worst_param_err=worst,
+                tol=dict(loss=TRAIN_LOSS_TOL, grad_norm=TRAIN_GNORM_TOL,
+                         share=TRAIN_PARAM_SHARE, param=2.2 * TRAIN_LR))
+
+
+def _resume_runs(torch, root, deterministic):
+    """The trainer on the card at smoke size: 10 steps uninterrupted, and
+    the same 10-step run through the CLI killed at step 6 (after its
+    step-6 checkpoint; ``ckpt_every=3``), then resumed by ``train()`` to
+    step 10. Returns (uninterrupted losses, resumed losses at 6-9)."""
+    import shutil
+
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.launch import train as T
+
+    shutil.rmtree(root, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    pre = ''
+    if deterministic:
+        env['CUBLAS_WORKSPACE_CONFIG'] = ':4096:8'
+        os.environ['CUBLAS_WORKSPACE_CONFIG'] = ':4096:8'
+        pre = 'import torch; torch.use_deterministic_algorithms(True); '
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        kw = dict(smoke=True, steps=10, global_batch=8, seq_len=64,
+                  quiet=True, device='cuda')
+        whole = T.train(ARCH, ckpt_every=0, ckpt_dir=os.path.join(
+            root, 'whole'), **kw)
+        run = os.path.join(root, 'run')
+        code = (pre + 'from repro_torch.launch.train import main; main('
+                + repr(['--steps', '10', '--ckpt-every', '3',
+                        '--simulate-failure-at', '6', '--ckpt-dir', run,
+                        '--global-batch', '8', '--seq-len', '64']) + ')')
+        r = subprocess.run([sys.executable, '-c', code], env=env, cwd=HERE,
+                           capture_output=True, text=True, timeout=600)
+        check(r.returncode == 17 and '[failure-sim] dying at step 6'
+              in r.stdout, f'train CLI: exit {r.returncode}, expected 17: '
+                           f'{r.stdout[-2000:]} {r.stderr[-2000:]}')
+        check(CheckpointManager(run).latest_step() == 6,
+              'train CLI: the step-6 checkpoint is not the latest')
+        rest = T.train(ARCH, ckpt_every=3, ckpt_dir=run, **kw)
+        check(rest['steps_run'] == 4, f'train resume ran '
+                                      f'{rest["steps_run"]} steps, not 4')
+        return whole['history'], rest['history']
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _train_resume_check(torch):
+    """The resumed losses at steps 6-9 against the uninterrupted run's:
+    bit for bit by default, else under torch.use_deterministic_algorithms,
+    which must then give them bit for bit."""
+    root = os.path.join(OUT_DIR, 'train_ckpt')
+    whole, rest = _resume_runs(torch, root, deterministic=False)
+    row = dict(uninterrupted=whole, resumed=rest,
+               bit_equal=rest == whole[6:], deterministic_needed=False)
+    if not row['bit_equal']:
+        row['max_rel_diff'] = max(abs(a - b) / abs(b)
+                                  for a, b in zip(rest, whole[6:]))
+        whole, rest = _resume_runs(torch, root, deterministic=True)
+        row.update(deterministic_needed=True, deterministic_uninterrupted=whole,
+                   deterministic_resumed=rest,
+                   deterministic_bit_equal=rest == whole[6:])
+        check(row['deterministic_bit_equal'],
+              f'train resume: losses at steps 6-9 {rest} differ from the '
+              f'uninterrupted run\'s {whole[6:]} even under '
+              f'torch.use_deterministic_algorithms')
+    return row
+
+
+def train_kernel_rows(torch, kmods):
+    """K3 and K4 at the training shapes (M = 8 x 256 rows), bit-exact
+    against their plain versions and timed: K3 on the bf16 activations
+    (K = 2048, 5632) and on the bf16 casts of the K-major linear masters
+    (their transposes read in place: N x K rows), K4 on those codes, beside
+    torch._int_mm on the same int8 operands (no scale epilogue)."""
+    fd, kq, ky, build = kmods
+    del fd, build
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf16, m = torch.bfloat16, TRAIN_ROWS
+    rows = []
+    src_q, rep_q = ('src/repro_torch/csrc/quantize.cu',
+                    'src/repro/kernels/quantize.py:35')
+    src_v, rep_v = ('src/repro_torch/csrc/yoco_vmm.cu',
+                    'src/repro/kernels/yoco_vmm.py:65')
+
+    def k3(x, shape):
+        xq, sx = kq.quantize_rows(x)
+        xq_p, sx_p = kq.quantize_rows_plain(x)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(xq, xq_p) and torch.equal(sx, sx_p)),
+              f'K3 {shape} not bit-exact')
+        r, k = x.shape
+        record_row(torch, rows, 'quantize_rows', shape, 0.0, 0.0,
+                   lambda: kq.quantize_rows(x),
+                   lambda: kq.quantize_rows_plain(x), None,
+                   r * k * 2 + r * k + r * 4, source=src_q, replaces=rep_q)
+        return xq, sx
+
+    acts = {}
+    for k in TRAIN_ACT_KS:
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        acts[k] = k3(x, dict(arch=ARCH, path='train', operand='activation',
+                             M=m, K=k, dtype='bfloat16'))
+    for k, n in TRAIN_WEIGHTS:
+        # the bf16 cast of a K-major master: its transpose, (N, K)
+        # contiguous, is what K3 reads
+        wt = (torch.randn((n, k), generator=gen, device=dev)
+              * k ** -0.5).to(bf16)
+        wq_t, sw_t = k3(wt, dict(arch=ARCH, path='train', operand='weight',
+                                 M=n, K=k, dtype='bfloat16'))
+        xq, sx = acts[k]
+        wq, sw = wq_t.t(), sw_t.reshape(1, n)
+        y = ky.yoco_vmm_int8(xq, wq, sx, sw)
+        y_p = ky.yoco_vmm_int8_plain(xq, wq, sx, sw)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(y, y_p)),
+              f'K4 ({m},{k},{n}) differs from its plain version')
+        del y, y_p
+        record_row(torch, rows, 'yoco_vmm_int8',
+                   dict(arch=ARCH, path='train', M=m, K=k, N=n), 0.0, 0.0,
+                   lambda: ky.yoco_vmm_int8(xq, wq, sx, sw),
+                   lambda: ky.yoco_vmm_int8_plain(xq, wq, sx, sw),
+                   lambda: torch._int_mm(xq, wq),
+                   m * k + k * n + 4 * (m + n) + 4 * m * n, 2.0 * m * k * n,
+                   source=src_v, replaces=rep_v, plain_iters=3)
+        del wt, wq_t, sw_t, wq, sw
+    return rows
+
+
+def train_counts(mode):
+    """K3 and K4 launches one stablelm forward makes in ``mode`` (the
+    backward makes none): qat and w8a8 quantize every distinct activation
+    and every weight transpose, w8a8 runs every linear on K4; bf16 runs
+    neither."""
+    if mode == 'bf16':
+        return dict(quantize_rows=0, yoco_vmm_int8=0)
+    return dict(quantize_rows=ACTIVATIONS_PER_FORWARD + LINEARS_PER_FORWARD,
+                yoco_vmm_int8=LINEARS_PER_FORWARD if mode == 'w8a8' else 0)
+
+
+def train_phase(torch, kmods):
+    """Training on the card (the port's ``make_train_step`` and trainer).
+    (1) One step at smoke size on the card against the CPU
+    (TRAIN_SMOKE: stablelm in every mode with grad_accum 1 and 2,
+    qwen2-moe and mamba2 in bf16), to the CPU tests' bounds. (2) The
+    trainer at smoke size: 10 steps uninterrupted, and the CLI killed at
+    step 6 and resumed to 10, the resumed losses equal to the
+    uninterrupted run's. (3) stablelm-1.6b at its published width and
+    depth: TRAIN_STEPS steps of global batch TRAIN_BATCH x TRAIN_SEQ from
+    the port's data stream in each of TRAIN_MODES (``OptConfig(lr=1e-3,
+    warmup_steps=1, total_steps=8)``): every loss finite, the last below
+    the first, K3/K4 launched exactly ``train_counts`` a step (nothing
+    else), every linear master and its moments K-major after the last
+    step; step ms (median of steps 2-8), tokens/s, peak memory, the busy
+    share of one more step under torch.profiler, and 6 N tokens a step
+    over the card's dense bf16 peak. (4) K3/K4 rows at the training
+    shapes (:func:`train_kernel_rows`). Returns (rows, launch totals,
+    kernel rows)."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.core.yoco_linear import YocoConfig
+    from repro_torch.data import synthetic
+    from repro_torch.launch.train import init_state
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_step as TS
+
+    build = kmods[3]
+    t0 = time.perf_counter()
+    rows = [dict(smoke=[_train_step_pair(torch, *case)
+                        for case in TRAIN_SMOKE])]
+    print(f'train smoke: {json.dumps(rows[-1])}', flush=True)
+    rows.append(dict(resume=_train_resume_check(torch)))
+    print(f'train resume: {json.dumps(rows[-1])}', flush=True)
+
+    cfg = configs.get(ARCH, smoke=False)
+    check(cfg.n_layers == LAYERS_FULL and cfg.d_model == 2048
+          and cfg.vocab_size == 100352, f'{ARCH} is not at its published '
+                                        f'width and depth')
+    dc = synthetic.for_arch(cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    batches = [{k: v.to('cuda') for k, v in
+                synthetic.make_batch(dc, s).items()}
+               for s in range(TRAIN_STEPS + 1)]
+    totals = {k: 0 for k in build.LAUNCHES}
+    for mode in TRAIN_MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(torch.cuda.memory_allocated() < MOE_FREED_BYTES,
+              f'{torch.cuda.memory_allocated()} bytes still allocated '
+              f'before a model loads')
+        tag = f'train {ARCH} {mode}'
+        opt = adamw.OptConfig(lr=TRAIN_LR, warmup_steps=1,
+                              total_steps=TRAIN_STEPS)
+        params, state = init_state(cfg, opt, 0, 'cuda')
+        n_params = M.param_count(params)
+        step = TS.make_train_step(cfg, YocoConfig(mode=mode), opt_cfg=opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_counts()
+        losses, ms = [], []
+        for s in range(TRAIN_STEPS):
+            t_step = time.perf_counter()
+            params, state, metrics = step(params, state, batches[s])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t_step) * 1e3)
+            losses.append(float(metrics['loss']))
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)), f'{tag}: a loss is not finite: '
+                                        f'{losses}')
+        check(losses[-1] < losses[0], f'{tag}: the loss did not fall: '
+                                      f'{losses}')
+        want = {k: 0 for k in build.LAUNCHES}
+        want.update({k: v * TRAIN_STEPS for k, v in train_counts(mode)
+                     .items()})
+        for name, n in want.items():
+            check(launches[name] == n, f'{tag}: {name} launched '
+                                       f'{launches[name]} times, expected {n}')
+        for k in totals:
+            totals[k] += launches[k]
+        bad = [name for tree in (params, state.mu, state.nu)
+               for name, w in _linear_masters(tree)
+               if not w.t().is_contiguous()]
+        check(not bad, f'{tag}: linear masters or moments no longer '
+                       f'K-major: {bad}')
+        step_ms = _median(ms[1:])
+
+        def one_step():
+            step(params, state, batches[TRAIN_STEPS])
+            torch.cuda.synchronize()
+        by_name = profiled_kernels(torch, one_step)
+        busy_ms = sum(v[0] for v in by_name.values()) if by_name else None
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        flops = 6.0 * n_params * TRAIN_ROWS
+        rows.append(dict(
+            arch=ARCH, mode=mode, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            steps=TRAIN_STEPS, params=n_params, losses=losses, step_ms=ms,
+            median_step_ms=step_ms,
+            tokens_per_s=TRAIN_ROWS / (step_ms / 1e3),
+            max_memory_allocated=peak,
+            device_busy_ms=busy_ms,
+            device_busy_share=(None if busy_ms is None
+                               else busy_ms / step_ms),
+            kernel_launches=sum(v[1] for v in by_name.values()),
+            model_flops=flops,
+            bf16_peak_share=flops / (step_ms / 1e3) / BF16_OPS_PER_S,
+            launches={k: v for k, v in launches.items() if v},
+            top=[dict(kernel=k[:80], device_ms=v[0], calls=v[1])
+                 for k, v in top]))
+        print(f'train run: {json.dumps(rows[-1])}', flush=True)
+        params = state = step = metrics = None
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernel_rows = train_kernel_rows(torch, kmods)
+    print(f'train kernel rows: {len(kernel_rows)}', flush=True)
+    rows.append(dict(phase_s=time.perf_counter() - t0))
+    print(f'train phase: {rows[-1]["phase_s"]:.1f} s', flush=True)
+    return rows, totals, kernel_rows
 
 
 # the static serve() runs at full width: (arch, mode, prequantize,
@@ -4646,6 +5051,12 @@ def fidelity_rows(torch, kmods):
     return fidelity_phase(torch, kmods[3])[0]
 
 
+def train_rows(torch, kmods):
+    """Phase 5g, training, alone (its K3/K4 rows after its runs)."""
+    rows, _, kernel_rows = train_phase(torch, kmods)
+    return rows + kernel_rows
+
+
 # ``--phase NAME``: the build and that phase alone, to compare two trees
 # (copy this script into the other tree's root) or to rehearse a kernel
 def chaos_rows(torch, kmods):
@@ -4656,7 +5067,8 @@ def chaos_rows(torch, kmods):
 PHASES = dict(kernels=all_kernel_phases, profile=all_profiles,
               static=static_rows, nan=nan_kernel_phase, chaos=chaos_rows,
               dense=dense_rows, moe=moe_rows, ssm=ssm_rows,
-              frontends=frontends_rows, fidelity=fidelity_rows)
+              frontends=frontends_rows, fidelity=fidelity_rows,
+              train=train_rows)
 
 
 def print_redesigned(rows):
@@ -4685,7 +5097,7 @@ def run_phases(torch, report, kmods):
           'stablelm-1.6b FULL config changed')
     mla = register_dense_prefix()
     register_moe5()
-    register_vl12()
+    register_vl_cuts()
     check(mla.n_layers == MLA_LAYERS and mla.d_model == 7168
           and mla.n_heads == 128 and mla.d_ff == 18432
           and mla.vocab_size == 129280 and mla.moe is None
@@ -4740,6 +5152,9 @@ def run_phases(torch, report, kmods):
     lap('frontends')
     report['fidelity'], fidelity_totals = fidelity_phase(torch, kmods[3])
     lap('fidelity')
+    report['train'], train_totals, train_kernel = train_phase(torch, kmods)
+    report['kernel_sweep'] += train_kernel
+    lap('train')
     report['static_serve'], static_totals, moe_static_totals = \
         static_serve_phase(torch, kmods[3])
     lap('static')
@@ -4752,7 +5167,7 @@ def run_phases(torch, report, kmods):
             STATIC_PATH: static_totals, DENSE_PATH: dense_totals,
             MOE_PATH: moe_totals, MOE_STATIC_PATH: moe_static_totals,
             SSM_PATH: ssm_totals, FRONTEND_PATH: frontend_totals,
-            FIDELITY_PATH: fidelity_totals}
+            FIDELITY_PATH: fidelity_totals, TRAIN_PATH: train_totals}
 
 
 def main(argv) -> int:
@@ -4795,7 +5210,7 @@ def main(argv) -> int:
     if phase is not None:
         register_dense_prefix()
         register_moe5()
-        register_vl12()
+        register_vl_cuts()
         try:
             report[phase] = PHASES[phase](torch, kmods)
         finally:
@@ -4933,7 +5348,14 @@ def main(argv) -> int:
             ('int8_matmul', FIDELITY_PATH, dict(arch=ARCH, M=8, K=2048,
                                                 N=100352)),
             ('yoco_vmm_int8', FIDELITY_PATH, dict(arch=ARCH, M=8, K=2048,
-                                                  N=100352)))
+                                                  N=100352)),
+            # training at full width: K3 on the widest activation, K4 on
+            # the lm_head, both at M = 8 x 256 rows
+            ('quantize_rows', TRAIN_PATH, dict(path='train',
+                                               operand='activation',
+                                               M=TRAIN_ROWS, K=5632)),
+            ('yoco_vmm_int8', TRAIN_PATH, dict(path='train', M=TRAIN_ROWS,
+                                               K=2048, N=100352)))
     check({name for name, _, _ in pick} == set(totals[ARCH]),
           'the kernels line does not cover every kernel')
     kernels = []
@@ -4968,6 +5390,7 @@ def main(argv) -> int:
     print(json.dumps(dict(ssm=report['ssm'])), flush=True)
     print(json.dumps(dict(frontends=report['frontends'])), flush=True)
     print(json.dumps(dict(fidelity=report['fidelity'])), flush=True)
+    print(json.dumps(dict(train=report['train'])), flush=True)
     print(smi, flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform='gpu', kind=torch.cuda.get_device_name(0),

@@ -67,12 +67,15 @@ def _mix_attn(p, x, cfg, yoco, *, window, theta, cache, decode_pos, rt,
 
 def transformer_block(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
                       window=None, theta=None, cache: Optional[dict] = None,
-                      decode_pos=None, rt=None, chunk_ctx=None
+                      decode_pos=None, rt=None, chunk_ctx=None,
+                      aux: Optional[list] = None
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Pre-norm residual block. Returns (x, cache). ``chunk_ctx``
     (dict(offset=, limit=), both (B,) int32) routes the attention through
-    the chunked-prefill path. An MoE block's router metrics are dropped
-    here: serving reads none."""
+    the chunked-prefill path. An MoE block appends its router's
+    load-balance loss to ``aux`` when one is given (the training forward,
+    in the autograd graph); without it the router's metrics are skipped,
+    as serving reads none."""
     h = apply_norm(p['attn_norm'], x, cfg)
     a, cache = _mix_attn(p, h, cfg, yoco, window=window, theta=theta,
                          cache=cache, decode_pos=decode_pos, rt=rt,
@@ -82,8 +85,10 @@ def transformer_block(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     x = x + a
     h = apply_norm(p['mlp_norm'], x, cfg)
     if 'moe' in p:
-        m, _ = moe_mod.moe_apply(p['moe'], h, cfg, yoco,
-                                 with_metrics=False)
+        m, metrics = moe_mod.moe_apply(p['moe'], h, cfg, yoco,
+                                       with_metrics=aux is not None)
+        if aux is not None:
+            aux.append(metrics['aux_loss'])
     else:
         m = apply_mlp(p['mlp'], h, cfg.mlp_type, yoco)
     if 'post_mlp_norm' in p:

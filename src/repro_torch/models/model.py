@@ -7,6 +7,8 @@
   prefill_chunk(params, batch, offset, limit, cache, ...)
                                                  -> (logits, cache)
   decode_step(params, token, pos, cache, ...)    -> (logits, cache)
+  forward(params, batch, cfg, ...)               -> (logits, metrics)
+  loss_fn(params, batch, cfg, ...)               -> (loss, metrics)
 
 Parameters are a plain dict with the reference's names; ``layers`` is a
 list of per-layer dicts (a Python loop replaces ``lax.scan``). Caches keep
@@ -36,9 +38,10 @@ table; M-RoPE in attention) and ``codebooks`` input (musicgen: (B, S, CB)
 ids, ``embed`` (CB, V, d) summed over the codebooks, ``lm_head`` (CB, d,
 V) a float einsum giving (B, S, CB, V) logits in every mode).
 
-``params_from_numpy`` / ``cache_from_numpy`` / ``cache_to_numpy`` carry the
-reference's trees (as numpy arrays) across, so the two packages can be run
-on the same weights and compared pool for pool.
+``params_from_numpy`` / ``params_to_numpy`` / ``cache_from_numpy`` /
+``cache_to_numpy`` carry the reference's trees (as numpy arrays) across, so
+the two packages can be run on the same weights and compared pool for
+pool, and a checkpoint of either restores in the other.
 """
 
 from __future__ import annotations
@@ -242,6 +245,23 @@ def _is_quantized_leaf(x) -> bool:
     return getattr(x, '_fields', None) == ('wq', 'scale')
 
 
+def _layer_lists(cfg) -> set:
+    """The keys of the tree whose value is a list of per-layer dicts, each
+    stacked over its layers in the reference's tree."""
+    return ({'layers'} if _recurrent(cfg)
+            else {key for key, _, _, _ in _stacks(cfg)})
+
+
+def param_count(params) -> int:
+    """Elements in the tree (a ``QuantizedWeight`` counts its codes and
+    scales), as the reference counts its leaves."""
+    if isinstance(params, dict):
+        params = list(params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return params.numel()
+
+
 def params_from_numpy(tree: dict, cfg, device) -> dict:
     """The reference's param tree, as numpy arrays (stacked ``(L, ...)``
     layer leaves, ``QuantizedWeight(wq, scale)`` leaves allowed), to the
@@ -272,10 +292,48 @@ def params_from_numpy(tree: dict, cfg, device) -> dict:
             node = next(iter(node.values()))
         return len(node[0] if _is_quantized_leaf(node) else node)
 
-    lists = ({'layers'} if _recurrent(cfg)
-             else {key for key, _, _, _ in _stacks(cfg)})
+    lists = _layer_lists(cfg)
     return {k: ([conv(v, l) for l in range(length(v))] if k in lists
                 else conv(v)) for k, v in tree.items()}
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy of a tensor's values as a C-ordered numpy array on the host
+    (bf16 as f32, which numpy lacks): a K-major or ``stack_layout`` view
+    comes back as the plain (K, N) / (E, d, f) array of its values."""
+    t = t.detach().to('cpu', copy=True)
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.contiguous().numpy()
+
+
+def params_to_numpy(params: dict, cfg) -> dict:
+    """The inverse of :func:`params_from_numpy`: the port's tree as the
+    reference's, numpy arrays with each layer list stacked back to (L,
+    ...) leaves and each ``QuantizedWeight`` kept one (its codes as the
+    plain (K, N) array). ``params_from_numpy(params_to_numpy(p), cfg,
+    dev)`` holds p's values bit for bit."""
+    _check_served(cfg)
+
+    def conv(node):
+        if _is_quantized_leaf(node):
+            return QuantizedWeight(*(conv(v) for v in node))
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _to_numpy(node)
+
+    def stack(nodes):
+        first = nodes[0]
+        if _is_quantized_leaf(first):
+            return QuantizedWeight(*(stack([n[i] for n in nodes])
+                                     for i in range(2)))
+        if isinstance(first, dict):
+            return {k: stack([n[k] for n in nodes]) for k in first}
+        return np.stack([_to_numpy(n) for n in nodes])
+
+    lists = _layer_lists(cfg)
+    return {k: (stack(v) if k in lists else conv(v))
+            for k, v in params.items()}
 
 
 # Kept f32 by cast_linear_weights: MLA decode absorbs W_uk into the query
@@ -420,11 +478,13 @@ def layer_windows(cfg, device) -> Optional[torch.Tensor]:
 
 
 def _transformer_stack(layers: list, x: torch.Tensor, cfg, yoco, rt, *,
-                       cache: Optional[dict], decode_pos, chunk_ctx=None):
+                       cache: Optional[dict], decode_pos, chunk_ctx=None,
+                       aux: Optional[list] = None):
     """Run the layers in order; ``cache`` is the stacked (L, ...) dict or
     None, and each layer gets views of its own slice and its own (window,
     theta) (:func:`_gemma_layer_meta`; the window a view of
-    :func:`layer_windows`)."""
+    :func:`layer_windows`). An MoE layer appends its load-balance loss to
+    ``aux`` when one is given."""
     windows = layer_windows(cfg, x.device)
     thetas = _gemma_layer_meta(cfg)[1]
     for l, lp in enumerate(layers):
@@ -433,7 +493,7 @@ def _transformer_stack(layers: list, x: torch.Tensor, cfg, yoco, rt, *,
         x, _ = blk.transformer_block(
             lp, x, cfg, yoco, window=None if windows is None else windows[l],
             theta=thetas[l], cache=lc, decode_pos=decode_pos, rt=rt,
-            chunk_ctx=chunk_ctx)
+            chunk_ctx=chunk_ctx, aux=aux)
     return x, cache
 
 
@@ -478,7 +538,7 @@ def _hybrid_backbone(params: dict, x: torch.Tensor, cfg, yoco, rt, *,
 
 def _backbone(params: dict, x: torch.Tensor, cfg, yoco, rt, *,
               cache: Optional[dict], decode_pos, last_pos=None,
-              chunk_ctx=None):
+              chunk_ctx=None, aux: Optional[list] = None):
     """Each param stack on its own cache stack (:func:`_stacks`), each
     indexing the layer metadata by its own layer index, as the
     reference's scans do; a recurrent config's Mamba2 (and shared) blocks.
@@ -486,7 +546,10 @@ def _backbone(params: dict, x: torch.Tensor, cfg, yoco, rt, *,
     ``last_pos`` (prefill only): per-request last valid prompt positions
     of a right-padded batch. Attention layers ignore it (the causal mask
     keeps padded keys inert); Mamba2 layers mask the padded steps' dt to
-    0, so the recurrent state equals the unpadded prompt's."""
+    0, so the recurrent state equals the unpadded prompt's.
+
+    ``aux`` (training): a list each MoE layer appends its router's
+    load-balance loss to (recurrent configs have none)."""
     if decode_pos is not None:
         last_pos = None         # decode steps have no padding to mask
     if _recurrent(cfg):
@@ -506,7 +569,8 @@ def _backbone(params: dict, x: torch.Tensor, cfg, yoco, rt, *,
         x, _ = _transformer_stack(params[key], x, cfg, yoco, rt,
                                   cache=None if cache is None
                                   else cache[ckey],
-                                  decode_pos=decode_pos, chunk_ctx=chunk_ctx)
+                                  decode_pos=decode_pos, chunk_ctx=chunk_ctx,
+                                  aux=aux)
     return x, cache
 
 
@@ -588,6 +652,44 @@ def init_paged_cache_tree(cfg, batch: int, *, num_pages: int, page_size: int,
 # ----------------------------------------------------------------------------
 # public entry points
 # ----------------------------------------------------------------------------
+def forward(params: dict, batch: dict, cfg, yoco: YocoConfig = DEFAULT_YOCO,
+            rt: ModelRuntime = DEFAULT_RT) -> Tuple[torch.Tensor, dict]:
+    """Training forward: the causal logits at every position, (B, S, V)
+    (codebooks: (B, S, CB, V)), and ``dict(moe_aux_loss=...)``, the sum of
+    the MoE layers' load-balance losses in f32 (0 without MoE layers), in
+    the autograd graph."""
+    x = _embed(params, batch['inputs'], cfg, rt)
+    aux = []
+    x, _ = _backbone(params, x, cfg, yoco, rt, cache=None, decode_pos=None,
+                     aux=aux)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in aux:
+        total = total + a
+    x = apply_norm(params['final_norm'], x, cfg)
+    return _head(params, x, cfg, yoco), dict(moe_aux_loss=total)
+
+
+def loss_fn(params: dict, batch: dict, cfg, yoco: YocoConfig = DEFAULT_YOCO,
+            rt: ModelRuntime = DEFAULT_RT) -> Tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy in f32 (logsumexp minus the gold logit),
+    averaged over the positions whose label is >= 0; an MoE config adds
+    ``router_aux_weight * moe_aux_loss``. Returns (total, metrics with
+    ``moe_aux_loss``, ``ce_loss``, ``total_loss`` and ``tokens``)."""
+    logits, metrics = forward(params, batch, cfg, yoco, rt)
+    labels = batch['labels'].to(device=logits.device, dtype=torch.int64)
+    lf = logits.to(torch.float32)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    tokens = torch.sum(mask)
+    loss = torch.sum((logz - gold) * mask) / torch.clamp_min(tokens, 1.0)
+    total = loss
+    if cfg.moe is not None:
+        total = total + cfg.moe.router_aux_weight * metrics['moe_aux_loss']
+    return total, dict(metrics, ce_loss=loss, total_loss=total,
+                       tokens=tokens)
+
+
 def prefill(params: dict, batch: dict, cache: dict, cfg,
             yoco: YocoConfig = DEFAULT_YOCO, rt: ModelRuntime = DEFAULT_RT,
             last_pos=None) -> Tuple[torch.Tensor, dict]:
