@@ -33,7 +33,10 @@ the straight-through backward passes. Training: stablelm-1.6b trained at
 its published width and depth through ``make_train_step`` in bf16, qat
 (K3 on every activation and weight transpose) and w8a8 (K3 and K4 on
 every linear), at M = 8 x 256 rows, and the trainer's checkpoint and
-resume on the card.
+resume on the card. Tensor-parallel serving: stablelm-1.6b and the dense
+prefix served on 2 and 4 rank processes, each holding its heads of the
+attention projections and its part of the GQA pools (K1, K2, K3, K6 and
+K8 on a rank's heads).
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -278,6 +281,24 @@ Phases, in order; any failure exits non-zero and prints no result:
              metrics equal to the event log, the trace a Chrome trace, no
              telemetry hook synchronising the device; then the host ms a
              step with metrics on and off (not gated).
+7. tp      — tensor-parallel continuous serving on rank processes
+             (tp_phase): stablelm-1.6b at its published width and depth at
+             tp = 2 in bf16 and in w8a8 --prequantize over the int8 tier
+             (K2, K3, K6 on each rank's heads) and at tp = 4 in bf16 (K1),
+             deepseek-v3's dense prefix at tp = 2 in bf16 (K8 on 64 of its
+             128 heads), 8 requests of 64-128-token prompts, 16 generated;
+             the ranks share cuda:0 over gloo (nccl with a card a rank).
+             Before the serves, a rank's products against tp = 1's, bit
+             for bit: the bf16 q/k/v columns, K1 and K8 on a rank's heads
+             planned for all heads (``ways``), MLA's W_uv product at the
+             whole head count; and the device ms of K1, K8 and W_uv at tp
+             = 1 and on a rank at tp = 2 (K1 and K8 also planned for the
+             rank's heads alone). Each distinct run is served once at tp =
+             1. Tokens equal tp = 1's, every rank's launches equal tp =
+             1's kernel by kernel, one head all-gather a layer a forward
+             and no other collective, finite logits; wall time, tokens/s
+             and the KV pool bytes a rank printed (no TP speed: the ranks
+             share one card).
 
 Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
 runs on, with that path's launches; K9 on both pool dtypes), a
@@ -285,7 +306,8 @@ runs on, with that path's launches; K9 on both pool dtypes), a
 ten), a ``{"nan": [...]}``, a ``{"serve": [...]}``, a ``{"dense":
 [...]}``, a ``{"moe": [...]}``, a ``{"static_serve": [...]}``, a
 ``{"chaos": [...]}``, a ``{"ssm": [...]}``, a ``{"frontends": [...]}``,
-a ``{"fidelity": [...]}`` and a ``{"train": [...]}`` line, the
+a ``{"fidelity": [...]}``, a ``{"train": [...]}`` and a ``{"tp":
+[...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
 reports) go to ``build/chip_smoke.json``.
@@ -293,7 +315,7 @@ reports) go to ``build/chip_smoke.json``.
 Usage: python3 chip_smoke.py (every phase runs, always).
        python3 chip_smoke.py --phase
        kernels|profile|static|nan|chaos|dense|moe|ssm|frontends|fidelity|
-       train:
+       train|tp:
        the build and that phase alone (its report in
        ``build/chip_smoke_<phase>.json``, no result line), to rehearse a
        kernel or to measure another tree with this script copied into its
@@ -4991,26 +5013,285 @@ def chaos_phase(torch, build):
           f'{rows[-1]["phase_s"]:.1f} s', flush=True)
     return rows
 
+# ----------------------------------------------------------------------------
+# phase 7: tensor-parallel continuous serving (rank processes, one card)
+# ----------------------------------------------------------------------------
+# tp -> the runs served on one group of that many ranks: (arch, mode,
+# prequantize, serve_continuous options); each is served at tp = 1 too
+TP_RUNS = {
+    2: ((ARCH, 'bf16', False, {}), (ARCH, 'w8a8', True, TIER),
+        (MLA_ARCH, 'bf16', False, {})),
+    4: ((ARCH, 'bf16', False, {}),),
+}
+# 8 requests of the serve path's ragged 64-128-token prompts, 16 generated
+TP_SERVE = dict(smoke=False, slots=8, n_requests=8, prompt_len=128,
+                gen_len=16, page_size=8, attn_impl='flash', quiet=True,
+                metrics=False)
+
+
+def _tp_product_check(torch):
+    """A rank's products against tp = 1's, bit for bit, and their device
+    times. (1) stablelm's q/k/v columns (K = 2048, N = 2048 each) on a
+    bf16 activation of the decode step's 8 rows and of a padded 128-token
+    prefill, through ``yoco_linear.linears`` with the whole bf16 weights
+    and with each rank's column slices (``sharding.shard_serve_params``)
+    at tp = 2 and 4: cuBLAS may pick another algorithm for N / tp columns
+    than for N. (2) K1 at stablelm's decode step (B = 8, 32 KV heads, dh =
+    64, 137 keys on 8-key pages) and K8 at the dense prefix's (B = 8, 128
+    heads, r = 512, 137 keys), each rank's heads with ``ways`` = tp (the
+    key split planned for all heads) against the whole call's slice. (3)
+    MLA's W_uv product at 8 rows (H = 128, r = 512, dv = 128) as the port
+    computes it under TP (``attention._uv_product``, at the whole head
+    count) and, not gated, as a batched product over the rank's heads
+    alone. Then the device ms (profiler) of K1, K8 and the W_uv product at
+    tp = 1 and on a rank at tp = 2, and of K1 and K8 on a rank planned for
+    its own heads only (``ways`` = 1): the occupancy ``ways`` costs.
+    Returns one row a (check, M, tp) and one row of times."""
+    import functools
+    import types
+
+    from repro_torch.core import yoco_linear
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import attention
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device='cuda').manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device='cuda')
+    ws = {k: (randn(2048, 2048) / 2048 ** 0.5).to(torch.bfloat16)
+          for k in ('wq', 'wk', 'wv')}
+    rows = []
+    for m in (8, 128):
+        x = randn(1, m, 2048).to(torch.bfloat16)
+        whole = yoco_linear.linears(x, [ws['wq'], ws['wk'], ws['wv']])
+        for tp in (2, 4):
+            equal = True
+            for rank in range(tp):
+                part = sharding.shard_serve_params(ws, rank, tp)
+                got = yoco_linear.linears(x, [part['wq'], part['wk'],
+                                              part['wv']])
+                per = 2048 // tp
+                equal &= all(torch.equal(g, w[..., rank * per:
+                                              (rank + 1) * per])
+                             for g, w in zip(got, whole))
+            rows.append(dict(check='qkv_columns_bf16', M=m, tp=tp,
+                             bit_equal=bool(equal)))
+
+    # the decode kernels on a rank's heads: a step at 137 keys, 8 requests
+    b, page, pos_n = 8, 8, 137
+    w = -(-(pos_n + 7) // page)
+    bt = (1 + torch.arange(b * w, device=dev, dtype=torch.int32)
+          ).reshape(b, w)
+    pos = torch.full((b,), pos_n - 1, dtype=torch.int32, device=dev)
+    kp, vp = (randn(1 + b * w, page, 32, 64).to(torch.bfloat16)
+              for _ in range(2))
+    q1 = randn(b, 1, 32, 64).to(torch.bfloat16)
+    lat = randn(1 + b * w, page, 576).to(torch.bfloat16)
+    q8 = randn(b, 1, 128, 576)
+
+    def k1(q, k, v, ways):
+        return lambda: fd.flash_decode_paged(q, k, v, pos, bt,
+                                             scale=0.125, ways=ways)
+
+    def k8(q, ways):
+        return lambda: fd.flash_decode_paged_mla(q, lat, pos, bt, r=512,
+                                                 scale=0.07, ways=ways)
+    calls = dict(k1_tp1=k1(q1, kp, vp, 1), k8_tp1=k8(q8, 1))
+    whole = dict(k1=calls['k1_tp1'](), k8=calls['k8_tp1']())
+    for tp in (2, 4):
+        eq1 = eq8 = True
+        for rank in range(tp):
+            h1, h8 = (slice(rank * n // tp, (rank + 1) * n // tp)
+                      for n in (32, 128))
+            rank_k1 = k1(q1[:, :, h1].contiguous(),
+                         kp[:, :, h1].contiguous(),
+                         vp[:, :, h1].contiguous(), tp)
+            rank_k8 = k8(q8[:, :, h8].contiguous(), tp)
+            eq1 &= torch.equal(rank_k1(), whole['k1'][:, :, h1])
+            eq8 &= torch.equal(rank_k8(), whole['k8'][:, :, h8])
+            if tp == 2 and rank == 0:
+                calls.update(k1_tp2=rank_k1, k8_tp2=rank_k8)
+                calls['k1_tp2_own_plan'] = k1(q1[:, :, h1].contiguous(),
+                                              kp[:, :, h1].contiguous(),
+                                              vp[:, :, h1].contiguous(), 1)
+                calls['k8_tp2_own_plan'] = k8(q8[:, :, h8].contiguous(), 1)
+        rows.append(dict(check='k1_ways', M=b, tp=tp, bit_equal=bool(eq1)))
+        rows.append(dict(check='k8_ways', M=b, tp=tp, bit_equal=bool(eq8)))
+
+    mla = types.SimpleNamespace(nope_head_dim=128, v_head_dim=128,
+                                kv_lora_rank=512)
+    w_ukv = randn(512, 128 * 256)
+    o_lat = randn(8, 1, 128, 512)
+
+    def uv(o, p, rt):
+        return attention._uv_product(
+            o, attention._absorb_weights(p, mla)[1], p, mla, rt)
+
+    def rt_of(rank, tp):
+        group = types.SimpleNamespace(size=lambda: tp, rank=lambda: rank)
+        return types.SimpleNamespace(tp_group=group)
+    whole = uv(o_lat, dict(w_ukv=w_ukv), None)
+    calls['w_uv_tp1'] = lambda: uv(o_lat, dict(w_ukv=w_ukv), None)
+    for tp in (2, 4):
+        alone = padded = True
+        for rank in range(tp):
+            heads = slice(rank * 128 // tp, (rank + 1) * 128 // tp)
+            part = sharding.shard_serve_params(dict(w_ukv=w_ukv), rank, tp)
+            own = o_lat[:, :, heads].contiguous()
+            want = whole[:, :, heads]
+            padded &= torch.equal(uv(own, part, rt_of(rank, tp)), want)
+            alone &= torch.equal(uv(own, part, None), want)
+            if tp == 2 and rank == 0:
+                calls['w_uv_tp2'] = functools.partial(uv, own, part,
+                                                      rt_of(rank, tp))
+                calls['w_uv_tp2_own_heads'] = functools.partial(
+                    uv, own, part, None)
+        rows.append(dict(check='mla_w_uv_product', M=8, tp=tp,
+                         bit_equal=bool(padded),
+                         bit_equal_over_own_heads=bool(alone)))
+    times = {}
+    for name, fn in calls.items():
+        ms, timer, kernels = device_ms(torch, fn, iters=10, warmup=2)
+        times[name] = dict(ms=ms, timer=timer, kernels=kernels)
+    rows.append(dict(check='device_ms', shapes=dict(
+        k1=dict(B=b, hkv_tp1=32, dh=64, keys=pos_n, page=page),
+        k8=dict(B=b, h_tp1=128, r=512, d_rope=64, keys=pos_n, page=page),
+        w_uv=dict(M=8, h_tp1=128, r=512, dv=128)), **times))
+    return rows
+
+
+def tp_phase(torch, build):
+    """stablelm-1.6b at its published width and depth served at tp = 2 in
+    bf16 and in w8a8 --prequantize over the int8 tier, and at tp = 4 in
+    bf16, and deepseek-v3's dense prefix at tp = 2 in bf16, the runs of
+    one tp on one group of rank processes
+    (``launch/serve.py::serve_continuous_group``). On one card the ranks
+    share ``cuda:0`` over gloo, whose collectives cross the host; with a
+    card a rank (two or more cards at tp = 2) the group is nccl. First
+    :func:`_tp_product_check` (gated, bit for bit). Gates, against the
+    same run at tp = 1, served once (seeded weights, the same draws on
+    every rank): equal tokens, every rank's kernel launches equal tp =
+    1's kernel by kernel, one ``heads_all_gather`` a layer a forward
+    (decode steps and admission prefills) and no other collective, no
+    quarantined lane (finite logits). Prints each run's wall time,
+    tokens/s and the KV pool bytes a rank; it measures no TP speed: ranks
+    that share one card only show the sharded path right on the card."""
+    from repro_torch import configs
+    from repro_torch.distributed import ranks, sharding
+    from repro_torch.launch import serve as SV
+
+    t_phase = time.perf_counter()
+    rows = _tp_product_check(torch)
+    print(f'tp products: {json.dumps(rows)}', flush=True)
+    for row in rows:
+        check(row.get('bit_equal', True), f'tp products: {row}')
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f'tp phase: the NCCL path (a card a rank) is not run: this '
+              f'machine has {n_cards} card', flush=True)
+    served = {}         # each distinct run's tp = 1 serve, served once
+    for tp, runs in TP_RUNS.items():
+        base = []
+        for arch, mode, prequant, opts in runs:
+            key = json.dumps([arch, mode, prequant, opts], sort_keys=True)
+            if key not in served:
+                build.reset_counts()
+                t0 = time.perf_counter()
+                one = SV.serve_continuous(arch, mode=mode,
+                                          prequantize=prequant,
+                                          **TP_SERVE, **opts)
+                torch.cuda.synchronize()
+                served[key] = (one, dict(build.LAUNCHES),
+                               time.perf_counter() - t0)
+            base.append(served[key])
+        devs, backend = ranks.placement(tp)
+        t0 = time.perf_counter()
+        outs = SV.serve_continuous_group(
+            [dict(TP_SERVE, arch=arch, mode=mode, prequantize=prequant,
+                  **opts) for arch, mode, prequant, opts in runs], tp=tp)
+        group_s = time.perf_counter() - t0
+        for (arch, mode, prequant, opts), (one, launches, one_s), out in \
+                zip(runs, base, outs):
+            cfg = configs.get(arch, smoke=TP_SERVE['smoke'])
+            tag = f'tp={tp} {arch} {mode} prequant={prequant} {opts}'
+            check(out['tp'] == tp and out['backend'] == backend
+                  and [r['device'] for r in out['ranks']]
+                  == [str(d) for d in devs],
+                  f'{tag}: ranks {out["ranks"]} on {backend}')
+            check(out['completed'] == one['completed'] == 8
+                  and out['quarantined'] == one['quarantined'] == 0,
+                  f'{tag}: not every request finished with finite logits: '
+                  f'{out["events"]} vs {one["events"]}')
+            check(out['outputs'] == one['outputs'],
+                  f'{tag}: tokens differ from tp=1\'s')
+            forwards = out['steps'] + out['events']['admit']
+            want_calls = dict(heads_all_gather=cfg.n_layers * forwards,
+                              all_reduce=0, gather_objects=0)
+            for rank in out['ranks']:
+                check(rank['launches'] == launches,
+                      f'{tag}: rank {rank["rank"]} launched '
+                      f'{rank["launches"]}, tp=1 {launches}')
+                check(rank['collectives'] == want_calls,
+                      f'{tag}: rank {rank["rank"]} made '
+                      f'{rank["collectives"]} collectives, expected '
+                      f'{want_calls}')
+            max_blocks = -(-(TP_SERVE['prompt_len'] + TP_SERVE['gen_len'])
+                           // TP_SERVE['page_size'])
+            pool = dict(batch=TP_SERVE['slots'],
+                        num_pages=1 + TP_SERVE['slots'] * max_blocks,
+                        page_size=TP_SERVE['page_size'],
+                        max_blocks=max_blocks,
+                        kv_dtype='int8' if opts.get('kv_quant') else None,
+                        hot_window=opts.get('hot_window', 2),
+                        dtype=torch.bfloat16)
+            rows.append(dict(
+                tp=tp, arch=arch, mode=mode, prequantize=prequant,
+                options=opts, backend=backend,
+                devices=[r['device'] for r in out['ranks']],
+                wall_s=out['wall_s'], prefill_s=out['prefill_s'],
+                tokens_per_s=out['tokens_per_s'], steps=out['steps'],
+                decode_tokens=out['decode_tokens'],
+                pool_bytes_a_rank=sharding.pool_bytes(cfg, tp, **pool),
+                pool_bytes_tp1=sharding.pool_bytes(cfg, 1, **pool),
+                heads_all_gather=out['collectives']['heads_all_gather'],
+                launches={k: v for k, v in launches.items() if v},
+                tp1_wall_s=one['wall_s'],
+                tp1_tokens_per_s=one['tokens_per_s'],
+                tp1_call_s=one_s, group_s=group_s))
+            print(f'tp run: {json.dumps(rows[-1])}', flush=True)
+    rows.append(dict(phase_s=time.perf_counter() - t_phase))
+    print(f'tp phase: {rows[-1]["phase_s"]:.1f} s', flush=True)
+    return rows
+
+
 def all_kernel_phases(torch, kmods, nan=None):
     """Phase 2: every kernel against its plain version; the rows (K3's
-    NaN-row reports go to ``nan``)."""
+    NaN-row reports go to ``nan``). Each part prints its seconds."""
+    t0 = [time.perf_counter()]
+
+    def passed(what):
+        now = time.perf_counter()
+        print(f'{what} checks passed ({now - t0[0]:.1f} s)', flush=True)
+        t0[0] = now
+
     rows = kernel_phase(torch, kmods, nan)
-    print(f'kernel checks passed: {len(rows)} shapes', flush=True)
+    passed(f'kernel: {len(rows)} shapes')
     rows += tier_chunk_kernel_phase(torch, kmods)
-    print('K5/K6 checks passed', flush=True)
+    passed('K5/K6')
     rows += paged_split_kernel_phase(torch, kmods)
-    print('K1/K6 G>1 (the dense family\'s layouts) and W=512 checks passed',
-          flush=True)
+    passed('K1/K6 G>1 (the dense family\'s layouts) and W=512')
     rows += window_kernel_phase(torch, kmods)
-    print('K1/K5 at gemma3\'s 1,024-key window checks passed', flush=True)
+    passed('K1/K5 at gemma3\'s 1,024-key window')
     rows += mla_kernel_phase(torch, kmods)
-    print('K8/K9/K10 checks passed', flush=True)
+    passed('K8/K9/K10')
     rows += contig_kernel_phase(torch, kmods)
-    print('K7 checks passed', flush=True)
+    passed('K7')
     rows += moe_kernel_phase(torch, kmods)
-    print('K5/K7 at qwen2-moe\'s heads checks passed', flush=True)
+    passed('K5/K7 at qwen2-moe\'s heads')
     rows += frontend_kernel_phase(torch, kmods)
-    print('K7 at qwen2-vl\'s G=8 checks passed', flush=True)
+    passed('K7 at qwen2-vl\'s G=8')
     return rows
 
 
@@ -5064,11 +5345,16 @@ def chaos_rows(torch, kmods):
     return chaos_phase(torch, kmods[3])
 
 
+def tp_rows(torch, kmods):
+    """Phase 7 alone."""
+    return tp_phase(torch, kmods[3])
+
+
 PHASES = dict(kernels=all_kernel_phases, profile=all_profiles,
               static=static_rows, nan=nan_kernel_phase, chaos=chaos_rows,
               dense=dense_rows, moe=moe_rows, ssm=ssm_rows,
               frontends=frontends_rows, fidelity=fidelity_rows,
-              train=train_rows)
+              train=train_rows, tp=tp_rows)
 
 
 def print_redesigned(rows):
@@ -5115,8 +5401,9 @@ def run_phases(torch, report, kmods):
 
     k3_nan = []
     report['kernel_sweep'] = all_kernel_phases(torch, kmods, k3_nan)
-    report['nan'] = nan_kernel_phase(torch, kmods, k3=k3_nan)
     lap('kernels')
+    report['nan'] = nan_kernel_phase(torch, kmods, k3=k3_nan)
+    lap('nan')
     report['smoke'] = (smoke_phase(torch)
                        + smoke_phase(torch, ARCH, FIDELITY_SMOKE_MODES)
                        + smoke_tier_prefix_phase(torch)
@@ -5160,6 +5447,8 @@ def run_phases(torch, report, kmods):
     lap('static')
     report['chaos'] = chaos_phase(torch, kmods[3])
     lap('chaos')
+    report['tp'] = tp_phase(torch, kmods[3])
+    lap('tp')
     for k in gqa_totals:
         check(gqa_totals[k] + mla_totals[k] + static_totals[k] > 0,
               f'kernel {k} was never launched on the main paths')
@@ -5391,6 +5680,7 @@ def main(argv) -> int:
     print(json.dumps(dict(frontends=report['frontends'])), flush=True)
     print(json.dumps(dict(fidelity=report['fidelity'])), flush=True)
     print(json.dumps(dict(train=report['train'])), flush=True)
+    print(json.dumps(dict(tp=report['tp'])), flush=True)
     print(smi, flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform='gpu', kind=torch.cuda.get_device_name(0),

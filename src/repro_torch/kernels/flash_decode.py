@@ -509,7 +509,7 @@ def flash_decode_gqa_paged(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, pos: torch.Tensor,
                            window: torch.Tensor, block_tables: torch.Tensor,
                            offset=None, *, scale: float,
-                           chunk: int = 1) -> torch.Tensor:
+                           chunk: int = 1, ways: int = 1) -> torch.Tensor:
     """Same contract as :func:`flash_decode_gqa_paged_plain`: kernel K1
     (``chunk == 1``) or K5 (``chunk > 1``). On CUDA the query must be f32,
     the pools bf16 or f32 (one dtype), and pos, window, offset and block
@@ -518,7 +518,10 @@ def flash_decode_gqa_paged(q: torch.Tensor, k_pages: torch.Tensor,
     combine, with the splits' partials in scratch allocated here. Rows of
     a chunk past its limit (padding) stay finite but may differ from the
     plain version's: the kernel reads no key past the fetch-union
-    position."""
+    position. ``ways``: the tensor-parallel degree the KV heads were split
+    over; the plan is made for all ``Hkv * ways`` heads, so each (request,
+    head)'s keys are cut as on one device and the rank's heads come out
+    bit-equal to its slice of the whole."""
     tensors = (q, k_pages, v_pages, pos, window, block_tables) + (
         () if offset is None else (offset,))
     if all(t.device.type == 'cpu' for t in tensors):
@@ -537,7 +540,7 @@ def flash_decode_gqa_paged(q: torch.Tensor, k_pages: torch.Tensor,
                                _I32])
     is_bf16 = int(k_pages.dtype == torch.bfloat16)
     if chunk == 1:
-        plan = paged_split_plan(b, w, page_size, hkv, rows, dh,
+        plan = paged_split_plan(b, w, page_size, hkv * ways, rows, dh,
                                 k_pages.element_size())
         part, out = _split_scratch(b, hkv, rows, dh, plan, q.device)
         fn = build.function('flash_decode', 'flash_decode_paged', _K1_ARGS)
@@ -549,8 +552,8 @@ def flash_decode_gqa_paged(q: torch.Tensor, k_pages: torch.Tensor,
         build.check(err, 'flash_decode', name)
         build.count('flash_decode_paged')
     else:
-        plan = chunk_split_plan(b, w, page_size, hkv, chunk, rows // chunk,
-                                dh, k_pages.element_size())
+        plan = chunk_split_plan(b, w, page_size, hkv * ways, chunk,
+                                rows // chunk, dh, k_pages.element_size())
         part, out = _split_scratch(b, hkv, rows, dh, plan, q.device)
         fn = build.function('flash_decode', 'flash_chunk_paged', _K5_ARGS)
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -566,11 +569,13 @@ def flash_decode_gqa_paged(q: torch.Tensor, k_pages: torch.Tensor,
 
 def flash_decode_gqa_paged_q8(q, k_pages, v_pages, kq_pages, vq_pages,
                               k_scales, v_scales, pos, window, block_tables,
-                              hot_window, *, scale: float) -> torch.Tensor:
+                              hot_window, *, scale: float,
+                              ways: int = 1) -> torch.Tensor:
     """Kernel K6; same contract as :func:`flash_decode_gqa_paged_q8_plain`.
     On CUDA: f32 query, bf16 or f32 fp pools, int8 pools of the same shape,
     f32 (P, Hkv) scales, int32 pos/window/tables and a (1,) int32 hot
-    window, read by the kernel from device memory (no host sync)."""
+    window, read by the kernel from device memory (no host sync).
+    ``ways`` as :func:`flash_decode_gqa_paged`'s."""
     tensors = (q, k_pages, v_pages, kq_pages, vq_pages, k_scales, v_scales,
                pos, window, block_tables, hot_window)
     if all(t.device.type == 'cpu' for t in tensors):
@@ -594,7 +599,7 @@ def flash_decode_gqa_paged_q8(q, k_pages, v_pages, kq_pages, vq_pages,
     build.require_cuda(name, *tensors,
                        dtypes=[f32, _FP, _FP, i8, i8, f32, f32, _I32, _I32,
                                _I32, _I32])
-    plan = paged_split_plan(b, w, page_size, hkv, g, dh,
+    plan = paged_split_plan(b, w, page_size, hkv * ways, g, dh,
                             k_pages.element_size())
     part, out = _split_scratch(b, hkv, g, dh, plan, q.device)
     fn = build.function('flash_decode', 'flash_decode_paged_q8', _K6_ARGS)
@@ -666,8 +671,8 @@ def _check_latent(name, q, c_pages, pos, window, block_tables, r):
 def flash_decode_mla_paged(q: torch.Tensor, c_pages: torch.Tensor,
                            pos: torch.Tensor, window: torch.Tensor,
                            block_tables: torch.Tensor, offset=None, *,
-                           scale: float, r: int,
-                           chunk: int = 1) -> torch.Tensor:
+                           scale: float, r: int, chunk: int = 1,
+                           ways: int = 1) -> torch.Tensor:
     """Same contract as :func:`flash_decode_mla_paged_plain`: kernel K8
     (``chunk == 1``) or K9 (``chunk > 1``). On CUDA the query must be f32,
     the latent pool bf16 or f32, and pos, window, offset and block tables
@@ -676,7 +681,9 @@ def flash_decode_mla_paged(q: torch.Tensor, c_pages: torch.Tensor,
     their combine, with the splits' partials in scratch allocated here.
     Rows of a chunk past its limit (padding) stay finite but may differ
     from the plain version's: the kernel reads no key past the fetch-union
-    position."""
+    position. ``ways``: the tensor-parallel degree the heads were split
+    over; the plan is made for all ``R * ways`` rows, so each (request,
+    head)'s keys are cut as on one device."""
     tensors = (q, c_pages, pos, window, block_tables) + (
         () if offset is None else (offset,))
     if all(t.device.type == 'cpu' for t in tensors):
@@ -693,7 +700,7 @@ def flash_decode_mla_paged(q: torch.Tensor, c_pages: torch.Tensor,
     build.require_cuda(name, *tensors,
                        dtypes=[(torch.float32,), _FP, _I32, _I32, _I32,
                                _I32])
-    plan = latent_split_plan(b, w, page_size, rows, dk, r,
+    plan = latent_split_plan(b, w, page_size, rows * ways, dk, r,
                              c_pages.element_size())
     part, out = _split_scratch(b, 1, rows, r, plan, q.device)
     # K9's entry point also takes the chunk's offsets and its length
@@ -715,11 +722,12 @@ def flash_decode_mla_paged(q: torch.Tensor, c_pages: torch.Tensor,
 
 def flash_decode_mla_paged_q8(q, c_pages, cq_pages, c_scales, pos, window,
                               block_tables, hot_window, *, scale: float,
-                              r: int) -> torch.Tensor:
+                              r: int, ways: int = 1) -> torch.Tensor:
     """Kernel K10; same contract as :func:`flash_decode_mla_paged_q8_plain`.
     On CUDA: f32 query, bf16 or f32 latent pool, an int8 pool of the same
     shape, f32 (P, 1) scales, int32 pos/window/tables and a (1,) int32 hot
-    window, read by the kernel from device memory (no host sync)."""
+    window, read by the kernel from device memory (no host sync).
+    ``ways`` as :func:`flash_decode_mla_paged`'s."""
     tensors = (q, c_pages, cq_pages, c_scales, pos, window, block_tables,
                hot_window)
     if all(t.device.type == 'cpu' for t in tensors):
@@ -739,7 +747,7 @@ def flash_decode_mla_paged_q8(q, c_pages, cq_pages, c_scales, pos, window,
     build.require_cuda(name, *tensors,
                        dtypes=[(torch.float32,), _FP, (torch.int8,),
                                (torch.float32,), _I32, _I32, _I32, _I32])
-    plan = latent_split_plan(b, w, page_size, h, dk, r,
+    plan = latent_split_plan(b, w, page_size, h * ways, dk, r,
                              c_pages.element_size())
     part, out = _split_scratch(b, 1, h, r, plan, q.device)
     fn = build.function('flash_decode', 'flash_decode_paged_mla_q8',
@@ -814,7 +822,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
 
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, pos, block_tables: torch.Tensor,
-                       *, scale: float, window=None) -> torch.Tensor:
+                       *, scale: float, window=None,
+                       ways: int = 1) -> torch.Tensor:
     """Shape-flexible wrapper around :func:`flash_decode_gqa_paged` (K1).
 
     q: (B, 1, H, dh) or (B, H, dh); k/v_pages: (P, page_size, Hkv, dh);
@@ -824,13 +833,14 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     qg, posv, win, bt = _decode_operands(q, k_pages, block_tables, pos,
                                          window)
     out = flash_decode_gqa_paged(qg, k_pages, v_pages, posv, win, bt,
-                                 scale=scale)
+                                 scale=scale, ways=ways)
     return out.reshape(q.shape).to(v_pages.dtype)
 
 
 def flash_decode_paged_q8(q, k_pages, v_pages, kq_pages, vq_pages, k_scales,
                           v_scales, pos, block_tables, hot_window, *,
-                          scale: float, window=None) -> torch.Tensor:
+                          scale: float, window=None,
+                          ways: int = 1) -> torch.Tensor:
     """Shape-flexible wrapper around :func:`flash_decode_gqa_paged_q8`
     (K6): as :func:`flash_decode_paged`, plus the int8 pools, their (P, Hkv)
     scales and the hot window (int or (1,) tensor)."""
@@ -840,7 +850,7 @@ def flash_decode_paged_q8(q, k_pages, v_pages, kq_pages, vq_pages, k_scales,
                          device=q.device).reshape(-1)[:1].contiguous()
     out = flash_decode_gqa_paged_q8(qg, k_pages, v_pages, kq_pages, vq_pages,
                                     k_scales, v_scales, posv, win, bt, hw,
-                                    scale=scale)
+                                    scale=scale, ways=ways)
     return out.reshape(q.shape).to(v_pages.dtype)
 
 
@@ -861,7 +871,7 @@ def _chunk_scalars(offset, limit, window, b: int, c: int, s_logical: int,
 def flash_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
                       v_pages: torch.Tensor, offset, limit,
                       block_tables: torch.Tensor, *, scale: float,
-                      window=None) -> torch.Tensor:
+                      window=None, ways: int = 1) -> torch.Tensor:
     """Chunked-prefill GQA attention over a paged KV pool (K5): the chunk's
     C query tokens (absolute positions offset .. offset + C - 1) causally
     attend everything already written for the request, the chunk's own rows
@@ -882,7 +892,7 @@ def flash_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
                                       q.device)
     out = flash_decode_gqa_paged(qg, k_pages, v_pages, posv, winv,
                                  block_tables.to(torch.int32).contiguous(),
-                                 offv, scale=scale, chunk=c)
+                                 offv, scale=scale, chunk=c, ways=ways)
     out = out.reshape(b, hkv, c, g, dh).permute(0, 2, 1, 3, 4) \
         .reshape(b, c, h, dh)
     return out.to(v_pages.dtype)
@@ -908,7 +918,8 @@ def _mla_decode_operands(q, c_pages, pos, block_tables, window):
 
 def flash_decode_paged_mla(q: torch.Tensor, c_pages: torch.Tensor, pos,
                            block_tables: torch.Tensor, *, r: int,
-                           scale: float, window=None) -> torch.Tensor:
+                           scale: float, window=None,
+                           ways: int = 1) -> torch.Tensor:
     """Shape-flexible wrapper around :func:`flash_decode_mla_paged` (K8).
 
     q: (B, 1, H, r + d_rope) or (B, H, r + d_rope), the absorbed+rope
@@ -918,13 +929,14 @@ def flash_decode_paged_mla(q: torch.Tensor, c_pages: torch.Tensor, pos,
     q4, posv, win, bt, had_q_axis = _mla_decode_operands(
         q, c_pages, pos, block_tables, window)
     out = flash_decode_mla_paged(q4, c_pages, posv, win, bt, scale=scale,
-                                 r=r)
+                                 r=r, ways=ways)
     return out if had_q_axis else out[:, 0]
 
 
 def flash_decode_paged_mla_q8(q, c_pages, cq_pages, c_scales, pos,
                               block_tables, hot_window, *, r: int,
-                              scale: float, window=None) -> torch.Tensor:
+                              scale: float, window=None,
+                              ways: int = 1) -> torch.Tensor:
     """Shape-flexible wrapper around :func:`flash_decode_mla_paged_q8`
     (K10): as :func:`flash_decode_paged_mla`, plus the int8 latent pool,
     its (P, 1) or (P,) scales and the hot window (int or (1,) tensor)."""
@@ -935,13 +947,14 @@ def flash_decode_paged_mla_q8(q, c_pages, cq_pages, c_scales, pos,
     cs = c_scales.to(torch.float32).reshape(c_pages.shape[0], 1) \
         .contiguous()
     out = flash_decode_mla_paged_q8(q4, c_pages, cq_pages, cs, posv, win,
-                                    bt, hw, scale=scale, r=r)
+                                    bt, hw, scale=scale, r=r, ways=ways)
     return out if had_q_axis else out[:, 0]
 
 
 def flash_chunk_paged_mla(q: torch.Tensor, c_pages: torch.Tensor, offset,
                           limit, block_tables: torch.Tensor, *, r: int,
-                          scale: float, window=None) -> torch.Tensor:
+                          scale: float, window=None,
+                          ways: int = 1) -> torch.Tensor:
     """Chunked-prefill absorbed-MLA attention over a paged latent pool
     (K9): :func:`flash_chunk_paged`'s contract with the absorbed query of
     :func:`flash_decode_paged_mla`.
@@ -957,5 +970,5 @@ def flash_chunk_paged_mla(q: torch.Tensor, c_pages: torch.Tensor, offset,
                                       q.device)
     out = flash_decode_mla_paged(qg, c_pages, posv, winv,
                                  block_tables.to(torch.int32).contiguous(),
-                                 offv, scale=scale, r=r, chunk=c)
+                                 offv, scale=scale, r=r, chunk=c, ways=ways)
     return out.reshape(b, c, h, r)

@@ -120,6 +120,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import time
 from collections import Counter, deque
@@ -130,8 +131,11 @@ import torch
 
 from repro_torch import configs
 from repro_torch import device as device_mod
+from repro_torch.configs import base as configs_base
 from repro_torch.core.yoco_linear import YocoConfig
 from repro_torch.data import synthetic
+from repro_torch.distributed import collectives, ranks, sharding
+from repro_torch.kernels import build
 from repro_torch.models import model as model_mod
 from repro_torch.models.model import ModelRuntime
 from repro_torch.runtime import faults as faults_mod
@@ -229,8 +233,40 @@ def _refuse_oversize(cfg, dev, mode: str, prequantize: bool,
         f'(--prequantize stores int8), or cut its depth')
 
 
+def _refuse_oversize_tp(cfg, devs, mode: str, prequantize: bool,
+                        compute_dtype, pool: dict) -> None:
+    """:func:`_refuse_oversize` for a tensor-parallel group, before any
+    draw and any spawn: on each card, the bytes of every rank placed there
+    (a rank's weights, head leaves / tp, and its pool part,
+    ``distributed/sharding.py``'s ``serving_bytes`` and ``pool_bytes``)
+    against the card's free memory, checked once here rather than in each
+    rank, where the ranks' own allocations would race the check. A rank
+    allocates no more: it draws its head projections cut
+    (``sharding.rank_transform``) and its pool part alone
+    (``model.init_paged_cache_tree(tp=)``)."""
+    tp = len(devs)
+    per_rank = (sharding.serving_bytes(cfg, mode, prequantize,
+                                       compute_dtype, tp)
+                + sharding.pool_bytes(cfg, tp, dtype=compute_dtype, **pool))
+    for dev in sorted(set(devs), key=str):
+        if dev.type != 'cuda':
+            continue
+        n = devs.count(dev)
+        free, _ = torch.cuda.mem_get_info(dev)
+        if n * per_rank > free:
+            raise ValueError(
+                f'{cfg.name} at tp={tp}: the {n} ranks on {dev} take '
+                f'{n * per_rank} bytes ({per_rank} a rank: weights in '
+                f'{mode}{" --prequantize" if prequantize else ""} with '
+                f'their head projections / {tp}, and the KV pool / {tp}), '
+                f'and the card has {free} bytes free '
+                f'(torch.cuda.mem_get_info); serve fewer ranks a card or a '
+                f'mode whose weights fit')
+
+
 def _serving_params(cfg, params, dev, *, seed: int, mode: str,
-                    prequantize: bool, compute_dtype) -> dict:
+                    prequantize: bool, compute_dtype,
+                    shard: Optional[ranks.Shard] = None) -> dict:
     """Seeded random weights on ``dev`` unless ``params`` is given,
     quantized in situ (``prequantize``: the network loaded "into the
     array"), in bf16 mode cast once to the compute dtype, or in the dynamic
@@ -240,15 +276,29 @@ def _serving_params(cfg, params, dev, *, seed: int, mode: str,
     mode. Seeded weights take that form as each is drawn
     (``model.serving_transform``), so no f32 tree is ever whole on the
     card; given ``params`` are converted tree-wise (``model.serving_form``;
-    a tree already in that form is not copied)."""
-    if params is None:
-        _refuse_oversize(cfg, dev, mode, prequantize, compute_dtype)
+    a tree already in that form is not copied). With a tensor-parallel
+    ``shard``, the rank's tree (``distributed/sharding.py``): seeded head
+    projections cut as they are drawn, given ones cut after; the memory
+    check is then the caller's, made for all ranks at once."""
+    drawn = params is None
+    if drawn:
+        if shard is None:
+            _refuse_oversize(cfg, dev, mode, prequantize, compute_dtype)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return model_mod.init_params(
-            gen, cfg, device=dev,
-            transform=model_mod.serving_transform(mode, prequantize,
-                                                  compute_dtype))
-    return model_mod.serving_form(params, mode, prequantize, compute_dtype)
+        transform = model_mod.serving_transform(mode, prequantize,
+                                                compute_dtype)
+        if shard is not None:
+            transform = sharding.rank_transform(transform, shard.rank,
+                                                shard.tp)
+        params = model_mod.init_params(gen, cfg, device=dev,
+                                       transform=transform)
+    else:
+        params = model_mod.serving_form(params, mode, prequantize,
+                                        compute_dtype)
+    if shard is None:
+        return params
+    return sharding.shard_serve_params(params, shard.rank, shard.tp,
+                                       drawn=drawn)
 
 
 def _refuse_kernel_fault(faults) -> None:
@@ -732,6 +782,125 @@ class ContinuousScheduler:
                              slot=slot, tokens=len(st.tokens))
 
 
+def _refuse_continuous(arch: str, *, smoke: bool, tp: int,
+                       prequantize: bool, kv_quant: bool, prefix_cache: bool,
+                       chunk_prefill, faults, attn_impl: str):
+    """Every refusal of a continuous serve, before anything is drawn or
+    spawned; returns the config."""
+    cfg = configs.get(arch, smoke=smoke)
+    if cfg.input_kind != 'tokens':
+        raise ValueError(f'--continuous schedules token streams; {arch} '
+                         f'has input_kind={cfg.input_kind} (the stubbed '
+                         f'frontend cannot requeue/re-prefill non-token '
+                         f'prompts)')
+    _refuse_mla_prequantize(arch, cfg, prequantize)
+    _refuse_hybrid_prequantize(arch, cfg, prequantize)
+    _refuse_recurrent_paging(arch, cfg, kv_quant, prefix_cache,
+                             chunk_prefill)
+    _refuse_kernel_fault(faults)
+    sharding.validate_serve_tp(cfg, tp)
+    _check_attn_impl(attn_impl)
+    return cfg
+
+
+#: the arguments that cannot cross a process boundary or that only rank 0
+#: acts on; the other ranks run with these defaults
+_LEAD_ONLY = dict(step_hook=None, registry=None, metrics_out=None,
+                  trace=None, quiet=True)
+
+
+def serve_continuous_group(runs: List[dict], *, tp: int,
+                           device=None) -> List[dict]:
+    """Serve each of ``runs`` (keyword arguments of
+    :func:`serve_continuous`, without ``tp`` and ``device``) in turn on one
+    group of ``tp`` ranks, started once for all of them; returns rank 0's
+    reports. Rank r runs on ``cuda:(r % device_count)`` or, with
+    ``device='cpu'``, on the CPU (``distributed/ranks.py``: ``nccl`` when
+    every rank has a card of its own, else ``gloo``). Every refusal and
+    the memory check of all ranks on each card come before the spawn,
+    and the kernels are built here once, so the ranks load them built.
+    ``faults`` and ``request_stream`` are pickled to every rank (a seeded
+    injector draws the same faults in each); see :data:`_LEAD_ONLY` for
+    what only rank 0 gets."""
+    placed = ranks.placement(tp, device)
+    lead, rest = serve_jobs(runs, placed)
+    return ranks.run(lead, placed, worker_jobs=rest)
+
+
+def serve_jobs(runs: List[dict], placed) -> tuple:
+    """(rank 0's jobs, the other ranks' jobs) that serve ``runs`` on the
+    group ``placed`` (``ranks.placement``'s result), for ``ranks.run``
+    alone or beside other jobs: every run refused or checked for memory
+    here, before any spawn, and the kernels built."""
+    devs = placed[0]
+    tp = len(devs)
+    defaults = {k: p.default for k, p in
+                inspect.signature(serve_continuous).parameters.items()
+                if p.default is not p.empty}
+    lead, rest = [], []
+    for run in runs:
+        run = dict(run)
+        a = dict(defaults, **run)
+        cfg = _refuse_continuous(
+            a['arch'], smoke=a['smoke'], tp=tp, prequantize=a['prequantize'],
+            kv_quant=a['kv_quant'], prefix_cache=a['prefix_cache'],
+            chunk_prefill=a['chunk_prefill'], faults=a['faults'],
+            attn_impl=a['attn_impl'])
+        if devs[0].type == 'cuda' and a['params'] is None:
+            max_blocks = -(-(a['prompt_len'] + a['gen_len'])
+                           // a['page_size'])
+            _refuse_oversize_tp(
+                cfg, devs, a['mode'], a['prequantize'], a['compute_dtype'],
+                dict(batch=a['slots'], page_size=a['page_size'],
+                     num_pages=(a['num_pages']
+                                or 1 + a['slots'] * max_blocks),
+                     max_blocks=max_blocks,
+                     kv_dtype='int8' if a['kv_quant'] else None,
+                     hot_window=a['hot_window']))
+        # the rank registers the config where it is not (a cut registered
+        # at run time lives only in this process)
+        run['cfgs'] = (configs.get(run['arch']),
+                       configs.get(run['arch'], smoke=True))
+        lead.append(('repro_torch.launch.serve:_serve_rank', run))
+        rest.append(('repro_torch.launch.serve:_serve_rank',
+                     dict(run, **_LEAD_ONLY)))
+    if devs[0].type == 'cuda':
+        build.build()
+    return lead, rest
+
+
+def _serve_rank(shard: ranks.Shard, *, cfgs, **run) -> dict:
+    """One rank's serve of a :func:`serve_continuous_group` run."""
+    full, smoke = cfgs
+    if full.name not in configs_base.names():
+        configs_base.register(full, smoke)
+    return serve_continuous(**run, tp=shard.tp, device=shard.device,
+                            _shard=shard)
+
+
+def _rank_view(shard: ranks.Shard, launches0: dict, calls0: dict,
+               outputs: dict) -> dict:
+    """The group's part of the report: each rank's device, kernel
+    launches and collectives since its serve began, gathered on every rank
+    (one ``gather_objects``, after the steps and counted apart from them),
+    and every rank's tokens held to rank 0's."""
+    mine = dict(rank=shard.rank, device=str(shard.device),
+                launches={k: v - launches0[k]
+                          for k, v in build.LAUNCHES.items()},
+                collectives={k: v - calls0[k]
+                             for k, v in collectives.CALLS.items()})
+    views = collectives.gather_objects(dict(mine, outputs=outputs),
+                                       shard.group)
+    for view in views[1:]:
+        if view['outputs'] != outputs:
+            raise RuntimeError(
+                f'tensor-parallel rank {view["rank"]} served other tokens '
+                f'than rank 0: the ranks\' replicated logits diverged')
+    return dict(backend=shard.backend, collectives=mine['collectives'],
+                ranks=[{k: v for k, v in view.items() if k != 'outputs'}
+                       for view in views])
+
+
 def _ragged_stream(n_requests: int, prompt_len: int, gen_len: int,
                    prompts: np.ndarray) -> List[Request]:
     """Deterministic heterogeneous request stream: prompt lengths in
@@ -753,6 +922,7 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
                      num_pages: Optional[int] = None, mode: str = 'bf16',
                      prequantize: bool = False, seed: int = 0,
                      noise_seed: int = 0, attn_impl: str = 'flash',
+                     tp: int = 1,
                      greedy: bool = True, temperature: float = 1.0,
                      top_k: int = 0,
                      eos_id: Optional[int] = None,
@@ -773,7 +943,8 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
                      max_steps: Optional[int] = None,
                      quiet: bool = False,
                      device=None, compute_dtype=torch.bfloat16,
-                     params: Optional[dict] = None) -> dict:
+                     params: Optional[dict] = None,
+                     _shard: Optional[ranks.Shard] = None) -> dict:
     """Serve a stream of requests end to end (admit, decode, evict,
     re-admit) on ``device`` (default: the CUDA card; ``'cpu'`` runs the
     kernels' plain versions). ``compute_dtype`` is the activation and KV
@@ -820,26 +991,36 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     and no ``trace`` skip every hook. No hook reads the device: the max
     |logit| gauge keeps the sentinel's device scalar until the end.
 
+    Tensor parallelism: ``tp`` N > 1 serves on N rank processes
+    (:func:`serve_continuous_group`; this process is rank 0 and returns the
+    report): each rank holds its heads of the attention projections and
+    its part of the GQA pools, every other weight whole, and gathers the
+    heads once a layer; the report adds the group's ``backend`` and each
+    rank's device, kernel launches and collectives (``ranks``), and
+    ``collectives``, rank 0's calls in its steps. ``step_hook``,
+    ``registry``, ``metrics_out`` and ``trace`` act on rank 0 only.
+    ``_shard`` is set by the rank job alone.
+
     Pools are updated in place. Returns the reference's report keys.
     Only token streams are scheduled: qwen2-vl's embeddings and musicgen's
     codebook grids are refused, as the reference refuses them, before
     anything is drawn (serve them with :func:`serve`)."""
-    cfg = configs.get(arch, smoke=smoke)
-    if cfg.input_kind != 'tokens':
-        raise ValueError(f'--continuous schedules token streams; {arch} '
-                         f'has input_kind={cfg.input_kind} (the stubbed '
-                         f'frontend cannot requeue/re-prefill non-token '
-                         f'prompts)')
-    _refuse_mla_prequantize(arch, cfg, prequantize)
-    _refuse_hybrid_prequantize(arch, cfg, prequantize)
-    _refuse_recurrent_paging(arch, cfg, kv_quant, prefix_cache,
-                             chunk_prefill)
-    _refuse_kernel_fault(faults)
-    dev = device_mod.resolve(device)
-    _check_attn_impl(attn_impl)
+    call = dict(locals())       # the arguments, for the ranks' jobs
+    cfg = _refuse_continuous(arch, smoke=smoke, tp=tp,
+                             prequantize=prequantize, kv_quant=kv_quant,
+                             prefix_cache=prefix_cache,
+                             chunk_prefill=chunk_prefill, faults=faults,
+                             attn_impl=attn_impl)
+    if tp > 1 and _shard is None:
+        run = {k: v for k, v in call.items()
+               if k not in ('tp', 'device', '_shard')}
+        return serve_continuous_group([run], tp=tp, device=device)[0]
+    dev = device_mod.resolve(device) if _shard is None else _shard.device
+    launches0, calls0 = dict(build.LAUNCHES), dict(collectives.CALLS)
     yoco = YocoConfig(mode=mode, noise_seed=noise_seed,
                       compute_dtype=compute_dtype)
-    rt = ModelRuntime(attn_impl=attn_impl, compute_dtype=compute_dtype)
+    rt = ModelRuntime(attn_impl=attn_impl, compute_dtype=compute_dtype,
+                      tp_group=None if _shard is None else _shard.group)
     max_seq = prompt_len + gen_len
     max_blocks = -(-max_seq // page_size)
     if num_pages is None:
@@ -855,8 +1036,8 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
     if metrics or trace:
         telem = telemetry_mod.ServeTelemetry(
             cfg, slots=slots, page_size=page_size, kv_quant=kv_quant,
-            hot_window=hot_window, metrics=metrics, trace_path=trace,
-            registry=registry)
+            hot_window=hot_window, tp=tp, metrics=metrics,
+            trace_path=trace, registry=registry)
         telem.attach(events)
     injector = faults
     sched = ContinuousScheduler(kv, prompt_pad=prompt_len, eos_id=eos_id,
@@ -867,7 +1048,7 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
 
     params = _serving_params(cfg, params, dev, seed=seed, mode=mode,
                              prequantize=prequantize,
-                             compute_dtype=compute_dtype)
+                             compute_dtype=compute_dtype, shard=_shard)
     if request_stream is None:
         dc = synthetic.for_arch(cfg, global_batch=max(n_requests, 1),
                                 seq_len=prompt_len)
@@ -896,7 +1077,7 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         cfg, slots, num_pages=num_pages, page_size=page_size,
         max_blocks=max_blocks, dtype=compute_dtype,
         kv_dtype='int8' if kv_quant else None, hot_window=hot_window,
-        device=dev)
+        device=dev, tp=tp)
     n_pages_quantized = 0
     n_pages_quant_dropped = 0
     has_recurrent = model_mod._recurrent(cfg)
@@ -1143,6 +1324,10 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
 
     outputs = {st.req.rid: st.tokens
                for st in sorted(sched.completed, key=lambda s: s.req.rid)}
+    rank_view = None
+    if _shard is not None:
+        # counted before the check below, which is outside the steps
+        rank_view = _rank_view(_shard, launches0, calls0, outputs)
     term = events.terminal_accounting()
     tcounts = Counter(term.values())
     evc = events.counts()
@@ -1165,7 +1350,7 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         quarantined=evc.get('quarantine', 0),
         attn_impl=attn_impl,
         attn_impl_effective=attn_impl,
-        tp=1,
+        tp=tp,
         kv_quant=bool(kv_quant),
         hot_window=hot_window if kv_quant else None,
         pages_quantized=n_pages_quantized,
@@ -1185,6 +1370,8 @@ def serve_continuous(arch: str, *, smoke: bool = True, slots: int = 4,
         sample={r: t[:4] for r, t in list(outputs.items())[:4]},
         device=str(dev),
     )
+    if rank_view is not None:
+        out.update(rank_view)
     snap = telem.finish(events) if telem is not None else None
     if snap is not None:
         out['telemetry_summary'] = telemetry_mod.summarize(snap)
@@ -1240,7 +1427,12 @@ def main(argv=None):
     ap.add_argument('--page-size', type=int, default=8)
     ap.add_argument('--num-pages', type=int, default=None)
     ap.add_argument('--eos-id', type=int, default=None)
-    ap.add_argument('--tp', type=int, default=1)
+    ap.add_argument('--tp', type=int, default=1,
+                    help='continuous mode: head-parallel tensor parallelism '
+                         'over N rank processes (attention projections and '
+                         'GQA pools split by head, one all-gather a layer; '
+                         'gloo on the CPU or ranks sharing a card, nccl on '
+                         'a card each)')
     ap.add_argument('--deadline', type=int, default=None)
     ap.add_argument('--retry-budget', type=int, default=8,
                     help='-1: unlimited')
@@ -1277,9 +1469,10 @@ def main(argv=None):
                     help='write a Chrome-trace JSON of the run (load it at '
                          'ui.perfetto.dev)')
     args = ap.parse_args(argv)
-    if args.tp != 1:
-        raise NotImplementedError('--tp (tensor-parallel serving, Queue 1 '
-                                  'item 13) is a later slice of the port')
+    if args.tp != 1 and not args.continuous:
+        raise ValueError('--tp serves the continuous path (--continuous); '
+                         'the static serve() has no tensor parallelism, as '
+                         'in the reference')
     if not args.continuous:
         return serve(args.arch, smoke=args.smoke, batch=args.batch,
                      prompt_len=args.prompt_len, gen_len=args.gen_len,
@@ -1294,7 +1487,8 @@ def main(argv=None):
         gen_len=args.gen_len, page_size=args.page_size,
         num_pages=args.num_pages, mode=args.mode,
         prequantize=args.prequantize, seed=args.seed,
-        attn_impl=args.attn_impl or 'flash', greedy=not args.sample,
+        attn_impl=args.attn_impl or 'flash', tp=args.tp,
+        greedy=not args.sample,
         temperature=args.temperature, top_k=args.top_k, eos_id=args.eos_id,
         kv_quant=args.kv_quant, hot_window=args.hot_window,
         prefix_cache=args.prefix_cache, chunk_prefill=args.chunk_prefill,

@@ -21,6 +21,13 @@ kernel K8 (K10 over the int8 latent tier); a chunk reads it through K9;
 classified by ``runtime.layouts`` only; this module never looks at their
 leaves.
 
+Under head-parallel serving TP (``rt.tp_group`` set) a rank holds its
+contiguous slice of the heads: head counts come from the projection
+widths, never from the config, and :func:`_tp_heads_gather` reassembles
+the head-major activation before the replicated ``wo``, the one
+collective of a layer, at each of the six sites (prompt, decode and chunk,
+GQA and MLA).
+
 Pools are written in place (see ``runtime/layouts.py``).
 """
 
@@ -32,6 +39,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import yoco_linear
+from repro_torch.distributed import collectives
 from repro_torch.core.yoco_linear import YocoConfig
 from repro_torch.models import rope as rope_mod
 from repro_torch.models.layers import dense_init, keep, rmsnorm
@@ -239,6 +247,26 @@ def sdpa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
 # ----------------------------------------------------------------------------
 # GQA forward (prefill / decode)
 # ----------------------------------------------------------------------------
+def _tp_heads_gather(out_flat: torch.Tensor, rt) -> torch.Tensor:
+    """The one collective of the TP serving path: every rank holds the
+    attention outputs of its own contiguous head slice, and a tiled
+    all-gather on the flattened head dim rebuilds the full head-major
+    (B, S, H*dh) activation before the replicated ``wo``. A concatenation
+    of per-head outputs equals the one-device run bit for bit, where a sum
+    of partial ``wo`` products would reassociate the float reduction.
+    Without a group (``rt.tp_group`` None): the identity."""
+    if rt is None or rt.tp_group is None:
+        return out_flat
+    return collectives.heads_all_gather(out_flat, rt.tp_group)
+
+
+def _tp_ways(rt) -> int:
+    """The tensor-parallel degree the heads are split over (1: none)."""
+    if rt is None or rt.tp_group is None:
+        return 1
+    return rt.tp_group.size()
+
+
 def _project_qkv(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
                  positions: torch.Tensor, theta: float):
     b, s, _ = x.shape
@@ -268,7 +296,7 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
 def attention(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
               positions: Optional[torch.Tensor] = None,
               window: Optional[int] = None, theta: Optional[float] = None,
-              cache: Optional[dict] = None,
+              cache: Optional[dict] = None, rt=None,
               ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full-sequence attention; with ``cache`` (prefill) the K/V rows are
     written at [0, s). Returns (out, cache)."""
@@ -286,7 +314,8 @@ def attention(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     scale = 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32,
                                           device=x.device))
     out = _sdpa(q, k, v, mask, scale)
-    out = yoco_linear.linear(out.reshape(b, s, -1), p['wo'], cfg=yoco)
+    out = _tp_heads_gather(out.reshape(b, s, -1), rt)
+    out = yoco_linear.linear(out, p['wo'], cfg=yoco)
     return out, cache
 
 
@@ -311,11 +340,13 @@ def attention_decode(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     posr = pos.reshape(-1).expand(b) if layout.paged else pos
     cache = layout.write_token(cache, dict(k=k, v=v), posr)
     if rt is not None and rt.attn_impl == 'flash':
-        out = layout.flash_decode(q, cache, posr, scale=scale, window=window)
+        out = layout.flash_decode(q, cache, posr, scale=scale, window=window,
+                                  ways=_tp_ways(rt))
     else:
         kd, vd = layout.gather(cache, posr)
         out = sdpa_decode(q, kd, vd, posr, scale, window)
-    out = yoco_linear.linear(out.reshape(b, 1, -1), p['wo'], cfg=yoco)
+    out = _tp_heads_gather(out.reshape(b, 1, -1), rt)
+    out = yoco_linear.linear(out, p['wo'], cfg=yoco)
     return out, cache
 
 
@@ -345,12 +376,13 @@ def attention_chunk(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     cache = layout.write_chunk(cache, dict(k=k, v=v), offset, limit)
     if rt is not None and rt.attn_impl == 'flash':
         out = layout.flash_chunk(q, cache, offset, limit, scale=scale,
-                                 window=window)
+                                 window=window, ways=_tp_ways(rt))
     else:
         kd, vd = layout.gather_fp(cache)
         mask = chunk_mask(offset, c, kd.shape[1], window)
         out = _sdpa(q, kd, vd, mask[:, None, None, :, :], scale)
-    out = yoco_linear.linear(out.reshape(b, c, -1), p['wo'], cfg=yoco)
+    out = _tp_heads_gather(out.reshape(b, c, -1), rt)
+    out = yoco_linear.linear(out, p['wo'], cfg=yoco)
     return out, cache
 
 
@@ -397,7 +429,7 @@ def _mla_qkv_full(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
 
 def mla_attention(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
                   positions: Optional[torch.Tensor] = None,
-                  cache: Optional[dict] = None,
+                  cache: Optional[dict] = None, rt=None,
                   ) -> Tuple[torch.Tensor, Optional[dict]]:
     """MLA prefill: materializes per-head k/v for the prompt, caches only
     the latent rows ``ckv ‖ krope`` (written at [0, s)). The prompt
@@ -423,8 +455,8 @@ def mla_attention(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     probs = torch.softmax(lo * scale + mask, dim=-1)
     out = torch.einsum('bhqs,bshd->bqhd', probs.to(v.dtype).to(f32),
                        v.to(f32))
-    out = yoco_linear.linear(out.reshape(b, s, -1).to(x.dtype), p['wo'],
-                             cfg=yoco)
+    out = _tp_heads_gather(out.reshape(b, s, -1).to(x.dtype), rt)
+    out = yoco_linear.linear(out, p['wo'], cfg=yoco)
     return out, cache
 
 
@@ -452,6 +484,48 @@ def _absorb_weights(p: dict, m):
     w = p['w_ukv'].reshape(m.kv_lora_rank, -1,
                            m.nope_head_dim + m.v_head_dim).to(torch.float32)
     return w[..., :m.nope_head_dim], w[..., m.nope_head_dim:]
+
+
+#: the leaf beside a TP rank's ``w_ukv`` that holds :func:`tp_uv_weight`
+TP_UV_KEY = 'w_ukv_ways'
+
+
+def tp_uv_weight(w_ukv: torch.Tensor, rank: int, tp: int) -> torch.Tensor:
+    """A TP rank's ``w_ukv`` (r, H/tp * (dn + dv)) in its place among
+    zeros at the whole head count, (r, H * (dn + dv)) f32, row-major as
+    :func:`_absorb_weights` leaves the whole ``w_ukv``: what
+    :func:`_uv_product` reads under TP. ``distributed/sharding.py`` builds
+    it once, when it cuts the rank's tree."""
+    n = w_ukv.shape[1]
+    full = torch.zeros((w_ukv.shape[0], n * tp), dtype=torch.float32,
+                       device=w_ukv.device)
+    full[:, rank * n:(rank + 1) * n] = w_ukv
+    return full
+
+
+def _uv_product(o_lat: torch.Tensor, w_uv: torch.Tensor, p: dict, m,
+                rt) -> torch.Tensor:
+    """The latent output (B, S, H', r) through ``W_uv`` (``w_uv``, from
+    :func:`_absorb_weights`): (B, S, H', dv) f32, one product a head (a
+    batched GEMM over the heads). Under TP the rank computes it at the
+    whole head count: its heads' outputs among zeros, through
+    ``p[TP_UV_KEY]`` (:func:`tp_uv_weight`), then its heads taken back.
+    On the H100, cuBLAS picks the batched GEMM's algorithm from the batch
+    count, and at a decode step's or a chunk's few rows (M = 8) the one it
+    picks for 64 or 32 heads sums the r = 512 terms otherwise than the one
+    for 128, so a rank's heads would differ from tp = 1's in the last bits
+    (measured; ROADMAP Queue 3). The whole-count product, like the
+    kernels' plans of ``ways``, keeps each head bit-equal, at tp times the
+    product's work."""
+    ways = _tp_ways(rt)
+    if ways == 1:
+        return torch.einsum('bqhr,rhd->bqhd', o_lat, w_uv)
+    rank, h = rt.tp_group.rank(), o_lat.shape[2]
+    pad = o_lat.new_zeros(o_lat.shape[:2] + (h * ways,) + o_lat.shape[3:])
+    pad[:, :, rank * h:(rank + 1) * h] = o_lat
+    _, w_uv = _absorb_weights(dict(w_ukv=p[TP_UV_KEY]), m)
+    out = torch.einsum('bqhr,rhd->bqhd', pad, w_uv)
+    return out[:, :, rank * h:(rank + 1) * h]
 
 
 def mla_attention_decode(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
@@ -482,14 +556,14 @@ def mla_attention_decode(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     if rt is not None and rt.attn_impl == 'flash' and layout.paged:
         o_lat = layout.flash_decode(
             torch.cat([q_lat, q_rope.to(torch.float32)], -1), cache, posr,
-            scale=scale, r=r)
+            scale=scale, r=r, ways=_tp_ways(rt))
     else:
         ckv_d, krope_d = layout.gather(cache, posr, r=r)
         o_lat = mla_absorbed_attend(q_lat, q_rope, ckv_d, krope_d, posr,
                                     scale)
-    out = torch.einsum('bqhr,rhd->bqhd', o_lat, w_uv)
-    out = yoco_linear.linear(out.reshape(b, 1, -1).to(x.dtype), p['wo'],
-                             cfg=yoco)
+    out = _uv_product(o_lat, w_uv, p, m, rt)
+    out = _tp_heads_gather(out.reshape(b, 1, -1).to(x.dtype), rt)
+    out = yoco_linear.linear(out, p['wo'], cfg=yoco)
     return out, cache
 
 
@@ -521,7 +595,8 @@ def mla_attention_chunk(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
                                offset, limit)
     if rt is not None and rt.attn_impl == 'flash' and layout.paged:
         o_lat = layout.flash_chunk(torch.cat([q_lat, q_rope.to(f32)], -1),
-                                   cache, offset, limit, scale=scale, r=r)
+                                   cache, offset, limit, scale=scale, r=r,
+                                   ways=_tp_ways(rt))
     else:
         ckv_d, krope_d = layout.gather_fp(cache, r=r)
         lo = torch.einsum('bqhr,bsr->bhqs', q_lat, ckv_d.to(f32))
@@ -530,7 +605,7 @@ def mla_attention_chunk(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
         mask = chunk_mask(offset, c, ckv_d.shape[1])
         probs = torch.softmax(lo * scale + mask[:, None, :, :], dim=-1)
         o_lat = torch.einsum('bhqs,bsr->bqhr', probs, ckv_d.to(f32))
-    out = torch.einsum('bqhr,rhd->bqhd', o_lat, w_uv)
-    out = yoco_linear.linear(out.reshape(b, c, -1).to(x.dtype), p['wo'],
-                             cfg=yoco)
+    out = _uv_product(o_lat, w_uv, p, m, rt)
+    out = _tp_heads_gather(out.reshape(b, c, -1).to(x.dtype), rt)
+    out = yoco_linear.linear(out, p['wo'], cfg=yoco)
     return out, cache

@@ -60,9 +60,10 @@ def _mix_attn(p, x, cfg, yoco, *, window, theta, cache, decode_pos, rt,
                                          cache=cache, pos=decode_pos,
                                          window=window, theta=theta, rt=rt)
     if mla:
-        return attn_mod.mla_attention(p['attn'], x, cfg, yoco, cache=cache)
+        return attn_mod.mla_attention(p['attn'], x, cfg, yoco, cache=cache,
+                                      rt=rt)
     return attn_mod.attention(p['attn'], x, cfg, yoco, window=window,
-                              theta=theta, cache=cache)
+                              theta=theta, cache=cache, rt=rt)
 
 
 def transformer_block(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,

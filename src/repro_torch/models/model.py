@@ -69,6 +69,9 @@ from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
 class ModelRuntime:
     attn_impl: str = 'einsum'      # einsum (oracle) | flash (the kernels)
     compute_dtype: Any = torch.bfloat16
+    # head-parallel serving TP: the rank's torch.distributed group (None:
+    # one device); the attention gathers its heads over it before wo
+    tp_group: Any = None
 
 
 DEFAULT_RT = ModelRuntime()
@@ -611,7 +614,7 @@ def _recurrent_states(cfg, batch: int, device) -> dict:
 def init_paged_cache_tree(cfg, batch: int, *, num_pages: int, page_size: int,
                           max_blocks: int, dtype=torch.bfloat16,
                           kv_dtype: Optional[str] = None, hot_window: int = 1,
-                          device=None) -> dict:
+                          device=None, tp: int = 1) -> dict:
     """One physical pool pair per layer (stacked over L; MLA configs: one
     latent pool ``cl``) and one set of block tables broadcast per layer (a
     view; ``with_block_tables`` refreshes it). ``kv_dtype='int8'`` adds
@@ -621,7 +624,10 @@ def init_paged_cache_tree(cfg, batch: int, *, num_pages: int, page_size: int,
     per layer like ``bt``. Stacked per :func:`_stacks` (a
     ``first_k_dense`` MoE config: ``prefix`` and ``moe``).
     ``device`` defaults to the card; with no card it raises unless the
-    caller passes ``device='cpu'``.
+    caller passes ``device='cpu'``. ``tp`` > 1: a head-parallel serving
+    rank's part, the GQA pools, their int8 tiers and per-head scales
+    allocated at Hkv / tp (``layouts.stack_layers``; only one layer's
+    template is ever whole), everything else whole.
 
     Recurrent configs get f32 ``ssm`` state per Mamba2 layer
     (``layouts.RecurrentLayout``: no positional axis; the scheduler's page
@@ -640,12 +646,12 @@ def init_paged_cache_tree(cfg, batch: int, *, num_pages: int, page_size: int,
             tree['attn'] = layouts.stack_layers(attn_mod.init_paged_cache(
                 cfg, batch, num_pages=num_pages, page_size=page_size,
                 max_blocks=max_blocks, dtype=dtype, kv_dtype=kv_dtype,
-                hot_window=hot_window, device=device), _n_sites(cfg))
+                hot_window=hot_window, device=device), _n_sites(cfg), tp)
         return tree
     return {ckey: layouts.stack_layers(attn_mod.init_paged_cache(
                 cfg, batch, num_pages=num_pages, page_size=page_size,
                 max_blocks=max_blocks, dtype=dtype, kv_dtype=kv_dtype,
-                hot_window=hot_window, device=device), n)
+                hot_window=hot_window, device=device), n, tp)
             for _, ckey, n, _ in _stacks(cfg)}
 
 

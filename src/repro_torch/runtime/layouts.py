@@ -31,7 +31,11 @@ axis: its layout offers the continuous scheduler three slot ops instead
 :func:`merge_state_slot`), and every tree walker passes recurrent nodes
 through and recurses into a hybrid's ``attn``. Write ops, slot ops and
 tree walkers update pools IN PLACE (the reference returns new arrays); the
-returned dicts share the caller's tensors.
+returned dicts share the caller's tensors. Under head-parallel serving TP
+each layout names the leaves that carry a head axis (``shard_dims``: GQA
+pools and their int8 tiers on Hkv, the per-head scales on their head
+axis), and :func:`stack_layers` allocates a rank's part of them, 1/tp of
+that axis; everything else is replicated.
 """
 
 from __future__ import annotations
@@ -102,6 +106,11 @@ class CacheLayout:
     shared_leaves: Tuple[str, ...] = () # one copy broadcast over layers
     scrub_leaves: Tuple[str, ...] = ()  # zeroed by scrub_tree_pages
     poison_leaves: Tuple[str, ...] = () # fp pools (poison, zero_tree_tail)
+    # head-parallel serving TP: leaf -> the dim of its single-layer shape
+    # that carries the head axis. Leaves absent here are replicated (block
+    # tables, hot windows, MLA latent pools, which have no head axis, and
+    # recurrent state); see stack_layers
+    shard_dims: dict = {}
 
     @classmethod
     def write_token(cls, cache: dict, updates: dict, pos) -> dict:
@@ -130,12 +139,16 @@ class CacheLayout:
         return cls.gather(cache, 0)
 
     @classmethod
-    def flash_decode(cls, q, cache: dict, pos, *, scale, window=None):
+    def flash_decode(cls, q, cache: dict, pos, *, scale, window=None,
+                     ways=1):
+        """The layout's decode kernel. ``ways``: the tensor-parallel degree
+        the heads were split over (the kernels plan their key split for
+        the whole head count)."""
         raise NotImplementedError
 
     @classmethod
     def flash_chunk(cls, q, cache: dict, offset, limit, *, scale,
-                    window=None):
+                    window=None, ways=1):
         """A chunked-prefill read (kernel K5) over the fp pools."""
         raise NotImplementedError(f'{cls.name} has no chunked-prefill path')
 
@@ -184,18 +197,20 @@ class PagedMLAQ8Layout(CacheLayout):
         return PagedMLALayout.gather(cache, 0, r=r)
 
     @classmethod
-    def flash_decode(cls, q, cache, pos, *, scale, window=None, r=None):
+    def flash_decode(cls, q, cache, pos, *, scale, window=None, r=None,
+                     ways=1):
         from repro_torch.kernels import flash_decode as fd
         return fd.flash_decode_paged_mla_q8(
             q, cache['cl'], cache['clq'], cache['cs'], pos, cache['bt'],
-            cache['hw'], r=r, scale=scale, window=window)
+            cache['hw'], r=r, scale=scale, window=window, ways=ways)
 
     @classmethod
     def flash_chunk(cls, q, cache, offset, limit, *, scale, window=None,
-                    r=None):
+                    r=None, ways=1):
         # fp pool only: earlier chunks' pages are not quantized yet
         return PagedMLALayout.flash_chunk(q, cache, offset, limit,
-                                          scale=scale, window=window, r=r)
+                                          scale=scale, window=window, r=r,
+                                          ways=ways)
 
     @classmethod
     def quantize_pages(cls, cache, pages):
@@ -245,18 +260,20 @@ class PagedMLALayout(CacheLayout):
         return cls.gather(cache, 0, r=r)
 
     @classmethod
-    def flash_decode(cls, q, cache, pos, *, scale, window=None, r=None):
+    def flash_decode(cls, q, cache, pos, *, scale, window=None, r=None,
+                     ways=1):
         from repro_torch.kernels import flash_decode as fd
         return fd.flash_decode_paged_mla(q, cache['cl'], pos, cache['bt'],
-                                         r=r, scale=scale, window=window)
+                                         r=r, scale=scale, window=window,
+                                         ways=ways)
 
     @classmethod
     def flash_chunk(cls, q, cache, offset, limit, *, scale, window=None,
-                    r=None):
+                    r=None, ways=1):
         from repro_torch.kernels import flash_decode as fd
         return fd.flash_chunk_paged_mla(q, cache['cl'], offset, limit,
                                         cache['bt'], r=r, scale=scale,
-                                        window=window)
+                                        window=window, ways=ways)
 
 
 @_register
@@ -273,6 +290,8 @@ class PagedQ8Layout(CacheLayout):
     shared_leaves = ('bt', 'hw')
     scrub_leaves = ('k', 'v', 'kq', 'vq', 'ks', 'vs')
     poison_leaves = ('k', 'v')
+    # pools split the Hkv axis; the per-page per-head scales follow it
+    shard_dims = {'k': 2, 'v': 2, 'kq': 2, 'vq': 2, 'ks': 1, 'vs': 1}
 
     @classmethod
     def write_token(cls, cache, updates, pos):
@@ -296,18 +315,19 @@ class PagedQ8Layout(CacheLayout):
         return PagedLayout.gather(cache, 0)
 
     @classmethod
-    def flash_decode(cls, q, cache, pos, *, scale, window=None):
+    def flash_decode(cls, q, cache, pos, *, scale, window=None, ways=1):
         from repro_torch.kernels import flash_decode as fd
         return fd.flash_decode_paged_q8(
             q, cache['k'], cache['v'], cache['kq'], cache['vq'],
             cache['ks'], cache['vs'], pos, cache['bt'], cache['hw'],
-            scale=scale, window=window)
+            scale=scale, window=window, ways=ways)
 
     @classmethod
-    def flash_chunk(cls, q, cache, offset, limit, *, scale, window=None):
+    def flash_chunk(cls, q, cache, offset, limit, *, scale, window=None,
+                    ways=1):
         # fp pools only: earlier chunks' pages are not quantized yet
         return PagedLayout.flash_chunk(q, cache, offset, limit, scale=scale,
-                                       window=window)
+                                       window=window, ways=ways)
 
     @classmethod
     def quantize_pages(cls, cache, pages):
@@ -324,6 +344,7 @@ class PagedLayout(CacheLayout):
     shared_leaves = ('bt',)
     scrub_leaves = ('k', 'v')
     poison_leaves = ('k', 'v')
+    shard_dims = {'k': 2, 'v': 2}       # (P, ps, Hkv, dh): split Hkv
 
     @classmethod
     def write_token(cls, cache, updates, pos):
@@ -353,16 +374,19 @@ class PagedLayout(CacheLayout):
         return cache
 
     @classmethod
-    def flash_decode(cls, q, cache, pos, *, scale, window=None):
+    def flash_decode(cls, q, cache, pos, *, scale, window=None, ways=1):
         from repro_torch.kernels import flash_decode as fd
         return fd.flash_decode_paged(q, cache['k'], cache['v'], pos,
-                                     cache['bt'], scale=scale, window=window)
+                                     cache['bt'], scale=scale, window=window,
+                                     ways=ways)
 
     @classmethod
-    def flash_chunk(cls, q, cache, offset, limit, *, scale, window=None):
+    def flash_chunk(cls, q, cache, offset, limit, *, scale, window=None,
+                    ways=1):
         from repro_torch.kernels import flash_decode as fd
         return fd.flash_chunk_paged(q, cache['k'], cache['v'], offset, limit,
-                                    cache['bt'], scale=scale, window=window)
+                                    cache['bt'], scale=scale, window=window,
+                                    ways=ways)
 
 
 @_register
@@ -417,7 +441,11 @@ class ContiguousLayout(CacheLayout):
         return cache['k'], cache['v']
 
     @classmethod
-    def flash_decode(cls, q, cache, pos, *, scale, window=None):
+    def flash_decode(cls, q, cache, pos, *, scale, window=None, ways=1):
+        # the static serve() path that reads it has no tensor parallelism
+        if ways != 1:
+            raise ValueError('a contiguous cache is not served under '
+                             'tensor parallelism')
         from repro_torch.kernels import flash_decode as fd
         return fd.flash_decode(q, cache['k'], cache['v'], pos, scale=scale,
                                window=window)
@@ -466,20 +494,29 @@ class HybridLayout(CacheLayout):
     each classifies to its own layout."""
     name = 'hybrid'
     required = frozenset({'ssm', 'attn'})
-    composite = True
 
 
 # ----------------------------------------------------------------------------
 # tree walkers (layer-stacked cache trees)
 # ----------------------------------------------------------------------------
-def stack_layers(cache: dict, n: int) -> dict:
+def stack_layers(cache: dict, n: int, tp: int = 1) -> dict:
     """A layer stack of ``n`` copies of the single-layer cache dict: own
     zeroed pools per layer, and the layout's shared leaves (block tables,
-    hot window) broadcast over the layer dim as a view."""
+    hot window) broadcast over the layer dim as a view. ``tp`` > 1
+    allocates a head-parallel rank's part: each leaf the layout names in
+    :attr:`~CacheLayout.shard_dims` at 1/tp of its head axis (the pools
+    start zeroed, so every rank's part is the same), every other leaf
+    whole."""
     lay = get_layout(cache)
+
+    def shape(key, leaf):
+        s = list(leaf.shape)
+        if tp > 1 and key in lay.shard_dims:
+            s[lay.shard_dims[key]] //= tp
+        return (n,) + tuple(s)
     return {key: (leaf[None].expand((n,) + leaf.shape)
                   if key in lay.shared_leaves
-                  else torch.zeros((n,) + leaf.shape, dtype=leaf.dtype,
+                  else torch.zeros(shape(key, leaf), dtype=leaf.dtype,
                                    device=leaf.device))
             for key, leaf in cache.items()}
 
@@ -676,3 +713,4 @@ def merge_state_slot(full_tree, part_tree, slot: int):
         return part
 
     return walk(full_tree, part_tree)
+

@@ -102,3 +102,70 @@ def make_decode_step(cfg, yoco: YocoConfig = DEFAULT_YOCO,
         return (sample_tokens(logits, generator, temperature=temperature,
                               top_k=top_k), logits, cache)
     return decode_step_sampled
+
+
+# ----------------------------------------------------------------------------
+# tensor-parallel serving steps: head-parallel over a torch.distributed group
+# ----------------------------------------------------------------------------
+# The reference's make_tp_prefill_step / make_tp_chunk_prefill_step /
+# make_tp_decode_step wrap its steps in shard_map. Here a rank's steps are
+# the builders above with a runtime that carries the rank's group
+# (ModelRuntime(tp_group=...)) over the rank's tree
+# (distributed/sharding.py) and pool part (init_paged_cache_tree(tp=)):
+# the attention all-gathers its heads before the replicated wo, once a
+# layer, and tokens, positions and logits are whole on every rank.
+
+
+def tp_step_logits(shard, *, arch: str, smoke: bool, params, prompts,
+                   lens, steps: int, page_size: int = 4, mode: str = 'bf16',
+                   attn_impl: str = 'flash', compute_dtype=torch.float32,
+                   kv_dtype=None, hot_window: int = 1):
+    """A rank job (``distributed/ranks.py``; ``shard`` None runs on one
+    device): the TP steps on one batch, a paged prefill of ``prompts``
+    (B, S) whose logits are taken at ``lens - 1``, then ``steps`` greedy
+    decode steps at ``lens + i``, each request on pages of its own.
+    ``params`` is an f32 tree on the CPU, put in its serving form on the
+    rank's device. Returns the (steps + 1, B, V) f32 logits as numpy."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.runtime import layouts
+    cfg = configs.get(arch, smoke=smoke)
+    dev = torch.device('cpu') if shard is None else shard.device
+    group, rank, tp = ((None, 0, 1) if shard is None
+                       else (shard.group, shard.rank, shard.tp))
+    prompts = torch.as_tensor(prompts).to(dev)
+    lens = torch.as_tensor(lens, dtype=torch.int32).to(dev)
+    b, s = prompts.shape
+    w = -(-(s + steps) // page_size)
+    cache = model_mod.init_paged_cache_tree(
+        cfg, b, num_pages=1 + b * w, page_size=page_size, max_blocks=w,
+        dtype=compute_dtype, kv_dtype=kv_dtype, hot_window=hot_window,
+        device=dev, tp=tp)
+    cache = layouts.with_block_tables(
+        cache, np.arange(1, 1 + b * w, dtype=np.int32).reshape(b, w))
+    params = sharding.shard_serve_params(
+        model_mod.serving_form(_to_device(params, dev), mode, False,
+                               compute_dtype), rank, tp)
+    yoco = YocoConfig(mode=mode, compute_dtype=compute_dtype)
+    rt = ModelRuntime(attn_impl=attn_impl, compute_dtype=compute_dtype,
+                      tp_group=group)
+    prefill = make_prefill_step(cfg, yoco, rt)
+    decode = make_decode_step(cfg, yoco, rt)
+    logits, cache = prefill(params, dict(inputs=prompts), cache,
+                            last_pos=lens - 1)
+    rows = [logits]
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    for i in range(steps):
+        tok, logits, cache = decode(params, tok, lens + i, cache)
+        rows.append(logits)
+    return torch.stack(rows).to(torch.float32).cpu().numpy()
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)

@@ -19,7 +19,12 @@ tracing for the continuous scheduler.
   ``serve_kv_bytes_total`` say what the modelled design would pay for the
   stream the port served. Mamba2 layers add their recurrent state's
   read and write a token (``decode_state_traffic``), a hybrid's attention
-  sites their KV; tensor-parallel views wait for item 13.
+  sites their KV. Under head-parallel serving TP (``tp`` > 1)
+  ``totals()['tp']`` splits the global columns per shard: GQA pools shard
+  by head, so each byte and op lands on one shard (global / ways, and
+  ways times that is the global column bit for bit for a power-of-two
+  ``ways``); an MLA latent pool is replicated, so only the ops divide and
+  the replicated traffic is priced as ``redundant_bytes``.
 * :class:`StepTracer`: the ``--trace FILE`` Chrome-trace JSON (one track
   a decode slot and a scheduler track; complete ``ph='X'`` spans and
   instants only). Load it in ``ui.perfetto.dev`` or ``chrome://tracing``.
@@ -400,10 +405,11 @@ class EnergyMeter:
              'shared_saved_bytes', 'shared_saved_pj')
 
     def __init__(self, cfg, *, page_size: int, kv_quant: bool = False,
-                 hot_window: int = 1, fp_bytes: int = 2,
+                 hot_window: int = 1, fp_bytes: int = 2, tp: int = 1,
                  tier: hwmodel.KVTierConfig = hwmodel.DEFAULT_KV_TIER):
         self.kv_quant = bool(kv_quant)
         self.tier = tier
+        self.tp = max(int(tp), 1)
         self.page_size = page_size
         self.hot_window = max(int(hot_window), 1)
         self.fp_bytes = fp_bytes
@@ -558,6 +564,32 @@ class EnergyMeter:
                        digital_tops_w=self.tier.digital_tops_w,
                        core_tops=hwmodel.throughput_tops()),
         )
+        if self.tp > 1:
+            # the meter prices the host-global tier tracker, which never
+            # shards, so the columns above are the one-device figures; this
+            # splits them per shard. GQA: every byte and op lands on one
+            # shard (dividing then multiplying by a power of two is
+            # exact). MLA: each rank reads the whole replicated latent
+            # pool, so only the per-head ops divide
+            ways = self.tp
+            sharded = not self.is_mla
+            byte_pj_keys = ('hot_bytes', 'cold_bytes', 'achieved_bytes',
+                            'baseline_bytes', 'achieved_pj', 'baseline_pj')
+            per_shard = {k: (t[k] / ways if sharded else t[k])
+                         for k in byte_pj_keys}
+            per_shard['ops'] = t['ops'] / ways
+            per_shard['tokens'] = int(t['tokens'])
+            agg = {k: per_shard[k] * ways if sharded else per_shard[k]
+                   for k in byte_pj_keys}
+            agg['ops'] = per_shard['ops'] * ways
+            out['tp'] = dict(
+                ways=ways,
+                latent_replicated=self.is_mla,
+                per_shard=per_shard,
+                aggregate=agg,
+                redundant_bytes=(t['achieved_bytes'] * (ways - 1)
+                                 if self.is_mla else 0.0),
+            )
         return out
 
 
@@ -629,7 +661,7 @@ class ServeTelemetry:
     calls when neither is requested."""
 
     def __init__(self, cfg, *, slots: int, page_size: int,
-                 kv_quant: bool = False, hot_window: int = 1,
+                 kv_quant: bool = False, hot_window: int = 1, tp: int = 1,
                  metrics: bool = True, trace_path: Optional[str] = None,
                  registry: Optional[MetricsRegistry] = None,
                  clock=time.perf_counter):
@@ -637,7 +669,8 @@ class ServeTelemetry:
         self.clock = clock
         self.reg = registry if registry is not None else MetricsRegistry()
         self.meter = (EnergyMeter(cfg, page_size=page_size,
-                                  kv_quant=kv_quant, hot_window=hot_window)
+                                  kv_quant=kv_quant, hot_window=hot_window,
+                                  tp=tp)
                       if self.metrics else None)
         self.tracer = (StepTracer(trace_path, slots, clock=clock)
                        if trace_path else None)

@@ -27,6 +27,10 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert {'repro_torch.runtime.faults', 'repro_torch.runtime.telemetry',
             'repro_torch.core.hwmodel', 'repro_torch.core.analog',
             'repro_torch.core.bitplane'} <= set(mods)
+    # tensor-parallel serving: the process group, layout and collectives
+    assert {'repro_torch.distributed.ranks',
+            'repro_torch.distributed.sharding',
+            'repro_torch.distributed.collectives'} <= set(mods)
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -80,6 +84,12 @@ def test_entry_points_refuse_a_missing_card():
         serve.serve_continuous('stablelm-1.6b', n_requests=1, quiet=True)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         serve.main(['--continuous'])
+    # tensor parallelism places its ranks on the card too, and spawns none
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        serve.serve_continuous('stablelm-1.6b', tp=2, n_requests=1,
+                               quiet=True)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        serve.main(['--continuous', '--tp', '2'])
     with pytest.raises(RuntimeError, match='no CUDA device'):
         serve.serve('stablelm-1.6b', quiet=True)
     with pytest.raises(RuntimeError, match='no CUDA device'):

@@ -155,8 +155,13 @@ def test_cli_runs_and_rejects_later_flags(capsys, tmp_path):
     assert 'telemetry' in out
     out = tserve.main(base + ['--no-metrics'])
     assert out['completed'] == 2 and 'telemetry' not in out
-    with pytest.raises(NotImplementedError):
-        tserve.main(['--tp', '2', '--continuous', '--device', 'cpu'])
+    # --tp is served now (tests/test_torch_tp_*.py); a head count that does
+    # not divide it, and --tp off the continuous path, are refused before
+    # any rank is spawned
+    with pytest.raises(ValueError, match='n_heads'):
+        tserve.main(['--tp', '3', '--continuous', '--device', 'cpu'])
+    with pytest.raises(ValueError, match='--continuous'):
+        tserve.main(['--tp', '2', '--device', 'cpu'])
     out = tserve.main(base + ['--mode', 'qat', '--no-metrics'])
     assert out['completed'] == 2
 
