@@ -36,7 +36,9 @@ every linear), at M = 8 x 256 rows, and the trainer's checkpoint and
 resume on the card. Tensor-parallel serving: stablelm-1.6b and the dense
 prefix served on 2 and 4 rank processes, each holding its heads of the
 attention projections and its part of the GQA pools (K1, K2, K3, K6 and
-K8 on a rank's heads).
+K8 on a rank's heads). Sharded training: stablelm-1.6b at its published
+width on a 2 x 2 rank mesh under the 'tp' and 'fsdp2d' layouts (K3, K4
+and K2 on a rank's blocks in w8a8).
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -299,6 +301,25 @@ Phases, in order; any failure exits non-zero and prints no result:
              and no other collective, finite logits; wall time, tokens/s
              and the KV pool bytes a rank printed (no TP speed: the ranks
              share one card).
+8. sharded — sharded training on a 2 x 2 rank mesh (sharded_phase):
+             four rank processes on cuda:0 over gloo (a card a rank over
+             nccl on four cards). At smoke size, the card against a CPU
+             group on the same seed-0 inputs: the reference's 8
+             distributed parity rows (stablelm, deepseek-v3 and qwen2-moe
+             expert-parallel, mamba2; 'tp' and 'fsdp2d'), losses within
+             1e-3, and moe_ep with capacity drops, 1e-4 and the same drop
+             fraction. At stablelm-1.6b's published width (SHARDED_LAYERS
+             deep), global batch 8 x 256, 2 AdamW steps in bf16 under
+             'tp' (remat none and full) and 'fsdp2d', and in w8a8 under
+             'tp' (K3 and K4 on the column blocks, K3 and K2 on the row
+             blocks with the whole rows' scales and an int32 sum): held to
+             the one-device make_train_step (loss 1e-3, grad norm 5e-3, 3%
+             of params off by > 1e-6, each at most 2.2 lr), each rank's
+             master and moment bytes its blocks', the collectives and
+             kernel launches a step as sharded_counts derives them, remat
+             full peaking at most at none; step ms, tokens/s, peak memory
+             and bytes moved a step printed (no sharded speed: the ranks
+             share one card).
 
 Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
 runs on, with that path's launches; K9 on both pool dtypes), a
@@ -306,8 +327,9 @@ runs on, with that path's launches; K9 on both pool dtypes), a
 ten), a ``{"nan": [...]}``, a ``{"serve": [...]}``, a ``{"dense":
 [...]}``, a ``{"moe": [...]}``, a ``{"static_serve": [...]}``, a
 ``{"chaos": [...]}``, a ``{"ssm": [...]}``, a ``{"frontends": [...]}``,
-a ``{"fidelity": [...]}``, a ``{"train": [...]}`` and a ``{"tp":
-[...]}`` line, the
+a ``{"fidelity": [...]}``, a ``{"train": [...]}``, a ``{"tp":
+[...]}`` and a ``{"sharded": [...]}`` line, the whole script's seconds
+beside the card (``{"script_s": ..., "smi": ...}``), the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Details (the full shape sweep, compiler
 reports) go to ``build/chip_smoke.json``.
@@ -315,7 +337,7 @@ reports) go to ``build/chip_smoke.json``.
 Usage: python3 chip_smoke.py (every phase runs, always).
        python3 chip_smoke.py --phase
        kernels|profile|static|nan|chaos|dense|moe|ssm|frontends|fidelity|
-       train|tp:
+       train|tp|sharded:
        the build and that phase alone (its report in
        ``build/chip_smoke_<phase>.json``, no result line), to rehearse a
        kernel or to measure another tree with this script copied into its
@@ -333,6 +355,7 @@ from collections import Counter
 
 import numpy as np
 
+T_START = time.time()
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, 'src')
 OUT_DIR = os.path.join(HERE, 'build')
@@ -5266,6 +5289,714 @@ def tp_phase(torch, build):
     return rows
 
 
+SHARDED_PATH = f'{ARCH} sharded train'
+# stablelm-1.6b at its published width on a 2 x 2 rank mesh (four ranks
+# on one card over gloo, a card a rank over nccl where there are four):
+# global batch 8 of 256 tokens, 2 AdamW steps a run, at the published
+# depth unless the phase outgrows its time (then SHARDED_LAYERS, the
+# depth the report states)
+SHARDED_MESH = (2, 2)
+SHARDED_LAYERS = 4
+SHARDED_STEPS = 2
+# (mode, layout, remats): bf16 under both layouts, w8a8 under 'tp', each
+# stepped with the first remat; bf16 'tp' also measured without remat, for
+# the memory remat saves
+SHARDED_RUNS = (('bf16', 'tp', ('full', 'none')), ('bf16', 'fsdp2d', ('full',)),
+                ('w8a8', 'tp', ('full',)))
+# the 8 rows of the reference's distributed parity (tests/
+# dist_parity_main.py): (name, arch, expert-parallel)
+SHARDED_SMOKE_ROWS = (('dense', ARCH, False),
+                      ('mla_moe', 'deepseek-v3-671b', True),
+                      ('gqa_moe', MOE_ARCH, True), ('ssm', SSM_ARCH, False))
+SHARDED_SMOKE_TOL = 1e-3          # a card's sharded loss against the CPU's
+# the sharded params off by > 1e-6 after a step, at most this many times
+# the one-device trainer's against itself (grad_accum 2 against 1, the
+# control); set after a card run read 2.5x for bf16 'tp', 1.0x for 'fsdp2d'
+SHARDED_CONTROL_FACTOR = 4
+MOE_EP_TOL = 1e-4                 # moe_ep's f32 outputs, card against CPU
+
+
+def _sharded_cfg(layers=None):
+    """stablelm-1.6b at its published width, cut to ``layers`` (registered
+    at run time under its own name) where that is not its depth."""
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.get(ARCH, smoke=False)
+    layers = layers or SHARDED_LAYERS
+    if layers == cfg.n_layers:
+        return cfg
+    name = f'{ARCH}-L{layers}'
+    configs.base.register(dataclasses.replace(cfg, name=name,
+                                              n_layers=layers),
+                          configs.get(ARCH, smoke=True))
+    return configs.get(name, smoke=False)
+
+
+def sharded_counts(cfg, mode, layout, remat, accum=1):
+    """The collectives one sharded stablelm step makes on a rank, derived
+    from the specs (PERF §3): every master dim the step gathers is one
+    all-gather a microbatch and one reduce-scatter in its backward ('tp':
+    the dims cut over 'data', every 'model' block being kept; 'fsdp2d':
+    every cut dim, its axes in one gather; and the sequence-parallel
+    attention's K and V, gathered over 'model' each layer a forward, run
+    again by 'full' remat). All-reduces a microbatch:
+    'tp': the vocab-parallel embedding 1, each row-parallel linear (wo,
+    w_down: 2 a layer) 1 in bf16 or 2 in w8a8 (the absmax MAX, the int32
+    sum) a forward, run again by 'full' remat, each layer's 2 copy_in in
+    the backward and the lm_head's 1, the vocab-parallel loss 3 (max, sum,
+    gold), the loss's sum and token count 2; 'fsdp2d': the loss's 2. Then
+    a step: one all-reduce a set of token axes that replicated leaves lie
+    whole on, and the global norm's 1. K3, K4 and K2 launches a step in
+    w8a8 'tp': a forward quantizes 2 activations, 5 column weights and 2
+    row blocks (activation and weight each) a layer, and the lm_head's
+    activation and weight; K4 runs the 5 column products a layer and the
+    lm_head's, K2 the 2 row products (their int32 sums); 'full' remat
+    runs each layer's again."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.runtime import train_step as TS
+    mesh = mesh_mod.shape_mesh(dict(data=SHARDED_MESH[0],
+                                    model=SHARDED_MESH[1]))
+    pabs, oabs = TS.abstract_state(cfg)
+    pspecs, _, _ = TS.state_shardings(mesh, cfg, pabs, oabs, layout)
+    gathers, replicated = 0, set()
+    for leaf, spec in sharding.leaves_with_specs(pabs, pspecs):
+        for _, axes in sharding.spec_axes(spec, leaf.ndim):
+            gathers += (axes.count('data') if layout == 'tp' else 1)
+        rep = sharding.replicated_axes(spec, mesh)
+        if layout == 'tp':
+            rep = tuple(a for a in rep if a == 'data')
+        if rep:
+            replicated.add(rep)
+    layers = cfg.n_layers
+    again = 2 if remat == 'full' else 1
+    kv = 0
+    if layout == 'tp':
+        rows = 2 * layers * (2 if mode == 'w8a8' else 1)
+        per_mb = 1 + again * rows + 2 * layers + 1 + 3 + 2
+    else:
+        per_mb = 2
+        kv = 2 * layers             # K and V over 'model', each layer
+    calls = dict(all_gather=accum * (gathers + again * kv),
+                 reduce_scatter=accum * (gathers + kv), all_to_all=0,
+                 all_reduce=accum * per_mb + len(replicated) + 1)
+    launches = dict(quantize_rows=0, yoco_vmm_int8=0, int8_matmul=0)
+    if mode == 'w8a8':
+        launches = dict(quantize_rows=accum * (11 * layers * again + 2),
+                        yoco_vmm_int8=accum * (5 * layers * again + 1),
+                        int8_matmul=accum * 2 * layers * again)
+    return calls, launches
+
+
+def _leaf_diffs(torch, got, want, names=None):
+    """(params off by > 1e-6, the worst difference, off counts by leaf
+    name, default its shape) of two lists of leaves."""
+    off, worst, by_name = 0, 0.0, Counter()
+    for j, (a, b) in enumerate(zip(got, want)):
+        d = (a - b).abs()
+        n = int((d > 1e-6).sum())
+        off += n
+        by_name[names[j] if names else str(tuple(d.shape))] += n
+        worst = max(worst, float(d.max()))
+    return off, worst, dict(by_name.most_common(6))
+
+
+# a rank's one-device references, (config name, mode, steps) -> [(metrics,
+# params after the first step or None)] a step: the same draw and batch
+# serve every layout
+_REFERENCES = {}
+
+
+def _references(torch, cfg, mode, steps, batch, control):
+    """A rank: the one-device ``make_train_step`` from the trainer's
+    seed-0 draw, ``steps`` steps (the first step's params kept on the
+    card for the next run of the mode), and with ``control`` one step at
+    grad_accum 2 from the same draw, held to the first step: the same
+    trainer summing its gradient in another order, what reassociation
+    alone moves."""
+    import dataclasses
+    import gc
+
+    from repro_torch.core.yoco_linear import YocoConfig
+    from repro_torch.launch.train import init_state
+    from repro_torch.models.model import ModelRuntime
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_step as TS
+    dev = batch['inputs'].device
+    opt = adamw.OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
+    key = (cfg.name, mode, steps)
+    if key not in _REFERENCES:
+        _REFERENCES.clear()         # one mode's at a time: the card is shared
+    runs = [(1, steps)] if key not in _REFERENCES else []
+    if control:
+        runs.append((2, 1))
+    got = {}
+    for accum, n in runs:
+        whole, st = init_state(cfg, opt, 0, dev)
+        one = TS.make_train_step(cfg, YocoConfig(mode=mode), ModelRuntime(),
+                                 opt_cfg=dataclasses.replace(
+                                     opt, grad_accum=accum))
+        got[accum] = []
+        for i in range(n):
+            whole, st, m = one(whole, st, batch)
+            # the params after the first step, which the gates compare
+            got[accum].append(
+                ({k: float(m[k]) for k in ('loss', 'grad_norm', 'lr')},
+                 [t.clone() for t in adamw.tree_leaves(whole)]
+                 if i == 0 else None))
+        del whole, st, one, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 1 in got:
+        _REFERENCES[key] = got[1]
+    ref = _REFERENCES[key]
+    out = None
+    if control:
+        off, worst, by_shape = _leaf_diffs(torch, got[2][0][1], ref[0][1])
+        out = dict(grad_accum=2, metrics=got[2][0][0], params_off=off,
+                   worst_param_err=worst, params_off_by_shape=by_shape)
+    return ref, out
+
+
+def sharded_rank_job(mesh, *, cfg, mode, layout, remats, steps, batch,
+                     check_ref, control=False):
+    """A mesh job: the trainer's seed-0 draw of ``cfg`` on the rank's
+    card, cut into its blocks; with ``check_ref`` every rank holds the
+    one-device reference (:func:`_references`). Given several ``remats``,
+    every rank measures the bytes autograd holds after one forward under
+    each and the peak of a forward and backward under the others; it
+    takes ``steps`` sharded steps under the first remat. After the first
+    step each rank counts its blocks' params off the reference's, summed
+    over the mesh. Returns the rank's losses, step ms, its first step's
+    peak memory, the held bytes and peaks a remat, collective calls and
+    bytes and kernel launches a step (of the first remat), master and
+    moment bytes, and its seconds."""
+    import gc
+
+    import torch
+    from repro_torch.core.yoco_linear import YocoConfig
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import init_state
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_step as TS
+
+    dev = mesh.device
+    cuda = dev.type == 'cuda'       # a CPU rehearsal has no allocator
+
+    def release():
+        # four ranks share the card: each returns what its allocator
+        # caches before another rank needs it
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def allocated():
+        return torch.cuda.memory_allocated(dev) if cuda else 0
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if cuda else 0
+    release()
+    laps = {}
+    started = time.time()
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        sync()
+        now = time.perf_counter()
+        laps[name] = now - t0
+        t0 = now
+    opt = adamw.OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
+    yoco = YocoConfig(mode=mode)
+    whole, _ = init_state(cfg, opt, 0, dev)
+    fns = {r: TS.sharded_train_step(mesh, cfg, yoco, opt_cfg=opt,
+                                    layout=layout, remat=r)[0]
+           for r in remats}
+    pabs, oabs = TS.abstract_state(cfg, opt)
+    pspecs, _, _ = TS.state_shardings(mesh, cfg, pabs, oabs, layout)
+    blocks = sharding.shard_tree(whole, pspecs, mesh)
+    state = adamw.init(blocks, opt)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    del whole
+    release()
+    lap('draw_and_cut')
+    # every rank has let go of its whole draw before the one-device
+    # references allocate their moments and activations
+    torch.distributed.barrier()
+    out = dict(rank=mesh.rank, coords=mesh.coords, device=str(dev),
+               backend=torch.distributed.get_backend(),
+               master_bytes=sharding.nbytes(blocks),
+               moment_bytes=sharding.nbytes([state.mu, state.nu]),
+               losses=[], grad_norms=[], step_ms=[], params_off=[],
+               worst_param_err=[], params_off_by_shape=[], reference=None,
+               held_bytes={}, peak_bytes={})
+    ref_params = []
+    if check_ref:
+        # every rank runs the one-device step itself and holds its own
+        # block of it against its block of the sharded step
+        ref, out['control'] = _references(torch, cfg, mode, steps, batch,
+                                          control and mesh.rank == 0)
+        out['reference'] = [m for m, _ in ref]
+        ref_params = [p for _, p in ref]
+        release()
+    lap('reference')
+    # the bytes autograd holds for the backward after one forward, and the
+    # peak of that forward and its backward (the step's own peak is its
+    # optimizer's where the layers' activations are small)
+    mb = TS.rank_rows(batch, mesh, sharding.dp_axes_of(mesh), 1, 0)
+    out['forward_backward_peak_bytes'] = {}
+    for r, fn in (fns.items() if len(remats) > 1 else ()):
+        for p in adamw.tree_leaves(blocks):
+            p.requires_grad_(True)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = allocated()
+        loss = fn.loss_of(blocks, mb)[0]
+        out['held_bytes'][r] = allocated() - before
+        if r != remats[0]:      # the first remat's peak: its step's
+            loss.backward()
+            out['forward_backward_peak_bytes'][r] = peak()
+        del loss
+        for p in adamw.tree_leaves(blocks):
+            p.grad = None
+            p.requires_grad_(False)
+        release()
+    lap('held')
+    calls, nbytes, launches = Counter(), Counter(), Counter()
+    for i in range(steps):
+        collectives.reset_counts()
+        build.reset_counts()
+        if cuda and i == 0:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t_step = time.perf_counter()
+        blocks, state, m = fns[remats[0]](blocks, state, batch)
+        sync()
+        out['step_ms'].append((time.perf_counter() - t_step) * 1e3)
+        out['losses'].append(float(m['loss']))
+        out['grad_norms'].append(float(m['grad_norm']))
+        calls.update(collectives.CALLS)
+        nbytes.update(collectives.BYTES)
+        launches.update(build.LAUNCHES)
+        if i == 0:
+            out['peak_bytes'][remats[0]] = peak()
+        if i == 0 and ref_params:
+            # the params against the reference's after the first step (the
+            # gated one): each rank its own blocks, a replicated block
+            # counted on one rank, the counts summed over the mesh
+            coords = mesh.coords
+            mine, theirs, shapes = [], [], []
+            for (leaf, spec), want in zip(
+                    sharding.leaves_with_specs(blocks, pspecs),
+                    ref_params[0]):
+                if any(coords[a] for a in
+                       sharding.replicated_axes(spec, mesh)):
+                    continue
+                mine.append(leaf)
+                theirs.append(want[sharding.block_index(want.shape, spec,
+                                                        mesh)])
+                shapes.append(str(tuple(want.shape)))
+            off, worst, by_shape = _leaf_diffs(torch, mine, theirs, shapes)
+            every = collectives.gather_objects(
+                (off, worst, by_shape, sum(t.numel() for t in mine)),
+                mesh.group(mesh.axis_names))
+            shape_off = Counter()
+            for e in every:
+                shape_off.update(e[2])
+            out['params_off'].append(sum(e[0] for e in every))
+            out['worst_param_err'].append(max(e[1] for e in every))
+            out['params_off_by_shape'].append(
+                dict(shape_off.most_common(6)))
+            out['params'] = sum(e[3] for e in every)
+            del mine, theirs
+            release()
+        lap(f'step{i + 1}')
+    out['calls'] = {k: calls[k] // steps for k in collectives.CALLS}
+    out['bytes'] = {k: nbytes[k] // steps for k in collectives.BYTES}
+    out['launches'] = {k: v // steps for k, v in launches.items() if v}
+    del blocks, state, fns, m
+    release()
+    out['seconds'] = laps
+    out['started'] = started
+    if mesh.rank == 0:
+        print(f'sharded rank 0: {cfg.name} {mode} {layout} {remats}: '
+              f'{json.dumps(laps)}, step ms {out["step_ms"]}', flush=True)
+    return out
+
+
+def timed_job(mesh, *, timed, kwargs):
+    """A mesh job: job ``timed``'s result on the mesh and its seconds."""
+    from repro_torch.distributed import ranks
+    t0 = time.perf_counter()
+    out = ranks._job_fn(timed)(mesh, **kwargs)
+    return out, time.perf_counter() - t0
+
+
+def _timed(job):
+    """``job`` (a mesh job, or every rank's result of one) timed on each
+    rank by :func:`timed_job`."""
+    from repro_torch.distributed import ranks
+    target, kw = job
+    if target.endswith(':_all_ranks'):
+        return ranks.all_ranks_job(_timed(kw['job']))
+    return ranks.mesh_job('chip_smoke:timed_job', kw['n_model'],
+                          timed=kw['target'], kwargs=kw['kwargs'])
+
+
+def _sharded_smoke_jobs(device=None):
+    """The smoke-size jobs, the same on the card and on the CPU (``device``
+    'cpu': the ranks' CPU tensors, over a gloo group): the 8 parity rows'
+    sharded loss from the trainer's seed-0 draw, and moe_ep with capacity
+    drops on qwen2-moe's f32 stacks, both token entries."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import ranks
+    from repro_torch.launch.train import init_state
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+    jobs = []
+    for name, arch, ep in SHARDED_SMOKE_ROWS:
+        cfg = configs.get(arch, smoke=True)
+        if ep:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, impl='ep', capacity_factor=100.0))
+        params, _ = init_state(cfg, adamw.OptConfig(), 0, 'cpu')
+        batch = synthetic.make_batch(synthetic.for_arch(
+            cfg, global_batch=4, seq_len=32), 0)
+        for layout in ('tp', 'fsdp2d'):
+            jobs.append(((name, layout), _timed(ranks.mesh_job(
+                'repro_torch.runtime.train_step:sharded_job', 2, cfg=cfg,
+                params=M.params_to_numpy(params, cfg),
+                batch={k: v.numpy() for k, v in batch.items()},
+                layout=layout, device=device))))
+    cfg = configs.get(MOE_ARCH, smoke=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, impl='ep', capacity_factor=1.25))
+    p = moe.init_moe(torch.Generator().manual_seed(8), cfg, device='cpu')
+    p = {k: M._to_numpy(v) for k, v in p.items()}
+    x = (np.random.RandomState(8).randn(4, 8, cfg.d_model)
+         * 0.5).astype(np.float32)
+    for split in (True, False):
+        jobs.append((('moe_ep', split), _timed(ranks.all_ranks_job(
+            ranks.mesh_job('repro_torch.models.moe:moe_ep_job', 2, cfg=cfg,
+                           params=p, x=x, r=x, seq_split=split,
+                           device=device)))))
+    return jobs
+
+
+# the sharded w8a8 'tp' step's kernel shapes on a rank of the 2 x 2 mesh:
+# its 4 x 256 rows (one dp block of 8 x 256), the column blocks (K, N / 2)
+# and the row blocks (K / 2, N) of stablelm's linears, and the lm_head's
+# vocab block
+SHARDED_ROWS = TRAIN_ROWS // SHARDED_MESH[0]
+SHARDED_COLUMNS = ((2048, 1024), (2048, 2816), (2048, 50176))
+SHARDED_ROW_BLOCKS = ((1024, 2048), (2816, 2048))
+
+
+def sharded_kernel_rows(torch, kmods):
+    """K3, K4 and K2 at the shapes a rank's w8a8 'tp' step gives them,
+    each bit-exact against its plain version and timed: K3 on the bf16
+    activations (K = 2048, 5632 / 2 + 1: a row block's codes take the
+    whole row's scale through one extra column), K4 on the column blocks,
+    K3 on a row block's weight transpose (+1 column) and K2 on the row
+    blocks (their int32 sums are all-reduced before the epilogue), beside
+    torch._int_mm on the same int8 operands."""
+    fd, kq, ky, build = kmods
+    del fd, build
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf16, m = torch.bfloat16, SHARDED_ROWS
+    rows = []
+    src_q, rep_q = ('src/repro_torch/csrc/quantize.cu',
+                    'src/repro/kernels/quantize.py:35')
+    src_v = 'src/repro_torch/csrc/yoco_vmm.cu'
+
+    def k3(x, shape):
+        xq, sx = kq.quantize_rows(x)
+        xq_p, sx_p = kq.quantize_rows_plain(x)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(xq, xq_p) and torch.equal(sx, sx_p)),
+              f'K3 {shape} not bit-exact')
+        r, k = x.shape
+        record_row(torch, rows, 'quantize_rows', shape, 0.0, 0.0,
+                   lambda: kq.quantize_rows(x),
+                   lambda: kq.quantize_rows_plain(x), None,
+                   r * k * 2 + r * k + r * 4, source=src_q, replaces=rep_q)
+        return xq, sx
+
+    def codes(r, k, shape):
+        x = torch.randn((r, k), generator=gen, device=dev).to(bf16)
+        return k3(x, shape)
+
+    x_whole = codes(m, 2048, dict(arch=ARCH, path='sharded', operand=
+                                  'activation', M=m, K=2048))
+    for k, n in SHARDED_COLUMNS:
+        wq_t, sw_t = codes(n, k, dict(arch=ARCH, path='sharded', operand=
+                                      'column block weight', M=n, K=k))
+        xq, sx = x_whole
+        wq, sw = wq_t.t(), sw_t.reshape(1, n)
+        y = ky.yoco_vmm_int8(xq, wq, sx, sw)
+        check(bool(torch.equal(y, ky.yoco_vmm_int8_plain(xq, wq, sx, sw))),
+              f'K4 ({m},{k},{n}) differs from its plain version')
+        record_row(torch, rows, 'yoco_vmm_int8',
+                   dict(arch=ARCH, path='sharded', block='column', M=m, K=k,
+                        N=n), 0.0, 0.0,
+                   lambda: ky.yoco_vmm_int8(xq, wq, sx, sw),
+                   lambda: ky.yoco_vmm_int8_plain(xq, wq, sx, sw),
+                   lambda: torch._int_mm(xq, wq),
+                   m * k + k * n + 4 * (m + n) + 4 * m * n, 2.0 * m * k * n,
+                   source=src_v, replaces='src/repro/kernels/yoco_vmm.py:65',
+                   plain_iters=3)
+    for k, n in SHARDED_ROW_BLOCKS:
+        xq, _ = codes(m, k + 1, dict(arch=ARCH, path='sharded', operand=
+                                     'row block activation + 1', M=m,
+                                     K=k + 1))
+        wq_t, _ = codes(n, k + 1, dict(arch=ARCH, path='sharded', operand=
+                                       'row block weight + 1', M=n,
+                                       K=k + 1))
+        xq = xq[:, :k].contiguous()
+        wq = wq_t[:, :k].contiguous().t()
+        acc = ky.int8_matmul(xq, wq)
+        check(bool(torch.equal(acc, ky.int8_matmul_plain(xq, wq))),
+              f'K2 ({m},{k},{n}) differs from its plain version')
+        record_row(torch, rows, 'int8_matmul',
+                   dict(arch=ARCH, path='sharded', block='row', M=m, K=k,
+                        N=n), 0.0, 0.0,
+                   lambda: ky.int8_matmul(xq, wq),
+                   lambda: ky.int8_matmul_plain(xq, wq),
+                   lambda: torch._int_mm(xq, wq),
+                   m * k + k * n + 4 * m * n, 2.0 * m * k * n,
+                   source=src_v, replaces='src/repro/kernels/yoco_vmm.py:116',
+                   plain_iters=3)
+    return rows
+
+
+def _moe_ep_output(outs, seq_split):
+    """moe_ep's global (B, S, d) output from the 2 x 2 ranks' blocks."""
+    rows = []
+    for d in range(SHARDED_MESH[0]):
+        mine = outs[d * SHARDED_MESH[1]:(d + 1) * SHARDED_MESH[1]]
+        rows.append(np.concatenate([o['y'] for o in mine], 1) if seq_split
+                    else mine[0]['y'])
+    return np.concatenate(rows)
+
+
+def sharded_phase(torch, kmods):
+    """Sharded training on a 2 x 2 rank mesh (``runtime/train_step.py::
+    sharded_train_step``), four rank processes on ``cuda:0`` over gloo
+    (a card a rank over nccl on a four-card machine). (1) Smoke size, the
+    card against the CPU from the same seed-0 inputs: the 8 rows of the
+    reference's distributed parity (stablelm, deepseek-v3 and qwen2-moe
+    expert-parallel at capacity 100, mamba2; 'tp' and 'fsdp2d'), each
+    sharded loss within SHARDED_SMOKE_TOL of the CPU group's; moe_ep with
+    capacity drops, outputs within MOE_EP_TOL and the same drop fraction.
+    (2) stablelm-1.6b at its published width (SHARDED_LAYERS deep), global
+    batch 8 x 256, SHARDED_STEPS AdamW steps in each of SHARDED_RUNS, held
+    to the one-device ``make_train_step`` on the same draw and batch: loss
+    1e-3 and grad norm 5e-3 relative each step; after the first step
+    each param within 2.2 lr and at most 3% of them (the train phase's
+    one-step bounds) or SHARDED_CONTROL_FACTOR times the control's share
+    off by more than 1e-6 (the control: the one-device trainer at
+    grad_accum 2 against itself at 1; the second step's shares are
+    reported); finite losses; each rank's master and moment bytes its
+    blocks' under the specs; the collectives and the K3/K4/K2 launches a
+    step exactly :func:`sharded_counts`; with remat 'full' each rank holds
+    fewer bytes after a forward than without (the peaks of a forward and
+    backward with and without remat, and of a step, are reported: at
+    this depth they come after the activations are freed). Reports step ms, tokens/s,
+    peak and held memory a rank and the bytes gathered, reduced and
+    exchanged a step. The ranks
+    share one card: correctness, not sharded speed. (3) K3/K4/K2 rows at a
+    rank's w8a8 'tp' shapes (:func:`sharded_kernel_rows`). Returns (rows,
+    launch totals over every rank's steps, kernel rows)."""
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import ranks, sharding
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.runtime import train_step as TS
+
+    t_phase = time.perf_counter()
+    n = SHARDED_MESH[0] * SHARDED_MESH[1]
+    smoke = _sharded_smoke_jobs()
+    cfg = _sharded_cfg()
+    check(cfg.d_model == 2048 and cfg.n_heads == 32 and cfg.d_ff == 5632
+          and cfg.vocab_size == 100352, f'{ARCH} is not at its published '
+                                        f'width')
+    batch = {k: v.numpy() for k, v in synthetic.make_batch(
+        synthetic.for_arch(cfg, global_batch=TRAIN_BATCH,
+                           seq_len=TRAIN_SEQ), 0).items()}
+    full = [ranks.all_ranks_job(ranks.mesh_job(
+        'chip_smoke:sharded_rank_job', SHARDED_MESH[1], cfg=cfg, mode=mode,
+        layout=layout, remats=remats, steps=SHARDED_STEPS, batch=batch,
+        check_ref=True, control=i == 0))
+        for i, (mode, layout, remats) in enumerate(SHARDED_RUNS)]
+    devs, backend = ranks.placement(n)
+    # ranks sharing a card over gloo run the CPU's smoke jobs too (gloo
+    # takes CPU tensors); over nccl a CPU group of its own runs them
+    cpu_jobs = [j for _, j in _sharded_smoke_jobs('cpu')]
+    in_group = backend == 'gloo'
+    t0, t0_wall = time.perf_counter(), time.time()
+    card = ranks.run([j for _, j in smoke] + full
+                     + (cpu_jobs if in_group else []), (devs, backend))
+    card_s = time.perf_counter() - t0
+    if in_group:
+        cpu, cpu_s = card[-len(cpu_jobs):], None
+    else:
+        t0 = time.perf_counter()
+        cpu = ranks.run(cpu_jobs, ranks.placement(n, 'cpu'))
+        cpu_s = time.perf_counter() - t0
+    rows = []
+    smoke_rows = []
+    failures = []
+
+    def gate(cond, msg):
+        # every row is printed first; the phase fails on any gate after
+        if not cond:
+            failures.append(msg)
+            print(f'sharded gate failed: {msg}', flush=True)
+    def untimed(out):
+        # (result, seconds), or every rank's (result, seconds)
+        if isinstance(out, list):
+            return [o[0] for o in out], max(o[1] for o in out)
+        return out
+    smoke_s = []
+    for (key, _), c, g in zip(smoke, cpu, card):
+        (c, c_s), (g, g_s) = untimed(c), untimed(g)
+        smoke_s.append(dict(job=list(map(str, key)), card_s=g_s, cpu_s=c_s))
+        if key[0] == 'moe_ep':
+            err = float(np.abs(_moe_ep_output(c, key[1])
+                               - _moe_ep_output(g, key[1])).max())
+            drops = [o['metrics']['drop_fraction'] for o in c + g]
+            gate(err <= MOE_EP_TOL and len(set(drops)) == 1
+                  and 0 < drops[0] < 1,
+                  f'sharded smoke moe_ep seq_split={key[1]}: card vs CPU '
+                  f'{err}, drop fractions {drops}')
+            smoke_rows.append(dict(row='moe_ep', seq_split=key[1],
+                                   max_abs_err=err, tol=MOE_EP_TOL,
+                                   drop_fraction=drops[0]))
+            continue
+        rel = abs(g['loss'] - c['loss']) / abs(c['loss'])
+        gate(np.isfinite(g['loss']) and rel <= SHARDED_SMOKE_TOL,
+              f'sharded smoke {key}: loss {g["loss"]} on the card, '
+              f'{c["loss"]} on the CPU')
+        smoke_rows.append(dict(row=key[0], layout=key[1], card=g['loss'],
+                               cpu=c['loss'], rel_err=rel,
+                               tol=SHARDED_SMOKE_TOL))
+    rows.append(dict(smoke=smoke_rows, cpu_group_s=cpu_s,
+                     smoke_job_s=smoke_s))
+    print(f'sharded smoke: {json.dumps(rows[-1])}', flush=True)
+    mesh = mesh_mod.shape_mesh(dict(data=SHARDED_MESH[0],
+                                    model=SHARDED_MESH[1]))
+    runs = card[len(smoke):len(smoke) + len(full)]
+    control = runs[0][0]['control']
+    for (mode, layout, remats), outs in zip(SHARDED_RUNS, runs):
+        remat = remats[0]
+        tag = f'sharded {cfg.name} {mode} {layout} remat={remat}'
+        r0 = outs[0]
+        ref = r0['reference']
+        for o in outs:
+            gate(all(np.isfinite(o['losses'])), f'{tag}: a loss is not '
+                                                 f'finite: {o["losses"]}')
+            gate(o['losses'] == r0['losses'], f'{tag}: ranks disagree on '
+                                               f'the loss')
+        loss_err = max(abs(a - b['loss']) / abs(b['loss'])
+                       for a, b in zip(r0['losses'], ref))
+        gn_err = max(abs(a - b['grad_norm']) / b['grad_norm']
+                     for a, b in zip(r0['grad_norms'], ref))
+        gate(loss_err <= TRAIN_LOSS_TOL, f'{tag}: loss {r0["losses"]} '
+                                          f'against {ref}')
+        gate(gn_err <= TRAIN_GNORM_TOL, f'{tag}: grad norm '
+                                         f'{r0["grad_norms"]} against {ref}')
+        # the train phase's bounds are one step's: the first step's
+        # params, each within 2.2 lr; the share off by > 1e-6 at most the
+        # train phase's or SHARDED_CONTROL_FACTOR times the control's (at
+        # the published vocab the lm_head's ~1e-7 gradients sit in
+        # AdamW's eps region, where any reassociation moves an update)
+        share = max(TRAIN_PARAM_SHARE * r0['params'],
+                    SHARDED_CONTROL_FACTOR * control['params_off'])
+        gate(r0['worst_param_err'][0] <= 2.2 * TRAIN_LR
+             and r0['params_off'][0] <= share,
+             f'{tag}: {r0["params_off"][0]} of {r0["params"]} params off '
+             f'by > 1e-6 after the first step (bound {share}), the worst '
+             f'by {r0["worst_param_err"][0]}')
+        pabs, oabs = TS.abstract_state(cfg)
+        pspecs, _, _ = TS.state_shardings(mesh, cfg, pabs, oabs, layout)
+        calls, launches = sharded_counts(cfg, mode, layout, remat)
+        for o in outs:
+            cut = mesh_mod.shape_mesh(mesh.shape, rank=o['rank'])
+            want = sum(int(np.prod(sharding.block(
+                torch.empty(leaf.shape, device='meta'), spec, cut).shape))
+                * 4 for leaf, spec in sharding.leaves_with_specs(pabs,
+                                                                 pspecs))
+            gate(o['master_bytes'] == want
+                  and o['moment_bytes'] == 2 * want,
+                  f'{tag}: rank {o["rank"]} holds {o["master_bytes"]} '
+                  f'master and {o["moment_bytes"]} moment bytes, its '
+                  f'blocks {want}')
+            got = {k: o['calls'][k] for k in calls}
+            gate(got == calls, f'{tag}: rank {o["rank"]} made {got} '
+                                f'collectives a step, derived {calls}')
+            got = {k: o['launches'].get(k, 0) for k in launches}
+            gate(got == launches, f'{tag}: rank {o["rank"]} launched '
+                                   f'{got} a step, derived {launches}')
+        step_ms = _median([o['step_ms'][-1] for o in outs])
+        if len(remats) > 1:
+            for o in outs:
+                # the held bytes: at this depth the peak comes after the
+                # layers' activations are freed (the optimizer's or the
+                # gradients' buffers), the same with and without remat
+                gate(o['held_bytes']['full'] < o['held_bytes']['none'],
+                     f'{tag}: rank {o["rank"]} holds '
+                     f'{o["held_bytes"]["full"]} bytes after a forward '
+                     f'with remat full, {o["held_bytes"]["none"]} without')
+        rows.append(dict(
+            arch=cfg.name, layers=cfg.n_layers, mode=mode, layout=layout,
+            remat=remat, mesh=dict(data=SHARDED_MESH[0],
+                                   model=SHARDED_MESH[1]),
+            backend=backend, devices=[o['device'] for o in outs],
+            batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=SHARDED_STEPS,
+            losses=r0['losses'], reference=ref, loss_rel_err=loss_err,
+            grad_norm_rel_err=gn_err, params_off=r0['params_off'],
+            params_off_by_shape=r0['params_off_by_shape'],
+            params=r0['params'], worst_param_err=r0['worst_param_err'],
+            control=control, remats=list(remats),
+            seconds_a_rank=[o['seconds'] for o in outs],
+            step_ms=[o['step_ms'] for o in outs], median_step_ms=step_ms,
+            tokens_per_s=TRAIN_ROWS / (step_ms / 1e3),
+            peak_bytes_a_rank=[o['peak_bytes'] for o in outs],
+            held_bytes_a_rank=[o['held_bytes'] for o in outs],
+            forward_backward_peak_bytes_a_rank=[
+                o['forward_backward_peak_bytes'] for o in outs],
+            master_bytes_a_rank=[o['master_bytes'] for o in outs],
+            moment_bytes_a_rank=[o['moment_bytes'] for o in outs],
+            collectives_a_step=calls, bytes_a_step=r0['bytes'],
+            launches_a_step=r0['launches']))
+        print(f'sharded run: {json.dumps(rows[-1])}', flush=True)
+    totals = {k: 0 for k in kmods[3].LAUNCHES}
+    for outs in runs:
+        for o in outs:
+            for k, v in o['launches'].items():
+                totals[k] += v * SHARDED_STEPS
+    check(not failures, '; '.join(failures))
+    kernel_rows = sharded_kernel_rows(torch, kmods)
+    print(f'sharded kernel rows: {len(kernel_rows)}', flush=True)
+    rows.append(dict(card_group_s=card_s,
+                     # the group's start and its smoke jobs, to the first
+                     # full-width run
+                     spawn_and_smoke_s=runs[0][0]['started'] - t0_wall,
+                     phase_s=time.perf_counter() - t_phase))
+    print(f'sharded phase: {rows[-1]["phase_s"]:.1f} s', flush=True)
+    return rows, totals, kernel_rows
+
+
 def all_kernel_phases(torch, kmods, nan=None):
     """Phase 2: every kernel against its plain version; the rows (K3's
     NaN-row reports go to ``nan``). Each part prints its seconds."""
@@ -5350,11 +6081,17 @@ def tp_rows(torch, kmods):
     return tp_phase(torch, kmods[3])
 
 
+def sharded_rows(torch, kmods):
+    """Phase 8 alone (its K2/K3/K4 rows after its runs)."""
+    rows, _, kernel_rows = sharded_phase(torch, kmods)
+    return rows + kernel_rows
+
+
 PHASES = dict(kernels=all_kernel_phases, profile=all_profiles,
               static=static_rows, nan=nan_kernel_phase, chaos=chaos_rows,
               dense=dense_rows, moe=moe_rows, ssm=ssm_rows,
               frontends=frontends_rows, fidelity=fidelity_rows,
-              train=train_rows, tp=tp_rows)
+              train=train_rows, tp=tp_rows, sharded=sharded_rows)
 
 
 def print_redesigned(rows):
@@ -5449,6 +6186,10 @@ def run_phases(torch, report, kmods):
     lap('chaos')
     report['tp'] = tp_phase(torch, kmods[3])
     lap('tp')
+    report['sharded'], sharded_totals, sharded_kernel = sharded_phase(
+        torch, kmods)
+    report['kernel_sweep'] += sharded_kernel
+    lap('sharded')
     for k in gqa_totals:
         check(gqa_totals[k] + mla_totals[k] + static_totals[k] > 0,
               f'kernel {k} was never launched on the main paths')
@@ -5456,7 +6197,8 @@ def run_phases(torch, report, kmods):
             STATIC_PATH: static_totals, DENSE_PATH: dense_totals,
             MOE_PATH: moe_totals, MOE_STATIC_PATH: moe_static_totals,
             SSM_PATH: ssm_totals, FRONTEND_PATH: frontend_totals,
-            FIDELITY_PATH: fidelity_totals, TRAIN_PATH: train_totals}
+            FIDELITY_PATH: fidelity_totals, TRAIN_PATH: train_totals,
+            SHARDED_PATH: sharded_totals}
 
 
 def main(argv) -> int:
@@ -5644,7 +6386,17 @@ def main(argv) -> int:
                                                operand='activation',
                                                M=TRAIN_ROWS, K=5632)),
             ('yoco_vmm_int8', TRAIN_PATH, dict(path='train', M=TRAIN_ROWS,
-                                               K=2048, N=100352)))
+                                               K=2048, N=100352)),
+            # sharded training, a rank of the 2 x 2 mesh in w8a8 'tp': K3
+            # on its rows' activation, K4 on the lm_head's vocab block, K2
+            # on w_down's row block
+            ('quantize_rows', SHARDED_PATH, dict(path='sharded',
+                                                 operand='activation',
+                                                 M=SHARDED_ROWS, K=2048)),
+            ('yoco_vmm_int8', SHARDED_PATH, dict(path='sharded',
+                                                 block='column', N=50176)),
+            ('int8_matmul', SHARDED_PATH, dict(path='sharded', block='row',
+                                               K=2816)))
     check({name for name, _, _ in pick} == set(totals[ARCH]),
           'the kernels line does not cover every kernel')
     kernels = []
@@ -5681,6 +6433,9 @@ def main(argv) -> int:
     print(json.dumps(dict(fidelity=report['fidelity'])), flush=True)
     print(json.dumps(dict(train=report['train'])), flush=True)
     print(json.dumps(dict(tp=report['tp'])), flush=True)
+    print(json.dumps(dict(sharded=report['sharded'])), flush=True)
+    print(json.dumps(dict(script_s=time.time() - T_START, smi=smi)),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform='gpu', kind=torch.cuda.get_device_name(0),

@@ -19,6 +19,13 @@ stacks it. So a checkpoint written by either package restores in the
 other. :meth:`CheckpointManager.restore` copies each array into the
 template's tensor in place: the template's dtypes, devices and strides (a
 K-major linear master, an expert stack's layout) are kept.
+
+A sharded state (a rank mesh's blocks, ``runtime/train_step.py``) saves
+as the same global arrays: :func:`save_sharded` gathers the whole leaves
+on every rank and rank 0 writes them. :func:`restore_sharded` reads them
+into a whole template and cuts the blocks of the mesh it restores on,
+which may be another shape or layout than the one that saved (the
+reference's elastic restore: the manifest holds global shapes).
 """
 
 from __future__ import annotations
@@ -204,3 +211,81 @@ class CheckpointManager:
             flat = {k: z[k] for k in z.files}
         _fill(template, flat)
         return template, manifest
+
+
+# ----------------------------------------------------------------------------
+# sharded states
+# ----------------------------------------------------------------------------
+def save_sharded(mgr: CheckpointManager, step: int, tree: Any, specs: Any,
+                 mesh, extra: Optional[dict] = None) -> Optional[str]:
+    """Every rank calls it: the blocks of ``tree`` under ``specs`` are
+    gathered whole (``sharding.unshard_tree``), and rank 0 saves the
+    global arrays and waits for the write. Returns rank 0's path."""
+    from repro_torch.distributed import sharding
+    whole = sharding.unshard_tree(tree, specs, mesh)
+    if mesh.rank != 0:
+        return None
+    path = mgr.save(step, whole, extra)
+    mgr.wait()
+    return path
+
+
+def restore_sharded(mgr: CheckpointManager, template: Any, specs: Any,
+                    mesh, step: Optional[int] = None) -> tuple:
+    """(this rank's blocks under ``specs`` on ``mesh``, manifest): the
+    checkpoint's global arrays read into the whole ``template`` (any
+    device), then cut."""
+    from repro_torch.distributed import sharding
+    whole, manifest = mgr.restore(template, step)
+    return sharding.shard_tree(whole, specs, mesh), manifest
+
+
+def sharded_restore_job(shard, *, cfg, params, batch, ckpt_dir: str,
+                        opt_cfg) -> dict:
+    """A rank job (``distributed/ranks.py``): one sharded step of ``cfg``
+    from ``params`` (numpy) on a 2 x (n / 2) mesh under the 'tp' layout,
+    saved with :func:`save_sharded`; then restored onto an n x 1 mesh
+    under 'fsdp2d' and one more step taken there. Returns whether every
+    restored block equals that mesh's cut of the saved whole state, and
+    both steps' losses."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_step as ts
+    first, second = shard.mesh(2), shard.mesh(1)
+    dev = shard.device
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    out = {}
+    specs = {}
+    for name, mesh, layout in (('saved', first, 'tp'),
+                               ('restored', second, 'fsdp2d')):
+        step, (pabs, oabs) = ts.sharded_train_step(
+            mesh, cfg, opt_cfg=opt_cfg, layout=layout, remat='none')
+        pspecs, ospecs, _ = ts.state_shardings(mesh, cfg, pabs, oabs,
+                                               layout)
+        specs[name] = (pspecs, ospecs)
+        if name == 'saved':
+            whole = model_mod.k_major_linear_weights(
+                model_mod.params_from_numpy(params, cfg, dev))
+            blocks = sharding.shard_tree(whole, pspecs, mesh)
+            state = adamw.init(blocks, opt_cfg)
+        else:
+            template = train_mod.init_state(cfg, opt_cfg, 1, dev)
+            (blocks, state), manifest = restore_sharded(
+                CheckpointManager(ckpt_dir, async_save=False), template,
+                (pspecs, ospecs), mesh)
+            saved = sharding.unshard_tree(kept, specs['saved'], first)
+            cut = sharding.shard_tree(saved, (pspecs, ospecs), mesh)
+            out['blocks_equal'] = all(
+                torch.equal(a, b) for a, b in zip(
+                    adamw.tree_leaves((blocks, state)),
+                    adamw.tree_leaves(cut)))
+            out['manifest_step'] = manifest['step']
+        blocks, state, m = step(blocks, state, batch)
+        out[f'{name}_loss'] = float(m['loss'])
+        if name == 'saved':
+            save_sharded(CheckpointManager(ckpt_dir, async_save=False), 1,
+                         (blocks, state), (pspecs, ospecs), mesh)
+            kept = (blocks, state)
+    return out

@@ -345,3 +345,136 @@ def quantize_tree(params, min_size: int = 1024):
         return node
 
     return walk(params, '', 1, False)
+
+
+# ----------------------------------------------------------------------------
+# a rank's column and row blocks (tensor parallelism)
+# ----------------------------------------------------------------------------
+def weight_shape(w) -> torch.Size:
+    """A linear weight's (K, N), a ``QuantizedWeight``'s that of its
+    codes."""
+    return (w.wq if isinstance(w, QuantizedWeight) else w).shape
+
+
+def _pad_columns(w: torch.Tensor, rank: int, ways: int) -> torch.Tensor:
+    """A (K, N / ways) column block in its place among zeros, (K, N)."""
+    n = w.shape[-1]
+    parts = [w.new_zeros(w.shape[:-1] + (n * rank,)), w,
+             w.new_zeros(w.shape[:-1] + (n * (ways - rank - 1),))]
+    return torch.cat(parts, dim=-1)
+
+
+def column_linears(x: torch.Tensor, ws, bs=None,
+                   cfg: YocoConfig = DEFAULT_YOCO, *, rank: int = 0,
+                   ways: int = 1) -> list:
+    """:func:`linears` on a rank's column blocks ``ws`` (each the rank's
+    1/ways of a weight's output columns). On the CPU the float products
+    (bf16, qat) run at the whole width, each block among zeros, and the
+    rank's columns are taken back: oneDNN picks another bf16 GEMM at N /
+    ways columns than at N (at 128 rows and K = N = 2048 it sums in another
+    order), and the whole-width product keeps a rank's columns bit-equal
+    to one device's. The int8 products are exact at any width, and the
+    card's cuBLAS products were checked equal per rank."""
+    if (ways == 1 or x.device.type != 'cpu'
+            or cfg.mode not in ('bf16', 'qat')):
+        return linears(x, ws, bs, cfg)
+    ys = linears(x, [_pad_columns(_float_weight(w), rank, ways)
+                     for w in ws], None, cfg)
+    bs = [None] * len(ws) if bs is None else bs
+    out = []
+    for y, w, b in zip(ys, ws, bs):
+        n = w.shape[-1]
+        y = y[..., rank * n:(rank + 1) * n]
+        out.append(y if b is None else y + b.to(y.dtype))
+    return out
+
+
+def _codes_at(x2: torch.Tensor, amax: torch.Tensor):
+    """K3's codes and scales of the rows of ``x2`` (M, K) as if each row
+    held ``amax`` (M,) (>= its own absmax, a value of x2's dtype): the row
+    extended by that value, quantized, the extension dropped. A row block
+    of a wider row thus gets the whole row's codes."""
+    ext = torch.cat([x2, amax.to(x2.dtype)[:, None]], dim=1)
+    q, s = ops.quantize_rows(ext)
+    return q[:, :x2.shape[1]], s
+
+
+def _row_codes(x2: torch.Tensor, w: torch.Tensor, group):
+    """The whole rows' K3 codes of a row block: x2 (M, K_loc) per row and
+    w (K_loc, N) per output column, each scale from the absmax over the
+    whole K (one all-reduce MAX of both absmax vectors over ``group``).
+    Returns (xq (M, K_loc), sx (M, 1), wq (K_loc, N) K-major, sw (1, N))."""
+    from repro_torch.distributed import collectives
+    m = x2.shape[0]
+    wt = w.t()                                  # (N, K_loc), in place
+    amax = torch.cat([x2.abs().amax(dim=1).to(torch.float32),
+                      wt.abs().amax(dim=1).to(torch.float32)])
+    amax = collectives.all_reduce(amax, group,
+                                  collectives.dist.ReduceOp.MAX)
+    xq, sx = _codes_at(x2, amax[:m])
+    wq_t, sw_t = _codes_at(wt, amax[m:])
+    return xq, sx, wq_t.contiguous().t(), sw_t.reshape(1, -1)
+
+
+class _RowW8A8(torch.autograd.Function):
+    """A row block's dynamic w8a8 product, summed over the group: the
+    whole rows' codes (:func:`_row_codes`), K2's int32 accumulators of the
+    block, their int32 all-reduce, then K4's epilogue ``acc * sx * sw`` in
+    f32: the exact route, equal to one device's K4 on the whole row.
+    Backward: the straight-through f32 products of the rank's block (its
+    inputs' cotangents are its own)."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        from repro_torch.distributed import collectives
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        xq, sx, wq, sw = _row_codes(x2, w, group)
+        acc = collectives.all_reduce(ops.int8_matmul(xq, wq), group)
+        y = acc.to(torch.float32) * sx * sw
+        return y.reshape(x.shape[:-1] + (w.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        f32 = torch.float32
+        g2 = g.to(f32).reshape(-1, g.shape[-1])
+        x2 = x.reshape(-1, x.shape[-1]).to(f32)
+        dx = (g2 @ w.to(f32).t()).reshape(x.shape).to(x.dtype)
+        dw = (x2.t() @ g2).to(w.dtype)
+        return dx, dw, None
+
+
+def row_linear(x: torch.Tensor, w: torch.Tensor,
+               cfg: YocoConfig = DEFAULT_YOCO, *, group=None
+               ) -> torch.Tensor:
+    """``x @ w`` summed over ``group`` where each rank holds a row block
+    (its 1/n of K: ``x`` (..., K/n), ``w`` (K/n, N)), replicated on every
+    rank, in the compute dtype; backward the identity into each rank's
+    block (Megatron's row-parallel linear). bf16: the block's product in
+    the compute dtype, summed in f32. The quantized modes quantize with
+    the whole row's scales, as one device computes them (an all-reduce
+    MAX of the absmax): w8a8 sums K2's int32 accumulators before the
+    epilogue (exact), qat its fake-quantized blocks' products in f32, and
+    analog_sim applies its noise to the summed product at the whole
+    K. Without a group: :func:`linear`."""
+    from repro_torch.distributed import collectives
+    if group is None:
+        return linear(x, w, cfg=cfg)
+    _check_mode(cfg)
+    cd = cfg.compute_dtype
+    n = collectives.dist.get_world_size(group)
+    if cfg.mode == 'bf16':
+        y = torch.matmul(x.to(cd), _float_weight(w).to(cd))
+        return collectives.reduce_sum(y.to(torch.float32), group).to(cd)
+    if cfg.mode == 'qat':
+        x2 = x.reshape(-1, x.shape[-1])
+        xq, sx, wq, sw = _row_codes(x2.detach(), w.detach(), group)
+        xf = quant.dequantize_ste(x2, xq, sx).to(cd)
+        wf = quant.dequantize_ste(w, wq, sw).to(cd)
+        y = torch.matmul(xf, wf).reshape(x.shape[:-1] + (w.shape[-1],))
+        return collectives.reduce_sum(y.to(torch.float32), group).to(cd)
+    y = _RowW8A8.apply(x, w, group)
+    if cfg.mode == 'analog_sim':
+        y = _analog(y, x.shape[-1] * n, cfg)
+    return y.to(cd)

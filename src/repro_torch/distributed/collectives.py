@@ -15,10 +15,26 @@ of ``repro/distributed/collectives.py``, plus the serving TP gather of
   tree, :func:`psum_mean` is the plain mean.
 * :func:`gather_objects` moves picklable host objects (a serve's outputs,
   its counters) to every rank, outside the steps.
+* The sharded train step's collectives (``runtime/train_step.py``), each
+  over a tensor dim as the reference's ``jax.lax`` collectives are, and
+  each crossed by autograd as a ``torch.autograd.Function`` with its
+  explicit transpose: :func:`gather` (all-gather; backward a
+  reduce-scatter where each rank's cotangent is its part of a sum, the
+  rank's slice where every rank holds the whole cotangent), :func:`split`
+  (the rank's slice of a replicated tensor; backward an all-gather),
+  :func:`reduce_sum` (all-reduce; backward the identity, each rank's
+  input a part of the replicated sum), :func:`copy_in` (the identity;
+  backward an all-reduce, Megatron's pair of operators) and
+  :func:`all_to_all` (backward the inverse all_to_all). The plain
+  :func:`all_gather_dim`, :func:`reduce_scatter_dim`, :func:`all_reduce`
+  and :func:`all_to_all_dim` run the wire.
 
 Each function counts its calls by name in :data:`CALLS`, as the kernel
-wrappers count their launches (``kernels/build.py::count``), so a run can
-show how many collectives its steps made.
+wrappers count their launches (``kernels/build.py::count``), and the
+training collectives their bytes in :data:`BYTES` (the whole tensor a
+call gathers, reduces or exchanges, as this rank sees it), so a run can
+show how many collectives its steps made and what they moved. Groups of
+one rank (None) make no call and count nothing.
 """
 
 from __future__ import annotations
@@ -30,11 +46,25 @@ import torch.distributed as dist
 
 #: collective name -> calls in this process (a serve reports the change)
 CALLS: Dict[str, int] = {'heads_all_gather': 0, 'all_reduce': 0,
-                         'gather_objects': 0}
+                         'gather_objects': 0, 'all_gather': 0,
+                         'reduce_scatter': 0, 'all_to_all': 0}
+#: the collectives a serve reports (the training ones never run there)
+SERVING = ('heads_all_gather', 'all_reduce', 'gather_objects')
+#: collective name -> bytes of the tensors the training collectives moved
+BYTES: Dict[str, int] = {'all_gather': 0, 'reduce_scatter': 0,
+                         'all_reduce': 0, 'all_to_all': 0}
 
 
-def _count(name: str) -> None:
+def _count(name: str, nbytes: int = 0) -> None:
     CALLS[name] += 1
+    if name in BYTES:
+        BYTES[name] += int(nbytes)
+
+
+def reset_counts() -> None:
+    for d in (CALLS, BYTES):
+        for k in d:
+            d[k] = 0
 
 
 def heads_all_gather(out_flat: torch.Tensor, group) -> torch.Tensor:
@@ -49,7 +79,7 @@ def heads_all_gather(out_flat: torch.Tensor, group) -> torch.Tensor:
 
 def _all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     dist.all_reduce(x, op=op, group=group)
-    _count('all_reduce')
+    _count('all_reduce', x.numel() * x.element_size())
     return x
 
 
@@ -133,3 +163,196 @@ def psum_shards(shard, *, xs, efs, steps: int = 1) -> list:
     return gather_objects((means, ef.cpu().numpy(), plain,
                            (tmean['a'].cpu().numpy(),
                             tmean['b']['c'].cpu().numpy())), shard.group)
+
+
+# ----------------------------------------------------------------------------
+# the sharded train step's collectives
+# ----------------------------------------------------------------------------
+# gloo takes CUDA tensors in each of them (checked on the H100 with torch
+# 2.11: all-gather, reduce-scatter, all_to_all and all-reduce, bf16, f32
+# and int32, on the world and on a subgroup), so ranks sharing one card
+# run them as they are.
+# the tensor forms (renamed ``*_single`` in torch 2.13, the old names
+# deprecated there)
+_ALL_GATHER = getattr(dist, 'all_gather_single', None) \
+    or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, 'reduce_scatter_single', None) \
+    or dist.reduce_scatter_tensor
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group-rank order
+    (a tiled all-gather), laid out in memory as ``x``."""
+    if group is None:
+        return x
+    from repro_torch.distributed.sharding import with_layout
+    lead = x.movedim(dim, 0).contiguous()
+    n = dist.get_world_size(group)
+    out = lead.new_empty((n * lead.shape[0],) + tuple(lead.shape[1:]))
+    _ALL_GATHER(out, lead, group=group)
+    _count('all_gather', _nbytes(out))
+    return with_layout(out.movedim(0, dim), x)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the group of ``x``, this rank's 1/n along ``dim``
+    (a tiled reduce-scatter), laid out in memory as ``x``."""
+    if group is None:
+        return x
+    from repro_torch.distributed.sharding import with_layout
+    n = dist.get_world_size(group)
+    _count('reduce_scatter', _nbytes(x))
+    lead = x.movedim(dim, 0).contiguous()
+    out = lead.new_empty((lead.shape[0] // n,) + tuple(lead.shape[1:]))
+    _REDUCE_SCATTER(out, lead, group=group)
+    return with_layout(out.movedim(0, dim), x)
+
+
+def all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """The group's reduction (default the sum) of ``x``, a new tensor."""
+    if group is None:
+        return x
+    return _all_reduce(x.clone(memory_format=torch.contiguous_format),
+                       op or dist.ReduceOp.SUM, group)
+
+
+def all_reduce_(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """:func:`all_reduce` in place on a contiguous ``x``."""
+    if group is None:
+        return x
+    return _all_reduce(x, op or dist.ReduceOp.SUM, group)
+
+
+def all_to_all_dim(x: torch.Tensor, split_dim: int, concat_dim: int,
+                   group) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+    x cut in n along ``split_dim``, piece j sent to group rank j, the
+    pieces received concatenated along ``concat_dim`` in rank order."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    lead = x.movedim(split_dim, 0).contiguous()
+    _count('all_to_all', _nbytes(lead))
+    recv = torch.empty_like(lead)
+    dist.all_to_all_single(recv, lead, group=group)
+    pieces = recv.chunk(n)
+    return torch.cat([p.movedim(0, split_dim) for p in pieces],
+                     dim=concat_dim)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, partial):
+        ctx.dim, ctx.group, ctx.partial = dim, group, partial
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None, \
+                None
+        return _slice(g, ctx.dim, ctx.group), None, None, None
+
+
+def _slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    return x.chunk(n, dim)[r]
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _slice(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return all_to_all_dim(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return all_to_all_dim(g, concat_dim, split_dim, ctx.group), None, \
+            None, None
+
+
+def gather(x: torch.Tensor, dim: int, group, partial: bool = True):
+    """All-gather along ``dim``. Backward: with ``partial`` each rank's
+    cotangent is its part of the whole (the ranks computed on different
+    tokens), reduce-scattered; else every rank holds the whole cotangent
+    (the same tokens), and takes its slice."""
+    if group is None:
+        return x
+    return _Gather.apply(x, dim, group, partial)
+
+
+def split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's 1/n along ``dim`` of a tensor every rank holds whole;
+    backward all-gathers the slices' cotangents."""
+    if group is None:
+        return x
+    return _Split.apply(x, dim, group)
+
+
+def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce (sum) of each rank's part; backward the identity (the
+    sum is replicated, and each part's cotangent is the sum's)."""
+    if group is None:
+        return x
+    return _ReduceSum.apply(x, group)
+
+
+def copy_in(x: torch.Tensor, group) -> torch.Tensor:
+    """The identity on a replicated tensor that each rank then uses for
+    its own part of the work; backward all-reduces the parts'
+    cotangents."""
+    if group is None:
+        return x
+    return _CopyIn.apply(x, group)
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group):
+    """:func:`all_to_all_dim` under autograd (backward: the inverse
+    all_to_all)."""
+    if group is None:
+        return x
+    return _AllToAll.apply(x, split_dim, concat_dim, group)
+
+
+def slice_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's 1/n of ``x`` along ``dim`` (no communication)."""
+    if group is None:
+        return x
+    return _slice(x, dim, group)

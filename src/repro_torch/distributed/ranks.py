@@ -1,5 +1,5 @@
-"""Rank processes for tensor-parallel serving: one process a rank, in one
-``torch.distributed`` group.
+"""Rank processes for tensor-parallel serving and sharded training: one
+process a rank, in one ``torch.distributed`` group.
 
 The caller of :func:`run` is rank 0. It starts ranks 1 .. tp-1 with the
 ``spawn`` start method (never ``fork``: a caller with JAX or CUDA state
@@ -22,6 +22,11 @@ The ranks share the host's cores: each runs ``1/tp`` of the caller's
 intra-op threads (rank 0 for the run's length), since a rank waiting in a
 collective would otherwise spin its whole pool against the others' (at
 tp = 2 on 8 cores, a smoke serve took 9x longer).
+
+A mesh job (:func:`mesh_job`) runs its function on the rank's
+:class:`repro_torch.launch.mesh.RankMesh` instead of its shard: the mesh
+over the group's ranks (data = world / n_model, model = n_model) with its
+axis groups, made once a shard and n_model, by every rank in job order.
 
 A failure anywhere fails the run: a worker that raises sends its
 traceback back and exits, a rank waiting in a collective on it then
@@ -61,6 +66,16 @@ class Shard:
     device: torch.device
     backend: str
     group: Any = None
+    meshes: dict = dataclasses.field(default_factory=dict)
+
+    def mesh(self, n_model: int):
+        """The group's ranks as a (data, model = n_model) rank mesh, made
+        on first use (every rank makes its groups in the same order)."""
+        if n_model not in self.meshes:
+            from repro_torch.launch import mesh as mesh_mod
+            self.meshes[n_model] = mesh_mod.make_host_mesh(
+                n_model, device=self.device)
+        return self.meshes[n_model]
 
 
 def placement(tp: int, device=None) -> Tuple[List[torch.device], str]:
@@ -71,6 +86,30 @@ def placement(tp: int, device=None) -> Tuple[List[torch.device], str]:
     n = torch.cuda.device_count()
     devs = [torch.device('cuda', r % n) for r in range(tp)]
     return devs, ('nccl' if len(set(devs)) == tp else 'gloo')
+
+
+def mesh_job(target: str, n_model: int, **kwargs) -> Tuple[str, dict]:
+    """A job that calls ``target`` as ``function(mesh, **kwargs)`` with
+    the rank's mesh (:meth:`Shard.mesh`)."""
+    return ('repro_torch.distributed.ranks:_on_mesh',
+            dict(target=target, n_model=n_model, kwargs=kwargs))
+
+
+def _on_mesh(shard: Shard, *, target: str, n_model: int, kwargs: dict):
+    return _job_fn(target)(shard.mesh(n_model), **kwargs)
+
+
+def all_ranks_job(job: Tuple[str, dict]) -> Tuple[str, dict]:
+    """A job whose result is every rank's result of ``job``, in rank
+    order (picklable results, gathered after the job)."""
+    return ('repro_torch.distributed.ranks:_all_ranks', dict(job=job))
+
+
+def _all_ranks(shard: Shard, *, job):
+    from repro_torch.distributed import collectives
+    target, kwargs = job
+    return collectives.gather_objects(_job_fn(target)(shard, **kwargs),
+                                      shard.group)
 
 
 def _job_fn(target: str):

@@ -887,8 +887,8 @@ def _rank_view(shard: ranks.Shard, launches0: dict, calls0: dict,
     mine = dict(rank=shard.rank, device=str(shard.device),
                 launches={k: v - launches0[k]
                           for k, v in build.LAUNCHES.items()},
-                collectives={k: v - calls0[k]
-                             for k, v in collectives.CALLS.items()})
+                collectives={k: collectives.CALLS[k] - calls0[k]
+                             for k in collectives.SERVING})
     views = collectives.gather_objects(dict(mine, outputs=outputs),
                                        shard.group)
     for view in views[1:]:

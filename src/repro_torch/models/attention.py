@@ -1,8 +1,7 @@
 """GQA attention and DeepSeek MLA (multi-head latent attention, absorbed
 decode) over a paged or contiguous KV cache (port of
-``repro/models/attention.py``; its
-sequence-parallel training branch, ``_mla_sdpa_latent_2d``, waits for
-tensor-parallel training).
+``repro/models/attention.py``, with its sequence-parallel MLA core
+``_mla_sdpa_latent_2d``).
 
 All projections route through ``core.yoco_linear``; q and k rotate by RoPE,
 or by M-RoPE's (t, h, w) sections on an ``mrope`` config (qwen2-vl, a text
@@ -27,6 +26,14 @@ widths, never from the config, and :func:`_tp_heads_gather` reassembles
 the head-major activation before the replicated ``wo``, the one
 collective of a layer, at each of the six sites (prompt, decode and chunk,
 GQA and MLA).
+
+On a training rank mesh (``rt.mesh``; ``runtime/train_step.py``) the
+'tp' layout gives a rank its whole heads of q/k/v (MLA: of ``w_uq`` and
+``w_ukv``) and their rows of ``wo``: the replicated input enters through
+``collectives.copy_in`` and ``wo`` is a row-parallel linear summed over
+'model'. Under the '2d' layout a rank holds its rows of the sequence:
+GQA gathers K/V over 'model', MLA its latent (:func:`_mla_sdpa_latent_2d`),
+and its queries attend at their own offset.
 
 Pools are written in place (see ``runtime/layouts.py``).
 """
@@ -267,14 +274,46 @@ def _tp_ways(rt) -> int:
     return rt.tp_group.size()
 
 
+def _width(w) -> int:
+    return yoco_linear.weight_shape(w)[-1]
+
+
+def _head_block(rt, n_local: int, n_whole: int):
+    """(rank, ways) of a rank's head block: ways = n_whole / n_local, the
+    rank's index in its serving TP group or on the mesh's 'model' axis."""
+    ways = n_whole // n_local
+    if ways == 1:
+        return 0, 1
+    if rt.tp_group is not None:
+        return rt.tp_group.rank(), ways
+    return rt.mesh.index(rt.tp_axis), ways
+
+
+def _train_group(rt, ways: int):
+    """The 'model' group a training rank's head block is summed over
+    (None: whole heads, or serving TP, which gathers heads instead)."""
+    if ways == 1 or rt is None or rt.mesh is None:
+        return None
+    return rt.model_group()
+
+
+def _positions(b: int, s: int, rt, device) -> torch.Tensor:
+    """Default positions, from this rank's first row of the sequence."""
+    pos = rope_mod.default_positions(b, s, device=device)
+    return pos if rt is None else pos + rt.seq_offset(s)
+
+
 def _project_qkv(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
-                 positions: torch.Tensor, theta: float):
+                 positions: torch.Tensor, theta: float, rt=None):
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
+    rank, ways = ((0, 1) if rt is None else
+                  _head_block(rt, _width(p['wq']), cfg.n_heads * dh))
     # one quantization of x for the three projections (w8a8)
-    q, k, v = yoco_linear.linears(
+    q, k, v = yoco_linear.column_linears(
         x, [p['wq'], p['wk'], p['wv']],
-        [p.get('bq'), p.get('bk'), p.get('bv')], cfg=yoco)
+        [p.get('bq'), p.get('bk'), p.get('bv')], cfg=yoco, rank=rank,
+        ways=ways)
     q = q.reshape(b, s, -1, dh)
     k = k.reshape(b, s, -1, dh)
     v = v.reshape(b, s, -1, dh)
@@ -304,18 +343,30 @@ def attention(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     dh = cfg.resolved_head_dim
     theta = theta if theta is not None else cfg.rope_theta
     if positions is None:
-        positions = rope_mod.default_positions(b, s, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, yoco, positions, theta)
+        positions = _positions(b, s, rt, x.device)
+    group = _train_group(rt, cfg.n_heads * dh // _width(p['wq']))
+    if group is not None:
+        x = collectives.copy_in(x, group)
+        if cfg.qk_norm:         # replicated, applied to the rank's heads
+            p = dict(p, q_norm=collectives.copy_in(p['q_norm'], group),
+                     k_norm=collectives.copy_in(p['k_norm'], group))
+    q, k, v = _project_qkv(p, x, cfg, yoco, positions, theta, rt)
     if cache is not None:
         from repro_torch.runtime import layouts
         cache = layouts.get_layout(cache).write_prefill(cache, dict(k=k, v=v))
-    mask = causal_mask(s, s, 0, window, device=x.device)
+    skv, offset = s, 0
+    if rt is not None and rt.seq_sharded:
+        # sequence-parallel: every rank's keys, this rank's queries
+        k = collectives.gather(k, 1, rt.model_group())
+        v = collectives.gather(v, 1, rt.model_group())
+        skv, offset = k.shape[1], rt.seq_offset(s)
+    mask = causal_mask(s, skv, offset, window, device=x.device)
     # the reference's scale is 1 / sqrt(dh) computed in f32
     scale = 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32,
                                           device=x.device))
     out = _sdpa(q, k, v, mask, scale)
     out = _tp_heads_gather(out.reshape(b, s, -1), rt)
-    out = yoco_linear.linear(out, p['wo'], cfg=yoco)
+    out = yoco_linear.row_linear(out, p['wo'], yoco, group=group)
     return out, cache
 
 
@@ -333,7 +384,7 @@ def attention_decode(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     theta = theta if theta is not None else cfg.rope_theta
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     positions = pos.reshape(-1, 1).expand(b, 1)
-    q, k, v = _project_qkv(p, x, cfg, yoco, positions, theta)
+    q, k, v = _project_qkv(p, x, cfg, yoco, positions, theta, rt)
     scale = 1.0 / float(dh) ** 0.5
     from repro_torch.runtime import layouts
     layout = layouts.get_layout(cache)
@@ -369,7 +420,7 @@ def attention_chunk(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
                              device=x.device).reshape(-1)
     positions = offset[:, None] + torch.arange(c, dtype=torch.int32,
                                                device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, cfg, yoco, positions, theta)
+    q, k, v = _project_qkv(p, x, cfg, yoco, positions, theta, rt)
     scale = 1.0 / float(dh) ** 0.5
     from repro_torch.runtime import layouts
     layout = layouts.get_layout(cache)
@@ -396,33 +447,48 @@ def _mla_scale(m) -> float:
 
 
 def _mla_project(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, rt=None, group=None):
     """(q_nope, roped q_rope) (B, S, H, .) from the low-rank query, and
     (ckv (B, S, r), roped krope (B, S, d_rope)), what the cache holds;
-    ``w_dq`` and ``w_dkv`` share one quantization of x (w8a8)."""
+    ``w_dq`` and ``w_dkv`` share one quantization of x (w8a8). With a
+    training ``group`` (a rank's heads of ``w_uq``) the replicated low-rank
+    query and latent enter the rank's heads through ``copy_in``."""
     m = cfg.mla
     b, s, _ = x.shape
     dq, dkv = yoco_linear.linears(x, [p['w_dq'], p['w_dkv']], cfg=yoco)
-    q = yoco_linear.linear(rmsnorm(dq, p['q_ln']), p['w_uq'], cfg=yoco)
-    q = q.reshape(b, s, -1, m.nope_head_dim + m.rope_head_dim)
-    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    cq = rmsnorm(dq, p['q_ln'])
     ckv = rmsnorm(dkv[..., :m.kv_lora_rank], p['kv_ln'])
     krope = dkv[..., m.kv_lora_rank:]
     krope = rope_mod.apply_rope(krope[:, :, None, :], positions,
                                 cfg.rope_theta)[:, :, 0, :]
+    if group is not None:
+        cq, ckv, krope = (collectives.copy_in(t, group)
+                          for t in (cq, ckv, krope))
+    hd = m.nope_head_dim + m.rope_head_dim
+    rank, ways = ((0, 1) if rt is None else
+                  _head_block(rt, _width(p['w_uq']), cfg.n_heads * hd))
+    q = yoco_linear.column_linears(cq, [p['w_uq']], cfg=yoco, rank=rank,
+                                   ways=ways)[0]
+    q = q.reshape(b, s, -1, hd)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     return (q_nope, rope_mod.apply_rope(q_rope, positions, cfg.rope_theta),
             ckv, krope)
 
 
 def _mla_qkv_full(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
-                  positions: torch.Tensor):
+                  positions: torch.Tensor, rt=None, group=None):
     """Naive (non-absorbed) q/k/v for prefill: per-head k_nope and v
     expanded from the latent through ``w_ukv``."""
     m = cfg.mla
     b, s, _ = x.shape
-    q_nope, q_rope, ckv, krope = _mla_project(p, x, cfg, yoco, positions)
-    kv = yoco_linear.linear(ckv, p['w_ukv'], cfg=yoco)
-    kv = kv.reshape(b, s, -1, m.nope_head_dim + m.v_head_dim)
+    q_nope, q_rope, ckv, krope = _mla_project(p, x, cfg, yoco, positions,
+                                              rt, group)
+    hd = m.nope_head_dim + m.v_head_dim
+    rank, ways = ((0, 1) if rt is None else
+                  _head_block(rt, _width(p['w_ukv']), cfg.n_heads * hd))
+    kv = yoco_linear.column_linears(ckv, [p['w_ukv']], cfg=yoco, rank=rank,
+                                    ways=ways)[0]
+    kv = kv.reshape(b, s, -1, hd)
     k_nope, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
     return q_nope, q_rope, k_nope, krope, v, ckv
 
@@ -437,9 +503,19 @@ def mla_attention(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     m = cfg.mla
     b, s, _ = x.shape
     if positions is None:
-        positions = rope_mod.default_positions(b, s, device=x.device)
+        positions = _positions(b, s, rt, x.device)
+    group = _train_group(rt, cfg.n_heads * (m.nope_head_dim + m.rope_head_dim)
+                         // _width(p['w_uq']))
+    if rt is not None and rt.seq_sharded and cache is None:
+        q_nope, q_rope, ckv, krope = _mla_project(p, x, cfg, yoco,
+                                                  positions)
+        out = _mla_sdpa_latent_2d(q_nope, q_rope, ckv, krope, p['w_ukv'],
+                                  cfg, rt)
+        out = yoco_linear.linear(out.reshape(b, s, -1).to(x.dtype), p['wo'],
+                                 cfg=yoco)
+        return out, None
     q_nope, q_rope, k_nope, krope, v, ckv = _mla_qkv_full(
-        p, x, cfg, yoco, positions)
+        p, x, cfg, yoco, positions, rt, group)
     if cache is not None:
         from repro_torch.runtime import layouts
         cache = layouts.get_layout(cache).write_prefill(
@@ -456,8 +532,39 @@ def mla_attention(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     out = torch.einsum('bhqs,bshd->bqhd', probs.to(v.dtype).to(f32),
                        v.to(f32))
     out = _tp_heads_gather(out.reshape(b, s, -1).to(x.dtype), rt)
-    out = yoco_linear.linear(out, p['wo'], cfg=yoco)
+    out = yoco_linear.row_linear(out, p['wo'], yoco, group=group)
     return out, cache
+
+
+def _mla_sdpa_latent_2d(q_nope, q_rope, ckv, krope, w_ukv, cfg, rt):
+    """MLA's sequence-parallel core (the reference's shard_map body): each
+    rank all-gathers the (r + d_rope)-wide latent over 'model', expands
+    K/V from it locally through the whole ``w_ukv``, and attends its own
+    queries at its offset. The gather's backward reduce-scatters the
+    latent's cotangent: the dK/dV reduction never runs at 2·H·dh width."""
+    m = cfg.mla
+    h = cfg.n_heads
+    group = rt.model_group()
+    f32 = torch.float32
+    scale = 1.0 / torch.sqrt(torch.tensor(
+        float(m.nope_head_dim + m.rope_head_dim), dtype=f32,
+        device=q_nope.device))
+    ck_f = collectives.gather(ckv, 1, group)             # (b, s, r)
+    kr_f = collectives.gather(krope, 1, group)
+    w = w_ukv.reshape(m.kv_lora_rank, h,
+                      m.nope_head_dim + m.v_head_dim).to(q_nope.dtype)
+    kv = torch.einsum('bsr,rhd->bshd', ck_f.to(f32), w.to(f32)).to(
+        q_nope.dtype)
+    kn, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
+    lo = torch.einsum('bqhd,bshd->bhqs', q_nope.to(f32), kn.to(f32))
+    lo = lo + torch.einsum('bqhd,bsd->bhqs', q_rope.to(f32), kr_f.to(f32))
+    sl = q_nope.shape[1]
+    mask = causal_mask(sl, ck_f.shape[1], rt.seq_offset(sl),
+                       device=q_nope.device)
+    probs = torch.softmax(lo * scale + mask, dim=-1)
+    out = torch.einsum('bhqs,bshd->bqhd', probs.to(v.dtype).to(f32),
+                       v.to(f32))
+    return out.to(q_nope.dtype)
 
 
 def mla_absorbed_attend(q_lat: torch.Tensor, q_rope: torch.Tensor,
@@ -543,7 +650,7 @@ def mla_attention_decode(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     positions = pos.reshape(-1, 1).expand(b, 1)
     q_nope, q_rope, ckv_t, krope_t = _mla_project(p, x, cfg, yoco,
-                                                  positions)
+                                                  positions, rt)
     w_uk, w_uv = _absorb_weights(p, m)
     q_lat = torch.einsum('bqhd,rhd->bqhr', q_nope.to(torch.float32), w_uk)
     scale = _mla_scale(m)
@@ -583,7 +690,7 @@ def mla_attention_chunk(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     positions = offset[:, None] + torch.arange(c, dtype=torch.int32,
                                                device=x.device)[None, :]
     q_nope, q_rope, ckv_t, krope_t = _mla_project(p, x, cfg, yoco,
-                                                  positions)
+                                                  positions, rt)
     w_uk, w_uv = _absorb_weights(p, m)
     f32 = torch.float32
     q_lat = torch.einsum('bqhd,rhd->bqhr', q_nope.to(f32), w_uk)

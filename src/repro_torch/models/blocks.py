@@ -86,12 +86,13 @@ def transformer_block(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     x = x + a
     h = apply_norm(p['mlp_norm'], x, cfg)
     if 'moe' in p:
-        m, metrics = moe_mod.moe_apply(p['moe'], h, cfg, yoco,
-                                       with_metrics=aux is not None)
+        m, metrics = moe_mod.moe_apply(
+            p['moe'], h, cfg, yoco, None if rt is None else rt.moe_ctx,
+            with_metrics=aux is not None, rt=rt)
         if aux is not None:
             aux.append(metrics['aux_loss'])
     else:
-        m = apply_mlp(p['mlp'], h, cfg.mlp_type, yoco)
+        m = apply_mlp(p['mlp'], h, cfg.mlp_type, yoco, rt=rt, cfg=cfg)
     if 'post_mlp_norm' in p:
         m = apply_norm(p['post_mlp_norm'], m, cfg)
     return x + m, cache
@@ -108,12 +109,24 @@ def init_mamba_block(gen: torch.Generator, cfg, *, device,
 
 def mamba_block(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
                 state: Optional[dict] = None, decode: bool = False,
-                last_pos=None) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Pre-norm residual Mamba2 block; ``state`` is updated in place."""
+                last_pos=None, rt=None) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Pre-norm residual Mamba2 block; ``state`` is updated in place. A
+    rank holding its 1/T of the sequence (``rt.seq_sharded``) gathers the
+    whole sequence over 'model' before the scan and keeps its rows of the
+    mixer's output (each rank's cotangent is then its rows' part, and the
+    gather reduce-scatters it)."""
     h = apply_norm(p['norm'], x, cfg)
     if decode:
         y, state = ssm_mod.mamba2_decode(p['mixer'], h, cfg, yoco,
                                          state=state)
+    elif rt is not None and rt.seq_sharded:
+        from repro_torch.distributed import collectives
+        s = h.shape[1]
+        whole = collectives.gather(h, 1, rt.model_group())
+        y, state = ssm_mod.mamba2_forward(p['mixer'], whole, cfg, yoco,
+                                          state=state, last_pos=last_pos)
+        o = rt.seq_offset(s)
+        y = y[:, o:o + s]
     else:
         y, state = ssm_mod.mamba2_forward(p['mixer'], h, cfg, yoco,
                                           state=state, last_pos=last_pos)

@@ -95,15 +95,30 @@ def _gelu_tanh(t: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(params: dict, x: torch.Tensor, mlp_type: str,
-              yoco: YocoConfig) -> torch.Tensor:
-    if mlp_type in ('swiglu', 'geglu'):
-        # one quantization of x for gate and up (w8a8)
-        g, u = yoco_linear.linears(x, [params['w_gate'], params['w_up']],
-                                   cfg=yoco)
+              yoco: YocoConfig, rt=None, cfg=None) -> torch.Tensor:
+    """The MLP. A rank's block of its hidden units (the 'tp' layout: the
+    up weights' columns, the down weight's rows, fewer than ``cfg.d_ff``)
+    runs Megatron's pair: x enters through ``collectives.copy_in`` (its
+    cotangent summed over 'model'), and the down product is a row-parallel
+    linear summed over 'model' (``yoco_linear.row_linear``)."""
+    wide = mlp_type in ('swiglu', 'geglu')
+    ups = [params['w_gate'], params['w_up']] if wide else [params['w_in']]
+    down = params['w_down'] if wide else params['w_out']
+    group, rank, ways = None, 0, 1
+    if (cfg is not None and rt is not None
+            and yoco_linear.weight_shape(down)[0] < cfg.d_ff):
+        from repro_torch.distributed import collectives
+        group = rt.model_group()
+        rank, ways = rt.columns()
+        x = collectives.copy_in(x, group)
+    # one quantization of x for gate and up (w8a8)
+    hs = yoco_linear.column_linears(x, ups, cfg=yoco, rank=rank, ways=ways)
+    if wide:
         act = F.silu if mlp_type == 'swiglu' else _gelu_tanh
-        return yoco_linear.linear(act(g) * u, params['w_down'], cfg=yoco)
-    h = yoco_linear.linear(x, params['w_in'], cfg=yoco)
-    return yoco_linear.linear(_gelu_tanh(h), params['w_out'], cfg=yoco)
+        h = act(hs[0]) * hs[1]
+    else:
+        h = _gelu_tanh(hs[0])
+    return yoco_linear.row_linear(h, down, yoco, group=group)
 
 
 # ----------------------------------------------------------------------------

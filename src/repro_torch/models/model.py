@@ -65,16 +65,101 @@ from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
                                        init_norm)
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class ModelRuntime:
+    # sharded training (runtime/train_step.py::sharded_train_step): the
+    # rank mesh (launch/mesh.py::RankMesh) or None (one device)
+    mesh: Any = None
+    dp_axes: tuple = ('data',)     # batch axes; ('pod', 'data') multi-pod
+    tp_axis: str = 'model'
+    use_ep: bool = False           # expert-parallel MoE (needs a mesh)
+    remat: str = 'none'            # none | full | dots
+    act_layout: str = 'batch'      # batch (the 'tp' layout) | 2d (fsdp2d)
     attn_impl: str = 'einsum'      # einsum (oracle) | flash (the kernels)
     compute_dtype: Any = torch.bfloat16
     # head-parallel serving TP: the rank's torch.distributed group (None:
     # one device); the attention gathers its heads over it before wo
     tp_group: Any = None
+    # set by forward: under act_layout '2d' this rank holds its 1/T of the
+    # sequence (T = the tp axis's size), at positions from seq_offset on
+    seq_sharded: bool = False
+
+    @property
+    def moe_ctx(self) -> Optional[moe_mod.EPContext]:
+        if self.use_ep and self.mesh is not None:
+            return moe_mod.EPContext(self.mesh, self.dp_axes, self.tp_axis,
+                                     seq_split=self.seq_sharded)
+        return None
+
+    @property
+    def tp_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.axis_size(self.tp_axis)
+
+    def model_group(self):
+        """The group of this rank's 'model' line (None: one rank)."""
+        return None if self.mesh is None else self.mesh.group(self.tp_axis)
+
+    def token_axes(self) -> tuple:
+        """The axes this rank's tokens are a part of: the dp axes, and the
+        tp axis when the sequence is split over it."""
+        return tuple(self.dp_axes) + ((self.tp_axis,) if self.seq_sharded
+                                      else ())
+
+    def token_group(self):
+        return None if self.mesh is None else self.mesh.group(
+            self.token_axes())
+
+    def seq_offset(self, s_local: int) -> int:
+        """The position of this rank's first row of the sequence."""
+        if not self.seq_sharded:
+            return 0
+        return self.mesh.index(self.tp_axis) * s_local
+
+    def columns(self):
+        """(rank, ways) of a column block over the tp axis: this rank's
+        index on it and its size."""
+        if self.mesh is None or self.tp_size == 1:
+            return 0, 1
+        return self.mesh.index(self.tp_axis), self.tp_size
 
 
 DEFAULT_RT = ModelRuntime()
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The counterpart of JAX's ``dots_with_no_batch_dims_saveable``: the
+    matrix products with no batch dims (every linear's) are saved, all
+    else recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    saved = (aten.mm.default, aten.addmm.default, aten._int_mm.default)
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, rt: ModelRuntime):
+    """``fn`` under ``rt.remat``: 'none' as it is; 'full' through
+    non-reentrant ``torch.utils.checkpoint`` (nothing saved, the whole body
+    recomputed in the backward); 'dots' the same with a selective policy
+    saving the matrix products (:func:`_dots_policy`)."""
+    if rt.remat == 'none':
+        return fn
+    from torch.utils import checkpoint as ckpt
+    if rt.remat == 'full':
+        kw = {}
+    elif rt.remat == 'dots':
+        kw = dict(context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    else:
+        raise ValueError(f'remat must be none, full or dots; got '
+                         f'{rt.remat!r}')
+
+    def run(*a):
+        # the whole body again in the backward (no early stop), so a
+        # recompute makes every collective and launch of the forward
+        with ckpt.set_checkpoint_early_stop(False):
+            return ckpt.checkpoint(fn, *a, use_reentrant=False, **kw)
+    return run
 
 
 INPUT_KINDS = ('tokens', 'embeddings', 'codebooks')
@@ -432,17 +517,38 @@ def _embed(params: dict, inputs: torch.Tensor, cfg,
            rt: ModelRuntime) -> torch.Tensor:
     """(B, S) token ids, (B, S, CB) codebook ids or (B, S, d) embeddings
     (the stubbed frontend's rows, cast to the compute dtype) -> (B, S,
-    d)."""
+    d). A rank's vocab block of the table (the 'tp' layout) looks up the
+    ids it holds, zero elsewhere, and the rows are summed over 'model'."""
     if cfg.input_kind == 'embeddings':
         return inputs.to(rt.compute_dtype)
-    return layers_mod.embed_tokens(params['embed'], inputs, rt.compute_dtype)
+    emb = params['embed']
+    if emb.ndim == 2 and emb.shape[0] < cfg.vocab_size:
+        from repro_torch.distributed import collectives
+        v = emb.shape[0]
+        local = inputs.to(torch.int64) - rt.mesh.index(rt.tp_axis) * v
+        own = (local >= 0) & (local < v)
+        rows = emb[local.clamp(0, v - 1)] * own[..., None].to(emb.dtype)
+        return collectives.reduce_sum(rows.to(torch.float32),
+                                      rt.model_group()).to(rt.compute_dtype)
+    return layers_mod.embed_tokens(emb, inputs, rt.compute_dtype)
 
 
-def _head(params: dict, x: torch.Tensor, cfg, yoco: YocoConfig) -> torch.Tensor:
+def _head(params: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
+          rt: ModelRuntime = DEFAULT_RT) -> torch.Tensor:
+    """The logits; a rank's vocab block of the lm_head (or of a tied
+    table) gives its block of the vocab (the 'tp' layout)."""
+    w = params['embed'].t() if cfg.tie_embeddings else params['lm_head']
+    if len(yoco_linear.weight_shape(w)) == 2 and \
+            yoco_linear.weight_shape(w)[-1] < cfg.vocab_size:
+        from repro_torch.distributed import collectives
+        rank, ways = rt.columns()
+        x = collectives.copy_in(x, rt.model_group())
+        w = w.to(x.dtype) if cfg.tie_embeddings else w
+        return yoco_linear.column_linears(x, [w], cfg=yoco, rank=rank,
+                                          ways=ways)[0]
     if cfg.tie_embeddings:
-        return yoco_linear.yoco_matmul(x, params['embed'].t().to(x.dtype),
-                                       yoco)
-    return layers_mod.lm_head(params['lm_head'], x, yoco)
+        return yoco_linear.yoco_matmul(x, w.to(x.dtype), yoco)
+    return layers_mod.lm_head(w, x, yoco)
 
 
 @functools.lru_cache(maxsize=None)
@@ -491,24 +597,43 @@ def _transformer_stack(layers: list, x: torch.Tensor, cfg, yoco, rt, *,
     windows = layer_windows(cfg, x.device)
     thetas = _gemma_layer_meta(cfg)[1]
     for l, lp in enumerate(layers):
+        win = None if windows is None else windows[l]
+        if aux is not None:
+            # training: each layer's body under rt.remat, its MoE aux loss
+            # returned rather than appended, so a recompute adds none
+            def body(lp, x, win=win, th=thetas[l]):
+                got = []
+                y, _ = blk.transformer_block(lp, x, cfg, yoco, window=win,
+                                             theta=th, rt=rt, aux=got)
+                return y, (got[0] if got else None)
+            x, a = _maybe_remat(body, rt)(lp, x)
+            if a is not None:
+                aux.append(a)
+            continue
         lc = ({key: leaf[l] for key, leaf in cache.items()}
               if cache is not None else None)
         x, _ = blk.transformer_block(
-            lp, x, cfg, yoco, window=None if windows is None else windows[l],
-            theta=thetas[l], cache=lc, decode_pos=decode_pos, rt=rt,
-            chunk_ctx=chunk_ctx, aux=aux)
+            lp, x, cfg, yoco, window=win, theta=thetas[l], cache=lc,
+            decode_pos=decode_pos, rt=rt, chunk_ctx=chunk_ctx)
     return x, cache
 
 
 def _mamba_stack(layers: list, x: torch.Tensor, cfg, yoco, *,
-                 state: Optional[dict], decode: bool, last_pos=None):
+                 state: Optional[dict], decode: bool, last_pos=None,
+                 rt: ModelRuntime = DEFAULT_RT):
     """Run Mamba2 blocks in order; ``state`` is the stacked (L, ...)
-    recurrent dict or None, each layer updating its own view in place."""
+    recurrent dict or None, each layer updating its own view in place.
+    Without state (training) each block runs under ``rt.remat``."""
     for l, lp in enumerate(layers):
-        st = ({key: leaf[l] for key, leaf in state.items()}
-              if state is not None else None)
+        if state is None and not decode:
+            def body(lp, x):
+                return blk.mamba_block(lp, x, cfg, yoco, last_pos=last_pos,
+                                       rt=rt)[0]
+            x = _maybe_remat(body, rt)(lp, x)
+            continue
+        st = {key: leaf[l] for key, leaf in state.items()}
         x, _ = blk.mamba_block(lp, x, cfg, yoco, state=st, decode=decode,
-                               last_pos=last_pos)
+                               last_pos=last_pos, rt=rt)
     return x
 
 
@@ -527,7 +652,8 @@ def _hybrid_backbone(params: dict, x: torch.Tensor, cfg, yoco, rt, *,
         seg = ({key: leaf[lo:hi] for key, leaf in st.items()}
                if st is not None else None)
         return _mamba_stack(params['layers'][lo:hi], x, cfg, yoco,
-                            state=seg, decode=decode, last_pos=last_pos)
+                            state=seg, decode=decode, last_pos=last_pos,
+                            rt=rt)
 
     n_sites = _n_sites(cfg)
     for g in range(n_sites):
@@ -567,7 +693,7 @@ def _backbone(params: dict, x: torch.Tensor, cfg, yoco, rt, *,
         return _mamba_stack(params['layers'], x, cfg, yoco,
                             state=None if cache is None else cache['ssm'],
                             decode=decode_pos is not None,
-                            last_pos=last_pos), cache
+                            last_pos=last_pos, rt=rt), cache
     for key, ckey, _, _ in _stacks(cfg):
         x, _ = _transformer_stack(params[key], x, cfg, yoco, rt,
                                   cache=None if cache is None
@@ -658,13 +784,38 @@ def init_paged_cache_tree(cfg, batch: int, *, num_pages: int, page_size: int,
 # ----------------------------------------------------------------------------
 # public entry points
 # ----------------------------------------------------------------------------
+def _sharded_rt(rt: ModelRuntime, s: int) -> ModelRuntime:
+    """The anchors' role (the reference's ``_constrain``): under
+    act_layout '2d' a rank holds its 1/T of a sequence of ``s`` positions
+    (T = the tp axis's size, where it divides s > 1), besides its dp block
+    of the rows the step gave it."""
+    t = rt.tp_size
+    split = (rt.mesh is not None and rt.act_layout == '2d' and t > 1
+             and s % t == 0 and s > 1)
+    return dataclasses.replace(rt, seq_sharded=split) \
+        if split != rt.seq_sharded else rt
+
+
+def _seq_block(x: torch.Tensor, rt: ModelRuntime) -> torch.Tensor:
+    """This rank's block of a (B, S, ...) tensor's sequence."""
+    if not rt.seq_sharded:
+        return x
+    s = x.shape[1] // rt.tp_size
+    o = rt.seq_offset(s)
+    return x[:, o:o + s]
+
+
 def forward(params: dict, batch: dict, cfg, yoco: YocoConfig = DEFAULT_YOCO,
             rt: ModelRuntime = DEFAULT_RT) -> Tuple[torch.Tensor, dict]:
     """Training forward: the causal logits at every position, (B, S, V)
     (codebooks: (B, S, CB, V)), and ``dict(moe_aux_loss=...)``, the sum of
     the MoE layers' load-balance losses in f32 (0 without MoE layers), in
-    the autograd graph."""
-    x = _embed(params, batch['inputs'], cfg, rt)
+    the autograd graph. On a rank mesh (``rt.mesh``) ``params`` are the
+    blocks the train step computes on and ``batch`` the rank's rows: the
+    logits are the rank's (its positions under '2d', its vocab block
+    where the lm_head is cut)."""
+    rt = _sharded_rt(rt, batch['inputs'].shape[1])
+    x = _embed(params, _seq_block(batch['inputs'], rt), cfg, rt)
     aux = []
     x, _ = _backbone(params, x, cfg, yoco, rt, cache=None, decode_pos=None,
                      aux=aux)
@@ -672,7 +823,32 @@ def forward(params: dict, batch: dict, cfg, yoco: YocoConfig = DEFAULT_YOCO,
     for a in aux:
         total = total + a
     x = apply_norm(params['final_norm'], x, cfg)
-    return _head(params, x, cfg, yoco), dict(moe_aux_loss=total)
+    return _head(params, x, cfg, yoco, rt), dict(moe_aux_loss=total)
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor, cfg,
+         rt: ModelRuntime) -> torch.Tensor:
+    """logsumexp minus the gold logit in f32, per position. Logits of a
+    rank's vocab block (the 'tp' layout): the max and the sum of
+    exponentials all-reduced over 'model', the gold logit taken from the
+    rank that holds it."""
+    lf = logits.to(torch.float32)
+    v = lf.shape[-1]
+    if lf.ndim == 3 and v < cfg.vocab_size:
+        from repro_torch.distributed import collectives
+        group = rt.model_group()
+        m = collectives.all_reduce(lf.detach().amax(dim=-1), group,
+                                   collectives.dist.ReduceOp.MAX)
+        se = collectives.reduce_sum(
+            torch.sum(torch.exp(lf - m[..., None]), dim=-1), group)
+        local = labels - rt.mesh.index(rt.tp_axis) * v
+        own = (local >= 0) & (local < v)
+        g = torch.gather(lf, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+        gold = collectives.reduce_sum(g * own.to(torch.float32), group)
+        return m + torch.log(se) - gold
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp_min(0)[..., None])[..., 0]
+    return logz - gold
 
 
 def loss_fn(params: dict, batch: dict, cfg, yoco: YocoConfig = DEFAULT_YOCO,
@@ -680,15 +856,23 @@ def loss_fn(params: dict, batch: dict, cfg, yoco: YocoConfig = DEFAULT_YOCO,
     """Next-token cross-entropy in f32 (logsumexp minus the gold logit),
     averaged over the positions whose label is >= 0; an MoE config adds
     ``router_aux_weight * moe_aux_loss``. Returns (total, metrics with
-    ``moe_aux_loss``, ``ce_loss``, ``total_loss`` and ``tokens``)."""
+    ``moe_aux_loss``, ``ce_loss``, ``total_loss`` and ``tokens``). On a
+    rank mesh the mean is over every token of the mesh: the masked sum
+    and the count summed over the axes the tokens are spread on, then
+    divided (a mean of per-rank means would weigh ranks, not tokens)."""
     logits, metrics = forward(params, batch, cfg, yoco, rt)
-    labels = batch['labels'].to(device=logits.device, dtype=torch.int64)
-    lf = logits.to(torch.float32)
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.clamp_min(0)[..., None])[..., 0]
+    srt = _sharded_rt(rt, batch['inputs'].shape[1])
+    labels = _seq_block(batch['labels'], srt).to(device=logits.device,
+                                                   dtype=torch.int64)
     mask = (labels >= 0).to(torch.float32)
+    nll = torch.sum(_nll(logits, labels, cfg, srt) * mask)
     tokens = torch.sum(mask)
-    loss = torch.sum((logz - gold) * mask) / torch.clamp_min(tokens, 1.0)
+    if srt.mesh is not None:
+        from repro_torch.distributed import collectives
+        group = srt.token_group()
+        nll = collectives.reduce_sum(nll, group)
+        tokens = collectives.all_reduce(tokens, group)
+    loss = nll / torch.clamp_min(tokens, 1.0)
     total = loss
     if cfg.moe is not None:
         total = total + cfg.moe.router_aux_weight * metrics['moe_aux_loss']
@@ -713,7 +897,7 @@ def prefill(params: dict, batch: dict, cache: dict, cfg,
                               device=x.device).reshape(-1)
         x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
     x = apply_norm(params['final_norm'], x, cfg)
-    return _head(params, x, cfg, yoco)[:, 0], cache
+    return _head(params, x, cfg, yoco, rt)[:, 0], cache
 
 
 def prefill_chunk(params: dict, batch: dict, offset, limit, cache: dict, cfg,
@@ -741,7 +925,7 @@ def prefill_chunk(params: dict, batch: dict, offset, limit, cache: dict, cfg,
     idx = torch.clamp(limit - 1 - offset, 0, c - 1).to(torch.int64)
     x = x[torch.arange(b, device=x.device), idx][:, None]
     x = apply_norm(params['final_norm'], x, cfg)
-    return _head(params, x, cfg, yoco)[:, 0], cache
+    return _head(params, x, cfg, yoco, rt)[:, 0], cache
 
 
 def decode_step(params: dict, token: torch.Tensor, pos, cache: dict, cfg,
@@ -753,4 +937,4 @@ def decode_step(params: dict, token: torch.Tensor, pos, cache: dict, cfg,
     x, cache = _backbone(params, x, cfg, yoco, rt, cache=cache,
                          decode_pos=pos)
     x = apply_norm(params['final_norm'], x, cfg)
-    return _head(params, x, cfg, yoco)[:, 0], cache
+    return _head(params, x, cfg, yoco, rt)[:, 0], cache

@@ -1,10 +1,10 @@
 """Mixture-of-Experts FFN (port of ``repro/models/moe.py``): a token-choice
 top-k router and the dense execution, every expert on every token, mixed
 by the router's gates (the reference's ``moe_dense``, which it runs on one
-device whatever ``impl`` says). Expert parallelism (``moe_ep``: the
-capacity-buffered dispatch across a mesh) belongs to ROADMAP Queue 1 items
-13/14; its single-host dispatch, :func:`dispatch_combine`, is here with its
-capacity drops.
+device whatever ``impl`` says), and expert parallelism (:func:`moe_ep`):
+the capacity-buffered dispatch (:func:`dispatch_combine`, with its
+capacity drops) with two ``all_to_all``s over a rank mesh's 'model' axis,
+each rank running its block of the expert stacks on every peer's tokens.
 
 Expert stacks keep the reference's shapes, ``w_gate``/``w_up``/``w_in``
 (E, d, f) and ``w_down``/``w_out`` (E, f, d), with E the padded
@@ -21,8 +21,9 @@ stacks), in the compute dtype; the shared experts are ordinary linears.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -205,17 +206,28 @@ def _top_k(p: dict, x: torch.Tensor, cfg):
     return probs, gates.to(x.dtype), ids
 
 
-def _router_metrics(probs: torch.Tensor, ids: torch.Tensor, cfg) -> dict:
+def _router_metrics(probs: torch.Tensor, ids: torch.Tensor, cfg,
+                    group=None) -> dict:
     """The Switch-style load-balance loss ``E * sum_e f_e * p_e`` (f_e:
-    the fraction of tokens whose top-1 is e) and the router's entropy."""
+    the fraction of tokens whose top-1 is e) and the router's entropy.
+    With a ``group`` (the ranks this one's tokens are a part of, equal
+    shares each) the means are over every token of the group, as one
+    device computes them over the whole batch."""
     e = cfg.moe.n_experts
-    me = torch.mean(probs, dim=0)                           # mean router prob
     onehot = (ids[:, :1] == torch.arange(e, device=ids.device)).to(
         torch.float32)                                      # top-1, no sync
-    ce = torch.mean(onehot, dim=0)                          # fraction routed
-    return dict(aux_loss=e * torch.sum(me * ce),
-                router_entropy=-torch.mean(torch.sum(
-                    probs * torch.log(probs + 1e-9), dim=-1)))
+    ent = -torch.sum(probs * torch.log(probs + 1e-9), dim=-1)
+    if group is None:
+        me = torch.mean(probs, dim=0)                       # mean router prob
+        ce = torch.mean(onehot, dim=0)                      # fraction routed
+        return dict(aux_loss=e * torch.sum(me * ce),
+                    router_entropy=torch.mean(ent))
+    from repro_torch.distributed import collectives
+    n = probs.shape[0] * collectives.dist.get_world_size(group)
+    sums = collectives.reduce_sum(torch.cat([
+        probs.sum(dim=0), onehot.sum(dim=0), ent.sum()[None]]), group)
+    me, ce = sums[:e] / n, sums[e:2 * e] / n
+    return dict(aux_loss=e * torch.sum(me * ce), router_entropy=sums[-1] / n)
 
 
 def route(p: dict, x: torch.Tensor, cfg
@@ -232,14 +244,16 @@ def route(p: dict, x: torch.Tensor, cfg
 # dense execution
 # ----------------------------------------------------------------------------
 def moe_dense(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
-              with_metrics: bool = True) -> Tuple[torch.Tensor, dict]:
+              with_metrics: bool = True, group=None
+              ) -> Tuple[torch.Tensor, dict]:
     """Exact combine, no capacity drops. x: (B, S, d). Every expert of the
     stack runs on every token; the (T, stack) mix holds each token's gates
     at its experts (zero elsewhere, the dummies included), in x's dtype;
     the shared FFN is added after the combine. Each token's output reads
     only its own row. ``with_metrics=False`` skips the router's metrics
     (empty dict), which serving never reads, as the compiled reference
-    drops them."""
+    drops them. ``group``: the ranks whose tokens the router's metrics
+    average over (a rank mesh's token axes)."""
     mo = cfg.moe
     b, s, d = x.shape
     xt = x.reshape(-1, d)
@@ -250,7 +264,7 @@ def moe_dense(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
     y = _mixed_experts(p, xt, mix, cfg)
     if mo.d_ff_shared:
         y = y + _shared_ffn(p, xt, cfg, yoco)
-    metrics = _router_metrics(probs, ids, cfg) if with_metrics else {}
+    metrics = _router_metrics(probs, ids, cfg, group) if with_metrics else {}
     return y.reshape(b, s, d), metrics
 
 
@@ -315,14 +329,138 @@ def dispatch_combine(p: dict, xt: torch.Tensor, cfg, yoco: YocoConfig,
     return y.to(xt.dtype), metrics
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
-              ctx=None, with_metrics: bool = True
-              ) -> Tuple[torch.Tensor, dict]:
-    """Entry point: the dense execution, as the reference runs it without
-    an expert-parallel context (whatever ``cfg.moe.impl`` says)."""
-    if ctx is not None:
+# ----------------------------------------------------------------------------
+# expert-parallel execution (all_to_all over the mesh's 'model' axis)
+# ----------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True, eq=False)
+class EPContext:
+    """``mesh``: the rank mesh (``launch/mesh.py::RankMesh``); ``dp_axes``
+    the batch axes; ``ep_axis`` the experts' axis. ``seq_split``: the
+    tokens arrive as this rank's 1/ep of the sequence (the '2d' layout),
+    else replicated over ``ep_axis`` (the 'tp' layout)."""
+    mesh: Any
+    dp_axes: tuple
+    ep_axis: str = 'model'
+    seq_split: bool = False
+
+
+def moe_ep(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, ctx: EPContext,
+           ) -> Tuple[torch.Tensor, dict]:
+    """Expert-parallel MoE (the reference's shard_map body). x: this
+    rank's (B, S, d) tokens; the expert stacks in ``p``: its block of
+    stack_size / ep experts (the 'model' block of their specs).
+
+    Where the whole sequence splits over the EP axis (S % ep == 0, S > 1)
+    each (dp, ep) shard routes its 1/ep of it: tokens replicated over ep
+    are split here (``collectives.split``) and gathered back after; the
+    non-expert leaves (router, shared experts) then enter through
+    ``copy_in``, their shards' cotangents summed. A shard builds the
+    (stack_size, C, d) dispatch buffer at capacity ``max(int(t_loc · top_k
+    · capacity_factor / n_experts), top_k)``, t_loc its token count,
+    all_to_alls it so each rank holds its experts' slots from every peer,
+    runs its experts, all_to_alls back and combines; routing slots past
+    capacity drop. The scalar metrics (the aux loss among them) are each
+    shard's, averaged over the shards (the reference's pmean over the EP
+    axis, then the dp axes), not global statistics."""
+    from repro_torch.distributed import collectives
+    mo = cfg.moe
+    mesh = ctx.mesh
+    ep = mesh.axis_size(ctx.ep_axis)
+    e_pad = mo.stack_size
+    assert e_pad % ep == 0, (
+        f'expert stack {e_pad} must divide EP={ep}: set '
+        f'MoEConfig.pad_experts_to (in-step padding would force a full '
+        f'expert all-gather per layer — §Perf qwen2-moe iter 2)')
+    b, s, d = x.shape
+    dp_size = mesh.axis_size(ctx.dp_axes)
+    s_whole = s * ep if ctx.seq_split else s
+    seq_sharded = s_whole % ep == 0 and s_whole > 1
+    shards = dp_size * (ep if seq_sharded else 1)
+    t_loc = max(b * dp_size * s_whole // shards, 1)
+    capacity = max(int(t_loc * mo.top_k * mo.capacity_factor
+                       / mo.n_experts), mo.top_k)
+    group = mesh.group(ctx.ep_axis)
+    x_l, pp = x, p
+    enter = seq_sharded and not ctx.seq_split
+    if enter:
+        x_l = collectives.split(x, 1, group)
+        pp = {k: v if k in STACKS else collectives.copy_in(v, group)
+              for k, v in p.items()}
+    elif not seq_sharded and group is not None and torch.is_grad_enabled():
         raise NotImplementedError(
-            'expert-parallel MoE (moe_ep: capacity dispatch with all_to_all '
-            'across a mesh) belongs to ROADMAP Queue 1 items 13/14; this '
-            'port serves the dense execution on one card')
-    return moe_dense(p, x, cfg, yoco, with_metrics)
+            'moe_ep with tokens replicated over the EP axis (S % ep != 0 '
+            'or S == 1: the decode-time layout) runs every token on every '
+            'EP rank; training needs the sequence split over it')
+
+    def expert_fn(buf):                     # (E_pad, C, d) local
+        recv = collectives.all_to_all(buf, 0, 1, group)   # (E_loc, ep*C, d)
+        y = _expert_ffn(pp, recv, cfg)
+        return collectives.all_to_all(y, 1, 0, group)
+
+    y, m = dispatch_combine(pp, x_l.reshape(-1, d), cfg, yoco, capacity,
+                            expert_fn, n_buckets=e_pad)
+    y = y.reshape(x_l.shape)
+    if enter:
+        y = collectives.gather(y, 1, group, partial=False)
+    keys = sorted(m)
+    total = collectives.reduce_sum(
+        torch.stack([m[k].to(torch.float32) for k in keys]),
+        mesh.group(tuple(ctx.dp_axes) + (ctx.ep_axis,)))
+    n = dp_size * ep
+    return y, {k: total[i] / n for i, k in enumerate(keys)}
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig,
+              ctx: Optional[EPContext] = None, with_metrics: bool = True,
+              rt=None) -> Tuple[torch.Tensor, dict]:
+    """Entry point: :func:`moe_ep` when an expert-parallel context is given
+    and ``cfg.moe.impl == 'ep'``, else the dense execution (on a rank
+    mesh, ``rt.mesh``, its router metrics averaged over the ranks the
+    tokens are spread on)."""
+    if ctx is not None and cfg.moe.impl == 'ep':
+        return moe_ep(p, x, cfg, yoco, ctx)
+    group = None if rt is None or rt.mesh is None else rt.token_group()
+    return moe_dense(p, x, cfg, yoco, with_metrics, group)
+
+
+def moe_ep_job(mesh, *, cfg, params, x, r, seq_split: bool,
+               with_grads: bool = False, device=None) -> dict:
+    """A mesh job (``distributed/ranks.py::mesh_job``): :func:`moe_ep` on
+    this rank's tokens of the global ``x`` (B, S, d) (numpy; its dp rows,
+    and with ``seq_split`` its 1/ep of the sequence, else the whole
+    sequence, replicated over the EP axis) and its block of the expert
+    stacks of ``params`` (numpy, the reference's ``init_moe`` tree), in
+    x's dtype, on ``device`` (default: the rank's). Returns this rank's
+    output block and metrics, and with
+    ``with_grads`` the gradients of ``sum(y * r)`` (``r`` the global
+    cotangent, numpy) with respect to the rank's x block and every leaf
+    of ``p`` (the expert stacks' blocks)."""
+    import numpy as np
+    from repro_torch import device as device_mod
+    dev = device_mod.resolve(device or mesh.device)
+    ep = mesh.axis_size('model')
+    e_loc = cfg.moe.stack_size // ep
+    i_ep = mesh.index('model')
+    p = {}
+    for k, v in params.items():
+        t = torch.from_numpy(np.array(v)).to(dev)
+        if k in STACKS:
+            t = stack_layout(k, t[i_ep * e_loc:(i_ep + 1) * e_loc])
+        p[k] = t.requires_grad_(with_grads)
+    dp = mesh.axis_size(('data',))
+    b = x.shape[0] // dp
+    rows = slice(mesh.index(('data',)) * b, (mesh.index(('data',)) + 1) * b)
+    s = x.shape[1] // ep if seq_split else x.shape[1]
+    cols = slice(i_ep * s, (i_ep + 1) * s) if seq_split else slice(None)
+    xl = torch.from_numpy(np.array(x[rows, cols])).to(dev).requires_grad_(with_grads)
+    ctx = EPContext(mesh, ('data',), 'model', seq_split=seq_split)
+    with torch.set_grad_enabled(with_grads):
+        y, m = moe_ep(p, xl, cfg, YocoConfig(compute_dtype=xl.dtype), ctx)
+        out = dict(y=y.detach().cpu().numpy(),
+                   metrics={k: float(v.detach()) for k, v in m.items()})
+        if with_grads:
+            rl = torch.from_numpy(np.array(r[rows, cols])).to(dev)
+            torch.sum(y * rl).backward()
+            out['dx'] = xl.grad.cpu().numpy()
+            out['dp'] = {k: v.grad.cpu().numpy() for k, v in p.items()}
+    return out

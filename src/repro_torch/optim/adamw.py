@@ -131,9 +131,28 @@ def schedule(step: torch.Tensor, cfg: OptConfig) -> torch.Tensor:
     return cfg.lr * warm * tail
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """The norm of every element of the tree. On a rank mesh (``tree``
+    the rank's blocks under ``specs``) every element of the whole leaves
+    is counted once: a block replicated over an axis counts on that
+    axis's coordinate 0 only, and one all-reduce sums the ranks'
+    squares."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in tree_leaves(tree)))
+    from repro_torch.distributed import collectives, sharding
+    coords = mesh.coords
+    total = None
+    for x, spec in sharding.leaves_with_specs(tree, specs):
+        if any(coords[a] for a in sharding.replicated_axes(spec, mesh)):
+            continue
+        sq = torch.sum(torch.square(x.to(torch.float32)))
+        total = sq if total is None else total + sq
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32,
+                            device=tree_leaves(tree)[0].device)
+    return torch.sqrt(collectives.all_reduce(
+        total, mesh.group(mesh.axis_names)))
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -151,13 +170,18 @@ def clip_by_global_norm(grads, max_norm: float):
 # ----------------------------------------------------------------------------
 # int8 error-feedback compression
 # ----------------------------------------------------------------------------
-def compress_decompress(g: torch.Tensor, ef: torch.Tensor
+def compress_decompress(g: torch.Tensor, ef: torch.Tensor, group=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The int8 wire format of ``g + ef``: (its dequantized value, the new
     residual). The residual re-enters the next step, so the scheme is
-    unbiased over time."""
+    unbiased over time. ``group``: the ranks whose blocks make up the
+    leaf, over which the absmax is the whole leaf's (an all-reduce MAX)."""
     x = g.to(torch.float32) + ef
     amax = torch.amax(torch.abs(x))
+    if group is not None:
+        from repro_torch.distributed import collectives
+        amax = collectives.all_reduce(amax, group,
+                                      collectives.dist.ReduceOp.MAX)
     scale = times_reciprocal(torch.clamp_min(amax, 1e-12), 127.0)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     deq = q.to(torch.float32) * scale
@@ -167,11 +191,30 @@ def compress_decompress(g: torch.Tensor, ef: torch.Tensor
     return deq, res
 
 
-def apply_compression(grads, state: OptState) -> Tuple[Any, OptState]:
+def apply_compression(grads, state: OptState, mesh=None, specs=None
+                      ) -> Tuple[Any, OptState]:
     """(the wire values of every gradient, the state with the new
-    residuals)."""
-    out = tree_map(compress_decompress, grads, state.ef)
+    residuals); on a rank mesh each leaf's scale is its whole leaf's."""
+    if mesh is None:
+        out = tree_map(compress_decompress, grads, state.ef)
+    else:
+        from repro_torch.distributed import sharding
+        groups = iter([mesh.group(sharding.sharded_axes(sp, mesh))
+                       for _, sp in sharding.leaves_with_specs(grads,
+                                                               specs)])
+        # tree_map visits the leaves in tree_leaves' order
+        out = tree_map(lambda g, e: compress_decompress(g, e, next(groups)),
+                       _sorted(grads), _sorted(state.ef))
     return _element(out, 0), state._replace(ef=_element(out, 1))
+
+
+def _sorted(tree):
+    """The tree with every dict's keys in sorted order (tree_leaves')."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_sorted(v) for v in tree]
+    return tree
 
 
 def _element(tree, i: int):
@@ -187,8 +230,8 @@ def _element(tree, i: int):
 # update
 # ----------------------------------------------------------------------------
 @torch.no_grad()
-def update(params, grads, state: OptState, cfg: OptConfig
-           ) -> Tuple[Any, OptState, dict]:
+def update(params, grads, state: OptState, cfg: OptConfig, mesh=None,
+           specs=None) -> Tuple[Any, OptState, dict]:
     """One AdamW step: optional compression, clipping to the global norm,
     then per leaf ``mu = b1 mu + (1 - b1) g``, ``nu = b2 nu + (1 - b2)
     g g``, and ``p -= lr (mu / (bc1 (sqrt(nu / bc2) + eps)) + wd p)``
@@ -196,10 +239,12 @@ def update(params, grads, state: OptState, cfg: OptConfig
     ``mhat / (sqrt(vhat) + eps)`` into), the decay on matrices only
     (``p.ndim >= 2``). ``params``, ``mu`` and ``nu`` are written in place
     (f32 masters: the update's f32 result is the param). Returns
-    (params, state, dict(grad_norm, lr))."""
+    (params, state, dict(grad_norm, lr)). On a rank mesh (the rank's
+    blocks under ``specs``) the update runs on the blocks as they are and
+    the global norm and the compression's scales are the whole leaves'."""
     if cfg.compress_grads:
-        grads, state = apply_compression(grads, state)
-    gn = global_norm(grads)
+        grads, state = apply_compression(grads, state, mesh, specs)
+    gn = global_norm(grads, mesh, specs)
     scale = _clip_scale(gn, cfg.clip_norm)
     step = state.step + 1
     b1, b2 = cfg.betas
@@ -223,3 +268,27 @@ def update(params, grads, state: OptState, cfg: OptConfig
         del delta
     return params, OptState(step=step, mu=state.mu, nu=state.nu,
                             ef=state.ef), dict(grad_norm=gn, lr=lr)
+
+
+def compression_job(mesh, *, grads: dict, efs: dict, specs: dict) -> dict:
+    """A mesh job (``distributed/ranks.py::mesh_job``): the rank's blocks
+    of whole f32 leaves ``grads`` and ``efs`` (numpy, by name) under
+    ``specs`` (spec tuples, by name) through :func:`apply_compression` on
+    the mesh, then gathered whole. Returns (wire values, residuals) as
+    numpy, by name."""
+    from repro_torch import device as device_mod
+    from repro_torch.distributed import sharding
+    dev = device_mod.resolve(mesh.device)
+    sp = {k: sharding.P(*v) for k, v in specs.items()}
+
+    def blocks(tree):
+        return {k: sharding.block(torch.from_numpy(v).to(dev), sp[k], mesh)
+                for k, v in tree.items()}
+    state = OptState(step=torch.zeros((), dtype=torch.int32), mu=None,
+                     nu=None, ef=blocks(efs))
+    wire, state = apply_compression(blocks(grads), state, mesh, sp)
+    out = {}
+    for name, tree in (('wire', wire), ('ef', state.ef)):
+        whole = sharding.unshard_tree(tree, sp, mesh)
+        out[name] = {k: v.cpu().numpy() for k, v in whole.items()}
+    return out

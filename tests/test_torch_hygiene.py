@@ -31,6 +31,8 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert {'repro_torch.distributed.ranks',
             'repro_torch.distributed.sharding',
             'repro_torch.distributed.collectives'} <= set(mods)
+    # sharded training: the rank mesh
+    assert 'repro_torch.launch.mesh' in mods
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

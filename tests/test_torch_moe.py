@@ -239,10 +239,25 @@ def test_nan_row_stays_in_its_lane(arch, mode, prequant):
 
 
 def test_expert_parallel_context_is_refused():
+    """An expert-parallel context whose EP axis does not divide the
+    expert stack is refused with the reference's assertion (moe_ep runs
+    on a rank mesh: tests/test_torch_moe_ep.py); a context on a config
+    whose ``impl`` is not 'ep' takes the dense execution, as in the
+    reference."""
+    from repro_torch.launch import mesh as tmesh
     _, tcfg, _, pt = _pair(ARCHS[0])
     x = torch.from_numpy(_x(tcfg))[None]
-    with pytest.raises(NotImplementedError, match='13/14'):
-        tmoe.moe_apply(pt, x, tcfg, tyl.DEFAULT_YOCO, ctx=object())
+    ctx = tmoe.EPContext(tmesh.shape_mesh(dict(data=1, model=3), 0),
+                         ('data',))
+    ep = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe,
+                                                           impl='ep'))
+    with pytest.raises(AssertionError, match='must divide EP=3'):
+        tmoe.moe_apply(pt, x, ep, tyl.DEFAULT_YOCO, ctx=ctx)
+    dense = dataclasses.replace(tcfg, moe=dataclasses.replace(
+        tcfg.moe, impl='dense'))
+    got, _ = tmoe.moe_apply(pt, x, dense, tyl.DEFAULT_YOCO, ctx=ctx)
+    want, _ = tmoe.moe_dense(pt, x, dense, tyl.DEFAULT_YOCO)
+    assert torch.equal(got, want)
     # a stack not stored as moe_dense reads it is refused, not copied
     bad = dict(pt, w_gate=pt['w_gate'].contiguous())
     with pytest.raises(ValueError, match='stack_layout'):
