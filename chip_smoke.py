@@ -291,10 +291,11 @@ Phases, in order; any failure exits non-zero and prints no result:
              128 heads), 8 requests of 64-128-token prompts, 16 generated;
              the ranks share cuda:0 over gloo (nccl with a card a rank).
              Before the serves, a rank's products against tp = 1's, bit
-             for bit: the bf16 q/k/v columns, K1 and K8 on a rank's heads
-             planned for all heads (``ways``), MLA's W_uv product at the
-             whole head count; and the device ms of K1, K8 and W_uv at tp
-             = 1 and on a rank at tp = 2 (K1 and K8 also planned for the
+             for bit: the bf16 q/k/v columns, K1, K8 and K7 (at the
+             mesh-sharded serve's decode step) on a rank's heads planned
+             for all heads (``ways``), MLA's W_uv product at the whole
+             head count; and the device ms of K1, K8, K7 and W_uv at tp =
+             1 and on a rank at tp = 2 (K1, K8 and K7 also planned for the
              rank's heads alone). Each distinct run is served once at tp =
              1. Tokens equal tp = 1's, every rank's launches equal tp =
              1's kernel by kernel, one head all-gather a layer a forward
@@ -319,7 +320,19 @@ Phases, in order; any failure exits non-zero and prints no result:
              kernel launches a step as sharded_counts derives them, remat
              full peaking at most at none; step ms, tokens/s, peak memory
              and bytes moved a step printed (no sharded speed: the ranks
-             share one card).
+             share one card). Before the ranks start, the dry run of those
+             steps and of the serves below on the meta device
+             (launch/dryrun.py): its collectives and blocks equal each
+             rank's, its train-step peak within SHARDED_PEAK_TOL of the
+             card's. Then a static serve on the same ranks through
+             sharded_prefill_step / sharded_decode_step (8 x 128 prompt, 8
+             greedy steps, flash), w8a8 --prequantize (K2, K3, K7 on a
+             rank's blocks) and bf16 (K7): tokens equal one device's (a
+             differing token only below its top-2 gap), logits within
+             SHARDED_SERVE_TOL, collectives and launches a step as
+             serve_counts derives them; each step's roofline bound beside
+             its time. K2 and K7 rows at a rank's decode-step shapes
+             against their plain versions.
 
 Prints a ``{"kernels": [...]}`` line (one row per kernel and main path it
 runs on, with that path's launches; K9 on both pool dtypes), a
@@ -360,10 +373,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, 'src')
 OUT_DIR = os.path.join(HERE, 'build')
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
-INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor rate
-BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor rate
-FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
+
+
+# repro_torch.core.roofline: the card's datasheet peaks (one set for the
+# whole repo) and a kernel's bound; main() imports it once src/ is on
+# sys.path
+roofline = None
+
+
 ARCH = 'stablelm-1.6b'
 LAYERS_FULL = 24
 LINEARS_PER_FORWARD = 7 * LAYERS_FULL + 1      # q k v o gate up down + lm_head
@@ -689,17 +706,20 @@ def ptxas_summary(logs) -> list:
     return out
 
 
-def bound(nbytes: float, ops: float = 0.0, ops_rate: float = INT8_OPS_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_rate * 1e3
-    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+def bound(nbytes: float, ops: float = 0.0, ops_rate: float = None):
+    """(ms, 'bytes' or 'operations'): ``roofline.bound_s`` and which of its
+    two times it is; ``ops_rate`` defaults to the int8 peak."""
+    rate = roofline.PEAK_FLOPS_INT8 if ops_rate is None else ops_rate
+    ms = roofline.bound_s(nbytes, ops, rate) * 1e3
+    return (ms, 'bytes') if nbytes / roofline.HBM_BW >= ops / rate else \
+        (ms, 'operations')
 
 
 # ----------------------------------------------------------------------------
 # phase 2: every kernel against its plain version at full-width shapes
 # ----------------------------------------------------------------------------
 def record_row(torch, rows, name, shape, err, tol, fn, plain, lib, nbytes,
-               ops=0.0, ops_rate=INT8_OPS_PER_S, route='cuda', source='',
+               ops=0.0, ops_rate=None, route='cuda', source='',
                replaces='', kernels_per_launch=1, plain_iters=20):
     """Hold one kernel case to its tolerance, then time the kernel, its
     plain version (over ``plain_iters`` calls) and the library call, and
@@ -1231,7 +1251,8 @@ def k5_rows(torch, fd, rows, gen, w, limit, cases, hkv=32, g=1, dh=64,
                                                          chunk=c),
                        lambda: fd.flash_decode_gqa_paged_plain(
                            *args, scale=scale, chunk=c),
-                       None, nbytes, ops, BF16_OPS_PER_S, source=src,
+                       None, nbytes, ops, roofline.PEAK_FLOPS_BF16,
+                       source=src,
                        replaces='src/repro/kernels/flash_decode.py:304',
                        kernels_per_launch=2,
                        plain_iters=20 if w <= 20 else 2)
@@ -1413,7 +1434,7 @@ def contig_kernel_phase(torch, kmods, cases=None, seed=4):
                    lambda: fd.flash_decode_gqa(*args, scale=scale),
                    lambda: fd.flash_decode_gqa_plain(*args, scale=scale),
                    sdpa, nbytes, 4.0 * dh * hkv * g * live_keys,
-                   BF16_OPS_PER_S, source=src,
+                   roofline.PEAK_FLOPS_BF16, source=src,
                    replaces='src/repro/kernels/flash_decode.py:252',
                    kernels_per_launch=2)
         rows[-1]['streamed_ms'], *_ = device_ms(
@@ -1513,7 +1534,8 @@ def mla_decode_rows(torch, fd, rows, gen, q, pos, win, bt, hw, case,
                    k8, lambda args=args: fd.flash_decode_mla_paged_plain(
                        *args, scale=scale, r=r),
                    None, live_keys * dk * elt + q_out_bytes,
-                   flops_per_key * live_keys, BF16_OPS_PER_S, source=src,
+                   flops_per_key * live_keys, roofline.PEAK_FLOPS_BF16,
+                   source=src,
                    replaces='src/repro/kernels/flash_decode.py:365',
                    kernels_per_launch=2, plain_iters=plain_iters)
         rows[-1]['cold_ms'] = cold_device_ms(torch, k8)
@@ -1544,8 +1566,8 @@ def mla_decode_rows(torch, fd, rows, gen, q, pos, win, bt, hw, case,
                    dict(shape, hot_window=hw, cold_pages=len(cold)), err, tol,
                    k10, lambda qargs=qargs: fd.flash_decode_mla_paged_q8_plain(
                        *qargs, scale=scale, r=r),
-                   None, nbytes, flops_per_key * live_keys, BF16_OPS_PER_S,
-                   source=src,
+                   None, nbytes, flops_per_key * live_keys,
+                   roofline.PEAK_FLOPS_BF16, source=src,
                    replaces='src/repro/kernels/flash_decode.py:556',
                    kernels_per_launch=2, plain_iters=plain_iters)
         rows[-1]['cold_ms'] = cold_device_ms(torch, k10)
@@ -1620,7 +1642,7 @@ def k9_rows(torch, fd, rows, gen, w, limit, cases):
                        lambda: fd.flash_decode_mla_paged_plain(
                            *args, scale=MLA_SCALE, r=r, chunk=cc),
                        None, nbytes, flops_per_key * row_keys,
-                       BF16_OPS_PER_S, source=src,
+                       roofline.PEAK_FLOPS_BF16, source=src,
                        replaces='src/repro/kernels/flash_decode.py:889',
                        kernels_per_launch=2,
                        plain_iters=20 if w <= 20 else 2)
@@ -3263,7 +3285,7 @@ def _ssm_decode_check(torch, build, cfg, params):
     io = n_layers * (zx.numel() + b * dm['d_inner']) * 2
     s_cfg = cfg.ssm
     ops = 6.0 * n_layers * b * dm['n_heads'] * s_cfg.head_dim * s_cfg.d_state
-    b_ms, b_by = bound(2 * state + io, ops, FP32_OPS_PER_S)
+    b_ms, b_by = bound(2 * state + io, ops, roofline.PEAK_FLOPS_F32)
     ms, timer, kernels = device_ms(torch, ssm_ops, iters=10)
     check(bool(torch.isfinite(st['ssm']).all()),
           f'{cfg.name}: the decode state went non-finite')
@@ -3732,7 +3754,7 @@ def frontends_phase(torch, build):
             decode_s=out['decode_s'],
             decode_step_ms=out['decode_s'] / (STATIC_GEN - 1) * 1e3,
             weight_bytes=weights,
-            weight_read_bound_ms=weights / HBM_BYTES_PER_S * 1e3,
+            weight_read_bound_ms=weights / roofline.HBM_BW * 1e3,
             max_memory_allocated=torch.cuda.max_memory_allocated(),
             total_memory=total_mem, sample=out['sample'], wall_ms=wall_ms,
             launches={k: v for k, v in build.LAUNCHES.items() if v},
@@ -4508,7 +4530,8 @@ def train_phase(torch, kmods):
                                else busy_ms / step_ms),
             kernel_launches=sum(v[1] for v in by_name.values()),
             model_flops=flops,
-            bf16_peak_share=flops / (step_ms / 1e3) / BF16_OPS_PER_S,
+            bf16_peak_share=(flops / (step_ms / 1e3)
+                             / roofline.PEAK_FLOPS_BF16),
             launches={k: v for k, v in launches.items() if v},
             top=[dict(kernel=k[:80], device_ms=v[0], calls=v[1])
                  for k, v in top]))
@@ -5066,9 +5089,12 @@ def _tp_product_check(torch):
     MLA's W_uv product at 8 rows (H = 128, r = 512, dv = 128) as the port
     computes it under TP (``attention._uv_product``, at the whole head
     count) and, not gated, as a batched product over the rank's heads
-    alone. Then the device ms (profiler) of K1, K8 and the W_uv product at
-    tp = 1 and on a rank at tp = 2, and of K1 and K8 on a rank planned for
-    its own heads only (``ways`` = 1): the occupancy ``ways`` costs.
+    alone. (4) K7 at the mesh-sharded serve's decode step (B = 4, 32 KV
+    heads, dh = 64, a 136-key bf16 cache), each rank's heads with ``ways``
+    = tp against the whole call's slice. Then the device ms (profiler) of
+    K1, K8, K7 and the W_uv product at tp = 1 and on a rank at tp = 2, and
+    of K1, K8 and K7 on a rank planned for its own heads only (``ways`` =
+    1): the occupancy ``ways`` costs.
     Returns one row a (check, M, tp) and one row of times."""
     import functools
     import types
@@ -5143,6 +5169,31 @@ def _tp_product_check(torch):
         rows.append(dict(check='k1_ways', M=b, tp=tp, bit_equal=bool(eq1)))
         rows.append(dict(check='k8_ways', M=b, tp=tp, bit_equal=bool(eq8)))
 
+    # K7 at the mesh-sharded serve's decode step (a rank's 4 rows of the
+    # 8, lock-step at its last position, 136-key bf16 cache)
+    b7, s7 = SHARDED_SERVE_BATCH // SHARDED_MESH[0], (SHARDED_SERVE_PROMPT
+                                                      + SHARDED_SERVE_STEPS)
+    pos7 = torch.full((b7,), s7 - 1, dtype=torch.int32, device=dev)
+    win7 = torch.full((b7,), s7 + 1, dtype=torch.int32, device=dev)
+    q7 = randn(b7, 32, 1, 64)
+    k7c, v7c = (randn(b7, s7, 32, 64).to(torch.bfloat16) for _ in range(2))
+
+    def k7(h, ways):
+        args = (q7[:, h].contiguous(), k7c[:, :, h].contiguous(),
+                v7c[:, :, h].contiguous(), pos7, win7)
+        return lambda: fd.flash_decode_gqa(*args, scale=0.125, ways=ways)
+    calls['k7_tp1'] = k7(slice(None), 1)
+    whole = calls['k7_tp1']()
+    for tp in (2, 4):
+        eq7 = True
+        for rank in range(tp):
+            h7 = slice(rank * 32 // tp, (rank + 1) * 32 // tp)
+            eq7 &= torch.equal(k7(h7, tp)(), whole[:, h7])
+            if tp == 2 and rank == 0:
+                calls['k7_tp2'] = k7(h7, tp)
+                calls['k7_tp2_own_plan'] = k7(h7, 1)
+        rows.append(dict(check='k7_ways', M=b7, tp=tp, bit_equal=bool(eq7)))
+
     mla = types.SimpleNamespace(nope_head_dim=128, v_head_dim=128,
                                 kv_lora_rank=512)
     w_ukv = randn(512, 128 * 256)
@@ -5181,6 +5232,7 @@ def _tp_product_check(torch):
     rows.append(dict(check='device_ms', shapes=dict(
         k1=dict(B=b, hkv_tp1=32, dh=64, keys=pos_n, page=page),
         k8=dict(B=b, h_tp1=128, r=512, d_rope=64, keys=pos_n, page=page),
+        k7=dict(B=b7, hkv_tp1=32, dh=64, S=s7, keys=s7),
         w_uv=dict(M=8, h_tp1=128, r=512, dv=128)), **times))
     return rows
 
@@ -5389,6 +5441,213 @@ def sharded_counts(cfg, mode, layout, remat, accum=1):
     return calls, launches
 
 
+# the mesh-sharded static serve on the phase's ranks
+# (runtime/serve_step.py::sharded_prefill_step / sharded_decode_step): a
+# prefill of SHARDED_SERVE_BATCH x SHARDED_SERVE_PROMPT tokens, then
+# SHARDED_SERVE_STEPS greedy decode steps, flash attention (K7 on a rank's
+# heads), in w8a8 with int8 weights resident (K2, K3, K7) and in bf16
+# (K7); (mode, prequantize)
+SHARDED_SERVES = (('w8a8', True), ('bf16', False))
+SHARDED_SERVE_BATCH, SHARDED_SERVE_PROMPT = 8, 128
+SHARDED_SERVE_STEPS = 8
+# the sharded serve's logits against one device's, max abs, until a
+# token differs: four times the CPU rehearsal's 0.0654 (bf16, the same
+# weights, prompts and 2 x 2 mesh; PERF §6, set before the card run)
+SHARDED_SERVE_TOL = 0.25
+# the dry run's peak live bytes of a train step (gloo's reduce-scatter
+# input copies counted: dryrun.GLOO_CUDA_STAGING) against the step's own
+# peak on the card (max_memory_allocated less what was allocated before
+# the step, plus the rank's masters and moments), relative: PERF §6's
+# prediction (the card's readings so far are within 0.2% of the model)
+SHARDED_PEAK_TOL = 0.02
+# PERF §6's bytes of the bf16 'tp' step with remat 'full' (the ranks' reading):
+# gathered, reduce-scattered, all-reduced; a rank's master and moment bytes
+SHARDED_TP_BYTES = dict(all_gather=411_041_792, reduce_scatter=822_083_584,
+                        all_reduce=591_556_620)
+SHARDED_TP_ARGS = (822_231_040, 1_644_462_080)
+
+
+def _serve_shape(kind):
+    return dict(kind=kind, global_batch=SHARDED_SERVE_BATCH,
+                seq_len=SHARDED_SERVE_PROMPT,
+                max_seq=SHARDED_SERVE_PROMPT + SHARDED_SERVE_STEPS)
+
+
+def serve_counts(cfg, mode, prequant):
+    """The collectives and launches of one sharded serving step on a rank
+    of the 2 x 2 mesh, derived from the specs: {kind: (calls, bytes,
+    launches)} for 'prefill' and 'decode'. All-gathers: every weight dim
+    cut over 'data' (each rank computes on its 'model' block: heads,
+    hidden units, vocab), the gathered block's bytes; the logits' vocab
+    blocks over 'model' and the rows over 'data' (bf16). All-reduces: the
+    vocab-parallel embedding's f32 rows, and each row-parallel linear (wo,
+    w_down) a layer, its f32 sum in bf16, in w8a8 its rows' absmax (f32)
+    and its int32 accumulators. Launches: in w8a8 with int8 weights K3 on
+    4 activations a layer (q/k/v, wo's block, gate/up, w_down's block)
+    and the lm_head's, K2 on 7 weights a layer and the lm_head; K7 once a
+    layer a decode step."""
+    import torch
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.runtime import serve_step as SS
+    mesh = mesh_mod.shape_mesh(dict(data=SHARDED_MESH[0],
+                                    model=SHARDED_MESH[1]))
+    b, p = SHARDED_SERVE_BATCH, SHARDED_SERVE_PROMPT
+    pabs, cabs = SS.abstract_serve_state(cfg, b, p + SHARDED_SERVE_STEPS,
+                                         torch.bfloat16, prequant,
+                                         mode=mode)
+    pspecs, _ = SS.serve_shardings(mesh, cfg, pabs, cabs, b)
+    keep = sharding.compute_specs(pabs, pspecs, cfg, mesh, 'batch', False,
+                                  serve=True)
+    gathers = gathered = 0
+    for (leaf, spec), (_, kept) in zip(
+            sharding.leaves_with_specs(pabs, pspecs),
+            sharding.leaves_with_specs(pabs, keep)):
+        n = sum(axes.count('data')
+                for _, axes in sharding.spec_axes(spec, leaf.ndim))
+        if n:
+            gathers += n
+            gathered += int(np.prod(sharding.block_shape(
+                leaf.shape, kept, mesh))) * leaf.element_size()
+    rows = b // SHARDED_MESH[0]
+    d, layers, v = cfg.d_model, cfg.n_layers, cfg.vocab_size
+    int8 = mode == 'w8a8'
+    out = {}
+    for kind, m in (('prefill', rows * p), ('decode', rows)):
+        calls = dict(all_gather=gathers + 2,
+                     all_reduce=1 + 2 * layers * (2 if int8 else 1))
+        nbytes = dict(all_gather=gathered + 2 * rows * v + 2 * b * v,
+                      all_reduce=m * d * 4 + 2 * layers * (
+                          m * d * 4 + (m * 4 if int8 else 0)))
+        launches = dict(quantize_rows=(4 * layers + 1) if int8 else 0,
+                        int8_matmul=(7 * layers + 1) if int8 else 0,
+                        flash_decode_contig=layers if kind == 'decode'
+                        else 0)
+        out[kind] = (calls, nbytes, launches)
+    return out
+
+
+def sharded_dryrun(cfg, staging=None):
+    """The dry run (``launch/dryrun.py::dryrun_step``) of the phase's steps
+    on the meta device, one rank of a fake 2 x 2 group, with the code the
+    ranks run: the first step of each of SHARDED_RUNS, and each serve's
+    prefill and decode step; ``staging`` the backend's device copies
+    (``dryrun.GLOO_CUDA_STAGING`` for ranks that share a card). Returns
+    ({key: record}, seconds)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.perf_counter()
+    mesh = mesh_mod.shape_mesh(dict(data=SHARDED_MESH[0],
+                                    model=SHARDED_MESH[1]))
+    out = {}
+    for mode, layout, remats in SHARDED_RUNS:
+        out['train', mode, layout] = dryrun.dryrun_step(
+            cfg, dict(kind='train', global_batch=TRAIN_BATCH,
+                      seq_len=TRAIN_SEQ), mesh, layout=layout, grad_accum=1,
+            remat=remats[0], yoco_mode=mode, staging=staging)
+    for mode, prequant in SHARDED_SERVES:
+        for kind in ('prefill', 'decode'):
+            out[kind, mode] = dryrun.dryrun_step(
+                cfg, _serve_shape(kind), mesh, yoco_mode=mode,
+                prequant=prequant, attn_impl='flash', staging=staging)
+    return out, time.perf_counter() - t0
+
+
+def _token_gate(r0, gate, tag):
+    """Rank 0's tokens against one device's: equal, or at the first step a
+    row differs, one device's top-2 gap there below the logit error of
+    that step (bf16 sums reassociated); later steps of such a row are
+    not compared. Returns (the max logit error over the compared steps,
+    the differing rows' report)."""
+    got, want = r0['tokens'], r0['ref_tokens']
+    logits, ref = r0['logits'], r0['ref_logits']
+    live = np.ones(got.shape[1], dtype=bool)
+    err, report = 0.0, []
+    for i in range(got.shape[0]):
+        if live.any():
+            err = max(err, float(np.abs(logits[i][live]
+                                        - ref[i][live]).max()))
+        for row in np.nonzero(live & (got[i] != want[i]))[0]:
+            step_err = float(np.abs(logits[i, row] - ref[i, row]).max())
+            top2 = np.sort(ref[i, row])[-2:]
+            gap = float(top2[1] - top2[0])
+            report.append(dict(step=i, row=int(row), top2_gap=gap,
+                               logit_err=step_err))
+            gate(gap < step_err, f'{tag}: row {row} token differs at step '
+                                 f'{i} with a top-2 gap {gap} above the '
+                                 f'logit error {step_err}')
+            live[row] = False
+    return err, report
+
+
+def _serve_gates(cfg, mode, prequant, outs, dry, gate):
+    """One sharded serve's gates: the ranks' tokens agree, rank 0's equal
+    one device's (:func:`_token_gate`), its logits within
+    SHARDED_SERVE_TOL of one device's until a token differs; each step's
+    collectives and launches on every rank exactly :func:`serve_counts`,
+    and the dry run's collectives and argument bytes what each rank
+    counted and holds. Returns the report row, with each step's roofline
+    bound beside its time (information: four ranks share one card)."""
+    tag = (f'sharded serve {cfg.name} {mode}'
+           f'{" prequantized" if prequant else ""}')
+    want = serve_counts(cfg, mode, prequant)
+    kinds = ['prefill'] + ['decode'] * SHARDED_SERVE_STEPS
+    r0 = outs[0]
+    for o in outs:
+        gate(np.array_equal(o['tokens'], r0['tokens']),
+             f'{tag}: rank {o["rank"]} tokens differ from rank 0\'s')
+        for i, kind in enumerate(kinds):
+            calls, nbytes, launches = want[kind]
+            got = ({k: o['calls'][i][k] for k in calls},
+                   {k: o['bytes'][i][k] for k in nbytes},
+                   {k: o['launches'][i].get(k, 0) for k in launches})
+            gate(got == (calls, nbytes, launches),
+                 f'{tag}: rank {o["rank"]} step {i} made {got}, derived '
+                 f'{(calls, nbytes, launches)}')
+        for i, kind in ((0, 'prefill'), (1, 'decode')):
+            dc = dry[kind, mode]['collectives']
+            got = {k: o['calls'][i][k] for k in dc['calls']}
+            gate(got == dc['calls'] and o['bytes'][i] == dc['bytes'],
+                 f'{tag}: rank {o["rank"]} {kind} made {got}, '
+                 f'{o["bytes"][i]}; the dry run counts {dc["calls"]}, '
+                 f'{dc["bytes"]}')
+        darg = dry['decode', mode]['argument_bytes']
+        gate(o['param_bytes'] == darg['params']
+             and o['cache_bytes'] == darg['cache'],
+             f'{tag}: rank {o["rank"]} holds {o["param_bytes"]} + '
+             f'{o["cache_bytes"]}, the dry run {darg}')
+    err, differ = _token_gate(r0, gate, tag)
+    gate(bool(np.isfinite(r0['logits']).all()) and err <= SHARDED_SERVE_TOL,
+         f'{tag}: logits {err} from one device\'s (bound '
+         f'{SHARDED_SERVE_TOL})')
+    rate = (roofline.PEAK_FLOPS_INT8 if mode == 'w8a8'
+            else roofline.PEAK_FLOPS_BF16)
+    steps = {}
+    for i, kind in ((0, 'prefill'), (1, 'decode')):
+        rec = dry[kind, mode]
+        measured = (r0['seconds'][0] if kind == 'prefill'
+                    else _median(r0['seconds'][1:]))
+        steps[kind] = dict(
+            ms=measured * 1e3, bound_ms=roofline.bound_s(
+                rec['argument_bytes']['total'], rec['flops'], rate) * 1e3,
+            flops=rec['flops'], argument_bytes=rec['argument_bytes'],
+            dryrun_peak_bytes=rec['memory']['peak_bytes'],
+            collectives=want[kind][0], bytes=want[kind][1],
+            launches=want[kind][2])
+        print(f'{tag} {kind}: {steps[kind]["ms"]:.2f} ms a step, roofline '
+              f'bound {steps[kind]["bound_ms"]:.4f} ms (information)',
+              flush=True)
+    return dict(
+        arch=cfg.name, layers=cfg.n_layers, mode=mode, prequantize=prequant,
+        attn_impl='flash', mesh=dict(data=SHARDED_MESH[0],
+                                     model=SHARDED_MESH[1]),
+        batch=SHARDED_SERVE_BATCH, prompt=SHARDED_SERVE_PROMPT,
+        decode_steps=SHARDED_SERVE_STEPS, tokens_equal=bool(np.array_equal(
+            r0['tokens'], r0['ref_tokens'])), differing=differ,
+        logit_err=err, tol=SHARDED_SERVE_TOL, steps=steps,
+        seconds_a_rank=[o['job_s'] for o in outs])
+
+
 def _leaf_diffs(torch, got, want, names=None):
     """(params off by > 1e-6, the worst difference, off counts by leaf
     name, default its shape) of two lists of leaves."""
@@ -5572,8 +5831,10 @@ def sharded_rank_job(mesh, *, cfg, mode, layout, remats, steps, batch,
     for i in range(steps):
         collectives.reset_counts()
         build.reset_counts()
-        if cuda and i == 0:
-            torch.cuda.reset_peak_memory_stats(dev)
+        if i == 0:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            out['before_step_bytes'] = allocated()
         t_step = time.perf_counter()
         blocks, state, m = fns[remats[0]](blocks, state, batch)
         sync()
@@ -5709,7 +5970,8 @@ def sharded_kernel_rows(torch, kmods):
     whole row's scale through one extra column), K4 on the column blocks,
     K3 on a row block's weight transpose (+1 column) and K2 on the row
     blocks (their int32 sums are all-reduced before the epilogue), beside
-    torch._int_mm on the same int8 operands."""
+    torch._int_mm on the same int8 operands; then the serve's decode-step
+    K2 and K7 rows (:func:`sharded_serve_kernel_rows`)."""
     fd, kq, ky, build = kmods
     del fd, build
     dev = torch.device('cuda')
@@ -5777,6 +6039,75 @@ def sharded_kernel_rows(torch, kmods):
                    m * k + k * n + 4 * m * n, 2.0 * m * k * n,
                    source=src_v, replaces='src/repro/kernels/yoco_vmm.py:116',
                    plain_iters=3)
+    rows += sharded_serve_kernel_rows(torch, kmods, gen)
+    return rows
+
+
+def sharded_serve_kernel_rows(torch, kmods, gen):
+    """K2 and K7 at the shapes a rank's decode step of the mesh-sharded
+    serve gives them (w8a8 --prequantize, flash): K2 on the rank's 4 rows
+    against each column block (q/k/v, gate/up, the lm_head's vocab) and
+    row block (wo, w_down) of stablelm's int8 weights, bit-exact against
+    its plain version, beside torch._int_mm; K7 on the rank's 16 of 32 KV
+    heads planned for all of them (``ways`` = 2), 136-key bf16 cache,
+    lock-step at its last position, within 1e-5 of its plain version,
+    beside SDPA."""
+    import torch.nn.functional as F
+    fd, _, ky, _ = kmods
+    dev = torch.device('cuda')
+    rows = []
+    m = SHARDED_SERVE_BATCH // SHARDED_MESH[0]
+    src_v = 'src/repro_torch/csrc/yoco_vmm.cu'
+    for block, shapes in (('column', SHARDED_COLUMNS),
+                          ('row', SHARDED_ROW_BLOCKS)):
+        for k, n in shapes:
+            xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            wq = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                               dtype=torch.int8).t()
+            acc = ky.int8_matmul(xq, wq)
+            check(bool(torch.equal(acc, ky.int8_matmul_plain(xq, wq))),
+                  f'K2 serve ({m},{k},{n}) differs from its plain version')
+            record_row(torch, rows, 'int8_matmul',
+                       dict(arch=ARCH, path='sharded serve decode',
+                            block=block, M=m, K=k, N=n), 0.0, 0.0,
+                       lambda: ky.int8_matmul(xq, wq),
+                       lambda: ky.int8_matmul_plain(xq, wq),
+                       lambda: torch._int_mm(xq, wq),
+                       m * k + k * n + 4 * m * n, 2.0 * m * k * n,
+                       source=src_v,
+                       replaces='src/repro/kernels/yoco_vmm.py:116',
+                       plain_iters=3)
+    hkv, dh = 32 // SHARDED_MESH[1], 64
+    s_max = SHARDED_SERVE_PROMPT + SHARDED_SERVE_STEPS
+    scale = 1.0 / dh ** 0.5
+    pos = torch.full((m,), s_max - 1, dtype=torch.int32, device=dev)
+    win = torch.full((m,), s_max + 1, dtype=torch.int32, device=dev)
+    q = torch.randn((m, hkv, 1, dh), generator=gen, device=dev)
+    kc, vc = (torch.randn((m, s_max, hkv, dh), generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    args = (q, kc, vc, pos, win)
+    ways = SHARDED_MESH[1]
+    got = fd.flash_decode_gqa(*args, scale=scale, ways=ways)
+    want = fd.flash_decode_gqa_plain(*args, scale=scale)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), 'K7 sharded serve: not finite')
+    q_lib = q.reshape(m, hkv, 1, dh).to(torch.bfloat16)
+    k_lib, v_lib = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+    record_row(torch, rows, 'flash_decode_contig',
+               dict(case='sharded serve decode', B=m, Hkv=hkv, G=1, dh=dh,
+                    S=s_max, pool='bfloat16', live_keys=m * s_max,
+                    ways=ways),
+               float((got - want).abs().max()), 1e-5,
+               lambda: fd.flash_decode_gqa(*args, scale=scale, ways=ways),
+               lambda: fd.flash_decode_gqa_plain(*args, scale=scale),
+               lambda: F.scaled_dot_product_attention(q_lib, k_lib, v_lib,
+                                                      scale=scale),
+               2 * m * s_max * hkv * dh * 2 + 2 * q.numel() * 4,
+               4.0 * dh * hkv * m * s_max, roofline.PEAK_FLOPS_BF16,
+               source='src/repro_torch/csrc/flash_decode.cu',
+               replaces='src/repro/kernels/flash_decode.py:252',
+               kernels_per_launch=2)
     return rows
 
 
@@ -5830,6 +6161,14 @@ def sharded_phase(torch, kmods):
     check(cfg.d_model == 2048 and cfg.n_heads == 32 and cfg.d_ff == 5632
           and cfg.vocab_size == 100352, f'{ARCH} is not at its published '
                                         f'width')
+    # the dry run of the phase's steps on the meta device, before the
+    # ranks start; ranks that share a card over gloo stage each
+    # reduce-scatter's input on it
+    from repro_torch.launch import dryrun
+    devs, backend = ranks.placement(n)
+    dry, dry_s = sharded_dryrun(
+        cfg, dryrun.GLOO_CUDA_STAGING if backend == 'gloo' else None)
+    print(f'sharded dry run: {dry_s:.1f} s', flush=True)
     batch = {k: v.numpy() for k, v in synthetic.make_batch(
         synthetic.for_arch(cfg, global_batch=TRAIN_BATCH,
                            seq_len=TRAIN_SEQ), 0).items()}
@@ -5838,13 +6177,20 @@ def sharded_phase(torch, kmods):
         layout=layout, remats=remats, steps=SHARDED_STEPS, batch=batch,
         check_ref=True, control=i == 0))
         for i, (mode, layout, remats) in enumerate(SHARDED_RUNS)]
-    devs, backend = ranks.placement(n)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(SHARDED_SERVE_BATCH, SHARDED_SERVE_PROMPT))
+    serves = [ranks.all_ranks_job(ranks.mesh_job(
+        'repro_torch.runtime.serve_step:sharded_serve_job', SHARDED_MESH[1],
+        cfg=cfg, prompts=prompts, steps=SHARDED_SERVE_STEPS, seed=0,
+        mode=mode, prequant=prequant, attn_impl='flash',
+        compute_dtype=torch.bfloat16, reference=True))
+        for mode, prequant in SHARDED_SERVES]
     # ranks sharing a card over gloo run the CPU's smoke jobs too (gloo
     # takes CPU tensors); over nccl a CPU group of its own runs them
     cpu_jobs = [j for _, j in _sharded_smoke_jobs('cpu')]
     in_group = backend == 'gloo'
     t0, t0_wall = time.perf_counter(), time.time()
-    card = ranks.run([j for _, j in smoke] + full
+    card = ranks.run([j for _, j in smoke] + full + serves
                      + (cpu_jobs if in_group else []), (devs, backend))
     card_s = time.perf_counter() - t0
     if in_group:
@@ -5896,6 +6242,8 @@ def sharded_phase(torch, kmods):
     mesh = mesh_mod.shape_mesh(dict(data=SHARDED_MESH[0],
                                     model=SHARDED_MESH[1]))
     runs = card[len(smoke):len(smoke) + len(full)]
+    served = card[len(smoke) + len(full):len(smoke) + len(full)
+                  + len(serves)]
     control = runs[0][0]['control']
     for (mode, layout, remats), outs in zip(SHARDED_RUNS, runs):
         remat = remats[0]
@@ -5947,6 +6295,34 @@ def sharded_phase(torch, kmods):
             got = {k: o['launches'].get(k, 0) for k in launches}
             gate(got == launches, f'{tag}: rank {o["rank"]} launched '
                                    f'{got} a step, derived {launches}')
+        # the dry run of the step on the meta device: what each rank
+        # counted, its blocks' bytes, its peak
+        d = dry['train', mode, layout]
+        dc, darg = d['collectives'], d['argument_bytes']
+        step_peaks = []
+        for o in outs:
+            got = {k: o['calls'][k] for k in dc['calls']}
+            gate(got == dc['calls'] and o['bytes'] == dc['bytes'],
+                 f'{tag}: rank {o["rank"]} made {got}, {o["bytes"]}; the '
+                 f'dry run counts {dc["calls"]}, {dc["bytes"]}')
+            gate(o['master_bytes'] == darg['params']
+                 and o['moment_bytes'] == darg['opt'],
+                 f'{tag}: rank {o["rank"]} holds {o["master_bytes"]} + '
+                 f'{o["moment_bytes"]}, the dry run {darg}')
+            step_peaks.append(o['peak_bytes'][remat]
+                              - o['before_step_bytes']
+                              + o['master_bytes'] + o['moment_bytes'])
+        peak_err = max(abs(d['memory']['peak_bytes'] - p) / p
+                       for p in step_peaks)
+        gate(peak_err <= SHARDED_PEAK_TOL,
+             f'{tag}: the dry run\'s peak {d["memory"]["peak_bytes"]} '
+             f'against the ranks\' step peaks {step_peaks}')
+        if (mode, layout) == ('bf16', 'tp'):
+            got = {k: dc['bytes'][k] for k in SHARDED_TP_BYTES}
+            gate(got == SHARDED_TP_BYTES
+                 and (darg['params'], darg['opt']) == SHARDED_TP_ARGS,
+                 f'{tag}: the dry run counts {got} and {darg}, PERF '
+                 f'{SHARDED_TP_BYTES} and {SHARDED_TP_ARGS}')
         step_ms = _median([o['step_ms'][-1] for o in outs])
         if len(remats) > 1:
             for o in outs:
@@ -5978,13 +6354,24 @@ def sharded_phase(torch, kmods):
             master_bytes_a_rank=[o['master_bytes'] for o in outs],
             moment_bytes_a_rank=[o['moment_bytes'] for o in outs],
             collectives_a_step=calls, bytes_a_step=r0['bytes'],
-            launches_a_step=r0['launches']))
+            launches_a_step=r0['launches'],
+            dryrun=dict(peak_bytes=d['memory']['peak_bytes'],
+                        step_peak_bytes_a_rank=step_peaks,
+                        peak_rel_err=peak_err, flops=d['flops'],
+                        seconds=d['dryrun_s'])))
         print(f'sharded run: {json.dumps(rows[-1])}', flush=True)
     totals = {k: 0 for k in kmods[3].LAUNCHES}
     for outs in runs:
         for o in outs:
             for k, v in o['launches'].items():
                 totals[k] += v * SHARDED_STEPS
+    for (mode, prequant), outs in zip(SHARDED_SERVES, served):
+        rows.append(_serve_gates(cfg, mode, prequant, outs, dry, gate))
+        print(f'sharded serve: {json.dumps(rows[-1])}', flush=True)
+        for o in outs:
+            for step in o['launches']:
+                for k, v in step.items():
+                    totals[k] += v
     check(not failures, '; '.join(failures))
     kernel_rows = sharded_kernel_rows(torch, kmods)
     print(f'sharded kernel rows: {len(kernel_rows)}', flush=True)
@@ -5992,6 +6379,9 @@ def sharded_phase(torch, kmods):
                      # the group's start and its smoke jobs, to the first
                      # full-width run
                      spawn_and_smoke_s=runs[0][0]['started'] - t0_wall,
+                     dryrun_s=dry_s,
+                     serve_s=[max(o['job_s'] for o in outs)
+                              for outs in served],
                      phase_s=time.perf_counter() - t_phase))
     print(f'sharded phase: {rows[-1]["phase_s"]:.1f} s', flush=True)
     return rows, totals, kernel_rows
@@ -6218,6 +6608,8 @@ def main(argv) -> int:
               f'checkout of the repository', file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    global roofline
+    from repro_torch.core import roofline
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build

@@ -39,6 +39,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 MANIFEST = 'manifest.json'
 
@@ -219,14 +220,18 @@ class CheckpointManager:
 def save_sharded(mgr: CheckpointManager, step: int, tree: Any, specs: Any,
                  mesh, extra: Optional[dict] = None) -> Optional[str]:
     """Every rank calls it: the blocks of ``tree`` under ``specs`` are
-    gathered whole (``sharding.unshard_tree``), and rank 0 saves the
-    global arrays and waits for the write. Returns rank 0's path."""
+    gathered whole (``sharding.unshard_tree``), rank 0 saves the global
+    arrays and waits for the write, and no rank returns before it is
+    written (a barrier), so any rank may restore it next. Returns rank
+    0's path."""
     from repro_torch.distributed import sharding
     whole = sharding.unshard_tree(tree, specs, mesh)
-    if mesh.rank != 0:
-        return None
-    path = mgr.save(step, whole, extra)
-    mgr.wait()
+    path = None
+    if mesh.rank == 0:
+        path = mgr.save(step, whole, extra)
+        mgr.wait()
+    if mesh.size > 1:
+        dist.barrier(group=mesh.group(mesh.axis_names))
     return path
 
 

@@ -180,6 +180,18 @@ class ArchConfig:
             total += int(kk * nn * cnt)
         return total + int(2 * self.d_model * self.n_layers)   # norms
 
+    def active_param_count(self) -> int:
+        """Parameters one token passes through (the reference's count):
+        one embedding table a codebook and the linears of
+        :meth:`per_token_matmuls` but the lm_head, MoE experts counted
+        at ``top_k``."""
+        total = self.vocab_size * self.d_model * self.n_codebooks
+        for name, kk, nn, cnt in self.per_token_matmuls():
+            if name == 'lm_head':
+                continue
+            total += int(kk * nn * cnt)
+        return total
+
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 _SMOKE: Dict[str, ArchConfig] = {}
@@ -202,3 +214,21 @@ def get(name: str, smoke: bool = False) -> ArchConfig:
 def names() -> List[str]:
     import repro_torch.configs  # noqa: F401
     return sorted(_REGISTRY)
+
+
+# ----------------------------------------------------------------------------
+# the reference's input shapes (seq_len, global_batch) per cell kind
+# ----------------------------------------------------------------------------
+SHAPES: Dict[str, Dict] = {
+    'train_4k': dict(seq_len=4096, global_batch=256, kind='train'),
+    'prefill_32k': dict(seq_len=32768, global_batch=32, kind='prefill'),
+    'decode_32k': dict(seq_len=32768, global_batch=128, kind='decode'),
+    'long_500k': dict(seq_len=524288, global_batch=1, kind='decode'),
+}
+
+
+def cell_is_live(cfg: ArchConfig, shape_name: str) -> bool:
+    """The reference's rule: long_500k only for sub-quadratic archs."""
+    if shape_name == 'long_500k':
+        return cfg.supports_long_context
+    return True

@@ -445,6 +445,22 @@ class _RowW8A8(torch.autograd.Function):
         return dx, dw, None
 
 
+def _row_quantized(x: torch.Tensor, w: QuantizedWeight,
+                   group) -> torch.Tensor:
+    """A prequantized row block's product summed over the group, f32:
+    the activation's codes at the whole row's absmax (an all-reduce MAX),
+    K2 on the block, the int32 accumulators all-reduced, then the
+    epilogue."""
+    from repro_torch.distributed import collectives
+    x2 = x.reshape(-1, x.shape[-1])
+    amax = collectives.all_reduce(x2.abs().amax(dim=1).to(torch.float32),
+                                  group, collectives.dist.ReduceOp.MAX)
+    xq, sx = _codes_at(x2, amax)
+    acc = collectives.all_reduce(ops.int8_matmul(xq, w.wq), group)
+    y = acc.to(torch.float32) * sx * w.scale
+    return y.reshape(x.shape[:-1] + (w.wq.shape[-1],))
+
+
 def row_linear(x: torch.Tensor, w: torch.Tensor,
                cfg: YocoConfig = DEFAULT_YOCO, *, group=None
                ) -> torch.Tensor:
@@ -457,13 +473,25 @@ def row_linear(x: torch.Tensor, w: torch.Tensor,
     MAX of the absmax): w8a8 sums K2's int32 accumulators before the
     epilogue (exact), qat its fake-quantized blocks' products in f32, and
     analog_sim applies its noise to the summed product at the whole
-    K. Without a group: :func:`linear`."""
+    K. A ``QuantizedWeight`` row block (its scales are the whole K's, so
+    a block of the codes is exact) takes the activation's codes at the
+    whole row's absmax and sums K2's int32 accumulators before the
+    epilogue ``acc * sx * w.scale``, equal to one device's K2 on the
+    whole row; bf16 and qat read it dequantized. Without a group:
+    :func:`linear`."""
     from repro_torch.distributed import collectives
     if group is None:
         return linear(x, w, cfg=cfg)
     _check_mode(cfg)
     cd = cfg.compute_dtype
     n = collectives.dist.get_world_size(group)
+    if isinstance(w, QuantizedWeight):
+        if cfg.mode in ('w8a8', 'analog_sim'):
+            y = _row_quantized(x, w, group)
+            if cfg.mode == 'analog_sim':
+                y = _analog(y, x.shape[-1] * n, cfg)
+            return y.to(cd)
+        w = _float_weight(w)
     if cfg.mode == 'bf16':
         y = torch.matmul(x.to(cd), _float_weight(w).to(cd))
         return collectives.reduce_sum(y.to(torch.float32), group).to(cd)

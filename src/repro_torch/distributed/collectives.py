@@ -55,16 +55,24 @@ BYTES: Dict[str, int] = {'all_gather': 0, 'reduce_scatter': 0,
                          'all_reduce': 0, 'all_to_all': 0}
 
 
-def _count(name: str, nbytes: int = 0) -> None:
+#: (collective name, group) -> the bytes of :data:`BYTES` over that group
+#: (a dry run maps each group to its mesh axes, ``launch/dryrun.py``)
+GROUP_BYTES: Dict[Tuple[str, Any], int] = {}
+
+
+def _count(name: str, nbytes: int = 0, group=None) -> None:
     CALLS[name] += 1
     if name in BYTES:
         BYTES[name] += int(nbytes)
+        key = (name, group)
+        GROUP_BYTES[key] = GROUP_BYTES.get(key, 0) + int(nbytes)
 
 
 def reset_counts() -> None:
     for d in (CALLS, BYTES):
         for k in d:
             d[k] = 0
+    GROUP_BYTES.clear()
 
 
 def heads_all_gather(out_flat: torch.Tensor, group) -> torch.Tensor:
@@ -79,7 +87,7 @@ def heads_all_gather(out_flat: torch.Tensor, group) -> torch.Tensor:
 
 def _all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     dist.all_reduce(x, op=op, group=group)
-    _count('all_reduce', x.numel() * x.element_size())
+    _count('all_reduce', x.numel() * x.element_size(), group)
     return x
 
 
@@ -194,7 +202,7 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     out = lead.new_empty((n * lead.shape[0],) + tuple(lead.shape[1:]))
     _ALL_GATHER(out, lead, group=group)
-    _count('all_gather', _nbytes(out))
+    _count('all_gather', _nbytes(out), group)
     return with_layout(out.movedim(0, dim), x)
 
 
@@ -205,7 +213,7 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
         return x
     from repro_torch.distributed.sharding import with_layout
     n = dist.get_world_size(group)
-    _count('reduce_scatter', _nbytes(x))
+    _count('reduce_scatter', _nbytes(x), group)
     lead = x.movedim(dim, 0).contiguous()
     out = lead.new_empty((lead.shape[0] // n,) + tuple(lead.shape[1:]))
     _REDUCE_SCATTER(out, lead, group=group)
@@ -236,7 +244,7 @@ def all_to_all_dim(x: torch.Tensor, split_dim: int, concat_dim: int,
         return x
     n = dist.get_world_size(group)
     lead = x.movedim(split_dim, 0).contiguous()
-    _count('all_to_all', _nbytes(lead))
+    _count('all_to_all', _nbytes(lead), group)
     recv = torch.empty_like(lead)
     dist.all_to_all_single(recv, lead, group=group)
     pieces = recv.chunk(n)

@@ -28,7 +28,10 @@ reference's stacked spec without its leading None. :func:`shard_tree` cuts
 a rank's blocks of a tree (the reference's ``to_shardings`` placed on a
 mesh), :func:`unshard_tree` gathers them back, and :func:`compute_specs`
 says which of a block's axes the sharded train step keeps for its compute
-(``runtime/train_step.py``), every other axis being gathered first.
+(``runtime/train_step.py``, and with ``serve`` the sharded serving steps
+of ``runtime/serve_step.py``), every other axis being gathered first;
+:func:`zeros_blocks` allocates a rank's blocks of a cache it never holds
+whole.
 """
 
 from __future__ import annotations
@@ -321,9 +324,13 @@ def _param_spec(ps: str, shape, mesh, rule):
         ps = '/'.join(parts[:-1])
         name = parts[-2]
     elif name == 'scale' and quant_parent:
+        # (..., 1, N): cut as its weight's output dim (the reference's
+        # stacked (L, 1, N) scale names its dim of size 1, which sanitize
+        # drops: its codes' column block would then meet whole scales)
         core = rule('/'.join(parts[:-1]), (1, 1))
         last = core[-1] if len(core) >= 2 else None
-        return sanitize(P(None, last), shape, mesh)
+        return P(*([None] * (len(shape) - 2)),
+                 *sanitize(P(None, last), shape[-2:], mesh))
     nd = len(shape)
     stacked = parts[0] in _STACKED_PREFIXES
     if parts[0] == 'shared' and parts[-1] == 'in_proj' and nd == 3:
@@ -472,6 +479,24 @@ def shard_tree(tree, specs, mesh, coords=None):
                           specs)
 
 
+def block_shape(shape, spec, mesh) -> tuple:
+    """The shape of a rank's block of a leaf of ``shape`` under ``spec``."""
+    return tuple(len(range(*sl.indices(n)))
+                 for sl, n in zip(block_index(shape, spec, mesh,
+                                              {a: 0 for a in mesh.shape}),
+                                  shape))
+
+
+def zeros_blocks(tree, specs, mesh, device):
+    """A rank's zeroed blocks of every leaf of ``tree`` (whose leaves give
+    shapes and dtypes only, e.g. on the meta device), allocated at their
+    block shapes on ``device``: a sharded cache no rank holds whole."""
+    from repro_torch.optim import adamw
+    return adamw.tree_map(
+        lambda t, s: torch.zeros(block_shape(t.shape, s, mesh),
+                                 dtype=t.dtype, device=device), tree, specs)
+
+
 def unshard_tree(tree, specs, mesh):
     """The whole leaves from every rank's blocks (all-gathers over each
     sharded dim's axes, in the mesh's order); every rank must call it."""
@@ -500,12 +525,17 @@ class TPPlan:
     vocab: bool = False
 
 
-def tp_plan(cfg, mesh, act_layout: str) -> TPPlan:
+def tp_plan(cfg, mesh, act_layout: str, serve: bool = False) -> TPPlan:
+    """``serve``: the plan of the sharded serving steps, whose static
+    cache is cut on the KV heads only for GQA (:func:`cache_specs`), so
+    an MLA rank computes every head (its latent cache is cut on the
+    sequence)."""
     t = _axis_size(mesh, 'model') if mesh is not None else 1
     if t == 1 or act_layout != 'batch':
         return TPPlan()
-    heads = cfg.n_heads % t == 0 and (cfg.mla is not None
-                                      or cfg.n_kv_heads % t == 0)
+    heads = cfg.n_heads % t == 0 and (
+        (cfg.mla is not None and not serve)
+        or (cfg.mla is None and cfg.n_kv_heads % t == 0))
     return TPPlan(heads=heads, mlp=cfg.d_ff % t == 0,
                   vocab=(cfg.vocab_size % t == 0
                          and cfg.input_kind != 'codebooks'))
@@ -517,8 +547,12 @@ _MLP_LEAVES = ('w_gate', 'w_up', 'w_in', 'w_down', 'w_out')
 
 
 def _kept(ps: str, nd: int, cfg, plan: TPPlan, use_ep: bool) -> bool:
-    """Whether the train step computes on this leaf's 'model' block."""
+    """Whether the train step computes on this leaf's 'model' block (a
+    ``QuantizedWeight``'s codes and scales as their weight)."""
     parts = ps.split('/')
+    if len(parts) >= 2 and parts[-1] in ('wq', 'scale') and \
+            parts[-2] in _COL_NAMES + _ROW_NAMES + ('lm_head',):
+        parts = parts[:-1]
     name, parent = parts[-1], parts[-2] if len(parts) > 1 else ''
     if nd == 3 and name in _MLP_LEAVES and 'moe' in parts:
         return use_ep                                # expert parallelism
@@ -533,12 +567,13 @@ def _kept(ps: str, nd: int, cfg, plan: TPPlan, use_ep: bool) -> bool:
 
 
 def compute_specs(params, pspecs, cfg, mesh, act_layout: str,
-                  use_ep: bool):
-    """For each leaf, the part of its spec the train step keeps while it
-    computes: the 'model' entry of the blocks the 'tp' layout splits
+                  use_ep: bool, serve: bool = False):
+    """For each leaf, the part of its spec the train step (``serve``: the
+    sharded serving steps, :func:`tp_plan`'s) keeps while it computes:
+    the 'model' entry of the blocks the 'tp' layout splits
     (:func:`tp_plan`) and of the expert stacks under expert parallelism;
     every other axis of the spec is gathered before use."""
-    plan = tp_plan(cfg, mesh, act_layout)
+    plan = tp_plan(cfg, mesh, act_layout, serve)
     flat = iter(_flat_specs(pspecs))
 
     def keep(ps, leaf, stacked):

@@ -72,7 +72,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 NEG_INF = float('-inf')
 
@@ -617,16 +617,22 @@ def flash_decode_gqa_paged_q8(q, k_pages, v_pages, kq_pages, vq_pages,
 
 def flash_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: torch.Tensor, window: torch.Tensor, *,
-                     scale: float, prefetch: bool = True) -> torch.Tensor:
+                     scale: float, prefetch: bool = True,
+                     ways: int = 1) -> torch.Tensor:
     """Kernel K7; same contract as :func:`flash_decode_gqa_plain`. On CUDA
     the query must be f32, the cache bf16 or f32 (one dtype), pos and
     window int32; no padding copy is made. One launch runs two kernels,
     the key splits of :func:`contig_split_plan` and their combine, with the
-    splits' partials in scratch allocated here."""
+    splits' partials in scratch allocated here. ``ways``: the degree the
+    KV heads were split over (a mesh rank's heads); the plan is made for
+    all ``Hkv * ways`` heads, so each head's keys split as at ``ways`` 1.
+    Meta tensors take the shape-only route (``kernels/meta.py``)."""
     tensors = (q, k, v, pos, window)
     if all(t.device.type == 'cpu' for t in tensors):
         return flash_decode_gqa_plain(q, k, v, pos, window, scale=scale,
                                       prefetch=prefetch)
+    if meta.on_meta(*tensors):
+        return meta.flash_decode_gqa(q, k, v, pos, window)
     name = 'flash_decode_gqa'
     b, hkv, g, dh = q.shape
     s_max = k.shape[1]
@@ -639,7 +645,7 @@ def flash_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f'{tuple(pos.shape)}, window {tuple(window.shape)}')
     build.require_cuda(name, *tensors,
                        dtypes=[(torch.float32,), _FP, _FP, _I32, _I32])
-    plan = contig_split_plan(b, s_max, hkv, g, dh, k.element_size())
+    plan = contig_split_plan(b, s_max, hkv * ways, g, dh, k.element_size())
     part, out = _split_scratch(b, hkv, g, dh, plan, q.device)
     fn = build.function('flash_decode', 'flash_decode_contig', _K7_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
@@ -792,13 +798,14 @@ def _decode_operands(q, k_pages, block_tables, pos, window):
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
                  scale: float, window=None,
-                 impl: str = 'prefetch') -> torch.Tensor:
+                 impl: str = 'prefetch', ways: int = 1) -> torch.Tensor:
     """Shape-flexible wrapper around :func:`flash_decode_gqa` (K7).
 
     q: (B, 1, H, dh) or (B, H, dh); k/v: (B, S_max, Hkv, dh); pos: scalar
     or (B,); window: None (filled with S_max + 1), int or (B,). ``impl``:
     'prefetch' (live key tiles only) or 'streamed' (every tile, the
-    reference's legacy baseline; bit-equal output). Returns attention
+    reference's legacy baseline; bit-equal output); ``ways`` as
+    :func:`flash_decode_gqa`'s. Returns attention
     output shaped like q, in v.dtype (the one conversion back to the
     serving dtype happens here, after the fused normalize)."""
     if impl not in ('prefetch', 'streamed'):
@@ -815,7 +822,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
     out = flash_decode_gqa(qg, k, v, _norm_scalar_vec(pos, b, q.device),
                            _norm_scalar_vec(window, b, q.device,
                                             fill=s_max + 1),
-                           scale=scale, prefetch=impl == 'prefetch')
+                           scale=scale, prefetch=impl == 'prefetch',
+                           ways=ways)
     out = out.reshape(b, h, dh).to(v.dtype)
     return out[:, None] if squeeze else out
 

@@ -29,7 +29,7 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 
 def _check_k_major(w: torch.Tensor) -> None:
-    if w.device.type == 'cuda' and not w.t().is_contiguous():
+    if w.device.type in ('cuda', 'meta') and not w.t().is_contiguous():
         raise ValueError(
             f'yoco_vmm: the weight must be K-major, a (K, N) view of an '
             f'(N, K)-contiguous tensor (k_major_linear_weights stores it '

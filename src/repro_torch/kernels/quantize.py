@@ -3,8 +3,9 @@ conversion (paper Eq. 2) of the digital pipeline.
 
 Port of ``repro/kernels/quantize.py::quantize_rows``. The CUDA kernel is
 ``csrc/quantize.cu``; :func:`quantize_rows_plain` is the same function in
-plain PyTorch. :func:`quantize_rows` launches the kernel for CUDA tensors and
-takes the plain version only for CPU tensors. :func:`quantize_plan` is the
+plain PyTorch. :func:`quantize_rows` launches the kernel for CUDA tensors,
+takes the plain version only for CPU tensors and the shape-only route
+(``kernels/meta.py``) for meta tensors. :func:`quantize_plan` is the
 kernel's cut of the rows, from the shapes only.
 """
 
@@ -14,7 +15,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 INT8_MAX = 127.0
 # The reference kernel writes max(absmax, 1e-8) / 127, and XLA compiles a
@@ -116,6 +117,8 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return quantize_rows_plain(x)
     if x.ndim != 2:
         raise ValueError(f'quantize_rows takes (M, K), got {tuple(x.shape)}')
+    if meta.on_meta(x):
+        return meta.quantize_rows(x)
     build.require_cuda('quantize_rows', x,
                        dtypes=[(torch.float32, torch.bfloat16)])
     m, k = x.shape

@@ -11,14 +11,15 @@ transpose is contiguous, as ``prequantize_weight`` stores K2's int8 weight
 and as K3 yields K4's codes from the K-major float weight's transpose; any
 other layout raises instead of being copied on every call. The ``*_plain``
 functions are the same functions in plain PyTorch, for any layout; the
-wrappers take them only for CPU tensors.
+wrappers take them only for CPU tensors, and meta tensors take the
+shape-only route (``kernels/meta.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 
 def int8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -39,19 +40,26 @@ def yoco_vmm_int8_plain(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     return int8_matmul_plain(xq, wq).to(torch.float32) * sx * sw
 
 
-def _check_operands(name, xq, wq) -> torch.Tensor:
-    """Shapes, then on the card the K-major layout of ``wq``; returns the
-    (N, K)-contiguous tensor behind it, which the kernel reads."""
+def _check_layout(name, xq, wq) -> torch.Tensor:
+    """Shapes, then on the card (and on the meta device, which stands for
+    it) the K-major layout of ``wq``; returns the (N, K)-contiguous tensor
+    behind it, which the kernel reads."""
     if xq.ndim != 2 or wq.ndim != 2 or xq.shape[1] != wq.shape[0]:
         raise ValueError(f'{name}: shapes {tuple(xq.shape)} x '
                          f'{tuple(wq.shape)} do not multiply')
     w_nk = wq.t()
-    if wq.device.type == 'cuda' and not w_nk.is_contiguous():
+    if wq.device.type in ('cuda', 'meta') and not w_nk.is_contiguous():
         raise ValueError(
             f'{name}: the weight must be K-major, a (K, N) view of an '
             f'(N, K)-contiguous tensor (prequantize_weight and '
             f'k_major_linear_weights store it so); got strides '
             f'{wq.stride()} for shape {tuple(wq.shape)}')
+    return w_nk
+
+
+def _check_operands(name, xq, wq) -> torch.Tensor:
+    """:func:`_check_layout`, then every operand on one CUDA device."""
+    w_nk = _check_layout(name, xq, wq)
     build.require_cuda(name, xq, w_nk, dtypes=[(torch.int8,), (torch.int8,)])
     return w_nk
 
@@ -66,6 +74,9 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     behind the view."""
     if xq.device.type == 'cpu' and wq.device.type == 'cpu':
         return int8_matmul_plain(xq, wq)
+    if meta.on_meta(xq, wq):
+        _check_layout('int8_matmul', xq, wq)
+        return meta.int8_matmul(xq, wq)
     w_nk = _check_operands('int8_matmul', xq, wq)
     m, k = xq.shape
     n = wq.shape[1]
@@ -86,6 +97,9 @@ def yoco_vmm_int8(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     behind the view."""
     if all(t.device.type == 'cpu' for t in (xq, wq, sx, sw)):
         return yoco_vmm_int8_plain(xq, wq, sx, sw)
+    if meta.on_meta(xq, wq, sx, sw):
+        _check_layout('yoco_vmm_int8', xq, wq)
+        return meta.yoco_vmm_int8(xq, wq, sx, sw)
     w_nk = _check_operands('yoco_vmm_int8', xq, wq)
     m, k = xq.shape
     n = wq.shape[1]

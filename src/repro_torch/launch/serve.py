@@ -425,37 +425,43 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     steps_pos = torch.arange(prompt_len, max_seq, dtype=torch.int32,
                              device=dev)
     embed_ids = torch.arange(cfg.d_model, device=dev)
+    marks = {}
+
+    def after(logits, tok):
+        # the prefill's end, the hook, then the decode's start
+        if 'prefill' not in marks:
+            sync()
+            marks['prefill'] = time.time()
+        if step_hook is not None:
+            step_hook(logits, tok)
+        marks.setdefault('decode', time.time())
+
+    def first_token(logits):
+        if greedy:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return SS.sample_tokens(logits, sample_gen, temperature=temperature,
+                                top_k=top_k)
+
+    def decode(x, pos, cache):
+        if greedy:
+            return decode_fn(params, x, pos, cache)
+        return decode_fn(params, x, pos, cache, sample_gen)
+
     sync()
     t0 = time.time()
     # ragged: padded prompts; K/V beyond each request's length stay masked
     # (kpos > pos) and are overwritten as that request advances
-    logits, cache = prefill_fn(params, dict(inputs=prompts), cache,
-                               last_pos=lens - 1 if ragged else None)
+    generated = SS.static_serve_loop(
+        lambda: prefill_fn(params, dict(inputs=prompts), cache,
+                           last_pos=lens - 1 if ragged else None),
+        decode, gen_len - 1,
+        lambda i: lens + i if ragged else steps_pos[i],
+        first_token=first_token,
+        step_input=lambda tok: _step_input(cfg, tok, embed_ids),
+        after=after)
     sync()
-    t_prefill = time.time() - t0
-
-    if greedy:
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    else:
-        tok = SS.sample_tokens(logits, sample_gen, temperature=temperature,
-                               top_k=top_k)
-    if step_hook is not None:
-        step_hook(logits, tok)
-    generated = [tok]
-    t0 = time.time()
-    for i in range(gen_len - 1):
-        pos = lens + i if ragged else steps_pos[i]
-        step_in = _step_input(cfg, tok, embed_ids)
-        if greedy:
-            tok, logits, cache = decode_fn(params, step_in, pos, cache)
-        else:
-            tok, logits, cache = decode_fn(params, step_in, pos, cache,
-                                           sample_gen)
-        if step_hook is not None:
-            step_hook(logits, tok)
-        generated.append(tok)
-    sync()
-    t_decode = time.time() - t0
+    t_prefill = marks['prefill'] - t0
+    t_decode = time.time() - marks['decode']
     toks = torch.stack(generated, dim=1).cpu()
     out = dict(
         prefill_s=round(t_prefill, 4),

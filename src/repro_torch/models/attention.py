@@ -35,6 +35,15 @@ On a training rank mesh (``rt.mesh``; ``runtime/train_step.py``) the
 GQA gathers K/V over 'model', MLA its latent (:func:`_mla_sdpa_latent_2d`),
 and its queries attend at their own offset.
 
+Serving on a mesh (``runtime/serve_step.py::sharded_decode_step``) the
+same 'tp' blocks serve a static cache a rank holds a block of: its KV
+heads (the attention is the rank's own, K7 under ``attn_impl='flash'``,
+``wo`` row-parallel), or its block of the sequence (``rt.kv_seq_axes``:
+a prefill writes the prompt rows that fall in it, a decode token lands
+only on the rank whose block holds it, and each rank scores its keys and
+merges its partial max and sums with the others',
+:func:`sdpa_decode_blocks`, MLA's :func:`mla_absorbed_blocks`).
+
 Pools are written in place (see ``runtime/layouts.py``).
 """
 
@@ -252,6 +261,90 @@ def sdpa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
 
 
 # ----------------------------------------------------------------------------
+# a mesh rank's block of a static cache's sequence (sharded serving)
+# ----------------------------------------------------------------------------
+def _kv_block(layout, cache: dict, rt):
+    """(lo, group): the first position of this rank's block of the cache's
+    sequence and the group the sequence is cut over, or (None, None)
+    where the rank holds the whole sequence."""
+    group = None if rt is None else rt.kv_seq_group()
+    if group is None:
+        return None, None
+    return rt.kv_seq_offset(layout.seq_len(cache)), group
+
+
+def _write_prefill(layout, cache: dict, updates: dict, rt) -> dict:
+    """The prompt's rows into the cache: a rank holding a block of the
+    sequence writes the prompt rows that fall in it."""
+    lo, _ = _kv_block(layout, cache, rt)
+    if lo is not None:
+        n = layout.seq_len(cache)
+        updates = {k: u[:, lo:lo + n] for k, u in updates.items()}
+    return layout.write_prefill(cache, updates)
+
+
+def _write_token(layout, cache: dict, updates: dict, pos, rt) -> dict:
+    """A decode token's row into the cache: only the rank whose block
+    holds ``pos`` writes it."""
+    lo, _ = _kv_block(layout, cache, rt)
+    if lo is None:
+        return layout.write_token(cache, updates, pos)
+    return layout.write_token(cache, updates, pos, lo=lo)
+
+
+def _merge_blocks(logits: torch.Tensor, values, group) -> torch.Tensor:
+    """The softmax over keys cut into blocks over ``group``'s ranks, each
+    rank's ``logits`` (..., S_block) masked for its block: the max over
+    every block (one all-reduce MAX), each block's exponentials, and the
+    sums ``values(p)`` (..., dv) and ``sum(p)`` added over the blocks (one
+    all-reduce SUM of both), then divided. f32."""
+    m = collectives.all_reduce(logits.amax(dim=-1, keepdim=True), group,
+                               collectives.dist.ReduceOp.MAX)
+    p = torch.exp(logits - m)
+    packed = collectives.all_reduce(
+        torch.cat([values(p), p.sum(dim=-1, keepdim=True)], dim=-1), group)
+    return packed[..., :-1] / packed[..., -1:]
+
+
+def sdpa_decode_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       pos, scale, window, lo: int, group) -> torch.Tensor:
+    """:func:`sdpa_decode` over a rank's block of the keys, positions
+    [lo, lo + S_block), merged over ``group`` (:func:`_merge_blocks`). q
+    (B, 1, H, dh); k/v (B, S_block, Hkv, dh); returns (B, 1, H, dh) in v's
+    dtype."""
+    b, _, h, dh = q.shape
+    hkv = k.shape[2]
+    f32 = torch.float32
+    qg = q.reshape(b, 1, hkv, h // hkv, dh).to(f32)
+    logits = torch.einsum('bqkgd,bskd->bkgqs', qg, k.to(f32)) * scale
+    pos = torch.as_tensor(pos, device=q.device)
+    mask = decode_mask(pos - lo, k.shape[1], window)
+    if pos.ndim != 0:
+        mask = mask[:, None, None, None, :]
+    out = _merge_blocks(logits + mask, lambda p: torch.einsum(
+        'bkgqs,bskd->bkgqd', p, v.to(f32)), group)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, dh).to(v.dtype)
+
+
+def mla_absorbed_blocks(q_lat, q_rope, ckv, krope, pos, scale, lo: int,
+                        group) -> torch.Tensor:
+    """:func:`mla_absorbed_attend` over a rank's block of the latent rows,
+    positions [lo, lo + S_block), merged over ``group``: the (B, 1, H, r)
+    f32 latent output."""
+    f32 = torch.float32
+    lo_ = torch.einsum('bqhr,bsr->bhqs', q_lat.to(f32), ckv.to(f32))
+    lo_ = lo_ + torch.einsum('bqhd,bsd->bhqs', q_rope.to(f32),
+                             krope.to(f32))
+    pos = torch.as_tensor(pos, device=q_lat.device)
+    mask = decode_mask(pos - lo, ckv.shape[1])
+    if pos.ndim != 0:
+        mask = mask[:, None, None, :]
+    out = _merge_blocks(lo_ * scale + mask, lambda p: torch.einsum(
+        'bhqs,bsr->bhqr', p, ckv.to(f32)), group)
+    return out.permute(0, 2, 1, 3)
+
+
+# ----------------------------------------------------------------------------
 # GQA forward (prefill / decode)
 # ----------------------------------------------------------------------------
 def _tp_heads_gather(out_flat: torch.Tensor, rt) -> torch.Tensor:
@@ -353,7 +446,8 @@ def attention(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     q, k, v = _project_qkv(p, x, cfg, yoco, positions, theta, rt)
     if cache is not None:
         from repro_torch.runtime import layouts
-        cache = layouts.get_layout(cache).write_prefill(cache, dict(k=k, v=v))
+        cache = _write_prefill(layouts.get_layout(cache), cache,
+                               dict(k=k, v=v), rt)
     skv, offset = s, 0
     if rt is not None and rt.seq_sharded:
         # sequence-parallel: every rank's keys, this rank's queries
@@ -384,20 +478,29 @@ def attention_decode(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     theta = theta if theta is not None else cfg.rope_theta
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     positions = pos.reshape(-1, 1).expand(b, 1)
+    # a rank's block of the heads: serving TP's, or a mesh rank's (its wo
+    # rows then summed over 'model')
+    ways = cfg.n_heads * dh // _width(p['wq'])
+    group = _train_group(rt, ways)
     q, k, v = _project_qkv(p, x, cfg, yoco, positions, theta, rt)
     scale = 1.0 / float(dh) ** 0.5
     from repro_torch.runtime import layouts
     layout = layouts.get_layout(cache)
     posr = pos.reshape(-1).expand(b) if layout.paged else pos
-    cache = layout.write_token(cache, dict(k=k, v=v), posr)
-    if rt is not None and rt.attn_impl == 'flash':
+    cache = _write_token(layout, cache, dict(k=k, v=v), posr, rt)
+    lo, seq_group = _kv_block(layout, cache, rt)
+    if seq_group is not None:
+        kd, vd = layout.gather(cache, posr)
+        out = sdpa_decode_blocks(q, kd, vd, posr, scale, window, lo,
+                                 seq_group)
+    elif rt is not None and rt.attn_impl == 'flash':
         out = layout.flash_decode(q, cache, posr, scale=scale, window=window,
-                                  ways=_tp_ways(rt))
+                                  ways=ways)
     else:
         kd, vd = layout.gather(cache, posr)
         out = sdpa_decode(q, kd, vd, posr, scale, window)
     out = _tp_heads_gather(out.reshape(b, 1, -1), rt)
-    out = yoco_linear.linear(out, p['wo'], cfg=yoco)
+    out = yoco_linear.row_linear(out, p['wo'], yoco, group=group)
     return out, cache
 
 
@@ -518,8 +621,8 @@ def mla_attention(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
         p, x, cfg, yoco, positions, rt, group)
     if cache is not None:
         from repro_torch.runtime import layouts
-        cache = layouts.get_layout(cache).write_prefill(
-            cache, dict(ckv=ckv, krope=krope))
+        cache = _write_prefill(layouts.get_layout(cache), cache,
+                               dict(ckv=ckv, krope=krope), rt)
     # the reference's scale is 1 / sqrt(nope + rope) computed in f32
     scale = 1.0 / torch.sqrt(torch.tensor(
         float(m.nope_head_dim + m.rope_head_dim), dtype=torch.float32,
@@ -587,9 +690,14 @@ def mla_absorbed_attend(q_lat: torch.Tensor, q_rope: torch.Tensor,
 
 
 def _absorb_weights(p: dict, m):
-    """(W_uk, W_uv) as f32 (r, H, dn) / (r, H, dv) views of ``w_ukv``."""
-    w = p['w_ukv'].reshape(m.kv_lora_rank, -1,
-                           m.nope_head_dim + m.v_head_dim).to(torch.float32)
+    """(W_uk, W_uv) as f32 (r, H, dn) / (r, H, dv) views of ``w_ukv``; int8
+    codes resident (``QuantizedWeight``) are read dequantized: the
+    reference's absorbed decode reads only a float master (and fails on
+    the codes, so ``serve()`` refuses --prequantize on MLA), the mesh
+    serve and the dry run read the codes' values."""
+    w = yoco_linear._float_weight(p['w_ukv'])
+    w = w.reshape(m.kv_lora_rank, -1,
+                  m.nope_head_dim + m.v_head_dim).to(torch.float32)
     return w[..., :m.nope_head_dim], w[..., m.nope_head_dim:]
 
 
@@ -659,8 +767,14 @@ def mla_attention_decode(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, *,
     layout = layouts.get_layout(cache)
     posr = pos.reshape(-1).expand(b) if layout.paged else pos
     # writes always land in the fp latent pool, tiered layout or not
-    cache = layout.write_token(cache, dict(ckv=ckv_t, krope=krope_t), posr)
-    if rt is not None and rt.attn_impl == 'flash' and layout.paged:
+    cache = _write_token(layout, cache, dict(ckv=ckv_t, krope=krope_t),
+                         posr, rt)
+    lo, seq_group = _kv_block(layout, cache, rt)
+    if seq_group is not None:
+        ckv_d, krope_d = layout.gather(cache, posr, r=r)
+        o_lat = mla_absorbed_blocks(q_lat, q_rope, ckv_d, krope_d, posr,
+                                    scale, lo, seq_group)
+    elif rt is not None and rt.attn_impl == 'flash' and layout.paged:
         o_lat = layout.flash_decode(
             torch.cat([q_lat, q_rope.to(torch.float32)], -1), cache, posr,
             scale=scale, r=r, ways=_tp_ways(rt))

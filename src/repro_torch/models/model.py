@@ -83,6 +83,14 @@ class ModelRuntime:
     # set by forward: under act_layout '2d' this rank holds its 1/T of the
     # sequence (T = the tp axis's size), at positions from seq_offset on
     seq_sharded: bool = False
+    # serving on a mesh (runtime/serve_step.py::sharded_decode_step): the
+    # axes the static cache's sequence dim is cut over; a rank holds its
+    # block of the keys, scores them and merges over these axes
+    kv_seq_axes: tuple = ()
+    # and the (leaf, dim) of each recurrent leaf of one layer that a rank
+    # holds a block of over the tp axis (sharding.cache_specs: conv's
+    # channels, ssm's heads); the mixer gathers them whole
+    state_cut: tuple = ()
 
     @property
     def moe_ctx(self) -> Optional[moe_mod.EPContext]:
@@ -114,6 +122,18 @@ class ModelRuntime:
         if not self.seq_sharded:
             return 0
         return self.mesh.index(self.tp_axis) * s_local
+
+    def kv_seq_group(self):
+        """The group the cache's sequence is cut over (None: whole)."""
+        if self.mesh is None or not self.kv_seq_axes:
+            return None
+        return self.mesh.group(self.kv_seq_axes)
+
+    def kv_seq_offset(self, s_block: int) -> int:
+        """The position of this rank's first cache row of ``s_block``."""
+        if self.kv_seq_group() is None:
+            return 0
+        return self.mesh.index(self.kv_seq_axes) * s_block
 
     def columns(self):
         """(rank, ways) of a column block over the tp axis: this rank's
@@ -632,9 +652,32 @@ def _mamba_stack(layers: list, x: torch.Tensor, cfg, yoco, *,
             x = _maybe_remat(body, rt)(lp, x)
             continue
         st = {key: leaf[l] for key, leaf in state.items()}
-        x, _ = blk.mamba_block(lp, x, cfg, yoco, state=st, decode=decode,
+        whole = _whole_state(st, rt)
+        x, _ = blk.mamba_block(lp, x, cfg, yoco, state=whole, decode=decode,
                                last_pos=last_pos, rt=rt)
+        if whole is not st:
+            _keep_block(st, whole, rt)
     return x
+
+
+def _whole_state(st: dict, rt) -> dict:
+    """A serving rank's block of one layer's recurrent state, gathered
+    whole over 'model' along ``rt.state_cut`` (the mixer runs on the whole
+    state, as training runs it on the whole weights); ``st`` itself where
+    it is whole."""
+    if not rt.state_cut:
+        return st
+    from repro_torch.distributed import collectives
+    cut = dict(rt.state_cut)
+    return {k: (collectives.all_gather_dim(v, cut[k], rt.model_group())
+                if k in cut else v) for k, v in st.items()}
+
+
+def _keep_block(st: dict, whole: dict, rt) -> None:
+    """Write this rank's block of the updated whole state back."""
+    from repro_torch.distributed import collectives
+    for k, d in rt.state_cut:
+        st[k].copy_(collectives.slice_dim(whole[k], d, rt.model_group()))
 
 
 def _hybrid_backbone(params: dict, x: torch.Tensor, cfg, yoco, rt, *,

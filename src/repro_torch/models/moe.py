@@ -344,6 +344,16 @@ class EPContext:
     seq_split: bool = False
 
 
+def _copy_in(w, group):
+    """``collectives.copy_in`` on a leaf, a ``QuantizedWeight``'s codes and
+    scales alike (a served shared expert's int8 weights)."""
+    from repro_torch.distributed import collectives
+    if isinstance(w, yoco_linear.QuantizedWeight):
+        return yoco_linear.QuantizedWeight(
+            *(collectives.copy_in(t, group) for t in w))
+    return collectives.copy_in(w, group)
+
+
 def moe_ep(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, ctx: EPContext,
            ) -> Tuple[torch.Tensor, dict]:
     """Expert-parallel MoE (the reference's shard_map body). x: this
@@ -384,7 +394,7 @@ def moe_ep(p: dict, x: torch.Tensor, cfg, yoco: YocoConfig, ctx: EPContext,
     enter = seq_sharded and not ctx.seq_split
     if enter:
         x_l = collectives.split(x, 1, group)
-        pp = {k: v if k in STACKS else collectives.copy_in(v, group)
+        pp = {k: v if k in STACKS else _copy_in(v, group)
               for k, v in p.items()}
     elif not seq_sharded and group is not None and torch.is_grad_enabled():
         raise NotImplementedError(

@@ -79,11 +79,24 @@ def _pos_vec(pos, b: int, device) -> torch.Tensor:
     return pos.expand(b) if pos.numel() == 1 else pos
 
 
-def dense_token_update(c: torch.Tensor, t: torch.Tensor, pos) -> torch.Tensor:
+def dense_token_update(c: torch.Tensor, t: torch.Tensor, pos,
+                       lo: Optional[int] = None) -> torch.Tensor:
     """Write ``t`` (B, 1, ...) into a contiguous cache ``c`` (B, S_max, ...)
-    at ``pos`` (scalar or (B,)). In place."""
+    at ``pos`` (scalar or (B,)). In place. With ``lo``, ``c`` is a block
+    of a longer sequence holding positions [lo, lo + S_block) (a mesh
+    rank's block), and a row is written only where its position falls in
+    them, with no host read of ``pos``."""
+    rows = torch.arange(c.shape[0], device=c.device)
     posv = _pos_vec(pos, c.shape[0], c.device).to(torch.int64)
-    c[torch.arange(c.shape[0], device=c.device), posv] = t[:, 0].to(c.dtype)
+    if lo is None:
+        c[rows, posv] = t[:, 0].to(c.dtype)
+        return c
+    local = posv - lo
+    own = (local >= 0) & (local < c.shape[1])
+    idx = local.clamp(0, c.shape[1] - 1)
+    new = t[:, 0].to(c.dtype)
+    keep = own.reshape((-1,) + (1,) * (new.ndim - 1))
+    c[rows, idx] = torch.where(keep, new, c[rows, idx])
     return c
 
 
@@ -398,10 +411,14 @@ class ContiguousMLALayout(CacheLayout):
     required = frozenset({'ckv', 'krope'})
 
     @classmethod
-    def write_token(cls, cache, updates, pos):
-        dense_token_update(cache['ckv'], updates['ckv'], pos)
-        dense_token_update(cache['krope'], updates['krope'], pos)
+    def write_token(cls, cache, updates, pos, lo=None):
+        dense_token_update(cache['ckv'], updates['ckv'], pos, lo)
+        dense_token_update(cache['krope'], updates['krope'], pos, lo)
         return cache
+
+    @classmethod
+    def seq_len(cls, cache):
+        return cache['ckv'].shape[1]
 
     @classmethod
     def write_prefill(cls, cache, updates):
@@ -423,10 +440,14 @@ class ContiguousLayout(CacheLayout):
     required = frozenset({'k', 'v'})
 
     @classmethod
-    def write_token(cls, cache, updates, pos):
-        dense_token_update(cache['k'], updates['k'], pos)
-        dense_token_update(cache['v'], updates['v'], pos)
+    def write_token(cls, cache, updates, pos, lo=None):
+        dense_token_update(cache['k'], updates['k'], pos, lo)
+        dense_token_update(cache['v'], updates['v'], pos, lo)
         return cache
+
+    @classmethod
+    def seq_len(cls, cache):
+        return cache['k'].shape[1]
 
     @classmethod
     def write_prefill(cls, cache, updates):
@@ -442,13 +463,10 @@ class ContiguousLayout(CacheLayout):
 
     @classmethod
     def flash_decode(cls, q, cache, pos, *, scale, window=None, ways=1):
-        # the static serve() path that reads it has no tensor parallelism
-        if ways != 1:
-            raise ValueError('a contiguous cache is not served under '
-                             'tensor parallelism')
+        # ways > 1: a mesh rank's block of the heads (sharded serving)
         from repro_torch.kernels import flash_decode as fd
         return fd.flash_decode(q, cache['k'], cache['v'], pos, scale=scale,
-                               window=window)
+                               window=window, ways=ways)
 
 
 @_register

@@ -136,12 +136,17 @@ def test_k7_wrapper_shapes_and_scalar_pos():
 
 
 def test_k7_takes_the_plain_version_only_on_the_cpu():
-    """A tensor off the CPU goes to the kernel path, which takes CUDA
-    tensors only: it raises and counts no launch."""
+    """Tensors neither all on the CPU nor all on the meta device go to the
+    kernel path, which takes CUDA tensors only: it raises and counts no
+    launch. All on the meta device: the shape-only route, no launch."""
     build.reset_counts()
     q = torch.empty((B, HKV, 1, DH), device='meta')
     k = torch.empty((B, 64, HKV, DH), device='meta')
-    pos = torch.zeros((B,), dtype=torch.int32, device='meta')
+    pos = torch.zeros((B,), dtype=torch.int32)
     with pytest.raises(ValueError, match='CUDA tensors'):
         tfd.flash_decode_gqa(q, k, k, pos, pos, scale=SCALE)
+    out = tfd.flash_decode_gqa(q, k, k, pos.to('meta'), pos.to('meta'),
+                               scale=SCALE)
+    assert (out.device.type, out.dtype, tuple(out.shape)) == (
+        'meta', torch.float32, tuple(q.shape))
     assert build.LAUNCHES['flash_decode_contig'] == 0

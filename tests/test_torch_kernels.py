@@ -175,14 +175,18 @@ def test_plain_k1_skips_dead_pages_bitwise():
 
 
 def test_wrappers_take_plain_version_only_on_cpu():
-    """A tensor on any device but the CPU goes to the kernel path, which
-    checks devices before it would build or launch anything."""
+    """Tensors that are neither all on the CPU nor all on the meta device
+    go to the kernel path, which checks devices before it would build or
+    launch anything; meta tensors take the shape-only route, which
+    launches nothing either."""
     build.reset_counts()
     x = torch.zeros((2, 4), device='meta')
-    with pytest.raises(ValueError, match='CUDA'):
-        tq.quantize_rows(x)
+    q, s = tq.quantize_rows(x)
+    assert (q.device.type, q.dtype, tuple(q.shape)) == ('meta', torch.int8,
+                                                        (2, 4))
+    assert (s.dtype, tuple(s.shape)) == (torch.float32, (2, 1))
     with pytest.raises(ValueError, match='CUDA'):
         tyv.int8_matmul(torch.zeros((2, 4), dtype=torch.int8, device='meta'),
-                        torch.zeros((4, 3), dtype=torch.int8, device='meta'))
+                        torch.zeros((4, 3), dtype=torch.int8))
     tq.quantize_rows(torch.zeros((2, 4)))            # CPU: plain, no launch
     assert all(v == 0 for v in build.LAUNCHES.values())

@@ -102,15 +102,18 @@ def test_ops_int8_matmul_hands_the_k_major_weight_over_uncopied(
 
 
 def test_int8_matmul_wrapper_checks_before_any_launch():
-    """Shapes that do not multiply are refused; a weight off the card and
-    the CPU reaches the device check (the K-major check is for CUDA)."""
+    """Shapes that do not multiply are refused; operands neither all on
+    the CPU nor all on the meta device reach the device check (the K-major
+    check is for CUDA and for the meta device, which stands for it)."""
     with pytest.raises(ValueError, match='do not multiply'):
         tyv.int8_matmul(torch.zeros((2, 4), dtype=torch.int8, device='meta'),
                         torch.zeros((5, 3), dtype=torch.int8, device='meta'))
     with pytest.raises(ValueError, match='CUDA'):
         tyv.int8_matmul(torch.zeros((2, 4), dtype=torch.int8, device='meta'),
-                        torch.zeros((3, 4), dtype=torch.int8,
-                                    device='meta').t())
+                        torch.zeros((3, 4), dtype=torch.int8).t())
+    with pytest.raises(ValueError, match='K-major'):
+        tyv.int8_matmul(torch.zeros((2, 4), dtype=torch.int8, device='meta'),
+                        torch.zeros((4, 3), dtype=torch.int8, device='meta'))
 
 
 B, PLEN, STEPS, PS = 2, 9, 6, 4
